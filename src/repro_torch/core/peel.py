@@ -1,0 +1,367 @@
+"""Device-plane bulk peeling on torch (the counterpart of
+``repro.core.peel``).
+
+:func:`bulk_peel` is the threshold bulk peel (Bahmani et al.): each round
+peels every active vertex with ``w_u <= 2(1+eps) g(S)`` and carries a
+``2(1+eps)``-approximation guarantee.  A round (:func:`_round_step`) has two
+halves, each one hand-written CUDA kernel on CUDA tensors:
+
+* the edge half, :func:`repro_torch.kernels.frontier_spmv.frontier_spmv` —
+  the SpMV over the peeled frontier, the dropped edge mass and the edge
+  liveness update;
+* the elementwise half, :func:`repro_torch.kernels.peel_round.peel_round` —
+  the threshold test, weight subtract, active/level update and the peeled
+  mass partials.
+
+**Host reads.**  Eager torch has no ``lax.while_loop`` or ``lax.cond``.
+With ``max_rounds > 0`` (the serving default, 20) the round loop is a
+Python loop of exactly ``max_rounds`` rounds and reads nothing on the
+host: rounds after convergence are no-ops in the reference too
+(``n_act = 0`` makes the threshold ``+inf`` over an empty active set).
+With ``max_rounds = 0`` (start-up and refresh) the loop reads ``n_act``
+once per round.  Every device->host read of the engine goes through
+:func:`host_read`, which counts them in :data:`HOST_READS`.
+
+``unroll`` (an XLA lowering knob of the reference) has no meaning in eager
+torch and is dropped; ``exact_peel`` is still to be ported (ROADMAP A.4).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.graphstore.structs import DeviceGraph
+from repro_torch.kernels.frontier_spmv import frontier_spmv
+from repro_torch.kernels.peel_round import peel_round
+
+__all__ = [
+    "PeelResultDevice",
+    "HOST_READS",
+    "host_read",
+    "bulk_peel",
+    "bulk_peel_warm",
+    "bulk_peel_warm_workset",
+    "bulk_peel_warm_checked",
+    "select_bucket",
+    "workset_sizes",
+]
+
+_INF = float("inf")
+
+HOST_READS = [0]  # device->host reads made by the engine (see host_read)
+
+
+def host_read(t: torch.Tensor) -> list:
+    """Copy ``t`` to the host as a Python list (a scalar as a 1-list).
+
+    The one funnel for every device->host read of the peel and
+    maintenance engine, so tests can pin the reads per tick."""
+    HOST_READS[0] += 1
+    return t.detach().reshape(-1).cpu().tolist()
+
+
+class PeelResultDevice(NamedTuple):
+    """Result of a device peel.
+
+    ``level[u]``: round at which u was peeled (int32; never peeled = -1).
+    ``best_level``: community = vertices with ``level >= best_level``.
+    ``best_g``: density of the detected community.  ``n_rounds``: rounds
+    executed.  ``delta``: final weights per vertex id.  Scalars are 0-dim
+    device tensors.  (The reference's ``order`` field belongs to
+    ``exact_peel``, which is not ported yet; bulk peels fill it with
+    zeros there.)
+    """
+
+    level: torch.Tensor
+    best_level: torch.Tensor
+    best_g: torch.Tensor
+    n_rounds: torch.Tensor
+    delta: torch.Tensor
+
+    def community_mask(self) -> torch.Tensor:
+        return self.level >= self.best_level
+
+
+class _BulkState(NamedTuple):
+    w: torch.Tensor
+    active: torch.Tensor
+    edge_alive: torch.Tensor
+    f: torch.Tensor
+    n_act: torch.Tensor
+    level: torch.Tensor
+    best_g: torch.Tensor
+    best_level: torch.Tensor
+    round_: torch.Tensor
+
+
+def _scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
+    """One bulk-peeling round over explicit COO arrays (the full buffer, or
+    the gathered workset with locally relabeled endpoints).
+
+    The scalar arithmetic keeps the reference's exact form, so it rounds
+    the same way in float32: ``g = f / max(n_act, 1)`` and
+    ``thresh = 2.0 * (1.0 + eps) * g`` (a Python double times a float32
+    tensor).  The peel mask is materialised once as
+    ``active & (w <= eff_thresh)``, which equals the reference's mask in
+    both branches of its min-weight force-peel; the edge kernel reads it
+    and the elementwise kernel recomputes it from ``eff_thresh``.
+    """
+    g_cur = s.f / torch.clamp(s.n_act, min=1).to(torch.float32)
+    improved = (g_cur > s.best_g) & (s.n_act > 0)
+    best_g = torch.where(improved, g_cur, s.best_g)
+    best_level = torch.where(improved, s.round_, s.best_level)
+
+    thresh = 2.0 * (1.0 + eps) * g_cur
+    # progress guarantee: under f32 drift the threshold can fall below every
+    # remaining weight; then force-peel the min-weight vertices (a no-op
+    # whenever the threshold test fires, hence invisible on integer weights)
+    wmin = torch.where(s.active, s.w, _INF).min()
+    eff_thresh = torch.where((s.active & (s.w <= thresh)).any(), thresh, wmin)
+    peel = s.active & (s.w <= eff_thresh)
+    dw, drop_mass, edge_alive = frontier_spmv(src, dst, c, s.edge_alive, peel)
+    w, active, level, _, partials = peel_round(
+        s.w, a, s.active, s.level, dw, eff_thresh, s.round_
+    )
+    return _BulkState(
+        w=w,
+        active=active,
+        edge_alive=edge_alive,
+        f=s.f - partials[0] - drop_mass,
+        n_act=s.n_act - partials[2].to(torch.int32),
+        level=level,
+        best_g=best_g,
+        best_level=best_level,
+        round_=s.round_ + 1,
+    )
+
+
+def _run_rounds(src, dst, c, a, eps: float, s: _BulkState,
+                max_rounds: int) -> _BulkState:
+    if max_rounds > 0:
+        for _ in range(max_rounds):
+            s = _round_step(src, dst, c, a, eps, s)
+        return s
+    while host_read(s.n_act)[0] > 0:
+        s = _round_step(src, dst, c, a, eps, s)
+    return s
+
+
+def _init_state(w0, active, edge_alive, f0, best_g) -> _BulkState:
+    dev = w0.device
+    return _BulkState(
+        w=w0,
+        active=active,
+        edge_alive=edge_alive,
+        f=f0,
+        n_act=active.sum().to(torch.int32),
+        level=torch.full(w0.shape, -1, dtype=torch.int32, device=dev),
+        best_g=best_g.to(torch.float32),
+        best_level=_scalar(0, torch.int32, dev),
+        round_=_scalar(0, torch.int32, dev),
+    )
+
+
+def _result(state: _BulkState, level, delta) -> PeelResultDevice:
+    return PeelResultDevice(
+        level=level,
+        best_level=state.best_level,
+        best_g=state.best_g,
+        n_rounds=state.round_,
+        delta=delta,
+    )
+
+
+def bulk_peel(g: DeviceGraph, eps: float = 0.1, max_rounds: int = 0
+              ) -> PeelResultDevice:
+    """Threshold bulk peeling; guarantees ``g_best >= g* / (2(1+eps))``.
+
+    ``max_rounds = 0`` runs to completion (one host read per round); a
+    positive value runs exactly that many rounds with no host read.
+    """
+    init = _init_state(g.peel_weights(), g.vertex_mask, g.edge_mask,
+                       g.f_total(), _scalar(-_INF, torch.float32, g.device))
+    s = _run_rounds(g.src, g.dst, g.c, g.a, eps, init, max_rounds)
+    return _result(s, s.level, s.w)
+
+
+def bulk_peel_warm(
+    g: DeviceGraph,
+    keep: torch.Tensor,
+    prior_best_g: torch.Tensor,
+    eps: float = 0.1,
+    max_rounds: int = 0,
+) -> PeelResultDevice:
+    """Bulk peel restricted to ``keep`` vertices (warm start).
+
+    Vertices outside ``keep`` count as already peeled; weights, f and n are
+    recovered w.r.t. the restricted set, so every round's threshold is
+    valid on the current set.  ``prior_best_g`` seeds the best-density
+    tracker.  This is the full-buffer warm path: every round streams the
+    capacity-padded buffers.
+    """
+    live = keep & g.vertex_mask
+    both = live[g.src] & live[g.dst] & g.edge_mask
+    cm = torch.where(both, g.c, 0.0)
+    w0 = torch.where(live, g.a, 0.0)
+    z = torch.zeros_like(w0)
+    w0 = (w0 + z.index_add(0, g.src, cm)) + z.index_add(0, g.dst, cm)
+    f0 = torch.where(live, g.a, 0.0).sum() + cm.sum()
+    init = _init_state(w0, live, both, f0, prior_best_g)
+    s = _run_rounds(g.src, g.dst, g.c, g.a, eps, init, max_rounds)
+    return _result(s, s.level, s.w)
+
+
+# ---------------------------------------------------------------------------
+# affected-area workset engine
+# ---------------------------------------------------------------------------
+
+
+def select_bucket(count: int, capacity: int, floor: int = 64) -> int | None:
+    """Pick the power-of-two workset bucket for ``count`` elements.
+
+    Returns the smallest power of two ``>= max(count, floor)``, or ``None``
+    when ``count`` exceeds the largest bucket — the largest power of two
+    ``<= max(capacity // 2, floor)``; the caller then falls through to the
+    full-buffer warm path.
+    """
+    if count < 0:
+        raise ValueError(f"negative workset count {count}")
+    largest = max(capacity // 2, floor)
+    largest = 1 << (largest.bit_length() - 1)  # round DOWN to a power of two
+    if count > largest:
+        return None
+    bucket = max(count, floor)
+    return 1 << (bucket - 1).bit_length()  # round UP to a power of two
+
+
+def workset_sizes(g: DeviceGraph, keep: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(live suffix vertices, suffix-induced live edges) as int32 device
+    scalars."""
+    live = keep & g.vertex_mask
+    both = live[g.src] & live[g.dst] & g.edge_mask
+    return live.sum().to(torch.int32), both.sum().to(torch.int32)
+
+
+class Workset(NamedTuple):
+    """The gathered affected suffix (leading dims are bucket-sized).
+
+    ``vid[j]``: global id of local vertex ``j`` (``n_capacity`` on pad
+    lanes, so scatter-back drops them).  Edge endpoints are local ids; pad
+    edge lanes carry ``c = 0``, ``alive = False`` and endpoint 0 (inert).
+    """
+
+    vid: torch.Tensor  # int32 [Bv]
+    a: torch.Tensor  # float32 [Bv]
+    active: torch.Tensor  # bool [Bv]
+    src: torch.Tensor  # int32 [Be] local
+    dst: torch.Tensor  # int32 [Be] local
+    c: torch.Tensor  # float32 [Be]
+    alive: torch.Tensor  # bool [Be]
+
+
+def _compact_workset(src, dst, c, emask, a, live, v_bucket: int,
+                     e_bucket: int) -> Workset:
+    """Compact the affected suffix into bucket-sized buffers.
+
+    The k-th live vertex (in id order) gets local id k.  The compaction is
+    a **gather**: workset lane ``k`` locates the k-th live vertex/edge by
+    binary search over a prefix sum.  Callers guarantee (via
+    :func:`select_bucket`) that the counts fit the buckets.
+    """
+    V = a.shape[0]
+    dev = a.device
+    vsum = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32)
+    local = vsum - 1
+    nv = vsum[V - 1]
+    vlane = torch.arange(v_bucket, dtype=torch.int32, device=dev)
+    vid = torch.searchsorted(vsum, vlane + 1, out_int32=True)
+    active0 = vlane < nv
+    vid = torch.where(active0, vid, V)
+    a_ws = torch.where(active0, a[torch.clamp(vid, max=V - 1)], 0.0)
+
+    both = live[src] & live[dst] & emask
+    esum = torch.cumsum(both.to(torch.int32), 0, dtype=torch.int32)
+    ne = esum[src.shape[0] - 1]
+    elane = torch.arange(e_bucket, dtype=torch.int32, device=dev)
+    eidx = torch.searchsorted(esum, elane + 1, out_int32=True)
+    alive0 = elane < ne
+    eidx = torch.where(alive0, eidx, 0)  # clamp; pad lanes masked below
+    lsrc = torch.where(alive0, local[src[eidx]], 0)
+    ldst = torch.where(alive0, local[dst[eidx]], 0)
+    c_ws = torch.where(alive0, c[eidx], 0.0)
+    return Workset(vid=vid, a=a_ws, active=active0, src=lsrc, dst=ldst,
+                   c=c_ws, alive=alive0)
+
+
+def bulk_peel_warm_workset(
+    g: DeviceGraph,
+    keep: torch.Tensor,
+    prior_best_g: torch.Tensor,
+    eps: float = 0.1,
+    max_rounds: int = 0,
+    *,
+    v_bucket: int,
+    e_bucket: int,
+) -> PeelResultDevice:
+    """Workset twin of :func:`bulk_peel_warm`: gather -> peel -> scatter.
+
+    Bit-identical to the full-buffer warm peel on integer weights: the
+    workset holds exactly the suffix's live vertices and induced live
+    edges, and every per-vertex/per-set quantity is the same integer sum.
+    """
+    V = g.n_capacity
+    live = keep & g.vertex_mask
+    ws = _compact_workset(g.src, g.dst, g.c, g.edge_mask, g.a, live,
+                          v_bucket, e_bucket)
+    cm0 = torch.where(ws.alive, ws.c, 0.0)
+    z = torch.zeros(v_bucket, dtype=torch.float32, device=g.device)
+    w0 = (ws.a + z.index_add(0, ws.src, cm0)) + z.index_add(0, ws.dst, cm0)
+    f0 = ws.a.sum() + cm0.sum()
+    init = _init_state(w0, ws.active, ws.alive, f0, prior_best_g)
+    s = _run_rounds(ws.src, ws.dst, ws.c, ws.a, eps, init, max_rounds)
+    # scatter the suffix back; pad lanes carry vid = V and land in the
+    # spare slot past the end
+    level = torch.full((V + 1,), -1, dtype=torch.int32, device=g.device)
+    level.index_put_((ws.vid,), s.level)
+    delta = torch.zeros(V + 1, dtype=torch.float32, device=g.device)
+    delta.index_put_((ws.vid,), s.w)
+    return _result(s, level[:V], delta[:V])
+
+
+def bulk_peel_warm_checked(
+    g: DeviceGraph,
+    keep: torch.Tensor,
+    prior_best_g: torch.Tensor,
+    nv: int,
+    ne: int,
+    eps: float = 0.1,
+    max_rounds: int = 0,
+    *,
+    v_bucket: int,
+    e_bucket: int,
+) -> tuple[PeelResultDevice, bool]:
+    """Warm peel with a bucket-fit check: the workset path when this tick's
+    counts ``nv/ne`` fit the predicted buckets, else the full-buffer warm
+    peel.  Both give the same result on integer weights.
+
+    The reference decides on the device (``lax.cond``).  Eager torch has no
+    device-side branch, so here the counts come in as host integers — the
+    caller's one blocking read per tick — and the branch is taken on the
+    host.  Returns ``(result, fits)``.
+    """
+    fits = nv <= v_bucket and ne <= e_bucket
+    if fits:
+        res = bulk_peel_warm_workset(g, keep, prior_best_g, eps=eps,
+                                     max_rounds=max_rounds,
+                                     v_bucket=v_bucket, e_bucket=e_bucket)
+    else:
+        res = bulk_peel_warm(g, keep, prior_best_g, eps=eps,
+                             max_rounds=max_rounds)
+    return res, fits

@@ -1,0 +1,66 @@
+"""Streaming fraud-detection serving driver on torch (device plane):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --semantics DW \
+        --batch 512 --window 8 --workset --refresh-every 32
+
+``--device`` defaults to ``cuda`` (raising without a GPU); pass
+``--device cpu`` for the plain PyTorch path.  The host plane and
+``--mesh`` are not ported yet (ROADMAP A.7, A.9).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.core.semantics import available
+from repro_torch.graphstore.generators import make_transaction_stream
+from repro_torch.serve import EngineSpec, SpadeService
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--semantics", "--metric", dest="semantics",
+                    choices=list(available()), default="DW",
+                    help="registered suspiciousness semantics")
+    ap.add_argument("--plane", choices=["device"], default="device")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' for the CPU)")
+    ap.add_argument("--vertices", type=int, default=20000)
+    ap.add_argument("--edges", type=int, default=80000)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="edges per tick (0: the default, 1024)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding window depth in ticks")
+    ap.add_argument("--workset", action="store_true",
+                    help="affected-area workset engine")
+    ap.add_argument("--no-predictive", action="store_true",
+                    help="workset: synced bucket selection instead of the "
+                         "predictive selector")
+    ap.add_argument("--refresh-every", type=int, default=0)
+    ap.add_argument("--max-rounds", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    spec = EngineSpec(
+        batch_edges=args.batch or None,
+        window_ticks=args.window,
+        workset=args.workset,
+        predictive=not args.no_predictive,
+        refresh_every=args.refresh_every,
+        max_rounds=args.max_rounds,
+        device=args.device,
+    )
+    service = SpadeService(semantics=args.semantics, spec=spec)
+    stream = make_transaction_stream(n=args.vertices, m=args.edges,
+                                     seed=args.seed)
+    rep = service.run(stream)
+    print(f"device={service.device} edges={rep.n_edges} ticks={rep.n_ticks} "
+          f"us/edge={rep.mean_us_per_edge:.1f} "
+          f"recall={rep.fraud_recall:.2f} g={rep.final_g:.1f} "
+          f"live={rep.live_edges} "
+          f"ws/fb={rep.n_workset_ticks}/{rep.n_fallback_ticks} "
+          f"pred/miss={rep.n_predicted_ticks}/{rep.n_bucket_miss_ticks}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,286 @@
+"""``SpadeService`` on torch: the device-plane serving loop on one device
+(the counterpart of ``repro.serve.spade_service``).
+
+    ``SpadeService(semantics, spec: EngineSpec).run(stream)``
+
+replays a transaction stream in fixed-size ticks: the base graph is
+seeded through the semantics' batch-seeding rule, each tick is weighted
+by the semantics' ``batch_weights`` and maintained through the fused,
+workset or predictive-workset engine, and per-tick statistics (benign
+counts, the ever-detected set) accumulate on the device and are drained
+once at shutdown.  The stream's increments are copied to the device once,
+before the first tick.
+
+``EngineSpec.device`` picks the device: ``None`` means ``cuda`` and raises
+without a GPU; ``"cpu"`` runs the plain PyTorch path.  The host plane and
+the mesh-sharded engine are not ported yet (ROADMAP A.7 and A.9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from functools import partial
+
+import numpy as np
+import torch
+
+from repro_torch.core.incremental import (
+    BucketPredictor,
+    DeviceSpadeState,
+    benign_mask,
+    full_refresh,
+    init_state,
+    insert_and_maintain,
+    insert_and_maintain_auto,
+    insert_and_maintain_predictive,
+    slide_and_maintain,
+    slide_and_maintain_auto,
+    slide_and_maintain_predictive,
+)
+from repro_torch.core.semantics import SuspSemantics, resolve
+from repro_torch.device import resolve_device
+from repro_torch.graphstore.generators import TxStream
+from repro_torch.graphstore.structs import device_graph_from_coo
+
+__all__ = ["EngineSpec", "SpadeService", "DeviceServiceReport"]
+
+
+@dataclass(frozen=True)
+class EngineSpec:
+    """Declarative serving-engine configuration (the *where and how*).
+
+    Device-plane fields as in the reference: ``window_ticks`` (N-tick
+    sliding window; 0 = unbounded insert-only), ``workset`` (affected-area
+    engine), ``predictive`` (previous-tick bucket prediction; ignored
+    unless ``workset``), ``min_bucket``, ``batch_edges`` (tick size,
+    default 1024), ``eps``, ``max_rounds``, ``refresh_every``,
+    ``capacity_slack``.  ``device``: ``None`` (``cuda``, raising without a
+    GPU) or an explicit device such as ``"cpu"``.
+
+    ``plane="host"`` and ``mesh`` are accepted only to raise
+    ``NotImplementedError``: the host plane is ROADMAP A.7 and the
+    mesh-sharded engine ROADMAP A.9.
+    """
+
+    plane: str = "device"
+    mesh: object | None = None
+    batch_edges: int | None = None
+    eps: float = 0.1
+    max_rounds: int = 20
+    refresh_every: int = 0
+    capacity_slack: float = 1.3
+    window_ticks: int = 0
+    workset: bool = False
+    predictive: bool = True
+    min_bucket: int = 64
+    device: str | None = None
+
+    def __post_init__(self):
+        if self.plane == "host":
+            raise NotImplementedError(
+                "repro_torch: the host plane is not ported yet (ROADMAP A.7)")
+        if self.plane != "device":
+            raise ValueError(f"plane must be 'device', got {self.plane!r}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "repro_torch: the mesh-sharded engine is not ported yet "
+                "(ROADMAP A.9)")
+        if self.batch_edges is not None and self.batch_edges <= 0:
+            raise ValueError("batch_edges must be positive")
+
+    @property
+    def effective_batch_edges(self) -> int:
+        return 1024 if self.batch_edges is None else self.batch_edges
+
+
+@dataclass
+class DeviceServiceReport:
+    n_edges: int
+    n_ticks: int
+    mean_tick_seconds: float
+    mean_us_per_edge: float
+    benign_fraction: float
+    fraud_recall: float
+    final_g: float
+    n_refreshes: int
+    window_ticks: int = 0  # 0 = unbounded (insert-only) service
+    n_expired_edges: int = 0  # edges that slid out of the window
+    live_edges: int = 0  # edges resident at shutdown
+    n_workset_ticks: int = 0
+    n_fallback_ticks: int = 0
+    max_suffix_edges: int = 0  # high-water mark of the affected suffix
+    max_e_bucket: int = 0  # largest edge bucket dispatched
+    n_predicted_ticks: int = 0  # ticks dispatched with predicted buckets
+    n_bucket_miss_ticks: int = 0  # predicted buckets the suffix outgrew
+    tick_seconds: list[float] = dataclasses.field(default_factory=list)
+
+
+class SpadeService:
+    """The serving entrypoint: a semantics x an engine spec.
+
+    ``semantics`` is a registered name or a :class:`SuspSemantics`;
+    keyword overrides are merged into ``spec``
+    (``SpadeService("DG", window_ticks=8, device="cpu")``).  The device is
+    resolved here, so a missing GPU raises at construction.
+    """
+
+    def __init__(self, semantics: SuspSemantics | str = "DW",
+                 spec: EngineSpec | None = None, **overrides):
+        if spec is None:
+            spec = EngineSpec(**overrides)
+        elif overrides:
+            spec = dataclasses.replace(spec, **overrides)
+        self.spec = spec
+        self.device = resolve_device(spec.device)
+        self.semantics = resolve(semantics)
+        self.final_state: DeviceSpadeState | None = None
+
+    def run(self, stream: TxStream) -> DeviceServiceReport:
+        """Replay ``stream`` through the configured engine; the maintained
+        state at shutdown is kept as ``final_state``."""
+        report, self.final_state = _run_device_service(
+            stream, self.semantics, self.spec, self.device)
+        return report
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_device_service(stream: TxStream, sem: SuspSemantics,
+                        spec: EngineSpec, device: torch.device
+                        ) -> tuple[DeviceServiceReport, DeviceSpadeState]:
+    """Fixed-size batched ticks through the device engines; returns the
+    report and the final state."""
+    n = stream.n_vertices
+    m_base = stream.base_src.shape[0]
+    m_total = m_base + stream.inc_src.shape[0]
+    batch_edges = spec.effective_batch_edges
+    window_ticks = spec.window_ticks
+    eps, max_rounds = spec.eps, spec.max_rounds
+    if window_ticks:
+        e_cap = m_base + (window_ticks + 1) * batch_edges
+    else:
+        e_cap = int(m_total * spec.capacity_slack) + batch_edges
+
+    base_aux = np.zeros(m_base) if sem.uses_aux else None
+    base_w, in_deg = sem.seed_base(
+        stream.base_src, stream.base_dst, stream.base_amt, n, aux=base_aux
+    )
+    a0 = sem.seed_vertices(n, in_deg, aux=None)
+    g = device_graph_from_coo(
+        n, stream.base_src, stream.base_dst, base_w, a=a0,
+        n_capacity=-(-n // 512) * 512, e_capacity=-(-e_cap // 512) * 512,
+        device=device,
+    )
+    predictive = spec.workset and spec.predictive
+    state = init_state(g, eps=eps)
+    if predictive:
+        predictor = BucketPredictor(g.n_capacity, g.e_capacity,
+                                    min_bucket=spec.min_bucket)
+        maintain = partial(insert_and_maintain_predictive, predictor=predictor)
+        slide = partial(slide_and_maintain_predictive, predictor=predictor)
+    elif spec.workset:
+        maintain = partial(insert_and_maintain_auto, min_bucket=spec.min_bucket)
+        slide = partial(slide_and_maintain_auto, min_bucket=spec.min_bucket)
+    else:
+        maintain = insert_and_maintain
+        slide = slide_and_maintain
+    deg = torch.zeros(g.n_capacity, dtype=torch.int32, device=device)
+    deg[:n] = torch.from_numpy(in_deg.astype(np.int32)).to(device)
+
+    # the whole increment stream goes to the device once, padded to whole
+    # ticks; each tick takes views of it
+    n_inc = stream.inc_src.shape[0]
+    n_ticks_total = -(-n_inc // batch_edges)
+    padded = n_ticks_total * batch_edges
+
+    def upload(x, dtype):
+        buf = np.zeros(padded, dtype)
+        buf[:n_inc] = x
+        return torch.from_numpy(buf).to(device)
+
+    inc_src = upload(stream.inc_src, np.int32)
+    inc_dst = upload(stream.inc_dst, np.int32)
+    inc_amt = upload(stream.inc_amt, np.float32)
+    inc_valid = upload(np.ones(n_inc, bool), bool)
+    inc_aux = upload(stream.inc_time, np.float32) if sem.uses_aux else None
+
+    n_ticks = n_refresh = n_expired = 0
+    n_workset = n_fallback = n_predicted = n_miss = 0
+    max_suffix_edges = max_e_bucket = 0
+    tick_seconds: list[float] = []
+    ring: list[int] = []  # per-tick resident edge counts, oldest first
+    benign_acc = torch.zeros((), dtype=torch.int64, device=device)
+    ever_detected = torch.zeros(g.n_capacity, dtype=torch.bool, device=device)
+    slot_ids = torch.arange(g.e_capacity, dtype=torch.int32, device=device)
+    for i in range(0, n_inc, batch_edges):
+        cnt = min(batch_edges, n_inc - i)
+        sl = slice(i, i + batch_edges)
+        bs, bd, valid = inc_src[sl], inc_dst[sl], inc_valid[sl]
+        aux = inc_aux[sl] if inc_aux is not None else None
+        w, deg = sem.batch_weights(deg, bs, bd, inc_amt[sl], valid, aux)
+        benign_acc += (benign_mask(state, bs, bd, w) & valid).sum()
+        _sync(device)
+        t0 = time.perf_counter()
+        if window_ticks and len(ring) >= window_ticks:
+            # fused tick: expire the oldest resident batch (it sits right
+            # after the base graph after every compaction) + insert
+            cnt0 = ring.pop(0)
+            drop = (slot_ids >= m_base) & (slot_ids < m_base + cnt0)
+            kw = {"n_dropped": cnt0} if predictive else {}
+            out = slide(state, drop, bs, bd, w, valid, eps=eps,
+                        max_rounds=max_rounds, **kw)
+            n_expired += cnt0
+        else:
+            out = maintain(state, bs, bd, w, valid, eps=eps,
+                           max_rounds=max_rounds)
+        state, info = out if spec.workset else (out, None)
+        _sync(device)
+        tick_seconds.append(time.perf_counter() - t0)
+        if info is not None:
+            n_fallback += info.fallback
+            n_workset += not info.fallback
+            n_predicted += info.predicted
+            n_miss += info.miss
+            max_suffix_edges = max(max_suffix_edges, info.n_suffix_edges)
+            max_e_bucket = max(max_e_bucket, info.e_bucket)
+        if window_ticks:
+            ring.append(cnt)
+            # recall under a window is "ever detected while resident"
+            ever_detected |= state.community
+        n_ticks += 1
+        if spec.refresh_every and n_ticks % spec.refresh_every == 0:
+            state = full_refresh(state, eps=eps)
+            n_refresh += 1
+
+    # drain the device-resident stats once, after the loop
+    benign_total = int(benign_acc)
+    comm = torch.nonzero(ever_detected | state.community).flatten()
+    fraud = set(stream.fraud_block.tolist())
+    recall = len(fraud & set(comm.cpu().tolist())) / len(fraud) if fraud else 1.0
+    t_total = float(sum(tick_seconds))
+    report = DeviceServiceReport(
+        n_edges=n_inc,
+        n_ticks=n_ticks,
+        mean_tick_seconds=t_total / max(n_ticks, 1),
+        mean_us_per_edge=1e6 * t_total / max(n_inc, 1),
+        benign_fraction=benign_total / max(n_inc, 1),
+        fraud_recall=recall,
+        final_g=float(state.best_g),
+        n_refreshes=n_refresh,
+        window_ticks=window_ticks,
+        n_expired_edges=n_expired,
+        live_edges=int(state.edge_count),
+        n_workset_ticks=n_workset,
+        n_fallback_ticks=n_fallback,
+        max_suffix_edges=max_suffix_edges,
+        max_e_bucket=max_e_bucket,
+        n_predicted_ticks=n_predicted,
+        n_bucket_miss_ticks=n_miss,
+        tick_seconds=tick_seconds,
+    )
+    return report, state

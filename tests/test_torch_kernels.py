@@ -1,0 +1,200 @@
+"""The port's kernels (their plain versions, on the CPU) against the JAX
+reference: the Pallas ``peel_round`` kernel in interpret mode and its
+oracle, the JAX expressions of the round's edge half
+(``repro/core/peel.py:201-210``), and one whole round against
+``repro.core.peel._round_step(use_kernel=True)``.
+
+Tolerances: on integer-valued inputs every result is bit-identical (every
+float32 sum of integers below 2^24 is exact in any order).  On uniform
+float inputs the per-vertex outputs stay bit-identical (one subtraction
+each) and the partial sums agree to rtol 1e-5 (float32 sums of up to 10^4
+terms taken in another order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import peel as jpeel  # noqa: E402
+from repro.kernels.peel_round import peel_round_ref as j_peel_round_ref  # noqa: E402
+from repro.kernels.peel_round.kernel import peel_round_update  # noqa: E402
+from repro_torch.core import peel as tpeel  # noqa: E402
+from repro_torch.kernels.frontier_spmv import frontier_spmv, frontier_spmv_ref  # noqa: E402
+from repro_torch.kernels.frontier_spmv import ops as k2_ops  # noqa: E402
+from repro_torch.kernels.peel_round import peel_round, peel_round_ref  # noqa: E402
+from repro_torch.kernels.peel_round import ops as k1_ops  # noqa: E402
+
+PEEL_SWEEP = [(1000, 0), (8192, 1), (10000, 2), (100, 3)]  # tests/test_kernels.py
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _k1_inputs(V, seed, integer):
+    rng = np.random.default_rng(seed)
+    if integer:
+        w = rng.integers(0, 11, V).astype(np.float32)
+        a = rng.integers(0, 3, V).astype(np.float32)
+        dw = rng.integers(0, 2, V).astype(np.float32)
+    else:
+        w = rng.uniform(0, 10, V).astype(np.float32)
+        a = rng.uniform(0, 2, V).astype(np.float32)
+        dw = rng.uniform(0, 1, V).astype(np.float32)
+    active = rng.random(V) > 0.3
+    level = rng.integers(-1, 5, V).astype(np.int32)
+    return w, a, active, level, dw
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("V,seed", PEEL_SWEEP,
+                         ids=[f"peel{v}" for v, _ in PEEL_SWEEP])
+def test_peel_round_ref_matches_pallas_and_oracle(V, seed, integer):
+    w, a, active, level, dw = _k1_inputs(V, seed, integer)
+    jargs = [jnp.asarray(x) for x in (w, a, active, level, dw)]
+    jk = peel_round_update(*jargs, jnp.float32(5.0), jnp.int32(7), block=1024,
+                           interpret=True)
+    jk = (*jk[:4], jk[4].sum(0))
+    jr = j_peel_round_ref(*jargs, jnp.float32(5.0), jnp.int32(7))
+    got = peel_round_ref(*[torch.from_numpy(x) for x in (w, a, active, level, dw)],
+                         torch.tensor(5.0), torch.tensor(7, dtype=torch.int32))
+    for want in (jk, jr):
+        for i in range(4):  # w', active', level', peeled: exact
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+        if integer:
+            np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+        else:
+            np.testing.assert_allclose(got[4].numpy(), np.asarray(want[4]),
+                                       rtol=1e-5)
+
+
+def _jax_edge_half(src, dst, c, alive, peel, V):
+    """The reference's edge half, verbatim from repro/core/peel.py:201-210."""
+    import jax
+
+    e_ps = peel[src]
+    e_pd = peel[dst]
+    cm = jnp.where(alive, c, 0.0)
+    drop_mass = jnp.sum(jnp.where(e_ps | e_pd, cm, 0.0))
+    dw = jax.ops.segment_sum(
+        jnp.where(e_ps & ~e_pd, cm, 0.0), dst, num_segments=V
+    ) + jax.ops.segment_sum(jnp.where(e_pd & ~e_ps, cm, 0.0), src, num_segments=V)
+    return dw, drop_mass, alive & ~(e_ps | e_pd)
+
+
+def _edges_with_pads(seed, V, m, E, pad, integer):
+    rng = np.random.default_rng(seed)
+    pad_id = V - 1 if pad == "full" else 0
+    src = np.full(E, pad_id, np.int32)
+    dst = np.full(E, pad_id, np.int32)
+    src[:m] = rng.integers(0, V, m)
+    dst[:m] = rng.integers(0, V, m)
+    c = np.zeros(E, np.float32)
+    c[:m] = rng.integers(1, 6, m) if integer else rng.lognormal(1.0, 1.0, m)
+    alive = np.zeros(E, bool)
+    alive[:m] = rng.random(m) < 0.9
+    peel = rng.random(V) < 0.2
+    return src, dst, c, alive, peel
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("pad", ["full", "workset"])
+def test_frontier_spmv_ref_matches_jax_edge_half(pad, integer):
+    """Both pad kinds — full-buffer slots (src = dst = V-1, c = 0, dead) and
+    workset lanes (endpoint 0, c = 0, dead) — are inert, with the pad
+    vertex peeled or not.  Exact on integer weights; rtol 1e-6 on lognormal
+    weights (the same scatter-add order, different summation of drop_mass)."""
+    V, m, E = 300, 2000, 2600
+    src, dst, c, alive, peel = _edges_with_pads(5, V, m, E, pad, integer)
+    for pad_peeled in (False, True):
+        peel[V - 1 if pad == "full" else 0] = pad_peeled
+        want = _jax_edge_half(*[jnp.asarray(x) for x in (src, dst, c, alive, peel)], V)
+        got = frontier_spmv_ref(*[torch.from_numpy(x) for x in (src, dst, c, alive, peel)])
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        if integer:
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            assert float(got[1]) == float(want[1])
+        else:
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6)
+            np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+        # the pad lanes themselves contribute nothing
+        live = torch.from_numpy(np.arange(E) < m)
+        real = frontier_spmv_ref(*[torch.from_numpy(x)[:m] for x in (src, dst, c, alive)],
+                                 torch.from_numpy(peel))
+        np.testing.assert_array_equal(real[0].numpy(), got[0].numpy())
+        assert float(real[1]) == float(got[1])
+        assert not bool(got[2][~live].any())
+
+
+def _graph(seed, n, m, with_a):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    keep = src != dst
+    src, dst = src[keep].astype(np.int32), dst[keep].astype(np.int32)
+    c = rng.integers(1, 6, src.shape[0]).astype(np.float32)
+    a = rng.integers(0, 3, n).astype(np.float32) if with_a else np.zeros(n, np.float32)
+    return src, dst, c, a
+
+
+@pytest.mark.parametrize("force_peel", [False, True], ids=["thresh", "wmin"])
+def test_round_step_matches_reference_kernel_round(force_peel):
+    """One port round (CPU: the plain kernel versions) against the
+    reference round with ``use_kernel=True``, bit-identical on integer
+    weights — through the threshold branch and the min-weight force-peel
+    branch (f forced so low that no weight passes the threshold)."""
+    n = 150
+    src, dst, c, a = _graph(11, n, 500, with_a=True)
+    w0 = np.zeros(n, np.float32)
+    np.add.at(w0, src, c)
+    np.add.at(w0, dst, c)
+    w0 += a
+    f0 = np.float32(1.0 if force_peel else a.sum() + c.sum())
+    active = np.ones(n, bool)
+    active[:7] = False
+    fields = dict(w=w0, active=active, edge_alive=np.ones(src.shape[0], bool),
+                  f=f0, n_act=np.int32(active.sum()),
+                  level=np.full(n, -1, np.int32), best_g=np.float32(3.0),
+                  best_level=np.int32(2), round_=np.int32(4))
+    js = jpeel._BulkState(**{k: jnp.asarray(v) for k, v in fields.items()})
+    ts = tpeel._BulkState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    for _ in range(3):
+        js = jpeel._round_step(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(c),
+                               jnp.asarray(a), 0.1, True, js)
+        ts = tpeel._round_step(torch.from_numpy(src), torch.from_numpy(dst),
+                               torch.from_numpy(c), torch.from_numpy(a), 0.1, ts)
+        for k in fields:
+            got, want = getattr(ts, k).numpy(), np.asarray(getattr(js, k))
+            assert got.dtype == want.dtype, k
+            np.testing.assert_array_equal(got, want, err_msg=k)
+
+
+def test_wrappers_take_plain_path_on_cpu_without_launching():
+    k1_ops.launches = 0
+    k2_ops.launches = 0
+    w, a, active, level, dw = (torch.from_numpy(x) for x in _k1_inputs(64, 0, True))
+    th, r = torch.tensor(5.0), torch.tensor(3, dtype=torch.int32)
+    for x, y in zip(peel_round(w, a, active, level, dw, th, r),
+                    peel_round_ref(w, a, active, level, dw, th, r)):
+        assert torch.equal(x, y)
+    e = [torch.from_numpy(x) for x in _edges_with_pads(1, 50, 100, 128, "full", True)]
+    for x, y in zip(frontier_spmv(*e), frontier_spmv_ref(*e)):
+        assert torch.equal(x, y)
+    assert k1_ops.launches == 0 and k2_ops.launches == 0
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        peel_round(meta, meta, meta.bool(), meta.int(), meta, meta[0], meta[0].int())
+    with pytest.raises(ValueError, match="unsupported device"):
+        frontier_spmv(meta.int(), meta.int(), meta, meta.bool(), meta.bool())
