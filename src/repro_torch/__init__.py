@@ -1,5 +1,6 @@
-"""Spade on PyTorch: the device-plane streaming engine of ``repro``, ported
-to CUDA for NVIDIA Hopper.
+"""Spade on PyTorch: the device-plane streaming engine of ``repro`` and the
+serving half of its dense LMs (``models/``, ``configs/``), ported to CUDA
+for NVIDIA Hopper.
 
 The package mirrors ``repro``'s layout (``graphstore/structs.py`` <->
 ``repro/graphstore/structs.py`` and so on) and imports neither ``jax`` nor

@@ -1,11 +1,21 @@
-"""State carried across frameworks as a dict of numpy arrays.
+"""State carried across frameworks as numpy arrays.
 
-The dict holds the fields of ``DeviceSpadeState`` — ``level``, ``best_g``,
+Spade: the dict holds the fields of ``DeviceSpadeState`` — ``level``, ``best_g``,
 ``community``, ``edge_count``, ``w0`` — and of its ``DeviceGraph`` —
 ``src``, ``dst``, ``c``, ``edge_mask``, ``a``, ``vertex_mask`` — each as
 ``np.asarray`` of the leaf, plus the two capacities ``n_capacity`` and
 ``e_capacity``.  Built from the JAX package's state, it lets a test start
 both engines from one state and compare them after any tick.
+
+LM: :func:`lm_params_from_numpy` takes the pytree of the JAX package's
+``init_lm_params`` (``{"embed", "layers": {..., "mlp": {...}}, "final_norm",
+"head"}``, per-layer leaves stacked ``[L, ...]``, ``x @ w`` layout) as numpy
+arrays and builds a :class:`~repro_torch.models.TransformerLM`;
+:func:`lm_params_to_numpy` gives the same pytree back.  bfloat16 leaves
+cross as bits: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
+``bfloat16`` dtype, which ``torch.from_numpy`` refuses, so it is viewed as
+``uint16`` and the tensor as ``torch.bfloat16``; going back, a bf16 leaf
+comes out as a ``uint16`` array of its bits.
 """
 
 from __future__ import annotations
@@ -13,11 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import LMConfig
 from repro_torch.core.incremental import DeviceSpadeState
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.structs import DeviceGraph
+from repro_torch.models.transformer import TransformerLM
 
-__all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy"]
+__all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy"]
 
 GRAPH_FIELDS = {"src": np.int32, "dst": np.int32, "c": np.float32,
                 "edge_mask": np.bool_, "a": np.float32, "vertex_mask": np.bool_}
@@ -50,3 +63,53 @@ def state_to_numpy(state: DeviceSpadeState) -> dict:
     out["n_capacity"] = g.n_capacity
     out["e_capacity"] = g.e_capacity
     return out
+
+
+_LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_MLP_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _to_tensor(x, dtype: torch.dtype) -> torch.Tensor:
+    x = np.ascontiguousarray(np.asarray(x))
+    if dtype == torch.bfloat16:
+        if x.dtype.name not in ("bfloat16", "uint16"):
+            raise TypeError(f"expected bfloat16 (or its uint16 bits), got {x.dtype}")
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(x.copy()).to(dtype)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
+                         device: str | torch.device | None = None) -> TransformerLM:
+    """A :class:`TransformerLM` on ``device`` (default ``cuda``, raising
+    without a GPU) holding the JAX-layout pytree ``params_np`` bit for bit."""
+    model = TransformerLM(cfg, device=device, init=False)
+    dev, dtype = model.device, model.embed.dtype
+    put = lambda x: _to_tensor(x, dtype).to(dev)
+    with torch.no_grad():
+        for name in ("embed", "final_norm", "head"):
+            getattr(model, name).copy_(put(params_np[name]))
+        layers = params_np["layers"]
+        for li, lp in enumerate(model.layers):
+            for name in _LAYER_LEAVES:
+                if hasattr(lp, name):
+                    getattr(lp, name).copy_(put(layers[name][li]))
+            for name in _MLP_LEAVES:
+                getattr(lp, name).copy_(put(layers["mlp"][name][li]))
+    return model
+
+
+def lm_params_to_numpy(model: TransformerLM) -> dict:
+    """The JAX-layout pytree of ``model`` (the inverse of
+    :func:`lm_params_from_numpy`); bf16 leaves as ``uint16`` bits."""
+    stack = lambda name: np.stack([_to_numpy(getattr(lp, name)) for lp in model.layers])
+    layers = {name: stack(name) for name in _LAYER_LEAVES if hasattr(model.layers[0], name)}
+    layers["mlp"] = {name: stack(name) for name in _MLP_LEAVES}
+    return {"embed": _to_numpy(model.embed), "layers": layers,
+            "final_norm": _to_numpy(model.final_norm), "head": _to_numpy(model.head)}

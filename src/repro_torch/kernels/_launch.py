@@ -32,16 +32,22 @@ def n_blocks(n: int, max_blocks: int) -> int:
     return max(1, min(-(-n // THREADS), max_blocks))
 
 
-def function(stem: str, symbol: str, n_ptrs: int) -> ctypes._CFuncPtr:
-    """The C launcher ``symbol`` of ``csrc/<stem>.cu``, typed as
-    ``(n_ptrs pointers, int64 n, int n_blocks, stream) -> int``."""
+def bind(stem: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C launcher ``symbol`` of ``csrc/<stem>.cu`` with ``argtypes``,
+    returning an ``int`` (a ``cudaError_t``)."""
     if symbol not in _bound:
         fn = getattr(_build.load(stem), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _bound[symbol] = fn
     return _bound[symbol]
+
+
+def function(stem: str, symbol: str, n_ptrs: int) -> ctypes._CFuncPtr:
+    """The C launcher ``symbol`` of ``csrc/<stem>.cu``, typed as
+    ``(n_ptrs pointers, int64 n, int n_blocks, stream) -> int``."""
+    return bind(stem, symbol, [ctypes.c_void_p] * n_ptrs
+                + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 
 
 def check(err: int, symbol: str) -> None:

@@ -1,0 +1,4 @@
+from .ops import check_kernel_args, flash_attention
+from .ref import attention_ref, flash_attention_ref
+
+__all__ = ["flash_attention", "check_kernel_args", "attention_ref", "flash_attention_ref"]

@@ -1,0 +1,60 @@
+"""Shared neural building blocks of the LM (port of ``repro/models/layers.py``).
+
+The f32 internals are those of the reference: ``rms_norm`` and
+``apply_rope`` compute in float32 and cast back to the input's dtype;
+``swiglu``'s matrix products stay in the weights' dtype.  ``maybe_scan``
+has no counterpart (the model loops over its layers in Python), and the
+reference's ``Initializer`` becomes :func:`normal_init` on an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rms_norm", "rope_angles", "apply_rope", "swiglu", "normal_init"]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, d_head: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for the given absolute positions; shapes [..., d_head/2]."""
+    half = d_head // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+                     -ar / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (split-half convention).  x: [..., S, H, D]; cos/sin
+    broadcastable to [..., S, 1, D/2]."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def normal_init(shape, fan_in: int, dtype: torch.dtype, device: torch.device,
+                generator: torch.Generator) -> torch.Tensor:
+    """Fan-in-scaled normal weights: ``N(0, 1) / sqrt(fan_in)`` drawn in
+    float32 from ``generator`` (which must live on ``device``), cast to
+    ``dtype``."""
+    w = torch.randn(shape, dtype=torch.float32, device=device, generator=generator)
+    return w.div_(math.sqrt(fan_in)).to(dtype)

@@ -120,3 +120,80 @@ def test_service_cuda_equals_cpu(cuda, spec):
     assert reps[0].live_edges == reps[1].live_edges
     for k, v in states[0].items():
         assert np.array_equal(np.asarray(v), np.asarray(states[1][k])), k
+
+
+# K3 flash_attention: bf16 on the tensor cores against its plain versions
+# (float32 inside) on the same bf16 inputs; atol = rtol = 2e-2, the
+# tolerance tests/test_kernels.py gives the Pallas kernel in bf16 (the
+# kernel rounds P to bf16 before P V, and its output to bf16).  Late rows
+# average many keys and are small, so each band of 64 query rows is also
+# held normwise: ||got - want|| / ||want|| <= 1e-2.
+
+
+def _band_rel_err(got, want, band=64):
+    err2 = (got.float() - want.float()).square().sum(dim=(0, 1, 3))
+    want2 = want.float().square().sum(dim=(0, 1, 3))
+    pad = -got.shape[2] % band
+    err2, want2 = (torch.nn.functional.pad(t, (0, pad)).view(-1, band).sum(1)
+                   for t in (err2, want2))
+    return float((err2 / want2).sqrt().max())
+
+FA_CASES = [
+    # (B, Hq, Hkv, Sq, Skv, D, causal, window)
+    (1, 4, 2, 128, 128, 64, True, None),
+    (2, 10, 2, 333, 333, 128, True, None),   # qwen3's G = 5, ragged
+    (1, 8, 8, 200, 200, 128, True, 64),      # window: tiles skipped
+    (2, 6, 3, 197, 197, 64, True, 100),
+    (1, 4, 1, 100, 300, 128, False, None),   # not causal, Sq != Skv
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,window", FA_CASES,
+                         ids=[f"fa{i}" for i in range(len(FA_CASES))])
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal, window):
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        cuda, torch.bfloat16) for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    n0 = k3_ops.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k3_ops.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    for want in (attention_ref(q, k, v, causal=causal, window=window),
+                 flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     block_q=128, block_k=128)):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert _band_rel_err(got, want) <= 1e-2
+
+
+def test_model_flash_attention_cuda_matches_cpu(cuda):
+    """Strided model-layout views through K3 against the CPU plain path."""
+    from repro_torch.models.attention import flash_attention
+
+    rng = np.random.default_rng(4)
+    B, S, Hkv, G, D = 2, 150, 2, 5, 128
+    q = torch.from_numpy(rng.standard_normal((B, S, Hkv, G, D), dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+    want = flash_attention(q, k, v)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_wrapper_raises_on_cuda(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    q = torch.zeros(1, 2, 16, 128, device=cuda)
+    n0 = k3_ops.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
+        flash_attention(x, x, x)
+    assert k3_ops.launches == n0
