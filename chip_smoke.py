@@ -32,7 +32,24 @@ Phases (any failure exits non-zero):
    random weights from a seeded generator), 2 prompts x 8,192 tokens,
    prefill, 32 greedy decode steps, with K3's launch counter set to 0 just
    before and read just after (40 per prefill); then ``torch.profiler``
-   traces of one more prefill and of four more decode steps.
+   traces of one more prefill and of four more decode steps;
+9. the block-sparse SpMM kernel (K4) against its plain versions on the
+   card: gcn-cora's tiles on the Cora-sized graph (both directions, 16 and
+   7 columns) and on the Reddit-sized sampled block (``minibatch_lg``,
+   about 161,000 tiles, 16 columns), and tests/test_kernels.py's sweep;
+   integer-valued inputs bit for bit against ``block_spmm_ref`` and
+   ``spmm_ref``, normal ones within 1e-4 of ``spmm_ref``, repeats bit for
+   bit; times of K4, of ``block_spmm_ref`` and of ``torch.sparse.mm``;
+10. the four GNN kinds at full width on the Cora-sized graph (gcn-cora,
+    gat-cora, meshgraphnet, dimenet), cuda against cpu on the same weights
+    in float32;
+11. the GNN main path at full width: gcn-cora's forward on the Cora-sized
+    graph and on the ``minibatch_lg`` block, through ``graph_batch``,
+    ``gcn_tiles`` and ``gnn_forward``, with K4's launch counter set to 0
+    just before the first forward and read just after (4 per forward);
+    the logits against the same forward with every aggregation computed by
+    ``spmm_ref`` (both directions, both layer widths); tile-build seconds,
+    the median of 10 forwards, peak memory and a ``torch.profiler`` trace.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -50,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +106,22 @@ LM_SEED = 0  # weights, prompts and attention inputs of phases 6-8
 # cases: causal at the main path's length (timed), ragged, windowed
 ATTN_SHAPE = (2, 40, 8, 128)
 ATTN_CASES = ((8192, None), (4000, None), (4096, 1024))
+# the GNN path (phases 9-11): gcn-cora's forward, whose aggregations run
+# through K4 at its layer widths (16 and 7 columns)
+GNN_SEED = 0  # graphs, weights and kernel inputs of phases 9-11
+GNN_ARCH, GCN_WIDTHS = "gcn-cora", (16, 7)
+GNN_ARCHS = ("gcn-cora", "gat-cora", "meshgraphnet", "dimenet")
+GNN_FORWARDS = 10  # timed forwards per shape
+BLOCK = 128  # K4's tile edge
+FP32_FLOPS_PER_S = 67e12  # H100 SXM published FP32 rate outside the tensor cores
+K4_TOL = 1e-4  # K4 vs the COO oracle: tests/test_kernels.py's atol = rtol
+# tests/test_kernels.py's block_spmm sweep (n_dst, n_src, n_edges, F, seed)
+K4_SWEEP = ((256, 256, 1000, 64, 0), (300, 200, 700, 16, 1), (128, 512, 2000, 128, 2),
+            (512, 512, 100, 200, 3))
+# cuda vs cpu logits of phase 10, and K4's forward vs spmm_ref's in phase
+# 11, in float32 (matmul precision "highest", no TF32), relative to each
+# row's largest |logit|
+GNN_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -846,6 +880,283 @@ def phase_lm_full(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: K4 against its plain versions on the GNN path's tiles
+# ---------------------------------------------------------------------------
+
+
+def k4_bound(T: int, F: int, n_src: int, n_out: int) -> tuple[float, str]:
+    """(least ms, what bounds it) of a K4 launch over T tiles at width F:
+    each input read once (the tiles, ``tile_src``, ``run_start`` and the
+    ``n_src`` rows of x), the ``n_out`` output rows written once, and
+    2 * 128^2 * F FP32 operations per tile."""
+    n_out_blocks = -(-n_out // BLOCK)
+    nbytes = 4 * (T * BLOCK * BLOCK + T + n_src * F + n_out * F) + 8 * (n_out_blocks + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * T * BLOCK * BLOCK * F / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k4_case(tag: str, src, dst, val, n_dst: int, n_src: int, F: int, gen,
+            timed: bool = False) -> dict:
+    """K4 on the edges ``src -> dst``: integer-valued tiles and x bit for bit
+    against ``block_spmm_ref`` and ``spmm_ref``; ``val`` (or normal values)
+    with normal x within K4_TOL of ``spmm_ref``, twice with the same bits;
+    with ``timed``, K4, ``block_spmm_ref`` and ``torch.sparse.mm`` timed."""
+    import torch
+
+    from repro_torch.kernels.gather_segsum import (block_spmm_ref, build_tiles,
+                                                   gather_segsum, spmm_ref)
+
+    m = src.shape[0]
+    ival = torch.randint(-3, 4, (m,), generator=gen, device=DEVICE).float()
+    ix = torch.randint(-4, 5, (n_src, F), generator=gen, device=DEVICE).float()
+    bt = build_tiles(src, dst, ival, n_dst, n_src)
+    got = gather_segsum(bt, ix, n_dst)
+    plain = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, ix,
+                           bt.n_out_blocks)[:n_dst]
+    sync()
+    check(torch.equal(got, plain), f"K4 {tag} int: not bit-identical to block_spmm_ref")
+    check(torch.equal(got, spmm_ref(src, dst, ival, ix, n_dst)),
+          f"K4 {tag} int: not bit-identical to spmm_ref")
+    del bt, got, plain, ix
+    if val is None:
+        val = torch.randn(m, generator=gen, device=DEVICE)
+    x = torch.randn((n_src, F), generator=gen, device=DEVICE)
+    bt = build_tiles(src, dst, val, n_dst, n_src)
+    got = gather_segsum(bt, x, n_dst)
+    again = gather_segsum(bt, x, n_dst)
+    sync()
+    check(torch.equal(got, again), f"K4 {tag}: two runs differ")
+    err = compare(f"K4 {tag} vs spmm_ref", [got], [spmm_ref(src, dst, val, x, n_dst)],
+                  exact=False, rtol=K4_TOL)
+    T = bt.tiles.shape[0]
+    row = {"T": T, "F": F, "n_out": n_dst, "occupancy": bt.occupancy, "max_abs_err": err}
+    log(f"K4 {tag} T={T} F={F}: int bit-identical to block_spmm_ref and spmm_ref; normal "
+        f"max_abs_err={err!r} vs spmm_ref (atol = rtol = {K4_TOL}); repeat bit-identical; "
+        f"occupancy {bt.occupancy!r}")
+    if timed:
+        args = (bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x, bt.n_out_blocks)
+        with warnings.catch_warnings():  # torch calls its CSR support beta
+            warnings.simplefilter("ignore", UserWarning)
+            csr = torch.sparse_coo_tensor(
+                torch.stack([dst.long(), src.long()]), val, (n_dst, n_src),
+                check_invariants=True).coalesce().to_sparse_csr()
+        lib_err = max_abs(torch.sparse.mm(csr, x), got)
+        ms = cuda_time_ms(lambda: gather_segsum(bt, x, n_dst))
+        plain = cuda_time_ms(lambda: block_spmm_ref(*args), reps=10)
+        lib = cuda_time_ms(lambda: torch.sparse.mm(csr, x))
+        bound, by = k4_bound(T, F, n_src, n_dst)
+        row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                   library_max_abs_err=lib_err)
+        log(f"K4 {tag}: kernel {ms!r} ms, plain {plain!r} ms, torch.sparse.mm {lib!r} ms "
+            f"(max abs diff {lib_err!r}), bound {bound!r} ms ({by}); kernel / library "
+            f"{ms / lib!r}")
+        del csr
+    del bt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_k4(seed: int) -> tuple[dict, dict]:
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models.gnn import gcn_edge_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cfg = get_config(GNN_ARCH)
+    cases = {}
+    # the path's tiles: gcn-cora's two directions, at both layer widths
+    for shape, widths in (("full_graph_sm", GCN_WIDTHS), ("minibatch_lg", GCN_WIDTHS[:1])):
+        g = graph_batch(cfg, GNN_SHAPES[shape], seed, device=DEVICE)
+        ew, _ = gcn_edge_weights(g)
+        N = g.node_feat.shape[0]
+        src, dst = g.edge_src, g.edge_dst
+        del g
+        dirs = (("fwd", src, dst), ("bwd", dst, src)) if shape == "full_graph_sm" \
+            else (("fwd", src, dst),)
+        for name, s, d in dirs:
+            for F in widths:
+                cases[f"{shape} {name} F={F}"] = k4_case(
+                    f"{shape} {name} F={F}", s, d, ew, N, N, F, gen, timed=name == "fwd")
+        del src, dst, ew
+    # tests/test_kernels.py's sweep: ragged n_src, several F tiles
+    for i, (n_dst, n_src, m, F, s) in enumerate(K4_SWEEP):
+        rng = np.random.default_rng(s)
+        src = torch.from_numpy(rng.integers(0, n_src, m).astype(np.int32)).to(DEVICE)
+        dst = torch.from_numpy(rng.integers(0, n_dst, m).astype(np.int32)).to(DEVICE)
+        cases[f"sweep{i}"] = k4_case(f"sweep{i} n_dst={n_dst} n_src={n_src}", src, dst,
+                                     None, n_dst, n_src, F, gen)
+    head = cases[f"minibatch_lg fwd F={GCN_WIDTHS[0]}"]
+    rec = {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+    return rec, cases
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the four GNN kinds on cuda against the same weights on cpu
+# ---------------------------------------------------------------------------
+
+
+def gnn_models(cfg, d_feat: int, d_edge: int, seed: int):
+    """(cpu, cuda) copies of one GNN whose weights come from a seeded
+    generator."""
+    import torch
+
+    from repro_torch.models.gnn import GNN
+
+    cpu = GNN(cfg, d_feat, d_edge, device="cpu",
+              generator=torch.Generator().manual_seed(seed))
+    gpu = GNN(cfg, d_feat, d_edge, device=DEVICE, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def row_rel_err(got, want) -> float:
+    """Largest |got - want| over its row's largest |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+    return float(((got - want).abs() / scale).max())
+
+
+def phase_gnn_parity(seed: int) -> tuple[dict, object]:
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models.gnn import GraphBatch, gcn_tiles
+
+    spec = GNN_SHAPES["full_graph_sm"]
+    out, gcn_logits = {}, None
+    for arch in GNN_ARCHS:
+        cfg = get_config(arch)
+        g_cpu = graph_batch(cfg, spec, seed, device="cpu")
+        g = GraphBatch(*(t.to(DEVICE) for t in g_cpu))
+        cpu, gpu = gnn_models(cfg, g.node_feat.shape[1], g.edge_feat.shape[1] or 4, seed)
+        tiles = gcn_tiles(g) if cfg.kind == "gcn" else None
+        n0 = k4_ops.launches
+        got = gpu(g, tiles)
+        sync()
+        launches = k4_ops.launches - n0
+        t0 = time.perf_counter()
+        want = cpu(g_cpu)
+        cpu_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(got).all()), f"{arch}: non-finite logits on cuda")
+        check(launches == (4 if cfg.kind == "gcn" else 0),
+              f"{arch}: K4 launched {launches} times in one forward")
+        rel = row_rel_err(got, want)
+        check(rel <= GNN_TOL, f"{arch} cuda vs cpu: {rel!r} of the row scale, beyond {GNN_TOL}")
+        out[arch] = {"nodes": g.node_feat.shape[0], "edges": g.edge_src.shape[0],
+                     "triplets": int(g.tri_mask.sum()), "err_over_row_scale": rel,
+                     "max_abs_err": max_abs(got.cpu(), want), "cpu_forward_s": cpu_s,
+                     "k4_launches": launches}
+        log(f"{arch} full width on full_graph_sm, cuda vs cpu: largest error / row scale "
+            f"{rel!r} (tolerance {GNN_TOL}); " + " ".join(
+                f"{k}={v!r}" for k, v in out[arch].items() if k != "err_over_row_scale"))
+        if cfg.kind == "gcn":
+            gcn_logits = want
+        del g, g_cpu, cpu, gpu, tiles, got, want
+    torch.cuda.empty_cache()
+    return out, gcn_logits
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the GCN path at full width
+# ---------------------------------------------------------------------------
+
+
+def gcn_plain(model, g):
+    """``model``'s GCN forward on ``g`` with both aggregations of each layer
+    computed by ``spmm_ref`` on the COO edges, so without K4 or tiles."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gather_segsum import spmm_ref
+    from repro_torch.models.gnn import gcn_edge_weights
+
+    p = model.params()
+    N = g.node_feat.shape[0]
+    ew, inv_sqrt = gcn_edge_weights(g)
+    x = g.node_feat
+    for i, (w, b) in enumerate(zip(p["w"], p["b"])):
+        h = x @ w + b
+        agg = spmm_ref(g.edge_src, g.edge_dst, ew, h, N)
+        agg = agg + spmm_ref(g.edge_dst, g.edge_src, ew, h, N)
+        x = agg + h * (inv_sqrt * inv_sqrt)[:, None]
+        if i < len(p["w"]) - 1:
+            x = F.relu(x)
+    return x
+
+
+def phase_gcn(seed: int, cpu_logits) -> dict:
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models.gnn import gcn_tiles
+
+    cfg = get_config(GNN_ARCH)
+    out = {"launches": 0}
+    for shape in ("full_graph_sm", "minibatch_lg"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = graph_batch(cfg, GNN_SHAPES[shape], seed, device=DEVICE)
+        sync()
+        gen_s = time.perf_counter() - t0
+        N, E, F = g.node_feat.shape[0], g.edge_src.shape[0], g.node_feat.shape[1]
+        _, model = gnn_models(cfg, F, 4, seed)
+        t0 = time.perf_counter()
+        tiles = gcn_tiles(g)
+        sync()
+        build_s = time.perf_counter() - t0
+        T = tiles.fwd.tiles.shape[0] + tiles.bwd.tiles.shape[0]
+        k4_ops.launches = 0
+        logits = model(g, tiles)
+        sync()
+        launches = k4_ops.launches
+        check(launches == 2 * cfg.n_layers,
+              f"gcn {shape}: K4 launched {launches} times, expected {2 * cfg.n_layers}")
+        out["launches"] += launches
+        check(bool(torch.isfinite(logits).all()), f"gcn {shape}: non-finite logits")
+        check(tuple(logits.shape) == (N, cfg.n_classes), f"gcn {shape}: logits {logits.shape}")
+        times = []
+        for _ in range(GNN_FORWARDS):
+            t0 = time.perf_counter()
+            model(g, tiles)
+            sync()
+            times.append(time.perf_counter() - t0)
+        check(k4_ops.launches == launches * (GNN_FORWARDS + 1), f"gcn {shape}: K4 launches")
+        # all four launches (both directions, both widths) against the plain
+        # aggregations on the same graph and weights
+        plain_rel = row_rel_err(logits, gcn_plain(model, g))
+        check(plain_rel <= GNN_TOL, f"gcn {shape}: {plain_rel!r} of the row scale from the "
+              f"forward through spmm_ref, beyond {GNN_TOL}")
+        med = statistics.median(times)
+        row = {"nodes": N, "edges": E, "d_feat": F, "tiles_both_directions": T,
+               "tile_gb": T * BLOCK * BLOCK * 4 / 1e9, "occupancy": tiles.fwd.occupancy,
+               "graph_s": gen_s, "tile_build_s": build_s, "forward_median_s": med,
+               "forward_min_s": min(times), "nodes_per_s": N / med,
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "k4_launches": launches, "err_over_row_scale_vs_spmm_ref": plain_rel}
+        if cpu_logits is not None and shape == "full_graph_sm":
+            row["err_over_row_scale_vs_cpu"] = rel = row_rel_err(logits, cpu_logits)
+            check(rel <= GNN_TOL, f"gcn {shape}: {rel!r} of the row scale from the cpu run")
+        log(f"gcn-cora {shape} main path: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        row["profile"] = trace(f"gcn-cora {shape} forward", 3, lambda: model(g, tiles),
+                               {"gather_segsum": "block_spmm_kernel"})
+        out[shape] = row
+        del g, model, tiles, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -907,6 +1218,15 @@ def main() -> int:
     log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
         f"{time.perf_counter() - t_lm!r} s")
 
+    t_gnn = time.perf_counter()
+    k4, k4_cases = phase_k4(GNN_SEED)
+    log("phase 9: K4 agrees with its plain versions")
+    gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
+    log("phase 10: GNN forward cuda==cpu within tolerance")
+    gcn = phase_gcn(GNN_SEED, gcn_cpu_logits)
+    log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
+        f"{time.perf_counter() - t_gnn!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -925,17 +1245,22 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
          "launches": lm["k3_launches"], "bound_by": "operations", **attn},
+        {"name": "gather_segsum", "route": "cuda",
+         "source": "src/repro_torch/csrc/gather_segsum.cu",
+         "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
+         "launches": gcn["launches"], **k4},
     ]
-    log(f"kernels: peel_round, frontier_spmv, flash_attention launches "
+    log(f"kernels: peel_round, frontier_spmv, flash_attention, gather_segsum launches "
         f"{grab['launches']['peel_round']}, {grab['launches']['frontier_spmv']}, "
-        f"{lm['k3_launches']}")
+        f"{lm['k3_launches']}, {gcn['launches']}")
     log(f"total seconds {time.perf_counter() - t_start!r}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": smi, "kernels": kernels, "grab4": grab, "attention": attn_norm,
              "lm_parity": lm_parity,
-             "qwen3_14b": lm}, indent=1))
+             "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
+             "gcn_cora": gcn}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

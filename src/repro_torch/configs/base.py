@@ -1,8 +1,9 @@
-"""Config dataclasses of the LM family and its shape specs.
+"""Config dataclasses of the LM and GNN families and their shape specs.
 
-A copy of the LM half of ``repro/configs/base.py`` (``MoESpec``,
-``LMConfig``, ``ShapeSpec``, ``LM_SHAPES``), kept free of ``jax`` and of
-``repro``.  Configs are shapes only: no weights are read from anywhere.
+A copy of the LM and GNN halves of ``repro/configs/base.py`` (``MoESpec``,
+``LMConfig``, ``GNNConfig``, ``ShapeSpec``, ``LM_SHAPES``, ``GNN_SHAPES``),
+kept free of ``jax`` and of ``repro``.  Configs are shapes only: no
+weights are read from anywhere.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Literal
 
-__all__ = ["MoESpec", "LMConfig", "ShapeSpec", "LM_SHAPES"]
+__all__ = ["MoESpec", "LMConfig", "GNNConfig", "ShapeSpec", "LM_SHAPES", "GNN_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -71,11 +72,37 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: Literal["gcn", "gat", "meshgraphnet", "dimenet"]
+    n_layers: int
+    d_hidden: int
+    d_feat: int  # input feature dim (overridden per shape)
+    n_classes: int = 16
+    n_heads: int = 1  # gat
+    aggregator: str = "sum"
+    mlp_layers: int = 2  # meshgraphnet
+    n_bilinear: int = 8  # dimenet
+    n_spherical: int = 7
+    n_radial: int = 6
+    triplet_cap_per_edge: int = 4  # dimenet subsampled triplets at scale
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: Literal["train", "prefill", "decode"]
+    kind: Literal["train", "prefill", "decode", "graph_full", "graph_mini", "graph_batch"]
+    # LM
     seq_len: int = 0
     global_batch: int = 0
+    # GNN
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: tuple[int, ...] = ()
+    n_graphs: int = 0
 
 
 LM_SHAPES = {
@@ -83,4 +110,25 @@ LM_SHAPES = {
     "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
     "long_500k": ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeSpec(
+        "full_graph_sm", "graph_full", n_nodes=2708, n_edges=10556, d_feat=1433
+    ),
+    "minibatch_lg": ShapeSpec(
+        "minibatch_lg",
+        "graph_mini",
+        n_nodes=232965,
+        n_edges=114615892,
+        batch_nodes=1024,
+        fanout=(15, 10),
+        d_feat=602,
+    ),
+    "ogb_products": ShapeSpec(
+        "ogb_products", "graph_full", n_nodes=2449029, n_edges=61859140, d_feat=100
+    ),
+    "molecule": ShapeSpec(
+        "molecule", "graph_batch", n_nodes=30, n_edges=64, n_graphs=128, d_feat=32
+    ),
 }

@@ -16,6 +16,12 @@ cross as bits: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
 ``bfloat16`` dtype, which ``torch.from_numpy`` refuses, so it is viewed as
 ``uint16`` and the tensor as ``torch.bfloat16``; going back, a bf16 leaf
 comes out as a ``uint16`` array of its bits.
+
+GNN: :func:`gnn_params_from_numpy` takes the tree of the JAX package's
+``init_gnn_params`` (dicts and lists of arrays; MeshGraphNet's ``proc_*``
+and DimeNet's ``blocks`` stacked with a leading L dimension) and builds a
+:class:`~repro_torch.models.gnn.GNN`; :func:`gnn_params_to_numpy` gives the
+same tree back.
 """
 
 from __future__ import annotations
@@ -23,14 +29,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import GNNConfig, LMConfig
 from repro_torch.core.incremental import DeviceSpadeState
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.structs import DeviceGraph
+from repro_torch.models.gnn import GNN, flatten_params, unflatten_params
 from repro_torch.models.transformer import TransformerLM
 
 __all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
-           "lm_params_from_numpy", "lm_params_to_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy", "gnn_params_from_numpy",
+           "gnn_params_to_numpy"]
 
 GRAPH_FIELDS = {"src": np.int32, "dst": np.int32, "c": np.float32,
                 "edge_mask": np.bool_, "a": np.float32, "vertex_mask": np.bool_}
@@ -113,3 +121,43 @@ def lm_params_to_numpy(model: TransformerLM) -> dict:
     layers["mlp"] = {name: stack(name) for name in _MLP_LEAVES}
     return {"embed": _to_numpy(model.embed), "layers": layers,
             "final_norm": _to_numpy(model.final_norm), "head": _to_numpy(model.head)}
+
+
+def _gnn_input_dims(params_np: dict, cfg: GNNConfig) -> tuple[int, int]:
+    """(d_feat, d_edge_feat) of a reference GNN tree."""
+    if cfg.kind == "gcn":
+        return np.shape(params_np["w"][0])[0], 4
+    if cfg.kind == "gat":
+        return np.shape(params_np["layers"][0]["w"])[0], 4
+    if cfg.kind == "meshgraphnet":
+        return (np.shape(params_np["enc_node"]["w0"])[0],
+                np.shape(params_np["enc_edge"]["w0"])[0])
+    if cfg.kind == "dimenet":
+        return np.shape(params_np["embed_node"])[0], 4
+    raise ValueError(cfg.kind)
+
+
+def gnn_params_from_numpy(params_np: dict, cfg: GNNConfig,
+                          device: str | torch.device | None = None) -> GNN:
+    """A :class:`GNN` on ``device`` (default ``cuda``, raising without a
+    GPU) holding the reference tree ``params_np`` bit for bit."""
+    model = GNN(cfg, *_gnn_input_dims(params_np, cfg), device=device, init=False)
+    given = dict(flatten_params(params_np))
+    with torch.no_grad():
+        for path, leaf in flatten_params(model.params()):
+            if path not in given:
+                raise KeyError(f"gnn_params_from_numpy: {path} missing")
+            x = _to_tensor(given.pop(path), leaf.dtype)
+            if x.shape != leaf.shape:
+                raise ValueError(f"gnn_params_from_numpy: {path} has shape "
+                                 f"{tuple(x.shape)}, expected {tuple(leaf.shape)}")
+            leaf.copy_(x)
+    if given:
+        raise KeyError(f"gnn_params_from_numpy: unexpected leaves {sorted(given)}")
+    return model
+
+
+def gnn_params_to_numpy(model: GNN) -> dict:
+    """The reference tree of ``model`` (the inverse of
+    :func:`gnn_params_from_numpy`)."""
+    return unflatten_params((p, _to_numpy(t)) for p, t in flatten_params(model.params()))

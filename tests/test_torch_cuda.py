@@ -197,3 +197,103 @@ def test_flash_attention_wrapper_raises_on_cuda(cuda):
         x = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
         flash_attention(x, x, x)
     assert k3_ops.launches == n0
+
+
+# K4 gather_segsum: float32 FFMA against the plain tile-level version
+# (bit for bit on integer-valued tiles and x, where every sum is exact) and
+# the COO oracle at atol = rtol = 1e-4 (tests/test_kernels.py's contract).
+
+K4_CASES = [
+    # (n_dst, n_src, n_edges, F, seed): tests/test_kernels.py's sweep, GCN's
+    # widths, and a run longer than one tile per output block
+    (256, 256, 1000, 64, 0),
+    (300, 200, 700, 16, 1),
+    (128, 512, 2000, 128, 2),
+    (512, 512, 100, 200, 3),
+    (3072, 3072, 10_752, 7, 4),
+    (1000, 5000, 60_000, 33, 5),
+]
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "normal"])
+@pytest.mark.parametrize("n_dst,n_src,m,F,seed", K4_CASES,
+                         ids=[f"k4_{i}" for i in range(len(K4_CASES))])
+def test_gather_segsum_kernel_matches_plain(cuda, n_dst, n_src, m, F, seed, integer):
+    from repro_torch.kernels.gather_segsum import (block_spmm, block_spmm_ref, build_tiles,
+                                                   gather_segsum, spmm_ref)
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(rng.integers(0, n_src, m).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(rng.integers(0, n_dst, m).astype(np.int32)).to(cuda)
+    if integer:
+        val = torch.from_numpy(rng.integers(-3, 4, m).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(rng.integers(-4, 5, (n_src, F)).astype(np.float32)).to(cuda)
+    else:
+        val = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
+        x = torch.from_numpy(rng.normal(size=(n_src, F)).astype(np.float32)).to(cuda)
+    bt = build_tiles(src, dst, val, n_dst, n_src)
+    assert bt.tiles.is_cuda
+    n0 = k4_ops.launches
+    got = gather_segsum(bt, x, n_dst)
+    again = block_spmm(bt, x)
+    torch.cuda.synchronize()
+    assert k4_ops.launches == n0 + 2
+    assert got.shape == (n_dst, F)
+    assert torch.equal(got, again[:n_dst])  # the same bits every run
+    plain = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x,
+                           bt.n_out_blocks)[:n_dst]
+    coo = spmm_ref(src, dst, val, x, n_dst)
+    if integer:
+        assert torch.equal(got, plain) and torch.equal(got, coo)
+    else:
+        torch.testing.assert_close(got, coo, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+
+
+def test_gather_segsum_wrapper_raises_on_cuda(cuda):
+    from repro_torch.kernels.gather_segsum import BlockTiles, block_spmm
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+
+    tiles = torch.zeros(3, 128, 128, device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    x = torch.zeros(256, 8, device=cuda)
+    n0 = k4_ops.launches
+    with pytest.raises(ValueError, match="not sorted"):
+        BlockTiles(tiles, idx, torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda),
+                   idx, 2, 2, 128, 0.0)
+    bt = BlockTiles(tiles, idx, idx, idx, 1, 2, 128, 0.0)
+    with pytest.raises(TypeError, match="x"):
+        block_spmm(bt, x.double())
+    bt.tile_src = idx.cpu()
+    with pytest.raises(ValueError, match="on cpu"):
+        block_spmm(bt, x)
+    assert k4_ops.launches == n0
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "gat-cora", "meshgraphnet", "dimenet"])
+def test_gnn_forward_cuda_matches_cpu(cuda, arch):
+    """Smoke configs on a small graph; GCN runs through K4, 4 launches."""
+    import dataclasses
+
+    from repro_torch.configs import GNN_SHAPES, get_smoke_config
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models.gnn import GNN, gcn_tiles
+
+    cfg = get_smoke_config(arch)
+    spec = dataclasses.replace(GNN_SHAPES["full_graph_sm"], n_nodes=700, n_edges=3000,
+                               d_feat=8)
+    g_cpu = graph_batch(cfg, spec, seed=1, device="cpu")
+    g_gpu = graph_batch(cfg, spec, seed=1, device=cuda)
+    cpu = GNN(cfg, 8, device="cpu")
+    gpu = GNN(cfg, 8, device=cuda, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    tiles = gcn_tiles(g_gpu) if arch == "gcn-cora" else None
+    n0 = k4_ops.launches
+    got = gpu(g_gpu, tiles)
+    torch.cuda.synchronize()
+    assert k4_ops.launches == n0 + (4 if arch == "gcn-cora" else 0)
+    want = cpu(g_cpu)
+    scale = want.abs().amax(-1, keepdim=True).clamp(min=1e-6)
+    assert bool(((got.cpu() - want).abs() <= 1e-4 * scale).all())
