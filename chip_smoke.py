@@ -11,6 +11,10 @@ Phases (any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    Grab4 shapes of the main path (integer weights: exact; lognormal
    weights: stated rtol) and on one workset bucket shape, and time both;
+   every kernel, plain version and library call of phases 2, 6 and 9 gets
+   a device time (``device_time_ms``: the device kernels of one call from
+   ``torch.profiler``, median over back-to-back calls) and a call time
+   (``cuda_time_ms``: events around one call);
 3. the port's ``SpadeService`` on ``cuda`` against the same on ``cpu``
    (DG, small stream): reports and final states bit-identical;
 4. the main path at full width: the Grab4 stream (6,023,000 vertices,
@@ -33,23 +37,27 @@ Phases (any failure exits non-zero):
    prefill, 32 greedy decode steps, with K3's launch counter set to 0 just
    before and read just after (40 per prefill); then ``torch.profiler``
    traces of one more prefill and of four more decode steps;
-9. the block-sparse SpMM kernel (K4) against its plain versions on the
-   card: gcn-cora's tiles on the Cora-sized graph (both directions, 16 and
-   7 columns) and on the Reddit-sized sampled block (``minibatch_lg``,
-   about 161,000 tiles, 16 columns), and tests/test_kernels.py's sweep;
-   integer-valued inputs bit for bit against ``block_spmm_ref`` and
-   ``spmm_ref``, normal ones within 1e-4 of ``spmm_ref``, repeats bit for
-   bit; times of K4, of ``block_spmm_ref`` and of ``torch.sparse.mm``;
+9. the destination-row SpMM kernel (K4) against its plain versions on
+   the card: gcn-cora's matrices on the Cora-sized graph (both directions,
+   16 and 7 columns), on the Reddit-sized sampled block (``minibatch_lg``)
+   and on ogbn-products (``ogb_products``, 61.9M edges), 16 columns, and
+   tests/test_kernels.py's sweep; integer-valued inputs bit for bit
+   against ``spmm_rows_ref`` and ``spmm_ref`` and (Cora and the sweep,
+   through ``rows_from_tiles``) against ``block_spmm_ref`` on the same
+   edges' dense tiles; normal ones within 1e-4 of ``spmm_ref``, repeats
+   bit for bit; device and call times of K4, of ``spmm_rows_ref`` and of
+   ``torch.sparse.mm``, and K4's bytes bound and gather floor;
 10. the four GNN kinds at full width on the Cora-sized graph (gcn-cora,
     gat-cora, meshgraphnet, dimenet), cuda against cpu on the same weights
     in float32;
-11. the GNN main path at full width: gcn-cora's forward on the Cora-sized
-    graph and on the ``minibatch_lg`` block, through ``graph_batch``,
-    ``gcn_tiles`` and ``gnn_forward``, with K4's launch counter set to 0
-    just before the first forward and read just after (4 per forward);
-    the logits against the same forward with every aggregation computed by
-    ``spmm_ref`` (both directions, both layer widths); tile-build seconds,
-    the median of 10 forwards, peak memory and a ``torch.profiler`` trace.
+11. the GNN main path at full width: gcn-cora's forward on ogbn-products,
+    the Cora-sized graph and the ``minibatch_lg`` block, through
+    ``graph_batch``, ``gcn_rows`` and ``gnn_forward``, with K4's launch
+    counter set to 0 just before the first forward and read just after (4
+    per forward); the logits against the same forward with every
+    aggregation computed by ``spmm_ref`` (both directions, both layer
+    widths); rows-build seconds, the median of 10 forwards, nodes/s, peak
+    memory and a ``torch.profiler`` trace.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -112,7 +120,9 @@ GNN_SEED = 0  # graphs, weights and kernel inputs of phases 9-11
 GNN_ARCH, GCN_WIDTHS = "gcn-cora", (16, 7)
 GNN_ARCHS = ("gcn-cora", "gat-cora", "meshgraphnet", "dimenet")
 GNN_FORWARDS = 10  # timed forwards per shape
-BLOCK = 128  # K4's tile edge
+# the graphs of gcn-cora's path: Cora-sized, Reddit's sampled block, and
+# ogbn-products whole (2,449,408 nodes, 61,859,328 edges, 100 features)
+GCN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products")
 FP32_FLOPS_PER_S = 67e12  # H100 SXM published FP32 rate outside the tensor cores
 K4_TOL = 1e-4  # K4 vs the COO oracle: tests/test_kernels.py's atol = rtol
 # tests/test_kernels.py's block_spmm sweep (n_dst, n_src, n_edges, F, seed)
@@ -144,7 +154,10 @@ def sync() -> None:
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call of ``fn`` in milliseconds."""
+    """Call time: the median CUDA-event time of one call of ``fn`` in ms,
+    events on either side of the call and a synchronize after each.  For
+    a kernel of a few microseconds this is the wrapper's host work and the
+    launch latency, not the kernel."""
     import torch
 
     for _ in range(warmup):
@@ -159,6 +172,34 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def device_time_ms(fn, calls: int = 50) -> float:
+    """Device time: ``torch.profiler`` over ``calls`` back-to-back calls of
+    ``fn`` (after one untraced call), the device kernels (and copies) that
+    each call launches summed; the median over the calls in ms, or the mean
+    when the calls do not all launch the same number of kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.time_range.start)
+    us = [e.time_range.elapsed_us() for e in evs]
+    check(sum(us) > 0, "device_time_ms: no device time recorded")
+    per, rest = divmod(len(us), calls)
+    if rest:
+        return sum(us) / calls / 1e3
+    return statistics.median(sum(us[i * per:(i + 1) * per]) for i in range(calls)) / 1e3
+
+
+def timed(fn, calls: int = 50, reps: int = 20) -> tuple[float, float]:
+    """(device ms, call ms) of one call of ``fn``."""
+    return device_time_ms(fn, calls), cuda_time_ms(fn, reps=reps)
 
 
 def fail(msg: str) -> None:
@@ -283,12 +324,13 @@ def phase_kernels(grab) -> dict:
                 f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}; "
                 f"peeled={int(want[3].sum())}")
         if tag == "grab4":
-            ms = cuda_time_ms(lambda: peel_round(*args))
-            plain = cuda_time_ms(lambda: peel_round_ref(*args))
+            ms, call = timed(lambda: peel_round(*args))
+            plain, plain_call = timed(lambda: peel_round_ref(*args))
             bound = k1_bound_ms(V, int(want[3].sum()), n_blocks(V, 132 * 8))
-            rec["peel_round"].update(ms=ms, plain_ms=plain, bound_ms=bound)
-            log(f"K1 peel_round V={V}: kernel {ms!r} ms, plain {plain!r} ms, "
-                f"bound {bound!r} ms (bytes)")
+            rec["peel_round"].update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call,
+                                     plain_call_ms=plain_call)
+            log(f"K1 peel_round V={V}: kernel {ms!r} ms device ({call!r} ms call), plain "
+                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes)")
     # K2 at E = 27,500,032 over the Grab4 base graph, and at a workset bucket
     rng = np.random.default_rng(3)
     small_src = rng.integers(0, 65_536, 240_000).astype(np.int32)
@@ -311,13 +353,14 @@ def phase_kernels(grab) -> dict:
         if tag == "grab4":
             s, d, c, alive, peel = args
             hit = alive & (peel[s] | peel[d])
-            ms = cuda_time_ms(lambda: frontier_spmv(*args))
-            plain = cuda_time_ms(lambda: frontier_spmv_ref(*args))
+            ms, call = timed(lambda: frontier_spmv(*args))
+            plain, plain_call = timed(lambda: frontier_spmv_ref(*args), calls=10, reps=10)
             bound = k2_bound_ms(E, V, int(alive.sum()), int(hit.sum()),
                                 n_blocks(E, 132 * 16))
-            rec["frontier_spmv"].update(ms=ms, plain_ms=plain, bound_ms=bound)
-            log(f"K2 frontier_spmv E={E}: kernel {ms!r} ms, plain {plain!r} ms, "
-                f"bound {bound!r} ms (bytes)")
+            rec["frontier_spmv"].update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call,
+                                        plain_call_ms=plain_call)
+            log(f"K2 frontier_spmv E={E}: kernel {ms!r} ms device ({call!r} ms call), plain "
+                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes)")
     return rec
 
 
@@ -693,15 +736,18 @@ def phase_attention(seed: int) -> tuple[dict, dict]:
             f"{ATTN_NORM_TOL} per {ATTN_BAND}-row band)")
         if (S, window) == ATTN_CASES[0]:
             norm["controls"] = attn_controls(q, k, v, got, G)
-            ms = cuda_time_ms(lambda: flash_attention(q, k, v), reps=10)
-            plain = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=3, warmup=1)
-            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            ms, call = timed(lambda: flash_attention(q, k, v), reps=10)
+            plain = device_time_ms(lambda: flash_attention_ref(q, k, v), calls=3)
+            plain_call = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=3, warmup=1)
+            lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), reps=10)
             bound = k3_bound_ms(B, Hq, Hkv, S, D, window)
             tflops = 4 * B * Hq * D * attn_pairs(S, window) / ms / 1e9
-            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound)
-            log(f"{tag}: kernel {ms!r} ms ({tflops!r} TFLOP/s), plain {plain!r} ms, "
-                f"sdpa {lib!r} ms, bound {bound!r} ms (operations)")
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, call_ms=call,
+                       plain_call_ms=plain_call, library_call_ms=lib_call)
+            log(f"{tag}: kernel {ms!r} ms device ({call!r} ms call; {tflops!r} TFLOP/s), "
+                f"plain {plain!r} ms device ({plain_call!r} ms call), sdpa {lib!r} ms device "
+                f"({lib_call!r} ms call), bound {bound!r} ms (operations)")
         del q, k, v, got
     torch.cuda.empty_cache()
     return rec, norm
@@ -881,111 +927,146 @@ def phase_lm_full(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: K4 against its plain versions on the GNN path's tiles
+# phase 9: K4 against its plain versions on the GNN path's matrices
 # ---------------------------------------------------------------------------
 
 
-def k4_bound(T: int, F: int, n_src: int, n_out: int) -> tuple[float, str]:
-    """(least ms, what bounds it) of a K4 launch over T tiles at width F:
-    each input read once (the tiles, ``tile_src``, ``run_start`` and the
-    ``n_src`` rows of x), the ``n_out`` output rows written once, and
-    2 * 128^2 * F FP32 operations per tile."""
-    n_out_blocks = -(-n_out // BLOCK)
-    nbytes = 4 * (T * BLOCK * BLOCK + T + n_src * F + n_out * F) + 8 * (n_out_blocks + 1)
+def k4_bound(nnz: int, F: int, n_src: int, n_out: int) -> tuple[float, str, float]:
+    """(least ms, what bounds it, gather floor ms) of K4 over ``nnz``
+    entries at width F.  The bound reads each input once (col and val, 8 B
+    an entry; row_ptr, 8 B a row; the ``n_src`` rows of x) and writes the
+    ``n_out`` output rows once, against 2 * nnz * F FP32 operations; the
+    gather floor adds one x row read from memory per entry, what this
+    design moves when x does not stay in the 50 MB L2."""
+    nbytes = 8 * nnz + 8 * (n_out + 1) + 4 * F * (n_src + n_out)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * T * BLOCK * BLOCK * F / FP32_FLOPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    t_ops = 2 * nnz * F / FP32_FLOPS_PER_S
+    floor = (nbytes + 4 * F * nnz) / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", 1e3 * floor
 
 
 def k4_case(tag: str, src, dst, val, n_dst: int, n_src: int, F: int, gen,
-            timed: bool = False) -> dict:
-    """K4 on the edges ``src -> dst``: integer-valued tiles and x bit for bit
-    against ``block_spmm_ref`` and ``spmm_ref``; ``val`` (or normal values)
-    with normal x within K4_TOL of ``spmm_ref``, twice with the same bits;
-    with ``timed``, K4, ``block_spmm_ref`` and ``torch.sparse.mm`` timed."""
+            timed_run: bool = False, tiles: bool = True) -> dict:
+    """K4 on the edges ``src -> dst``: integer-valued weights and x bit for
+    bit against ``spmm_rows_ref`` and ``spmm_ref`` and, with ``tiles``,
+    K4 over ``rows_from_tiles`` of the same edges' tiles against
+    ``block_spmm_ref``; ``val`` (or normal values) with normal x within
+    K4_TOL of ``spmm_ref`` and ``spmm_rows_ref``, twice with the same bits;
+    with ``timed_run``, device and call times of K4, ``spmm_rows_ref`` and
+    ``torch.sparse.mm``, and K4's bound."""
     import torch
 
-    from repro_torch.kernels.gather_segsum import (block_spmm_ref, build_tiles,
-                                                   gather_segsum, spmm_ref)
+    from repro_torch.kernels.gather_segsum import (block_spmm_ref, build_rows, build_tiles,
+                                                   gather_segsum, rows_from_tiles, spmm_ref,
+                                                   spmm_rows_ref)
 
     m = src.shape[0]
     ival = torch.randint(-3, 4, (m,), generator=gen, device=DEVICE).float()
     ix = torch.randint(-4, 5, (n_src, F), generator=gen, device=DEVICE).float()
-    bt = build_tiles(src, dst, ival, n_dst, n_src)
-    got = gather_segsum(bt, ix, n_dst)
-    plain = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, ix,
-                           bt.n_out_blocks)[:n_dst]
+    rows = build_rows(src, dst, ival, n_dst, n_src)
+    got = gather_segsum(rows, ix, n_dst)
     sync()
-    check(torch.equal(got, plain), f"K4 {tag} int: not bit-identical to block_spmm_ref")
+    check(torch.equal(got, spmm_rows_ref(rows, ix)),
+          f"K4 {tag} int: not bit-identical to spmm_rows_ref")
     check(torch.equal(got, spmm_ref(src, dst, ival, ix, n_dst)),
           f"K4 {tag} int: not bit-identical to spmm_ref")
-    del bt, got, plain, ix
+    if tiles:
+        bt = build_tiles(src, dst, ival, n_dst, n_src)
+        tiled = gather_segsum(rows_from_tiles(bt), ix, n_dst)
+        plain = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, ix,
+                               bt.n_out_blocks)[:n_dst]
+        sync()
+        check(torch.equal(tiled, plain),
+              f"K4 {tag} int: rows of the tiles not bit-identical to block_spmm_ref")
+        del bt, tiled, plain
+    del rows, got, ix
     if val is None:
         val = torch.randn(m, generator=gen, device=DEVICE)
     x = torch.randn((n_src, F), generator=gen, device=DEVICE)
-    bt = build_tiles(src, dst, val, n_dst, n_src)
-    got = gather_segsum(bt, x, n_dst)
-    again = gather_segsum(bt, x, n_dst)
+    rows = build_rows(src, dst, val, n_dst, n_src)
+    got = gather_segsum(rows, x, n_dst)
+    again = gather_segsum(rows, x, n_dst)
     sync()
     check(torch.equal(got, again), f"K4 {tag}: two runs differ")
     err = compare(f"K4 {tag} vs spmm_ref", [got], [spmm_ref(src, dst, val, x, n_dst)],
                   exact=False, rtol=K4_TOL)
-    T = bt.tiles.shape[0]
-    row = {"T": T, "F": F, "n_out": n_dst, "occupancy": bt.occupancy, "max_abs_err": err}
-    log(f"K4 {tag} T={T} F={F}: int bit-identical to block_spmm_ref and spmm_ref; normal "
-        f"max_abs_err={err!r} vs spmm_ref (atol = rtol = {K4_TOL}); repeat bit-identical; "
-        f"occupancy {bt.occupancy!r}")
-    if timed:
-        args = (bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x, bt.n_out_blocks)
+    err = max(err, compare(f"K4 {tag} vs spmm_rows_ref", [got], [spmm_rows_ref(rows, x)],
+                           exact=False, rtol=K4_TOL))
+    row = {"nnz": m, "F": F, "n_out": n_dst, "n_src": n_src, "max_abs_err": err}
+    log(f"K4 {tag} nnz={m} F={F}: int bit-identical to spmm_rows_ref, spmm_ref"
+        f"{' and block_spmm_ref (rows of the tiles)' if tiles else ''}; normal "
+        f"max_abs_err={err!r} vs spmm_ref and spmm_rows_ref (atol = rtol = {K4_TOL}); "
+        f"repeat bit-identical")
+    if timed_run:
         with warnings.catch_warnings():  # torch calls its CSR support beta
             warnings.simplefilter("ignore", UserWarning)
             csr = torch.sparse_coo_tensor(
                 torch.stack([dst.long(), src.long()]), val, (n_dst, n_src),
                 check_invariants=True).coalesce().to_sparse_csr()
         lib_err = max_abs(torch.sparse.mm(csr, x), got)
-        ms = cuda_time_ms(lambda: gather_segsum(bt, x, n_dst))
-        plain = cuda_time_ms(lambda: block_spmm_ref(*args), reps=10)
-        lib = cuda_time_ms(lambda: torch.sparse.mm(csr, x))
-        bound, by = k4_bound(T, F, n_src, n_dst)
-        row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                   library_max_abs_err=lib_err)
-        log(f"K4 {tag}: kernel {ms!r} ms, plain {plain!r} ms, torch.sparse.mm {lib!r} ms "
-            f"(max abs diff {lib_err!r}), bound {bound!r} ms ({by}); kernel / library "
-            f"{ms / lib!r}")
+        ms, call = timed(lambda: gather_segsum(rows, x, n_dst))
+        plain, plain_call = timed(lambda: spmm_rows_ref(rows, x), calls=20, reps=10)
+        lib, lib_call = timed(lambda: torch.sparse.mm(csr, x))
+        bound, by, floor = k4_bound(m, F, n_src, n_dst)
+        row.update(ms=ms, call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
+                   library_ms=lib, library_call_ms=lib_call, bound_ms=bound, bound_by=by,
+                   gather_floor_ms=floor, library_max_abs_err=lib_err)
+        log(f"K4 {tag}: kernel {ms!r} ms device ({call!r} ms call), plain {plain!r} ms "
+            f"device ({plain_call!r} ms call), torch.sparse.mm {lib!r} ms device "
+            f"({lib_call!r} ms call; max abs diff {lib_err!r}), bound {bound!r} ms ({by}), "
+            f"gather floor {floor!r} ms; kernel / library (device) {ms / lib!r}")
         del csr
-    del bt
+    del rows
     torch.cuda.empty_cache()
     return row
 
 
-def phase_k4(seed: int) -> tuple[dict, dict]:
-    import torch
-
+def gcn_graph(shape: str, seed: int, kept: dict):
+    """(graph_batch of gcn-cora at ``shape`` on the card, seconds to draw
+    it).  The ``ogb_products`` graph (7-8 s to draw) is drawn once and kept
+    in ``kept`` until phase 11 takes it out."""
     from repro_torch.configs import GNN_SHAPES, get_config
     from repro_torch.launch.cells import graph_batch
+
+    if shape in kept:
+        return kept[shape]
+    t0 = time.perf_counter()
+    g = graph_batch(get_config(GNN_ARCH), GNN_SHAPES[shape], seed, device=DEVICE)
+    sync()
+    out = (g, time.perf_counter() - t0)
+    if shape == "ogb_products":
+        kept[shape] = out
+    return out
+
+
+def phase_k4(seed: int, kept: dict) -> tuple[dict, dict]:
+    import torch
+
     from repro_torch.models.gnn import gcn_edge_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in float32
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    cfg = get_config(GNN_ARCH)
     cases = {}
-    # the path's tiles: gcn-cora's two directions, at both layer widths
-    for shape, widths in (("full_graph_sm", GCN_WIDTHS), ("minibatch_lg", GCN_WIDTHS[:1])):
-        g = graph_batch(cfg, GNN_SHAPES[shape], seed, device=DEVICE)
+    # the path's matrices: gcn-cora's two directions at both layer widths on
+    # the Cora-sized graph; the forward direction at F 16 on the two large
+    # graphs, where dense tiles are not built
+    for shape in GCN_SHAPES:
+        g, _ = gcn_graph(shape, seed, kept)
         ew, _ = gcn_edge_weights(g)
         N = g.node_feat.shape[0]
         src, dst = g.edge_src, g.edge_dst
         del g
-        dirs = (("fwd", src, dst), ("bwd", dst, src)) if shape == "full_graph_sm" \
-            else (("fwd", src, dst),)
+        small = shape == "full_graph_sm"
+        dirs = (("fwd", src, dst), ("bwd", dst, src)) if small else (("fwd", src, dst),)
         for name, s, d in dirs:
-            for F in widths:
+            for F in GCN_WIDTHS if small else GCN_WIDTHS[:1]:
                 cases[f"{shape} {name} F={F}"] = k4_case(
-                    f"{shape} {name} F={F}", s, d, ew, N, N, F, gen, timed=name == "fwd")
+                    f"{shape} {name} F={F}", s, d, ew, N, N, F, gen,
+                    timed_run=name == "fwd", tiles=small)
         del src, dst, ew
-    # tests/test_kernels.py's sweep: ragged n_src, several F tiles
+    # tests/test_kernels.py's sweep: ragged n_src, F past 32
     for i, (n_dst, n_src, m, F, s) in enumerate(K4_SWEEP):
         rng = np.random.default_rng(s)
         src = torch.from_numpy(rng.integers(0, n_src, m).astype(np.int32)).to(DEVICE)
@@ -994,7 +1075,8 @@ def phase_k4(seed: int) -> tuple[dict, dict]:
                                      None, n_dst, n_src, F, gen)
     head = cases[f"minibatch_lg fwd F={GCN_WIDTHS[0]}"]
     rec = {"max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-           **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+           **{k: head[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "call_ms", "plain_call_ms", "library_call_ms")}}
     return rec, cases
 
 
@@ -1030,7 +1112,7 @@ def phase_gnn_parity(seed: int) -> tuple[dict, object]:
     from repro_torch.configs import GNN_SHAPES, get_config
     from repro_torch.kernels.gather_segsum import ops as k4_ops
     from repro_torch.launch.cells import graph_batch
-    from repro_torch.models.gnn import GraphBatch, gcn_tiles
+    from repro_torch.models.gnn import GraphBatch, gcn_rows
 
     spec = GNN_SHAPES["full_graph_sm"]
     out, gcn_logits = {}, None
@@ -1039,9 +1121,9 @@ def phase_gnn_parity(seed: int) -> tuple[dict, object]:
         g_cpu = graph_batch(cfg, spec, seed, device="cpu")
         g = GraphBatch(*(t.to(DEVICE) for t in g_cpu))
         cpu, gpu = gnn_models(cfg, g.node_feat.shape[1], g.edge_feat.shape[1] or 4, seed)
-        tiles = gcn_tiles(g) if cfg.kind == "gcn" else None
+        rows = gcn_rows(g) if cfg.kind == "gcn" else None
         n0 = k4_ops.launches
-        got = gpu(g, tiles)
+        got = gpu(g, rows)
         sync()
         launches = k4_ops.launches - n0
         t0 = time.perf_counter()
@@ -1061,7 +1143,7 @@ def phase_gnn_parity(seed: int) -> tuple[dict, object]:
                 f"{k}={v!r}" for k, v in out[arch].items() if k != "err_over_row_scale"))
         if cfg.kind == "gcn":
             gcn_logits = want
-        del g, g_cpu, cpu, gpu, tiles, got, want
+        del g, g_cpu, cpu, gpu, rows, got, want
     torch.cuda.empty_cache()
     return out, gcn_logits
 
@@ -1073,7 +1155,7 @@ def phase_gnn_parity(seed: int) -> tuple[dict, object]:
 
 def gcn_plain(model, g):
     """``model``'s GCN forward on ``g`` with both aggregations of each layer
-    computed by ``spmm_ref`` on the COO edges, so without K4 or tiles."""
+    computed by ``spmm_ref`` on the COO edges, so without K4 or rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.gather_segsum import spmm_ref
@@ -1093,32 +1175,34 @@ def gcn_plain(model, g):
     return x
 
 
-def phase_gcn(seed: int, cpu_logits) -> dict:
+def phase_gcn(seed: int, cpu_logits, kept: dict) -> dict:
     import torch
 
-    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.configs import get_config
     from repro_torch.kernels.gather_segsum import ops as k4_ops
-    from repro_torch.launch.cells import graph_batch
-    from repro_torch.models.gnn import gcn_tiles
+    from repro_torch.models.gnn import gcn_rows
 
     cfg = get_config(GNN_ARCH)
     out = {"launches": 0}
-    for shape in ("full_graph_sm", "minibatch_lg"):
+    # ogb_products first, so that its graph, kept from phase 9, is gone
+    # before the other shapes' peak memory is read
+    for shape in ("ogb_products",) + GCN_SHAPES[:-1]:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        g = graph_batch(cfg, GNN_SHAPES[shape], seed, device=DEVICE)
-        sync()
-        gen_s = time.perf_counter() - t0
+        g, gen_s = gcn_graph(shape, seed, kept)
+        kept.pop(shape, None)
         N, E, F = g.node_feat.shape[0], g.edge_src.shape[0], g.node_feat.shape[1]
         _, model = gnn_models(cfg, F, 4, seed)
+        sync()
         t0 = time.perf_counter()
-        tiles = gcn_tiles(g)
+        rows = gcn_rows(g)
         sync()
         build_s = time.perf_counter() - t0
-        T = tiles.fwd.tiles.shape[0] + tiles.bwd.tiles.shape[0]
+        nnz = sum(r.col.shape[0] for r in (rows.fwd, rows.bwd))
+        rows_bytes = sum(t.numel() * t.element_size() for r in (rows.fwd, rows.bwd)
+                         for t in (r.row_ptr, r.col, r.val))
         k4_ops.launches = 0
-        logits = model(g, tiles)
+        logits = model(g, rows)
         sync()
         launches = k4_ops.launches
         check(launches == 2 * cfg.n_layers,
@@ -1129,30 +1213,30 @@ def phase_gcn(seed: int, cpu_logits) -> dict:
         times = []
         for _ in range(GNN_FORWARDS):
             t0 = time.perf_counter()
-            model(g, tiles)
+            model(g, rows)
             sync()
             times.append(time.perf_counter() - t0)
         check(k4_ops.launches == launches * (GNN_FORWARDS + 1), f"gcn {shape}: K4 launches")
+        peak = torch.cuda.max_memory_allocated()
         # all four launches (both directions, both widths) against the plain
         # aggregations on the same graph and weights
         plain_rel = row_rel_err(logits, gcn_plain(model, g))
         check(plain_rel <= GNN_TOL, f"gcn {shape}: {plain_rel!r} of the row scale from the "
               f"forward through spmm_ref, beyond {GNN_TOL}")
         med = statistics.median(times)
-        row = {"nodes": N, "edges": E, "d_feat": F, "tiles_both_directions": T,
-               "tile_gb": T * BLOCK * BLOCK * 4 / 1e9, "occupancy": tiles.fwd.occupancy,
-               "graph_s": gen_s, "tile_build_s": build_s, "forward_median_s": med,
-               "forward_min_s": min(times), "nodes_per_s": N / med,
-               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "k4_launches": launches, "err_over_row_scale_vs_spmm_ref": plain_rel}
+        row = {"nodes": N, "edges": E, "d_feat": F, "nnz_both_directions": nnz,
+               "rows_gb": rows_bytes / 1e9, "graph_s": gen_s, "rows_build_s": build_s,
+               "forward_median_s": med, "forward_min_s": min(times), "nodes_per_s": N / med,
+               "max_memory_allocated_gb": peak / 1e9, "k4_launches": launches,
+               "err_over_row_scale_vs_spmm_ref": plain_rel}
         if cpu_logits is not None and shape == "full_graph_sm":
             row["err_over_row_scale_vs_cpu"] = rel = row_rel_err(logits, cpu_logits)
             check(rel <= GNN_TOL, f"gcn {shape}: {rel!r} of the row scale from the cpu run")
         log(f"gcn-cora {shape} main path: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
-        row["profile"] = trace(f"gcn-cora {shape} forward", 3, lambda: model(g, tiles),
-                               {"gather_segsum": "block_spmm_kernel"})
+        row["profile"] = trace(f"gcn-cora {shape} forward", 3, lambda: model(g, rows),
+                               {"gather_segsum": "gather_segsum_kernel"})
         out[shape] = row
-        del g, model, tiles, logits
+        del g, model, rows, logits
     torch.cuda.empty_cache()
     return out
 
@@ -1219,11 +1303,12 @@ def main() -> int:
         f"{time.perf_counter() - t_lm!r} s")
 
     t_gnn = time.perf_counter()
-    k4, k4_cases = phase_k4(GNN_SEED)
+    kept = {}  # the ogb_products graph, from phase 9 to phase 11
+    k4, k4_cases = phase_k4(GNN_SEED, kept)
     log("phase 9: K4 agrees with its plain versions")
     gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
     log("phase 10: GNN forward cuda==cpu within tolerance")
-    gcn = phase_gcn(GNN_SEED, gcn_cpu_logits)
+    gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
     log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
         f"{time.perf_counter() - t_gnn!r} s")
 

@@ -6,8 +6,8 @@ Semantics are the reference's: segment ids index the leading dimension of
 the output and must lie in ``[0, num_segments)``; an empty segment sums to
 0, averages to 0 and has the maximum ``-inf`` (the dtype's minimum for an
 integer dtype), as ``jax.ops.segment_max`` gives.  ``gather_scatter_sum``
-is the COO form of the contract that the block-sparse kernel
-(:mod:`repro_torch.kernels.gather_segsum`) computes from dense tiles.
+is the COO form of the contract that the SpMM kernel
+(:mod:`repro_torch.kernels.gather_segsum`) computes from destination rows.
 ``PaddedCSR`` / ``build_padded_csr`` are a numpy copy.
 """
 

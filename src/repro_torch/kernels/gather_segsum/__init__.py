@@ -1,5 +1,6 @@
-from .ops import BlockTiles, block_spmm, build_tiles, check_kernel_args, gather_segsum
-from .ref import block_spmm_ref, spmm_ref
+from .ops import (BlockRows, BlockTiles, build_rows, build_tiles, check_kernel_args,
+                  gather_segsum, rows_from_tiles)
+from .ref import block_spmm_ref, spmm_ref, spmm_rows_ref
 
-__all__ = ["BlockTiles", "block_spmm", "build_tiles", "check_kernel_args", "gather_segsum",
-           "block_spmm_ref", "spmm_ref"]
+__all__ = ["BlockRows", "BlockTiles", "build_rows", "build_tiles", "check_kernel_args",
+           "gather_segsum", "rows_from_tiles", "block_spmm_ref", "spmm_ref", "spmm_rows_ref"]

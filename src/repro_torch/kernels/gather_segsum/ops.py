@@ -1,42 +1,55 @@
-"""Block tiling and the wrapper of the block-sparse SpMM kernel (K4,
-``csrc/gather_segsum.cu``), port of ``repro/kernels/gather_segsum/ops.py``.
+"""The sparse formats and the wrapper of the destination-row SpMM kernel
+(K4, ``csrc/gather_segsum.cu``), port of ``repro/kernels/gather_segsum/ops.py``.
 
-:func:`build_tiles` buckets COO edges into dense 128x128 tiles on the
-tensors' own device (no Python loop per tile, no host copy of the tiles)
-and returns the same arrays as the reference's ``build_tiles``.
-:func:`gather_segsum` runs :func:`block_spmm`: on CPU tensors its plain
-version :func:`block_spmm_ref`, on CUDA tensors the kernel (or it raises).
-``launches`` counts kernel launches (not CPU calls).
+:func:`build_rows` gives a sparse matrix as :class:`BlockRows`, its
+destination-sorted CSR form, which K4 reads.  :func:`build_tiles` buckets
+the same edges into the reference's dense 128x128 tiles (the arrays of
+``repro``'s ``build_tiles``, bit for bit) for parity with its Pallas kernel;
+:func:`rows_from_tiles` gives the matrix of such tiles as rows.  Both build
+on the tensors' own device, with no Python loop per row or tile and no host
+copy.  :func:`gather_segsum` runs K4 on CUDA tensors (or raises) and its
+plain version :func:`spmm_rows_ref` on CPU tensors.  ``launches`` counts
+kernel launches (not CPU calls).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _launch
-from .ref import block_spmm_ref
+from .ref import spmm_rows_ref
 
-__all__ = ["BlockTiles", "build_tiles", "block_spmm", "gather_segsum", "check_kernel_args",
-           "launches", "BLOCK"]
+__all__ = ["BlockRows", "BlockTiles", "build_rows", "build_tiles", "rows_from_tiles",
+           "gather_segsum", "check_kernel_args", "launches", "BLOCK"]
 
 launches = 0
-BLOCK = 128  # the kernel's tile edge
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                     ctypes.c_int64, ctypes.c_void_p]
+BLOCK = 128  # the reference's tile edge
+_FILL_THREADS = 2 * 132 * 128  # two of K4's CTAs on each SM of an H100
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+
+
+@dataclass
+class BlockRows:
+    """A sparse ``[n_out, n_src]`` matrix in destination-sorted CSR form:
+    the entries of row ``r`` are ``[row_ptr[r], row_ptr[r + 1])``, in edge
+    order (duplicate edges kept, not summed)."""
+
+    row_ptr: torch.Tensor  # [n_out + 1] i64
+    col: torch.Tensor  # [nnz] i32, the source row of each entry
+    val: torch.Tensor  # [nnz] f32
+    n_out: int
+    n_src: int
 
 
 @dataclass
 class BlockTiles:
-    """Dense tiles of a sparse matrix, sorted by destination block.
-
-    Construction checks that ``tile_dst`` is sorted (one read of the device,
-    once per tile set) and derives ``run_start``: the tiles of output block
-    ``b`` are ``[run_start[b], run_start[b + 1])``, the run K4 walks.
-    """
+    """Dense tiles of a sparse matrix sorted by destination block: the
+    reference's ``BlockTiles``."""
 
     tiles: torch.Tensor  # [T, bs, bs] f32, A[dst_local, src_local]
     tile_src: torch.Tensor  # [T] i32
@@ -46,18 +59,42 @@ class BlockTiles:
     n_src_blocks: int
     block_size: int
     occupancy: float  # nnz / (T * bs * bs) — tile density diagnostic
-    run_start: torch.Tensor = field(init=False, repr=False)  # [n_out_blocks + 1] i64
 
-    def __post_init__(self):
-        d = self.tile_dst
-        if d.shape[0] > 1 and bool((d[1:] < d[:-1]).any()):
-            raise ValueError("BlockTiles: tile_dst is not sorted")
-        bounds = torch.arange(self.n_out_blocks + 1, dtype=d.dtype, device=d.device)
-        self.run_start = torch.searchsorted(d, bounds)
+
+def _device(src, device) -> torch.device:
+    if isinstance(src, torch.Tensor) and device is None:
+        return src.device
+    return resolve_device(device)
 
 
 def _as(a, dtype, dev) -> torch.Tensor:
     return torch.as_tensor(a).to(device=dev, dtype=dtype)
+
+
+def _edges(src, dst, val, device, index_dtype=torch.int64):
+    dev = _device(src, device)
+    src, dst = _as(src, index_dtype, dev), _as(dst, index_dtype, dev)
+    val = (torch.ones(src.shape[0], dtype=torch.float32, device=dev) if val is None
+           else _as(val, torch.float32, dev))
+    return src, dst, val, dev
+
+
+def build_rows(src, dst, val, n_dst: int, n_src: int,
+               device: str | torch.device | None = None) -> BlockRows:
+    """Edges ``src -> dst`` with weights ``val`` (ones when None) as
+    destination rows: one stable sort by ``dst``, then ``bincount`` and
+    ``cumsum`` for ``row_ptr``.  Runs on ``src``'s device when it is a
+    tensor, else on ``device`` (default ``cuda``), on int32 indices (half
+    the transient memory of int64 at ogbn-products' 61.9M edges); raises on
+    a ``dst`` outside ``[0, n_dst)``."""
+    src, dst, val, dev = _edges(src, dst, val, device, torch.int32)
+    dst, order = torch.sort(dst, stable=True)
+    counts = torch.bincount(dst, minlength=n_dst)
+    if counts.shape[0] != n_dst:
+        raise ValueError(f"build_rows: a destination lies past n_dst = {n_dst}")
+    row_ptr = torch.zeros(n_dst + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    return BlockRows(row_ptr, src[order], val[order], n_dst, n_src)
 
 
 def build_tiles(src, dst, val, n_dst: int, n_src: int, block_size: int = BLOCK,
@@ -68,11 +105,7 @@ def build_tiles(src, dst, val, n_dst: int, n_src: int, block_size: int = BLOCK,
     tile (``tile_src = 0``) appended for each destination block with no
     edge, then stable-sorted by ``tile_dst``.  Runs on ``src``'s device
     when it is a tensor, else on ``device`` (default ``cuda``)."""
-    dev = src.device if isinstance(src, torch.Tensor) and device is None \
-        else resolve_device(device)
-    src, dst = _as(src, torch.int64, dev), _as(dst, torch.int64, dev)
-    val = (torch.ones(src.shape[0], dtype=torch.float32, device=dev) if val is None
-           else _as(val, torch.float32, dev))
+    src, dst, val, dev = _edges(src, dst, val, device)
     bs = block_size
     n_db, n_sb = -(-n_dst // bs), -(-n_src // bs)
     key, order = torch.sort((dst // bs) * n_sb + src // bs, stable=True)
@@ -101,55 +134,83 @@ def build_tiles(src, dst, val, n_dst: int, n_src: int, block_size: int = BLOCK,
                       n_db, n_sb, bs, occ)
 
 
-def check_kernel_args(bt: BlockTiles, x) -> None:
-    """Raise unless K4 covers these arguments: contiguous float32 ``tiles
-    [T, 128, 128]`` and ``x [n, F]`` with ``n >= 1``, contiguous int32
-    ``tile_src [T]`` and int64 ``run_start [n_out_blocks + 1]``, all on one
-    device."""
-    tiles = bt.tiles
-    dev = tiles.device if isinstance(tiles, torch.Tensor) else None
-    if dev is None or tiles.dim() != 3:
-        raise ValueError("block_spmm: tiles must be a [T, bs, bs] tensor")
-    if tuple(tiles.shape[1:]) != (BLOCK, BLOCK):
-        raise ValueError(f"block_spmm: tile shape {tuple(tiles.shape[1:])}; the kernel "
-                         f"takes block_size {BLOCK} only")
-    _launch.require(tiles, "block_spmm: tiles", torch.float32, dev)
-    _launch.require(bt.tile_src, "block_spmm: tile_src", torch.int32, dev, tiles.shape[0])
-    _launch.require(bt.run_start, "block_spmm: run_start", torch.int64, dev,
-                    bt.n_out_blocks + 1)
-    _launch.require(x, "block_spmm: x", torch.float32, dev)
+def rows_from_tiles(bt: BlockTiles) -> BlockRows:
+    """The matrix of ``bt`` as rows (``n_out_blocks * bs`` by
+    ``n_src_blocks * bs``): its nonzeros in tile order, so each row's
+    entries keep the order in which the tiles add them."""
+    bs = bt.block_size
+    t, r, c = torch.nonzero(bt.tiles, as_tuple=True)
+    dst = bt.tile_dst.long()[t] * bs + r
+    src = bt.tile_src.long()[t] * bs + c
+    return build_rows(src, dst, bt.tiles[t, r, c], bt.n_out_blocks * bs,
+                      bt.n_src_blocks * bs)
+
+
+def check_kernel_args(rows: BlockRows, x, n_out: int) -> None:
+    """Raise unless K4 covers these arguments: contiguous float32 ``x
+    [n >= 1, F]``, int64 ``row_ptr [n_out + 1]``, int32 ``col [nnz]`` and
+    float32 ``val [nnz]``, all on x's device, and ``0 <= n_out <=
+    rows.n_out``."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"gather_segsum: x must be a tensor, got {type(x).__name__}")
+    dev = x.device
+    _launch.require(x, "gather_segsum: x", torch.float32, dev)
     if x.dim() != 2 or x.shape[0] < 1:
-        raise ValueError(f"block_spmm: x must be [n >= 1, F], got {tuple(x.shape)}")
+        raise ValueError(f"gather_segsum: x must be [n >= 1, F], got {tuple(x.shape)}")
+    _launch.require(rows.row_ptr, "gather_segsum: row_ptr", torch.int64, dev, rows.n_out + 1)
+    _launch.require(rows.col, "gather_segsum: col", torch.int32, dev)
+    if rows.col.dim() != 1:
+        raise ValueError(f"gather_segsum: col must be [nnz], got {tuple(rows.col.shape)}")
+    _launch.require(rows.val, "gather_segsum: val", torch.float32, dev, rows.col.shape[0])
+    if not 0 <= n_out <= rows.n_out:
+        raise ValueError(f"gather_segsum: n_out {n_out} outside [0, {rows.n_out}]")
 
 
-def block_spmm(bt: BlockTiles, x: torch.Tensor) -> torch.Tensor:
-    """``out[tile_dst[t]] += tiles[t] @ x[tile_src[t]]`` over all tiles ->
-    ``[n_out_blocks * 128, F]``; x is read in place, rows past its end as 0.
+def _lanes_per_edge(F: int) -> int:
+    """Lanes that share one edge's x row, 4 columns each: 1, 2, 4 or 8 at
+    F <= 32; past that a warp, looping over 128-column chunks."""
+    need = -(-F // 4)
+    return next((g for g in (1, 2, 4, 8) if need <= g), 32)
 
-    On CUDA, one CTA of K4 per (output block, column tile) walks the block's
-    run of tiles (``bt.run_start``), so each output block is written once
-    and ``first_visit`` is implied.
+
+def _edges_per_row(lanes: int, nnz: int, n_out: int) -> int:
+    """Edges of one row in flight at once (the groups of ``lanes`` lanes on
+    one row), a power of two within a warp: the largest at most a quarter
+    of the mean row length (each group keeps 4 more in flight), raised
+    until the launch has two 128-thread CTAs per SM of an H100."""
+    e = 1
+    while 2 * e * lanes <= 32 and (8 * e * n_out <= nnz or e * lanes * n_out < _FILL_THREADS):
+        e *= 2
+    return e
+
+
+def gather_segsum(rows: BlockRows, x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """``out[r] = sum_{e in row r} val[e] * x[col[e]]`` for the first
+    ``n_out`` rows -> ``[n_out, F]``; rows of x past its end read as 0.
+
+    On CUDA, K4 gives each row a team of lanes (:func:`_lanes_per_edge` x
+    :func:`_edges_per_row`), sums each group's edges in order and the
+    groups with a fixed shuffle tree, and writes the row once: no atomics,
+    the same bits every run.
     """
     global launches
-    if x.device.type == "cpu":
-        return block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x,
-                              bt.n_out_blocks)
-    if x.device.type != "cuda":
-        raise ValueError(f"block_spmm: unsupported device {x.device}")
-    check_kernel_args(bt, x)
+    dev = getattr(x, "device", None)
+    if dev is not None and dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_segsum: unsupported device {dev}")
+    check_kernel_args(rows, x, n_out)
+    if dev.type == "cpu":
+        return spmm_rows_ref(rows, x)[:n_out]
     n, f = x.shape
-    out = torch.empty((bt.n_out_blocks * BLOCK, f), dtype=torch.float32, device=x.device)
+    out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    g = _lanes_per_edge(f)
+    e = _edges_per_row(g, rows.col.shape[0], n_out)
+    vec = int(f % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = _launch.bind("gather_segsum", "gather_segsum_launch", _ARGTYPES)
-    err = fn(bt.tiles.data_ptr(), bt.tile_src.data_ptr(), bt.run_start.data_ptr(),
-             x.data_ptr(), out.data_ptr(), bt.n_out_blocks, n, f, out.shape[0],
+    err = fn(rows.row_ptr.data_ptr(), rows.col.data_ptr(), rows.val.data_ptr(),
+             x.data_ptr(), out.data_ptr(), n_out, n, f, g, e, vec,
              _launch.stream_ptr(x.device))
     _launch.check(err, "gather_segsum_launch")
     launches += 1
     return out
-
-
-def gather_segsum(bt: BlockTiles, x: torch.Tensor, n_out: int) -> torch.Tensor:
-    """``out[d] = sum_e val_e * x[src_e]`` over the tiled edges -> ``[n_out, F]``."""
-    return block_spmm(bt, x)[:n_out]

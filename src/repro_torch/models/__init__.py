@@ -2,11 +2,11 @@
 transformer) and the GNN zoo's forward (``gnn``)."""
 
 from .attention import decode_attention, flash_attention
-from .gnn import GNN, GCNTiles, GraphBatch, gcn_tiles, gnn_forward, gnn_loss, init_gnn_params
+from .gnn import GNN, GCNRows, GraphBatch, gcn_rows, gnn_forward, gnn_loss, init_gnn_params
 from .transformer import (DecoderLayer, KVCache, TransformerLM, cache_window,
                           decode_step, prefill)
 
 __all__ = ["decode_attention", "flash_attention", "DecoderLayer", "KVCache",
            "TransformerLM", "cache_window", "decode_step", "prefill",
-           "GNN", "GCNTiles", "GraphBatch", "gcn_tiles", "gnn_forward", "gnn_loss",
+           "GNN", "GCNRows", "GraphBatch", "gcn_rows", "gnn_forward", "gnn_loss",
            "init_gnn_params"]

@@ -4,11 +4,11 @@ MeshGraphNet and DimeNet, forward (inference) only.
 GCN's two aggregations per layer (``A h`` over ``src -> dst`` and ``A^T h``
 over ``dst -> src``, weights ``inv_sqrt[src] * inv_sqrt[dst]``) go through
 :func:`repro_torch.kernels.gather_segsum.gather_segsum`: the K4 kernel on
-CUDA, its plain tile-level version on the CPU.  The weights depend only on
-the graph, so the tiles are built once per graph by :func:`gcn_tiles` and
-passed to :func:`gnn_forward` (built there when not given).  GAT,
-MeshGraphNet and DimeNet aggregate with ``segment_sum`` in plain PyTorch,
-as the reference does outside any Pallas kernel.
+CUDA, its plain row-level version on the CPU.  The weights depend only on
+the graph, so both directions' destination rows are built once per graph by
+:func:`gcn_rows` and passed to :func:`gnn_forward` (built there when not
+given).  GAT, MeshGraphNet and DimeNet aggregate with ``segment_sum`` in
+plain PyTorch, as the reference does outside any Pallas kernel.
 
 Parameters keep the reference's tree layout (``x @ w``; MeshGraphNet's
 ``proc_*`` and DimeNet's ``blocks`` stacked with a leading L dimension);
@@ -31,10 +31,10 @@ from torch import nn
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.segment_ops import segment_mean, segment_softmax, segment_sum
-from repro_torch.kernels.gather_segsum import BlockTiles, build_tiles, gather_segsum
+from repro_torch.kernels.gather_segsum import BlockRows, build_rows, gather_segsum
 from repro_torch.models.layers import normal_init
 
-__all__ = ["GraphBatch", "GCNTiles", "GNN", "init_gnn_params", "gcn_edge_weights", "gcn_tiles",
+__all__ = ["GraphBatch", "GCNRows", "GNN", "init_gnn_params", "gcn_edge_weights", "gcn_rows",
            "gnn_forward", "gnn_loss", "make_triplets", "flatten_params", "unflatten_params"]
 
 
@@ -60,11 +60,11 @@ class GraphBatch(NamedTuple):
     edge_len: torch.Tensor  # [E] f32 distances (dimenet)
 
 
-class GCNTiles(NamedTuple):
-    """GCN's normalised adjacency as block tiles, built once per graph."""
+class GCNRows(NamedTuple):
+    """GCN's normalised adjacency as destination rows, built once per graph."""
 
-    fwd: BlockTiles  # src -> dst, weights inv_sqrt[src] * inv_sqrt[dst]
-    bwd: BlockTiles  # dst -> src, the same weights
+    fwd: BlockRows  # src -> dst, weights inv_sqrt[src] * inv_sqrt[dst]
+    bwd: BlockRows  # dst -> src, the same weights
     self_weight: torch.Tensor  # [N] inv_sqrt^2, the self loop
 
 
@@ -175,7 +175,7 @@ def unflatten_params(items) -> dict:
 
 
 class GNN(nn.Module):
-    """A GNN's parameter tree on one device; ``forward(g, tiles=None)`` is
+    """A GNN's parameter tree on one device; ``forward(g, rows=None)`` is
     :func:`gnn_forward`.
 
     ``device=None`` means ``cuda`` (raising without a GPU; pass ``"cpu"``
@@ -209,8 +209,8 @@ class GNN(nn.Module):
         """The parameter tree in the reference's layout."""
         return unflatten_params((p, getattr(self, self._name(p))) for p in self._paths)
 
-    def forward(self, g: GraphBatch, tiles: GCNTiles | None = None) -> torch.Tensor:
-        return gnn_forward(self.params(), g, self.cfg, tiles=tiles)
+    def forward(self, g: GraphBatch, rows: GCNRows | None = None) -> torch.Tensor:
+        return gnn_forward(self.params(), g, self.cfg, rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -239,27 +239,27 @@ def gcn_edge_weights(g: GraphBatch) -> tuple[torch.Tensor, torch.Tensor]:
     return ew, inv_sqrt
 
 
-def gcn_tiles(g: GraphBatch) -> GCNTiles:
-    """GCN's normalised adjacency of ``g`` as two tile sets (one per
-    direction) on ``g``'s device, and the self-loop weights."""
+def gcn_rows(g: GraphBatch) -> GCNRows:
+    """GCN's normalised adjacency of ``g`` as destination rows in both
+    directions on ``g``'s device, and the self-loop weights."""
     N = g.node_feat.shape[0]
     ew, inv_sqrt = gcn_edge_weights(g)
-    src, dst = g.edge_src.long(), g.edge_dst.long()
-    return GCNTiles(fwd=build_tiles(src, dst, ew, N, N),
-                    bwd=build_tiles(dst, src, ew, N, N),
-                    self_weight=inv_sqrt * inv_sqrt)
+    src, dst = g.edge_src, g.edge_dst
+    return GCNRows(fwd=build_rows(src, dst, ew, N, N),
+                   bwd=build_rows(dst, src, ew, N, N),
+                   self_weight=inv_sqrt * inv_sqrt)
 
 
-def _gcn_forward(p, g: GraphBatch, cfg: GNNConfig, tiles: GCNTiles | None):
+def _gcn_forward(p, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None):
     N = g.node_feat.shape[0]
-    tiles = tiles if tiles is not None else gcn_tiles(g)
+    rows = rows if rows is not None else gcn_rows(g)
     x = g.node_feat
     for i, (w, b) in enumerate(zip(p["w"], p["b"])):
         h = x @ w + b
         # symmetric-normalised aggregation over both directions + self loop
-        agg = gather_segsum(tiles.fwd, h, N)
-        agg = agg + gather_segsum(tiles.bwd, h, N)
-        x = agg + h * tiles.self_weight[:, None]
+        agg = gather_segsum(rows.fwd, h, N)
+        agg = agg + gather_segsum(rows.bwd, h, N)
+        x = agg + h * rows.self_weight[:, None]
         if i < len(p["w"]) - 1:
             x = F.relu(x)
     return x
@@ -352,22 +352,22 @@ def _dimenet_forward(p, g: GraphBatch, cfg: GNNConfig):
 
 
 def gnn_forward(p: dict, g: GraphBatch, cfg: GNNConfig,
-                tiles: GCNTiles | None = None) -> torch.Tensor:
+                rows: GCNRows | None = None) -> torch.Tensor:
     """Logits ``[N, n_classes]`` (``[N, d_out]`` for GAT's last layer).
-    ``tiles``: GCN's :func:`gcn_tiles` of ``g`` (built here when None);
-    the other kinds take none."""
+    ``rows``: GCN's :func:`gcn_rows` of ``g`` (built here when None); the
+    other kinds take none."""
     if cfg.kind == "gcn":
-        return _gcn_forward(p, g, cfg, tiles)
-    if tiles is not None:
-        raise ValueError(f"{cfg.kind}: only GCN aggregates through block tiles")
+        return _gcn_forward(p, g, cfg, rows)
+    if rows is not None:
+        raise ValueError(f"{cfg.kind}: only GCN aggregates through destination rows")
     fn = {"gat": _gat_forward, "meshgraphnet": _mgn_forward,
           "dimenet": _dimenet_forward}[cfg.kind]
     return fn(p, g, cfg)
 
 
-def gnn_loss(p: dict, g: GraphBatch, cfg: GNNConfig, tiles: GCNTiles | None = None):
+def gnn_loss(p: dict, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None = None):
     """Mean node cross-entropy over ``node_mask`` (forward value only)."""
-    logits = gnn_forward(p, g, cfg, tiles)
+    logits = gnn_forward(p, g, cfg, rows)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, g.labels.long()[:, None], dim=-1)[:, 0]
     nll = torch.where(g.node_mask, lse - ll, 0.0)

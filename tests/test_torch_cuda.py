@@ -199,13 +199,15 @@ def test_flash_attention_wrapper_raises_on_cuda(cuda):
     assert k3_ops.launches == n0
 
 
-# K4 gather_segsum: float32 FFMA against the plain tile-level version
-# (bit for bit on integer-valued tiles and x, where every sum is exact) and
-# the COO oracle at atol = rtol = 1e-4 (tests/test_kernels.py's contract).
+# K4 gather_segsum: float32 FFMA over destination rows against the plain
+# row-level version, the plain tile-level version on the same edges' tiles
+# (through rows_from_tiles) and the COO oracle: bit for bit on integer-valued
+# weights and x, where every sum is exact, else atol = rtol = 1e-4
+# (tests/test_kernels.py's contract).
 
 K4_CASES = [
     # (n_dst, n_src, n_edges, F, seed): tests/test_kernels.py's sweep, GCN's
-    # widths, and a run longer than one tile per output block
+    # widths, and rows longer than a warp's edges in flight
     (256, 256, 1000, 64, 0),
     (300, 200, 700, 16, 1),
     (128, 512, 2000, 128, 2),
@@ -219,8 +221,9 @@ K4_CASES = [
 @pytest.mark.parametrize("n_dst,n_src,m,F,seed", K4_CASES,
                          ids=[f"k4_{i}" for i in range(len(K4_CASES))])
 def test_gather_segsum_kernel_matches_plain(cuda, n_dst, n_src, m, F, seed, integer):
-    from repro_torch.kernels.gather_segsum import (block_spmm, block_spmm_ref, build_tiles,
-                                                   gather_segsum, spmm_ref)
+    from repro_torch.kernels.gather_segsum import (block_spmm_ref, build_rows, build_tiles,
+                                                   gather_segsum, rows_from_tiles, spmm_ref,
+                                                   spmm_rows_ref)
     from repro_torch.kernels.gather_segsum import ops as k4_ops
 
     rng = np.random.default_rng(seed)
@@ -232,42 +235,48 @@ def test_gather_segsum_kernel_matches_plain(cuda, n_dst, n_src, m, F, seed, inte
     else:
         val = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(cuda)
         x = torch.from_numpy(rng.normal(size=(n_src, F)).astype(np.float32)).to(cuda)
+    rows = build_rows(src, dst, val, n_dst, n_src)
+    assert rows.col.is_cuda and rows.row_ptr.is_cuda
     bt = build_tiles(src, dst, val, n_dst, n_src)
-    assert bt.tiles.is_cuda
     n0 = k4_ops.launches
-    got = gather_segsum(bt, x, n_dst)
-    again = block_spmm(bt, x)
+    got = gather_segsum(rows, x, n_dst)
+    again = gather_segsum(rows, x, n_dst)
+    tiled = gather_segsum(rows_from_tiles(bt), x, n_dst)
     torch.cuda.synchronize()
-    assert k4_ops.launches == n0 + 2
+    assert k4_ops.launches == n0 + 3
     assert got.shape == (n_dst, F)
-    assert torch.equal(got, again[:n_dst])  # the same bits every run
-    plain = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x,
+    assert torch.equal(got, again)  # the same bits every run
+    plain = spmm_rows_ref(rows, x)
+    block = block_spmm_ref(bt.tiles, bt.tile_src, bt.tile_dst, bt.first_visit, x,
                            bt.n_out_blocks)[:n_dst]
     coo = spmm_ref(src, dst, val, x, n_dst)
     if integer:
         assert torch.equal(got, plain) and torch.equal(got, coo)
+        assert torch.equal(tiled, block)
     else:
-        torch.testing.assert_close(got, coo, atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+        for want in (coo, plain):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(tiled, block, atol=1e-4, rtol=1e-4)
 
 
 def test_gather_segsum_wrapper_raises_on_cuda(cuda):
-    from repro_torch.kernels.gather_segsum import BlockTiles, block_spmm
+    from repro_torch.kernels.gather_segsum import BlockRows, gather_segsum
     from repro_torch.kernels.gather_segsum import ops as k4_ops
 
-    tiles = torch.zeros(3, 128, 128, device=cuda)
-    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    rows = BlockRows(torch.tensor([0, 1, 3], device=cuda),
+                     torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda),
+                     torch.ones(3, device=cuda), n_out=2, n_src=256)
     x = torch.zeros(256, 8, device=cuda)
     n0 = k4_ops.launches
-    with pytest.raises(ValueError, match="not sorted"):
-        BlockTiles(tiles, idx, torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda),
-                   idx, 2, 2, 128, 0.0)
-    bt = BlockTiles(tiles, idx, idx, idx, 1, 2, 128, 0.0)
     with pytest.raises(TypeError, match="x"):
-        block_spmm(bt, x.double())
-    bt.tile_src = idx.cpu()
+        gather_segsum(rows, x.double(), 2)
+    with pytest.raises(ValueError, match="n_out 3"):
+        gather_segsum(rows, x, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_segsum(rows, torch.zeros(8, 256, device=cuda).t(), 2)
+    rows.col = rows.col.cpu()
     with pytest.raises(ValueError, match="on cpu"):
-        block_spmm(bt, x)
+        gather_segsum(rows, x, 2)
     assert k4_ops.launches == n0
 
 
@@ -279,7 +288,7 @@ def test_gnn_forward_cuda_matches_cpu(cuda, arch):
     from repro_torch.configs import GNN_SHAPES, get_smoke_config
     from repro_torch.kernels.gather_segsum import ops as k4_ops
     from repro_torch.launch.cells import graph_batch
-    from repro_torch.models.gnn import GNN, gcn_tiles
+    from repro_torch.models.gnn import GNN, gcn_rows
 
     cfg = get_smoke_config(arch)
     spec = dataclasses.replace(GNN_SHAPES["full_graph_sm"], n_nodes=700, n_edges=3000,
@@ -289,9 +298,9 @@ def test_gnn_forward_cuda_matches_cpu(cuda, arch):
     cpu = GNN(cfg, 8, device="cpu")
     gpu = GNN(cfg, 8, device=cuda, init=False)
     gpu.load_state_dict(cpu.state_dict())
-    tiles = gcn_tiles(g_gpu) if arch == "gcn-cora" else None
+    rows = gcn_rows(g_gpu) if arch == "gcn-cora" else None
     n0 = k4_ops.launches
-    got = gpu(g_gpu, tiles)
+    got = gpu(g_gpu, rows)
     torch.cuda.synchronize()
     assert k4_ops.launches == n0 + (4 if arch == "gcn-cora" else 0)
     want = cpu(g_cpu)

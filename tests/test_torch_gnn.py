@@ -8,8 +8,8 @@ carried across with ``repro_torch.convert.gnn_params_from_numpy``.
 
 Tolerance, float32: each logit within 1e-4 of its row's largest |logit|,
 the loss to rtol 1e-4.  The two packages add in other orders
-(GCN's aggregation runs through block tiles, whose duplicate edges are
-summed before the product, against the reference's COO segment sums; XLA
+(GCN's aggregation runs through destination rows, each row's products
+summed in edge order, against the reference's COO segment sums; XLA
 fuses and reorders the MLPs' and DimeNet's contractions), so elements differ
 by a few float32 ulps of the row's scale; measured on these configs, at most
 5e-6 of it (MeshGraphNet).
@@ -35,7 +35,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import gnn_params_from_numpy, gnn_params_to_numpy  # noqa: E402
 from repro_torch.kernels.gather_segsum import ops as k4_ops  # noqa: E402
 from repro_torch.launch.cells import graph_batch  # noqa: E402
-from repro_torch.models.gnn import (GNN, GraphBatch, gcn_tiles, gnn_forward,  # noqa: E402
+from repro_torch.models.gnn import (GNN, GraphBatch, gcn_rows, gnn_forward,  # noqa: E402
                                     gnn_loss, init_gnn_params, make_triplets)
 
 ARCHS = ["gcn-cora", "gat-cora", "meshgraphnet", "dimenet"]
@@ -158,18 +158,19 @@ def test_forward_and_loss_match_jax(arch):
 
 def test_gcn_full_width_full_graph_sm_matches_jax():
     """gcn-cora at its published widths on the Cora-sized graph (3,072 nodes,
-    10,752 edges, 1,433 features): 576 tiles per direction."""
+    10,752 edges, 1,433 features), through both directions' rows."""
     cfg, jcfg = tconfigs.get_config("gcn-cora"), j_get_config("gcn-cora")
     spec = J_GNN_SHAPES["full_graph_sm"]
     g_t, g_j, params, model = _forward_pair("gcn-cora", spec, cfg, jcfg, seed=0)
-    tiles = gcn_tiles(g_t)
-    assert tiles.fwd.tiles.shape[0] == tiles.bwd.tiles.shape[0] == 576
+    rows = gcn_rows(g_t)
+    for r in (rows.fwd, rows.bwd):
+        assert (r.n_out, r.n_src, int(r.row_ptr[-1])) == (3072, 3072, 10_752)
     n0 = k4_ops.launches
-    got = model(g_t, tiles)
+    got = model(g_t, rows)
     assert k4_ops.launches == n0
     want = jgnn.gnn_forward(params, g_j, jcfg)
     _close(got, want, "gcn-cora full width")
-    assert torch.equal(got, gnn_forward(model.params(), g_t, cfg))  # tiles built inside
+    assert torch.equal(got, gnn_forward(model.params(), g_t, cfg))  # rows built inside
 
 
 def test_tiles_only_for_gcn_and_entry_points_need_a_device(monkeypatch):
@@ -179,7 +180,7 @@ def test_tiles_only_for_gcn_and_entry_points_need_a_device(monkeypatch):
     gcn = graph_batch(tconfigs.get_smoke_config("gcn-cora"), spec, seed=0, device="cpu")
     model = GNN(cfg, 8, device="cpu")
     with pytest.raises(ValueError, match="only GCN"):
-        model(g, gcn_tiles(gcn))
+        model(g, gcn_rows(gcn))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GNN(cfg, 8)
