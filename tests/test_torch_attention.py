@@ -10,7 +10,8 @@ the JAX package on the same numpy inputs.
   the blocked ``flash_attention`` in the model layout ``[B, S, Hkv, G, D]``
   and ``decode_attention`` (rolling and not).
 * ``repro_torch.models.layers`` against ``repro.models.layers``.
-* the argument check K3's wrapper runs before a launch.
+* the argument check K3's wrapper runs before a launch, and the TMA
+  tensor-map fields it computes for the kernel.
 
 Tolerances: float32 at atol = rtol = 2e-5 (sums in another order), bf16
 at 2e-2 (the tolerance ``tests/test_kernels.py`` gives the Pallas kernel in
@@ -32,7 +33,8 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref  
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_ref, check_kernel_args,  # noqa: E402
-                                                 flash_attention, flash_attention_ref)
+                                                 flash_attention, flash_attention_ref,
+                                                 tma_fields)
 from repro_torch.kernels.flash_attention import ops as k3_ops  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -47,8 +49,15 @@ ATTN_CASES = [
     (1, 4, 4, 384, 384, 64, True, 128, "float32"),    # sliding window
     (1, 2, 2, 200, 200, 64, True, None, "float32"),   # ragged (padding)
     (1, 2, 2, 128, 128, 64, True, None, "bfloat16"),
+    # the edges of K3's 128 x 128 tiles: G = 5 (qwen3) with a window
+    # narrower than a kv tile, S just past a tile in bf16 at D = 128, and
+    # fewer queries than a tile over more keys, not causal
+    (1, 10, 2, 200, 200, 64, True, 50, "float32"),
+    (1, 4, 2, 129, 129, 128, True, None, "bfloat16"),
+    (1, 4, 4, 70, 300, 64, False, None, "float32"),
 ]
-IDS = ["gqa", "window", "ragged", "bf16"]
+IDS = ["gqa", "window", "ragged", "bf16", "g5-window-lt-tile", "d128-past-tile",
+       "sq-lt-tile-not-causal"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,11 +109,14 @@ def test_plain_attention_matches_jax(B, Hq, Hkv, Sq, Skv, D, causal, window, dty
     dense = attention_ref(tq, tk, tv, causal=causal, window=window)
     blocked = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
                                   block_q=128, block_k=96)
+    # the blocked version on the CUDA kernel's tiles
+    tiled = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                                block_q=k3_ops.TILE_Q, block_k=k3_ops.TILE_K)
     n0 = k3_ops.launches
     wrapped = flash_attention(tq, tk, tv, causal=causal, window=window,
                               block_q=64, block_k=128)
     assert k3_ops.launches == n0  # CPU tensors never launch the kernel
-    for got in (dense, blocked, wrapped):
+    for got in (dense, blocked, tiled, wrapped):
         assert got.dtype == tq.dtype and tuple(got.shape) == (B, Hq, Sq, D)
         _close(got, want_ref, dtype)
         _close(got, want_pallas, dtype)
@@ -207,3 +219,45 @@ def test_kernel_argument_check():
         check_kernel_args(q, kv3, kv3)
     with pytest.raises(ValueError, match="window"):
         check_kernel_args(q, kv, kv, window=0)
+
+
+# (tensor shape as allocated, permutation to [B, H, S, D]): contiguous
+# [B, H, S, D], and the model layout [B, S, H, D] read as a permuted view,
+# for q (qwen3's G = 5: 10 q heads over 2 kv heads) and for k/v
+TMA_CASES = [
+    ((2, 4, 100, 128), (0, 1, 2, 3)),
+    ((1, 3, 129, 64), (0, 1, 2, 3)),
+    ((2, 70, 10, 128), (0, 2, 1, 3)),
+    ((2, 70, 2, 128), (0, 2, 1, 3)),
+    ((3, 33, 2, 64), (0, 2, 1, 3)),
+]
+
+
+@pytest.mark.parametrize("shape,perm", TMA_CASES,
+                         ids=["bhsd", "bhsd-d64", "model-q-g5", "model-kv", "model-kv-d64"])
+def test_tma_fields(shape, perm):
+    """dims (D, S, H, B), byte strides of S, H and B, box (64, rows)."""
+    rows = k3_ops.TILE_Q
+    t = torch.zeros(shape, dtype=torch.bfloat16).permute(*perm)
+    B, H, S, D = t.shape
+    contiguous = perm == (0, 1, 2, 3)
+    ss, sh, sb = ((D, S * D, H * S * D) if contiguous else (H * D, D, S * H * D))
+    assert tma_fields(t, rows) == (D, S, H, B, 2 * ss, 2 * sh, 2 * sb, 64, rows)
+
+
+def test_tma_fields_raises():
+    """TMA takes 16-byte aligned data and strides of whole 16-byte units."""
+    t = torch.zeros(2 * 4 * 16 * 64 + 8, dtype=torch.bfloat16)
+    assert t.data_ptr() % 16 == 0
+    tma_fields(t[8:].view(2, 4, 16, 64), 128)  # 16 bytes in: aligned
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tma_fields(t[1:1 + 2 * 4 * 16 * 64].view(2, 4, 16, 64), 128)
+    with pytest.raises(ValueError, match="sequence stride of 136 bytes"):
+        tma_fields(torch.zeros(2, 4, 16, 68, dtype=torch.bfloat16)[..., :64], 128)
+    with pytest.raises(ValueError, match="head stride of 8 bytes"):
+        tma_fields(torch.zeros(2 * 4096, dtype=torch.bfloat16)
+                   .as_strided((2, 4, 16, 64), (4096, 4, 256, 1)), 128)
+    with pytest.raises(ValueError, match="unit last stride"):
+        tma_fields(torch.zeros(2, 4, 64, 16, dtype=torch.bfloat16).transpose(2, 3), 128)
+    with pytest.raises(ValueError, match=r"\[B, H, S, D\]"):
+        tma_fields(torch.zeros(4, 16, 64, dtype=torch.bfloat16), 128)

@@ -145,6 +145,19 @@ FA_CASES = [
     (1, 8, 8, 200, 200, 128, True, 64),      # window: tiles skipped
     (2, 6, 3, 197, 197, 64, True, 100),
     (1, 4, 1, 100, 300, 128, False, None),   # not causal, Sq != Skv
+    # the edges of the 128 x 128 tiles: the second consumer warpgroup (query
+    # rows 64-127 of a tile) with some live rows and with none
+    (1, 4, 2, 70, 70, 128, True, None),
+    (2, 4, 2, 60, 60, 64, True, None),
+    # fewer than 128 keys; windows narrower than a kv tile
+    (1, 4, 4, 300, 90, 64, False, None),
+    (1, 10, 2, 100, 100, 128, True, None),
+    (1, 8, 2, 600, 600, 128, True, 50),
+    (1, 2, 1, 256, 256, 64, True, 1),
+    # S a multiple of 128 and just past one, G = 5 and G = 1
+    (1, 10, 2, 512, 512, 128, True, None),
+    (2, 4, 4, 129, 129, 128, True, None),
+    (1, 5, 1, 256, 256, 64, True, None),
 ]
 
 
@@ -168,6 +181,19 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, caus
                                      block_q=128, block_k=128)):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
         assert _band_rel_err(got, want) <= 1e-2
+
+
+def test_flash_attention_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        cuda, torch.bfloat16) for s in ((2, 10, 700, 128), (2, 2, 700, 128), (2, 2, 700, 128)))
+    first = flash_attention(q, k, v, window=300)
+    again = flash_attention(q, k, v, window=300)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_model_flash_attention_cuda_matches_cpu(cuda):
