@@ -11,18 +11,31 @@ Phases (any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    Grab4 shapes of the main path (integer weights: exact; lognormal
    weights: stated rtol) and on one workset bucket shape, and time both;
-   every kernel, plain version and library call of phases 2, 6 and 9 gets
-   a device time (``device_time_ms``: the device kernels of one call from
-   ``torch.profiler``, median over back-to-back calls) and a call time
-   (``cuda_time_ms``: events around one call);
+   every kernel, plain version and library call of phases 2, 5, 6 and 9
+   gets a device time (``device_time_ms``: the device kernels of one call
+   from ``torch.profiler``, median over back-to-back calls) and a call
+   time (``cuda_time_ms``: events around one call).  K2's round updates
+   its liveness in place, so each timed call starts from the same
+   liveness (restored by a copy left out of both times); K2's probe
+   variants (a bit-packed peel mask, 32 slots a thread) are timed in turns
+   with it, and K2 alone on a dead round;
 3. the port's ``SpadeService`` on ``cuda`` against the same on ``cpu``
-   (DG, small stream): reports and final states bit-identical;
+   (small stream): DG reports and final states bit-identical; DW and FD,
+   fused and windowed workset, cuda against cpu and against a second cuda
+   run (counts equal, ``final_g`` rtol 1e-5, ``benign_fraction`` rtol
+   1e-3);
 4. the main path at full width: the Grab4 stream (6,023,000 vertices,
    ~25.0M base edges), DW, 4096-edge ticks, eps 0.1, max_rounds 20,
    window 64, through the fused engine and the workset engine, with the
-   kernels' launch counters set to 0 just before and read just after;
-5. a ``torch.profiler`` trace of a few steady-state fused Grab4 ticks:
-   device time by kernel and the device's idle share;
+   kernels' launch counters set to 0 just before and read just after
+   (``suffix_init`` once per full-buffer tick);
+5. one steady-state fused Grab4 tick with K2's two entries recorded: each
+   of its 20 rounds' live, peeled and hit counts, K2 against its plain
+   version, its device time and in-place bound; ``suffix_init`` at the
+   tick's own inputs against its plain version (integer weights bit for
+   bit) with device times and bound; then a ``torch.profiler`` trace of a
+   few more ticks: device time and launches by kernel and the device's
+   idle share;
 6. the flash-attention kernel (K3) against its plain versions on the card
    at qwen3-14b's attention shapes (Hq 40, Hkv 8, D 128, bf16, batch 2):
    S 8192 causal, S 4000 (ragged) and a 1024 window at S 4096, elementwise
@@ -35,7 +48,8 @@ Phases (any failure exits non-zero):
 8. the LM main path at full width: qwen3-14b (40 layers, d_model 5120,
    random weights from a seeded generator), 2 prompts x 8,192 tokens,
    prefill, 32 greedy decode steps, with K3's launch counter set to 0 just
-   before and read just after (40 per prefill); then ``torch.profiler``
+   before and read just after (40 per prefill), and no attention call on
+   the model's plain route; then ``torch.profiler``
    traces of one more prefill and of four more decode steps;
 9. the destination-row SpMM kernel (K4) against its plain versions on
    the card: gcn-cora's matrices on the Cora-sized graph (both directions,
@@ -85,6 +99,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 GRAB_V = 6_023_168  # Grab4 vertex capacity (6,023,001 rounded up to 512)
 GRAB_E = 27_500_032  # spade-grab edge capacity (27,500,000 rounded up to 512)
 RTOL = 1e-4  # float sums over millions of lognormal terms in another order
+# the service reports that must be equal under float weights (DW, FD):
+# tests/test_torch_service.py's DW_EQUAL
+DW_EQUAL = ("fraud_recall", "n_ticks", "live_edges", "n_expired_edges",
+            "n_workset_ticks", "n_fallback_ticks", "n_predicted_ticks",
+            "n_bucket_miss_ticks")
 WINDOW = 64
 BATCH = 4096
 DEVICE = "cuda"  # the phases below run here; main() refuses to run without it
@@ -181,11 +200,13 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_time_ms(fn, calls: int = 50) -> float:
+def device_time_ms(fn, calls: int = 50, skip: str | None = None) -> float:
     """Device time: ``torch.profiler`` over ``calls`` back-to-back calls of
     ``fn`` (after one untraced call), the device kernels (and copies) that
     each call launches summed; the median over the calls in ms, or the mean
-    when the calls do not all launch the same number of kernels."""
+    when the calls do not all launch the same number of kernels.  Events
+    whose name holds ``skip`` are left out (a restore copy that ``fn``
+    makes before the call it times)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -195,7 +216,8 @@ def device_time_ms(fn, calls: int = 50) -> float:
             for _ in range(calls):
                 fn()
             sync()
-        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
+                      and not (skip and skip in e.name)),
                      key=lambda e: e.time_range.start)
         us = [e.time_range.elapsed_us() for e in evs]
         if sum(us) > 0:
@@ -211,6 +233,39 @@ def device_time_ms(fn, calls: int = 50) -> float:
 def timed(fn, calls: int = 50, reps: int = 20) -> tuple[float, float]:
     """(device ms, call ms) of one call of ``fn``."""
     return device_time_ms(fn, calls), cuda_time_ms(fn, reps=reps)
+
+
+def in_place_timed(fn, restores, calls: int = 50, reps: int = 20,
+                   call_time: bool = True) -> tuple[float, float | None]:
+    """(device ms, call ms) of ``fn``, which updates tensors in place, each
+    call on the same input: every ``(tensor, source)`` of ``restores`` is
+    restored (a device-to-device copy) before every call, and the copies
+    are left out of both times."""
+    import torch
+
+    def restore():
+        for t, t0 in restores:
+            t.copy_(t0)
+
+    def one():
+        restore()
+        fn()
+
+    dev = device_time_ms(one, calls, skip="Memcpy")
+    if not call_time:
+        return dev, None
+    times = []
+    for i in range(reps + 3):
+        restore()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        if i >= 3:
+            times.append(t0.elapsed_time(t1))
+    return dev, statistics.median(times)
 
 
 def fail(msg: str) -> None:
@@ -306,17 +361,57 @@ def k1_bound_ms(V: int, n_peeled: int, n_blocks: int) -> float:
 
 
 def k2_bound_ms(E: int, V: int, n_alive: int, n_hit: int, n_blocks: int) -> float:
-    # reads alive (1 B/slot), src+dst of live slots (8 B), c of live slots
-    # with a peeled end (4 B), peel once (1 B/vertex); writes alive'
-    # (1 B/slot), dw once (4 B/vertex), drop partials (4 B/block)
+    # the out-of-place contract (a fresh alive' a round): reads alive (1
+    # B/slot), src+dst of live slots (8 B), c of live slots with a peeled
+    # end (4 B), peel once (1 B/vertex); writes alive' (1 B/slot), dw once
+    # (4 B/vertex), drop partials (4 B/block)
     nbytes = E + 8 * n_alive + 4 * n_hit + V + E + 4 * V + 4 * n_blocks
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def phase_kernels(grab) -> dict:
+def k2_in_place_bound_ms(E: int, V: int, n_alive: int, n_hit: int) -> float:
+    # the in-place round: reads alive (1 B/slot), src+dst of live slots
+    # (8 B), c of hit slots (4 B); writes the hit slots' alive bytes (1 B);
+    # reads peel once (1 B/vertex), writes dw once (4 B/vertex)
+    nbytes = E + 8 * n_alive + 4 * n_hit + n_hit + V + 4 * V
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def suffix_init_bound_ms(E: int, V: int) -> float:
+    # reads src, dst, c (4 B/slot) and edge_mask (1 B), writes both (1 B);
+    # reads live (1 B/vertex) and a (4 B), writes w0 (4 B)
+    return 1e3 * (14 * E + 9 * V) / HBM_BYTES_PER_S
+
+
+def k2_round(args) -> tuple[int, int, int]:
+    """(live slots, peeled vertices, hit slots) of a K2 input."""
+    s, d, _, alive, peel = args
+    hit = alive & (peel[s] | peel[d])
+    return int(alive.sum()), int(peel.sum()), int(hit.sum())
+
+
+def k2_acc(peel):
+    """A zeroed float64 accumulator for K2's dw, as a peel keeps one."""
     import torch
 
+    return torch.zeros(peel.shape[0], dtype=torch.float64, device=peel.device)
+
+
+def k2_check(name: str, args, rtol: float, exact: bool) -> float:
+    """K2 against its plain version on its own copies of ``alive`` and
+    accumulators: dw, drop mass and the updated liveness; returns the max
+    abs error."""
     from repro_torch.kernels.frontier_spmv import frontier_spmv, frontier_spmv_ref
+
+    s, d, c, alive, peel = args
+    mine, plain = alive.clone(), alive.clone()
+    got = frontier_spmv(s, d, c, mine, peel, k2_acc(peel))
+    want = frontier_spmv_ref(s, d, c, plain, peel, k2_acc(peel))
+    sync()
+    return compare(name, (*got, mine), (*want, plain), exact=exact, rtol=rtol)
+
+
+def phase_kernels(grab) -> dict:
     from repro_torch.kernels.peel_round import peel_round, peel_round_ref
     from repro_torch.kernels._launch import n_blocks
 
@@ -325,23 +420,38 @@ def phase_kernels(grab) -> dict:
     for V, tag in ((GRAB_V, "grab4"), (65_536, "bucket")):
         for integer in (True, False):
             args = k1_inputs(V, integer, seed=1 if integer else 2)
-            got = peel_round(*args)
-            want = peel_round_ref(*args)
-            sync()
-            err = compare(f"peel_round[{tag},{'int' if integer else 'lognormal'}]",
-                          got, want, exact=integer, rtol=RTOL)
-            rec["peel_round"]["max_abs_err"] = max(rec["peel_round"]["max_abs_err"], err)
-            log(f"K1 peel_round V={V} {'int' if integer else 'lognormal'}: "
-                f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}; "
-                f"peeled={int(want[3].sum())}")
+            # dw as float32, and as the float64 that K2 hands the round
+            for dw in (args[4], args[4].double()):
+                args = (*args[:4], dw, *args[5:])
+                got = peel_round(*args)
+                want = peel_round_ref(*args)
+                sync()
+                name = f"peel_round[{tag},{'int' if integer else 'lognormal'},dw {dw.dtype}]"
+                err = compare(name, got, want, exact=integer, rtol=RTOL)
+                rec["peel_round"]["max_abs_err"] = max(rec["peel_round"]["max_abs_err"], err)
+                log(f"K1 peel_round V={V} {'int' if integer else 'lognormal'} dw {dw.dtype}: "
+                    f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}; "
+                    f"peeled={int(want[3].sum())}")
+            args = (*args[:4], args[4].float(), *args[5:])
         if tag == "grab4":
             ms, call = timed(lambda: peel_round(*args))
             plain, plain_call = timed(lambda: peel_round_ref(*args))
             bound = k1_bound_ms(V, int(want[3].sum()), n_blocks(V, 132 * 8))
+            # as the main path runs it: a float64 dw (4 B more a vertex to
+            # read) that K1 leaves zeroed (8 B written per nonzero entry),
+            # restored by a copy left out of the time
+            dw0 = args[4].double()
+            dw = dw0.clone()
+            ms64 = in_place_timed(lambda: peel_round(*args[:4], dw, *args[5:], clear_dw=True),
+                                  [(dw, dw0)], call_time=False)[0]
+            extra = 4 * V + 8 * int(dw0.count_nonzero())
             rec["peel_round"].update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call,
-                                     plain_call_ms=plain_call)
+                                     plain_call_ms=plain_call, ms_dw_float64=ms64,
+                                     bound_dw_float64_ms=bound + 1e3 * extra / HBM_BYTES_PER_S)
             log(f"K1 peel_round V={V}: kernel {ms!r} ms device ({call!r} ms call), plain "
-                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes)")
+                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes); "
+                f"with a float64 dw it leaves zeroed {ms64!r} ms device, bound "
+                f"{rec['peel_round']['bound_dw_float64_ms']!r} ms")
     # K2 at E = 27,500,032 over the Grab4 base graph, and at a workset bucket
     rng = np.random.default_rng(3)
     small_src = rng.integers(0, 65_536, 240_000).astype(np.int32)
@@ -351,28 +461,77 @@ def phase_kernels(grab) -> dict:
     for src, dst, V, E, pad, tag in cases:
         for integer in (True, False):
             args = k2_inputs(src, dst, V, E, integer, seed=4 if integer else 5, pad=pad)
-            got = frontier_spmv(*args)
-            want = frontier_spmv_ref(*args)
-            sync()
-            err = compare(f"frontier_spmv[{tag},{'int' if integer else 'lognormal'}]",
-                          got, want, exact=integer, rtol=RTOL)
+            name = f"frontier_spmv[{tag},{'int' if integer else 'lognormal'}]"
+            err = k2_check(name, args, RTOL, exact=integer)
             rec["frontier_spmv"]["max_abs_err"] = max(rec["frontier_spmv"]["max_abs_err"], err)
             log(f"K2 frontier_spmv E={E} V={V} pad={pad} "
-                f"{'int' if integer else 'lognormal'}: "
-                f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}; "
-                f"drop_mass={float(want[1])!r}")
+                f"{'int' if integer else 'lognormal'}: dw, drop mass and alive "
+                f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}")
         if tag == "grab4":
-            s, d, c, alive, peel = args
-            hit = alive & (peel[s] | peel[d])
-            ms, call = timed(lambda: frontier_spmv(*args))
-            plain, plain_call = timed(lambda: frontier_spmv_ref(*args), calls=10, reps=10)
-            bound = k2_bound_ms(E, V, int(alive.sum()), int(hit.sum()),
-                                n_blocks(E, 132 * 16))
-            rec["frontier_spmv"].update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call,
-                                        plain_call_ms=plain_call)
-            log(f"K2 frontier_spmv E={E}: kernel {ms!r} ms device ({call!r} ms call), plain "
-                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes)")
+            rec["frontier_spmv"].update(k2_timings(args, E, V))
     return rec
+
+
+def k2_timings(args, E: int, V: int) -> dict:
+    """K2 on phase 2's round-1-like Grab4 input (lognormal weights): device
+    and call times of the kernel and its plain version, each call on the
+    same liveness; its bounds; the probe variants in turns with K2; and K2
+    on a dead round (no live slot)."""
+    import torch
+
+    from repro_torch.kernels.frontier_spmv import (frontier_spmv, frontier_spmv_probe,
+                                                   frontier_spmv_ref)
+    from repro_torch.kernels._launch import n_blocks
+
+    s, d, c, alive0, peel = args
+    alive = alive0.clone()
+    n_alive, n_peeled, n_hit = k2_round(args)
+    runs = []
+    for _ in range(3):
+        alive.copy_(alive0)
+        runs.append(frontier_spmv(s, d, c, alive, peel, k2_acc(peel)))
+    sync()
+    check(all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1]) for r in runs),
+          "K2: three runs on the same input gave different dw or drop mass bits")
+    log("K2 lognormal Grab4 input: three runs give the same dw and drop mass bits")
+    # as a peel's round runs it: into the peel's accumulator, which holds
+    # zeros (restored by a copy, like the liveness)
+    acc0 = k2_acc(peel)
+    acc = acc0.clone()
+    restores = [(alive, alive0), (acc, acc0)]
+    ms, call = in_place_timed(lambda: frontier_spmv(s, d, c, alive, peel, acc), restores)
+    plain, plain_call = in_place_timed(lambda: frontier_spmv_ref(s, d, c, alive, peel, acc),
+                                       restores, calls=10, reps=10)
+    bound = k2_in_place_bound_ms(E, V, n_alive, n_hit)
+    old_bound = k2_bound_ms(E, V, n_alive, n_hit, n_blocks(E, 132 * 16))
+    log(f"K2 frontier_spmv E={E}: n_alive={n_alive} n_peeled={n_peeled} n_hit={n_hit}; "
+        f"kernel {ms!r} ms device ({call!r} ms call), plain {plain!r} ms device "
+        f"({plain_call!r} ms call), in-place bound {bound!r} ms (bytes; "
+        f"{bound / ms!r} of it), out-of-place bound k2_bound_ms {old_bound!r} ms")
+    # the probes, in turns with K2 on the same input: each variant's
+    # device time, pack launch included for the packed mask
+    variants = {"K2 (16 slots)": (16, False), "packed peel": (16, True),
+                "32 slots": (32, False), "32 slots, packed": (32, True)}
+    probes = {k: [] for k in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for k in order:
+            sl, pk = variants[k]
+            fn = ((lambda: frontier_spmv(s, d, c, alive, peel, acc)) if k.startswith("K2") else
+                  (lambda sl=sl, pk=pk: frontier_spmv_probe(s, d, c, alive, peel, acc,
+                                                            slots=sl, packed=pk)))
+            probes[k].append(in_place_timed(fn, restores, call_time=False)[0])
+    for k, v in probes.items():
+        log(f"K2 probe {k}: {v[0]!r} / {v[1]!r} ms device (in turns)")
+    # a dead round, into a peel's accumulator: nothing live, so nothing
+    # changes and nothing needs restoring
+    dead = torch.zeros_like(alive0)
+    dead_ms = device_time_ms(lambda: frontier_spmv(s, d, c, dead, peel, acc0))
+    dead_bound = k2_in_place_bound_ms(E, V, 0, 0)
+    log(f"K2 dead round E={E}: {dead_ms!r} ms device, bound {dead_bound!r} ms (bytes)")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "call_ms": call,
+            "plain_call_ms": plain_call, "k2_bound_ms": old_bound, "n_alive": n_alive,
+            "n_peeled": n_peeled, "n_hit": n_hit, "probes_ms": probes,
+            "dead_round_ms": dead_ms, "dead_round_bound_ms": dead_bound}
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +565,32 @@ def phase_parity() -> None:
         log(f"service parity cuda==cpu {kw or 'fused'}: bit-identical state, "
             f"final_g={reps[0].final_g!r} recall={reps[0].fraud_recall!r} "
             f"ticks={reps[0].n_ticks}")
+    # float weights: DW amounts and FD's 1/log degrees.  The float atomics
+    # of K2 and the prologue (and the tick's other float scatters) add in
+    # another order than the cpu's scatters and from run to run, so the
+    # reports are held as tests/test_torch_service.py holds the port
+    # against the reference: the counts equal, final_g to rtol 1e-5,
+    # benign_fraction to rtol 1e-3; and two cuda runs against each other
+    for sem in ("DW", "FD"):
+        for kw in ({}, {"window_ticks": 2, "workset": True}):
+            runs = {f"{device}{i}": SpadeService(sem, batch_edges=512, device=device,
+                                                 **kw).run(stream)
+                    for device, i in ((DEVICE, 0), (DEVICE, 1), ("cpu", 0))}
+            for a, b in ((f"{DEVICE}0", "cpu0"), (f"{DEVICE}1", f"{DEVICE}0")):
+                got, want = runs[a], runs[b]
+                for f in DW_EQUAL:
+                    check(getattr(got, f) == getattr(want, f),
+                          f"service {sem} {kw}: {a} vs {b} report.{f} "
+                          f"{getattr(got, f)!r} vs {getattr(want, f)!r}")
+                for f, rtol in (("final_g", 1e-5), ("benign_fraction", 1e-3)):
+                    x, y = getattr(got, f), getattr(want, f)
+                    check(abs(x - y) <= rtol * abs(y),
+                          f"service {sem} {kw}: {a} vs {b} {f} {x!r} vs {y!r} beyond "
+                          f"rtol {rtol}")
+            g = [runs[k].final_g for k in (f"{DEVICE}0", f"{DEVICE}1", "cpu0")]
+            log(f"service {sem} {kw or 'fused'}: cuda, cuda again and cpu agree "
+                f"(counts equal, final_g rtol 1e-5, benign_fraction rtol 1e-3); "
+                f"final_g {g!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -459,10 +644,11 @@ def phase_grab(stream, n_ticks: int) -> dict:
 
     out = {"startup_rounds": startup_rounds, "startup_seconds": startup_s,
            "configs": {}}
-    launches = {"peel_round": 0, "frontier_spmv": 0}
+    launches = {"peel_round": 0, "frontier_spmv": 0, "suffix_init": 0}
     for name, kw in (("fused", {}), ("workset", {"workset": True})):
         k1_ops.launches = 0
         k2_ops.launches = 0
+        k2_ops.suffix_init_launches = 0
         reads0 = peel_mod.HOST_READS[0]
         svc = SpadeService("DW", batch_edges=BATCH, eps=0.1, max_rounds=20,
                            window_ticks=WINDOW, device=DEVICE, **kw)
@@ -470,13 +656,19 @@ def phase_grab(stream, n_ticks: int) -> dict:
         rep = svc.run(cut)
         sync()
         wall = time.perf_counter() - t0
-        l1, l2 = k1_ops.launches, k2_ops.launches
+        l1, l2, lp = k1_ops.launches, k2_ops.launches, k2_ops.suffix_init_launches
         launches["peel_round"] += l1
         launches["frontier_spmv"] += l2
+        launches["suffix_init"] += lp
         ts = sorted(rep.tick_seconds)
         ring = [min(BATCH, n_inc - i * BATCH) for i in range(n_ticks)]
         live_expect = m_base + sum(ring[-WINDOW:])
         check(l1 > 0 and l2 > 0, f"grab4 {name}: a kernel never launched")
+        # every peel opens with one suffix_init: the start-up bulk peel and
+        # each tick's warm peel (full buffer, or the workset's)
+        check(lp == rep.n_ticks + 1,
+              f"grab4 {name}: suffix_init launched {lp} times, expected {rep.n_ticks} ticks "
+              f"+ 1 start-up")
         check(math.isfinite(rep.final_g), f"grab4 {name}: best_g not finite")
         check(rep.live_edges == live_expect,
               f"grab4 {name}: live_edges {rep.live_edges} != {live_expect}")
@@ -493,6 +685,7 @@ def phase_grab(stream, n_ticks: int) -> dict:
             "miss_ticks": rep.n_bucket_miss_ticks,
             "max_suffix_edges": rep.max_suffix_edges,
             "launches_peel_round": l1, "launches_frontier_spmv": l2,
+            "launches_suffix_init": lp,
             "host_reads": peel_mod.HOST_READS[0] - reads0,
         }
         out["configs"][name] = row
@@ -508,8 +701,8 @@ def phase_grab(stream, n_ticks: int) -> dict:
 def trace(name: str, reps: int, fn, shares: dict[str, str]) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``fn``: wall and device-busy
     ms per call, the device's idle share over the traced window, each
-    ``shares`` kernel's share of device time (by a substring of its name)
-    and the top kernels by device time per call."""
+    ``shares`` kernel's share of device time, ms and launches per call (by
+    a substring of its name) and the top kernels by device time per call."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -536,10 +729,15 @@ def trace(name: str, reps: int, fn, shares: dict[str, str]) -> dict:
            "device_busy_ms": busy / 1e3 / reps, "idle_share": 1.0 - busy / wall_us,
            "shares": {k: sum(us for key, (us, _) in kernels.items() if tag in key) / busy
                       for k, tag in shares.items()},
+           "kernel_ms": {k: sum(us for key, (us, _) in kernels.items() if tag in key)
+                         / 1e3 / reps for k, tag in shares.items()},
+           "kernel_launches": {k: sum(n for key, (_, n) in kernels.items() if tag in key)
+                               / reps for k, tag in shares.items()},
            "top": [(k[:90], us / 1e3 / reps, cnt / reps) for k, (us, cnt) in top[:15]]}
     log(f"{name} profiled ({reps}x): wall {out['wall_ms']!r} ms, device busy "
         f"{out['device_busy_ms']!r} ms, idle share {out['idle_share']!r}; shares of "
-        f"device time {out['shares']!r}")
+        f"device time {out['shares']!r}; ms per call {out['kernel_ms']!r}, launches "
+        f"per call {out['kernel_launches']!r}")
     for k, ms, cnt in out["top"]:
         log(f"  {ms:.4f} ms  {cnt:.1f}x  {k}")
     return out
@@ -550,11 +748,12 @@ def trace(name: str, reps: int, fn, shares: dict[str, str]) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(stream, n_ticks: int) -> dict:
-    """Trace ``n_ticks`` steady-state fused slide ticks at Grab4 width
-    (window of 4 ticks, the same per-tick work as the service's window of
-    64) with ``torch.profiler``; report device time by kernel and the
-    device's idle share over the traced window."""
+def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
+    """Steady-state fused slide ticks at Grab4 width (window of 4 ticks, the
+    same per-tick work as the service's window of 64).  One tick runs with
+    K2's two entries recorded (:func:`tick_rounds`); then ``n_ticks`` ticks
+    are traced with ``torch.profiler`` (0: none) for device time by kernel
+    and the device's idle share.  Returns (the trace, the recorded tick)."""
     import torch
 
     from repro_torch.core import incremental as inc
@@ -595,7 +794,7 @@ def phase_profile(stream, n_ticks: int) -> dict:
             state = inc.slide_and_maintain(state, drop, *batch, valid, eps=0.1,
                                            max_rounds=20)
     batches = []
-    for t in range(window + 1, window + 1 + n_ticks):
+    for t in range(window + 1, window + 2 + n_ticks):
         batch, deg = tick(t, state, deg)
         batches.append(batch)
     ticks = iter(batches)
@@ -605,9 +804,99 @@ def phase_profile(stream, n_ticks: int) -> dict:
         state = inc.slide_and_maintain(state, drop, *next(ticks), valid, eps=0.1,
                                        max_rounds=20)
 
-    return trace("grab4 fused slide tick", n_ticks, one_tick,
+    recorded = tick_rounds(one_tick)
+    if not n_ticks:
+        return {}, recorded
+    prof = trace("grab4 fused slide tick", n_ticks, one_tick,
                  {"peel_round": "peel_round_kernel",
-                  "frontier_spmv": "frontier_spmv_kernel"})
+                  "frontier_spmv": "frontier_spmv_kernel",
+                  "suffix_init": "suffix_init_"})
+    return prof, recorded
+
+
+def tick_rounds(one_tick) -> dict:
+    """Run one fused Grab4 tick with recording wrappers installed around
+    ``repro_torch.core.peel``'s ``frontier_spmv`` and ``suffix_init`` (the
+    package is unchanged; the wrappers are removed after the tick), keeping
+    each round's (alive, peel) and the prologue's inputs.  Then: each
+    round's live slots, peeled vertices and hit slots, K2 against its plain
+    version on it, K2's device time, its in-place bound and its share of
+    it; and ``suffix_init`` at the tick's own inputs against its plain
+    version (the tick's DW weights within RTOL, integer weights on the same
+    edges and live set bit for bit), with device and call times."""
+    import torch
+
+    from repro_torch.core import peel as peel_mod
+    from repro_torch.kernels.frontier_spmv import frontier_spmv, suffix_init, suffix_init_ref
+
+    rounds, prologue = [], []
+    real_k2, real_si = peel_mod.frontier_spmv, peel_mod.suffix_init
+
+    def rec_k2(src, dst, c, alive, peel, dw):
+        rounds.append((src, dst, c, alive.clone(), peel.clone()))
+        return real_k2(src, dst, c, alive, peel, dw)
+
+    def rec_si(src, dst, c, emask, live, a):
+        prologue.append((src, dst, c, emask, live.clone(), a))
+        return real_si(src, dst, c, emask, live, a)
+
+    peel_mod.frontier_spmv, peel_mod.suffix_init = rec_k2, rec_si
+    try:
+        one_tick()
+        sync()
+    finally:
+        peel_mod.frontier_spmv, peel_mod.suffix_init = real_k2, real_si
+    check(len(rounds) == 20 and len(prologue) == 1,
+          f"tick rounds: recorded {len(rounds)} rounds and {len(prologue)} prologues")
+    E, V = rounds[0][0].shape[0], rounds[0][4].shape[0]
+    acc0 = k2_acc(rounds[0][4])  # the peel's accumulator
+    acc = acc0.clone()
+    per_round, err = [], 0.0
+    for r, args in enumerate(rounds):
+        s, d, c, alive0, peel = args
+        n_alive, n_peeled, n_hit = k2_round(args)
+        err = max(err, k2_check(f"K2 tick round {r}", args, RTOL, exact=False))
+        alive = alive0.clone()
+        ms = in_place_timed(lambda: frontier_spmv(s, d, c, alive, peel, acc),
+                            [(alive, alive0), (acc, acc0)], calls=20, call_time=False)[0]
+        bound = k2_in_place_bound_ms(E, V, n_alive, n_hit)
+        per_round.append({"n_alive": n_alive, "n_peeled": n_peeled, "n_hit": n_hit,
+                          "ms": ms, "bound_ms": bound, "share": bound / ms})
+        log(f"K2 tick round {r:2d}: n_alive={n_alive} n_peeled={n_peeled} n_hit={n_hit} "
+            f"kernel {ms!r} ms device, in-place bound {bound!r} ms, share {bound / ms!r}")
+    total, total_bound = sum(x["ms"] for x in per_round), sum(x["bound_ms"] for x in per_round)
+    log(f"K2 tick rounds (E={E}, V={V}): {total!r} ms device over 20 rounds, bound "
+        f"{total_bound!r} ms, share {total_bound / total!r}; max_abs_err vs plain "
+        f"{err!r} (rtol {RTOL})")
+    del rounds
+
+    src, dst, c, emask, live, a = prologue[0]
+    si = {"max_abs_err": compare("suffix_init[grab4 tick]", suffix_init(*prologue[0]),
+                                 suffix_init_ref(*prologue[0]), exact=False, rtol=RTOL)}
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    c_int = (torch.rand(E, generator=gen, device=DEVICE) < 0.25).float()
+    a_int = torch.randint(0, 2, (V,), generator=gen, device=DEVICE).float()
+    ints = (src, dst, c_int, emask, live, a_int)
+    want = suffix_init_ref(*ints)
+    # every sum of the integer case stays below 2^24: exact in any order
+    check(float(want[1]) < 2 ** 24, f"suffix_init int: f0 {float(want[1])!r} >= 2^24")
+    compare("suffix_init[grab4 tick, int]", suffix_init(*ints), want, exact=True)
+    first = suffix_init(*prologue[0])
+    for _ in range(2):
+        compare("suffix_init[grab4 tick] run to run", suffix_init(*prologue[0]), first, exact=True)
+    n_live, n_both = int(live.sum()), int(want[2].sum())
+    ms, call = timed(lambda: suffix_init(*prologue[0]))
+    plain, plain_call = timed(lambda: suffix_init_ref(*prologue[0]), calls=10, reps=10)
+    bound = suffix_init_bound_ms(E, V)
+    si.update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call, plain_call_ms=plain_call,
+              n_live=n_live, n_both=n_both)
+    log(f"suffix_init grab4 tick (E={E}, V={V}, live {n_live}, induced edges {n_both}): "
+        f"int bit-identical, DW max_abs_err {si['max_abs_err']!r} (rtol {RTOL}), three runs "
+        f"the same bits; kernel "
+        f"{ms!r} ms device ({call!r} ms call), plain {plain!r} ms device ({plain_call!r} ms "
+        f"call), bound {bound!r} ms (bytes; {bound / ms!r} of it)")
+    return {"rounds": per_round, "k2_tick_ms": total, "k2_tick_bound_ms": total_bound,
+            "k2_max_abs_err": err, "suffix_init": si}
 
 
 # ---------------------------------------------------------------------------
@@ -860,7 +1149,7 @@ def phase_lm_full(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k3_ops
-    from repro_torch.models import TransformerLM, decode_step, prefill
+    from repro_torch.models import TransformerLM, attention, decode_step, prefill
 
     cfg = get_config(LM_ARCH)
     batch, prompt, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE_STEPS
@@ -878,6 +1167,7 @@ def phase_lm_full(seed: int) -> dict:
         0, cfg.vocab, (batch, prompt))).to(DEVICE)
 
     k3_ops.launches = 0
+    attention.plain_routes = 0
     sync()
     t0 = time.perf_counter()
     logits, cache = prefill(model, tokens)
@@ -899,6 +1189,8 @@ def phase_lm_full(seed: int) -> dict:
     launches = k3_ops.launches
     check(launches == cfg.n_layers,
           f"{cfg.name}: K3 launched {launches} times, expected {cfg.n_layers} per prefill")
+    check(attention.plain_routes == 0,
+          f"{cfg.name}: {attention.plain_routes} attention calls took the plain route")
     peak = torch.cuda.max_memory_allocated()
     # the first prefill pays first-call costs (library heuristics, the
     # allocator's growth); time a second one as the warm figure
@@ -913,6 +1205,7 @@ def phase_lm_full(seed: int) -> dict:
            "decode_ms_median": 1e3 * statistics.median(ts), "decode_ms_p90": 1e3 * p90,
            "decode_tokens_per_s": batch / statistics.median(ts),
            "max_memory_allocated_gb": peak / 1e9, "k3_launches": launches,
+           "attention_plain_routes": attention.plain_routes,
            "init_s": init_s, "cache_gb": 2 * cache.k.numel() * 2 / 1e9,
            "tokens": torch.stack(out_tokens, 1)[:, :8].tolist()}
     log(f"{cfg.name} main path: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
@@ -1310,9 +1603,10 @@ def main() -> int:
     log("phase 3: service parity cuda==cpu")
     grab = phase_grab(stream, max(args.ticks, 32))
     log("phase 4: grab4 main path ran through both kernels")
-    if args.profile_ticks:
-        grab["profile"] = phase_profile(stream, args.profile_ticks)
-        log("phase 5: profile")
+    grab["profile"], tick = phase_profile(stream, args.profile_ticks)
+    grab["tick_rounds"] = tick
+    log("phase 5: a tick's K2 rounds and prologue recorded and timed"
+        + (", and the tick traced" if args.profile_ticks else ""))
 
     del stream
     t_lm = time.perf_counter()
@@ -1348,6 +1642,11 @@ def main() -> int:
          "replaces": "src/repro/core/peel.py:201",
          "launches": grab["launches"]["frontier_spmv"], "bound_by": "bytes",
          "library_ms": None, **rec["frontier_spmv"]},
+        {"name": "suffix_init", "route": "cuda",
+         "source": "src/repro_torch/csrc/frontier_spmv.cu",
+         "replaces": "src/repro/core/peel.py:324",
+         "launches": grab["launches"]["suffix_init"], "bound_by": "bytes",
+         "library_ms": None, **tick["suffix_init"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
@@ -1357,9 +1656,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
          "launches": gcn["launches"], **k4},
     ]
-    log(f"kernels: peel_round, frontier_spmv, flash_attention, gather_segsum launches "
-        f"{grab['launches']['peel_round']}, {grab['launches']['frontier_spmv']}, "
-        f"{lm['k3_launches']}, {gcn['launches']}")
+    log(f"kernels: peel_round, frontier_spmv, suffix_init, flash_attention, gather_segsum "
+        f"launches {grab['launches']['peel_round']}, {grab['launches']['frontier_spmv']}, "
+        f"{grab['launches']['suffix_init']}, {lm['k3_launches']}, {gcn['launches']}")
     log(f"total seconds {time.perf_counter() - t_start!r}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -22,6 +22,20 @@ With ``max_rounds = 0`` (start-up and refresh) the loop reads ``n_act``
 once per round.  Every device->host read of the engine goes through
 :func:`host_read`, which counts them in :data:`HOST_READS`.
 
+**Every peel opens with K2's second entry**,
+:func:`repro_torch.kernels.frontier_spmv.suffix_init`: the restricted
+set's weights, total and induced edges.  For :func:`bulk_peel` the set is
+every slot (the reference's ``peel_weights`` and ``f_total``), for
+:func:`bulk_peel_warm` the kept vertices, for the workset its gathered
+lanes; each is the reference's expression for that peel.  On CUDA that
+entry and the round's edge kernel accumulate in float64, so a peel gives
+the same bits on every run (``csrc/frontier_spmv.cu``).
+
+**Edge liveness is updated in place.**  The reference is pure; here each
+peel owns its liveness tensor (the prologue's fresh ``both``), and every
+round's edge kernel clears the slots that leave the set in that one
+tensor.
+
 ``unroll`` (an XLA lowering knob of the reference) has no meaning in eager
 torch and is dropped; ``exact_peel`` is still to be ported (ROADMAP A.4).
 """
@@ -33,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.graphstore.structs import DeviceGraph
-from repro_torch.kernels.frontier_spmv import frontier_spmv
+from repro_torch.kernels.frontier_spmv import frontier_spmv, suffix_init
 from repro_torch.kernels.peel_round import peel_round
 
 __all__ = [
@@ -88,6 +102,7 @@ class _BulkState(NamedTuple):
     w: torch.Tensor
     active: torch.Tensor
     edge_alive: torch.Tensor
+    dw: torch.Tensor  # float64 [V] accumulator of the edge half, zero between rounds
     f: torch.Tensor
     n_act: torch.Tensor
     level: torch.Tensor
@@ -110,7 +125,10 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
     tensor).  The peel mask is materialised once as
     ``active & (w <= eff_thresh)``, which equals the reference's mask in
     both branches of its min-weight force-peel; the edge kernel reads it
-    and the elementwise kernel recomputes it from ``eff_thresh``.
+    and the elementwise kernel recomputes it from ``eff_thresh``.  The
+    edge kernel updates ``s.edge_alive`` in place and adds into ``s.dw``,
+    which the elementwise kernel reads and leaves zeroed; the new state
+    keeps both tensors.
     """
     g_cur = s.f / torch.clamp(s.n_act, min=1).to(torch.float32)
     improved = (g_cur > s.best_g) & (s.n_act > 0)
@@ -124,14 +142,15 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
     wmin = torch.where(s.active, s.w, _INF).min()
     eff_thresh = torch.where((s.active & (s.w <= thresh)).any(), thresh, wmin)
     peel = s.active & (s.w <= eff_thresh)
-    dw, drop_mass, edge_alive = frontier_spmv(src, dst, c, s.edge_alive, peel)
+    dw, drop_mass = frontier_spmv(src, dst, c, s.edge_alive, peel, s.dw)
     w, active, level, _, partials = peel_round(
-        s.w, a, s.active, s.level, dw, eff_thresh, s.round_
+        s.w, a, s.active, s.level, dw, eff_thresh, s.round_, clear_dw=True
     )
     return _BulkState(
         w=w,
         active=active,
-        edge_alive=edge_alive,
+        edge_alive=s.edge_alive,
+        dw=dw,
         f=s.f - partials[0] - drop_mass,
         n_act=s.n_act - partials[2].to(torch.int32),
         level=level,
@@ -158,6 +177,7 @@ def _init_state(w0, active, edge_alive, f0, best_g) -> _BulkState:
         w=w0,
         active=active,
         edge_alive=edge_alive,
+        dw=torch.zeros(w0.shape, dtype=torch.float64, device=dev),
         f=f0,
         n_act=active.sum().to(torch.int32),
         level=torch.full(w0.shape, -1, dtype=torch.int32, device=dev),
@@ -184,8 +204,13 @@ def bulk_peel(g: DeviceGraph, eps: float = 0.1, max_rounds: int = 0
     ``max_rounds = 0`` runs to completion (one host read per round); a
     positive value runs exactly that many rounds with no host read.
     """
-    init = _init_state(g.peel_weights(), g.vertex_mask, g.edge_mask,
-                       g.f_total(), _scalar(-_INF, torch.float32, g.device))
+    # every slot's ends count: w0 = g.peel_weights(), f0 = g.f_total(),
+    # and the liveness is a copy of g.edge_mask
+    a = torch.where(g.vertex_mask, g.a, 0.0)
+    w0, f0, alive = suffix_init(g.src, g.dst, g.c, g.edge_mask,
+                                torch.ones_like(g.vertex_mask), a)
+    init = _init_state(w0, g.vertex_mask, alive, f0,
+                       _scalar(-_INF, torch.float32, g.device))
     s = _run_rounds(g.src, g.dst, g.c, g.a, eps, init, max_rounds)
     return _result(s, s.level, s.w)
 
@@ -203,15 +228,12 @@ def bulk_peel_warm(
     recovered w.r.t. the restricted set, so every round's threshold is
     valid on the current set.  ``prior_best_g`` seeds the best-density
     tracker.  This is the full-buffer warm path: every round streams the
-    capacity-padded buffers.
+    capacity-padded buffers.  Its prologue (the restricted set's weights,
+    total and induced edges) is one :func:`suffix_init` call, whose fresh
+    ``both`` becomes the peel's own liveness tensor.
     """
     live = keep & g.vertex_mask
-    both = live[g.src] & live[g.dst] & g.edge_mask
-    cm = torch.where(both, g.c, 0.0)
-    w0 = torch.where(live, g.a, 0.0)
-    z = torch.zeros_like(w0)
-    w0 = (w0 + z.index_add(0, g.src, cm)) + z.index_add(0, g.dst, cm)
-    f0 = torch.where(live, g.a, 0.0).sum() + cm.sum()
+    w0, f0, both = suffix_init(g.src, g.dst, g.c, g.edge_mask, live, g.a)
     init = _init_state(w0, live, both, f0, prior_best_g)
     s = _run_rounds(g.src, g.dst, g.c, g.a, eps, init, max_rounds)
     return _result(s, s.level, s.w)
@@ -320,11 +342,10 @@ def bulk_peel_warm_workset(
     live = keep & g.vertex_mask
     ws = _compact_workset(g.src, g.dst, g.c, g.edge_mask, g.a, live,
                           v_bucket, e_bucket)
-    cm0 = torch.where(ws.alive, ws.c, 0.0)
-    z = torch.zeros(v_bucket, dtype=torch.float32, device=g.device)
-    w0 = (ws.a + z.index_add(0, ws.src, cm0)) + z.index_add(0, ws.dst, cm0)
-    f0 = ws.a.sum() + cm0.sum()
-    init = _init_state(w0, ws.active, ws.alive, f0, prior_best_g)
+    # a live lane's ends are active lanes and ws.a is 0 off them, so this
+    # is (ws.a + the alive c at both ends, their sum, ws.alive)
+    w0, f0, alive = suffix_init(ws.src, ws.dst, ws.c, ws.alive, ws.active, ws.a)
+    init = _init_state(w0, ws.active, alive, f0, prior_best_g)
     s = _run_rounds(ws.src, ws.dst, ws.c, ws.a, eps, init, max_rounds)
     # scatter the suffix back; pad lanes carry vid = V and land in the
     # spare slot past the end

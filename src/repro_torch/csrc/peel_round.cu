@@ -21,14 +21,23 @@
 // torch and passed by pointer, so the host never syncs and the kernel never
 // recomputes it in another order).  Vectorised 16-byte loads are left for
 // a later change.
+//
+// dw comes as float32 or as float64 (K2's accumulator, frontier_spmv.cu);
+// a float64 dw is rounded to float32 once, on load (8 B a vertex then).
+// With `clear_dw` the kernel writes 0 back where dw was not 0, so the
+// peel's accumulator is zero again for the next round without a memset.
 #include "common.cuh"
 
 namespace {
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(double x) { return __double2float_rn(x); }
+
+template <typename D, bool kClear>
 __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
     const float* __restrict__ w, const float* __restrict__ a,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ level,
-    const float* __restrict__ dw, const float* __restrict__ thresh,
+    D* __restrict__ dw, const float* __restrict__ thresh,
     const int32_t* __restrict__ round_, float* __restrict__ w_out,
     uint8_t* __restrict__ active_out, int32_t* __restrict__ level_out,
     uint8_t* __restrict__ peeled_out, float* __restrict__ partials,
@@ -43,7 +52,9 @@ __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
     const float wi = w[i];
     const bool act = active[i] != 0;
     const bool p = act && (wi <= th);
-    w_out[i] = wi - dw[i];
+    const D d = dw[i];
+    w_out[i] = wi - to_float(d);
+    if (kClear && d != D(0)) dw[i] = D(0);
     active_out[i] = (uint8_t)(act && !p);
     level_out[i] = p ? r : level[i];
     peeled_out[i] = (uint8_t)p;
@@ -63,19 +74,36 @@ __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
   }
 }
 
+template <typename D, bool kClear>
+void launch(const void* w, const void* a, const void* active, const void* level, void* dw,
+            const void* thresh, const void* round_, void* w_out, void* active_out,
+            void* level_out, void* peeled_out, void* partials, int64_t n, int n_blocks,
+            cudaStream_t stream) {
+  peel_round_kernel<D, kClear><<<n_blocks, spade::kThreads, 0, stream>>>(
+      (const float*)w, (const float*)a, (const uint8_t*)active, (const int32_t*)level,
+      (D*)dw, (const float*)thresh, (const int32_t*)round_, (float*)w_out,
+      (uint8_t*)active_out, (int32_t*)level_out, (uint8_t*)peeled_out, (float*)partials, n);
+}
+
 }  // namespace
 
 extern "C" int peel_round_launch(const void* w, const void* a,
                                  const void* active, const void* level,
-                                 const void* dw, const void* thresh,
+                                 void* dw, const void* thresh,
                                  const void* round_, void* w_out,
                                  void* active_out, void* level_out,
                                  void* peeled_out, void* partials, int64_t n,
-                                 int n_blocks, void* stream) {
-  peel_round_kernel<<<n_blocks, spade::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)a, (const uint8_t*)active,
-      (const int32_t*)level, (const float*)dw, (const float*)thresh,
-      (const int32_t*)round_, (float*)w_out, (uint8_t*)active_out,
-      (int32_t*)level_out, (uint8_t*)peeled_out, (float*)partials, n);
+                                 int n_blocks, int dw_is_double, int clear_dw,
+                                 void* stream) {
+  auto st = (cudaStream_t)stream;
+  auto go = [&](auto fn) {
+    fn(w, a, active, level, dw, thresh, round_, w_out, active_out, level_out, peeled_out,
+       partials, n, n_blocks, st);
+  };
+  if (dw_is_double) {
+    clear_dw ? go(launch<double, true>) : go(launch<double, false>);
+  } else {
+    clear_dw ? go(launch<float, true>) : go(launch<float, false>);
+  }
   return (int)cudaGetLastError();
 }

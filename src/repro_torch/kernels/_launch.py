@@ -43,13 +43,6 @@ def bind(stem: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return _bound[symbol]
 
 
-def function(stem: str, symbol: str, n_ptrs: int) -> ctypes._CFuncPtr:
-    """The C launcher ``symbol`` of ``csrc/<stem>.cu``, typed as
-    ``(n_ptrs pointers, int64 n, int n_blocks, stream) -> int``."""
-    return bind(stem, symbol, [ctypes.c_void_p] * n_ptrs
-                + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
-
-
 def check(err: int, symbol: str) -> None:
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with error {err}")

@@ -1,52 +1,181 @@
-"""Wrapper of the fused frontier SpMV (K2, ``csrc/frontier_spmv.cu``).
+"""Wrappers of K2 (``csrc/frontier_spmv.cu``), the peel's edge pass.
 
-On CPU tensors it runs :func:`frontier_spmv_ref`; on CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches (not
-CPU calls).
+* :func:`frontier_spmv` — a round's edge half.  It updates ``alive`` in
+  place: the slots that leave the restricted set are cleared and no other
+  byte is written.  The reference (``repro/core/peel.py:201-210``) is
+  pure; here each peel owns its liveness tensor (``core/peel.py`` makes it
+  once per peel) and every round updates that one tensor.  ``dw`` is a
+  float64 accumulator: the kernel scatters into it, which makes its
+  float32 rounding (done by the round's elementwise kernel) the same on
+  every run; the plain version adds its float32 sums into it.  A peel
+  passes its own accumulator, which the elementwise kernel leaves zeroed,
+  so a round needs no memset.
+* :func:`suffix_init` — the warm peel's prologue, the induced weights of
+  the restricted set (``repro/core/peel.py:324-329``).
+
+On CPU tensors each runs its plain version (:mod:`.ref`), which keeps the
+same contract; on CUDA tensors each launches its kernel or raises.
+``launches`` and ``suffix_init_launches`` count kernel launches (not CPU
+calls).  :func:`frontier_spmv_probe` runs the round's probe variants (32
+slots a thread, a bit-packed peel mask) for timing; it is not on the
+serving path and counts nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _launch
-from .ref import frontier_spmv_ref
+from .ref import frontier_spmv_ref, suffix_init_ref
 
-__all__ = ["frontier_spmv", "launches"]
+__all__ = ["frontier_spmv", "frontier_spmv_probe", "suffix_init", "launches",
+           "suffix_init_launches"]
 
 launches = 0
-_MAX_BLOCKS = 132 * 16  # two waves of 256-thread blocks on an H100
+suffix_init_launches = 0
+_SLOTS = 16  # edge slots per thread on the vector path (one 16-byte alive load)
+_CAP = 4096  # most blocks of one launch: room for their partial sums
+_VEC = 16  # bytes of one vector load
+_PASS_BYTES = 24 << 20  # float64 accumulator bytes one prologue pass adds into
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_ROUND_ARGS = [_P] * 9 + [_I64] * 3 + [ctypes.c_int]
+_SUFFIX_ARGS = [_P] * 13 + [_I64] * 3 + [ctypes.c_int, ctypes.c_int, _P]
 
 
-def frontier_spmv(src, dst, c, alive, peel):
-    """Returns ``(dw [V] float32, drop_mass float32 scalar, alive' [E])``.
+def _vector_split(n: int, slots: int, alive_ptr: int, *word_ptrs: int) -> tuple[int, int]:
+    """``(head, n_groups)``: the slots before alive's first 16-byte boundary
+    take the scalar path, then groups of ``slots`` are read as vectors, if
+    every int32/float32 array is 16-byte aligned there; else no group."""
+    head = min((-alive_ptr) % _VEC, n)
+    if any((p + 4 * head) % _VEC for p in word_ptrs):
+        return 0, 0
+    return head, (n - head) // slots
 
-    ``src/dst`` int32 [E] endpoints in ``[0, V)``, ``c`` float32 [E],
-    ``alive`` bool [E], ``peel`` bool [V] (the round's peel mask).
-    """
-    global launches
+
+def _round_checks(src, dst, c, alive, peel):
     dev = src.device
-    if dev.type == "cpu":
-        return frontier_spmv_ref(src, dst, c, alive, peel)
-    if dev.type != "cuda":
-        raise ValueError(f"frontier_spmv: unsupported device {dev}")
-    E = src.shape[0]
-    V = peel.shape[0]
+    E, V = src.shape[0], peel.shape[0]
     _launch.require(src, "src", torch.int32, dev, numel=E)
     _launch.require(dst, "dst", torch.int32, dev, numel=E)
     _launch.require(c, "c", torch.float32, dev, numel=E)
     _launch.require(alive, "alive", torch.bool, dev, numel=E)
     _launch.require(peel, "peel", torch.bool, dev, numel=V)
-    dw = torch.zeros(V, dtype=torch.float32, device=dev)
-    alive2 = torch.empty_like(alive)
+    return dev, E, V
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket(dev) -> torch.Tensor:
+    """The round kernel's block ticket on ``dev``: zeroed once, and left 0
+    by every launch (its last block resets it)."""
+    if dev not in _tickets:
+        _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _tickets[dev]
+
+
+def _round(src, dst, c, alive, peel, dw, slots: int, packed: bool):
+    dev, E, V = _round_checks(src, dst, c, alive, peel)
+    _launch.require(dw, "dw", torch.float64, dev, numel=V)
     if E == 0:
-        return dw, torch.zeros((), device=dev), alive2
-    nb = _launch.n_blocks(E, _MAX_BLOCKS)
-    partials = torch.empty(nb, dtype=torch.float32, device=dev)
-    fn = _launch.function("frontier_spmv", "frontier_spmv_launch", 8)
-    err = fn(src.data_ptr(), dst.data_ptr(), c.data_ptr(), alive.data_ptr(),
-             peel.data_ptr(), dw.data_ptr(), alive2.data_ptr(),
-             partials.data_ptr(), E, nb, _launch.stream_ptr(dev))
+        return dw, torch.zeros((), dtype=torch.float32, device=dev)
+    drop = torch.empty((), dtype=torch.float32, device=dev)
+    partials = torch.empty(_CAP, dtype=torch.float32, device=dev)
+    head, n_groups = _vector_split(E, slots, alive.data_ptr(), src.data_ptr(),
+                                   dst.data_ptr())
+    if packed:
+        bits = torch.empty((V + 31) // 32, dtype=torch.int32, device=dev)
+        fn = _launch.bind("frontier_spmv", "peel_pack_launch", [_P, _P, _I64, _P])
+        _launch.check(fn(peel.data_ptr(), bits.data_ptr(), V, _launch.stream_ptr(dev)),
+                      "peel_pack_launch")
+        peel = bits
+    ptrs = (src.data_ptr(), dst.data_ptr(), c.data_ptr(), alive.data_ptr(),
+            peel.data_ptr(), dw.data_ptr(), partials.data_ptr(), _ticket(dev).data_ptr(),
+            drop.data_ptr())
+    if slots == _SLOTS and not packed:
+        fn = _launch.bind("frontier_spmv", "frontier_spmv_launch", _ROUND_ARGS + [_P])
+        err = fn(*ptrs, E, head, n_groups, _CAP, _launch.stream_ptr(dev))
+    else:
+        fn = _launch.bind("frontier_spmv", "frontier_spmv_probe_launch",
+                          _ROUND_ARGS + [ctypes.c_int, ctypes.c_int, _P])
+        err = fn(*ptrs, E, head, n_groups, _CAP, slots, int(packed),
+                 _launch.stream_ptr(dev))
     _launch.check(err, "frontier_spmv_launch")
-    launches += 1
-    return dw, partials.sum(), alive2
+    return dw, drop
+
+
+def frontier_spmv(src, dst, c, alive, peel, dw):
+    """Returns ``(dw, drop_mass float32 scalar)``: adds the round's ``dw``
+    into ``dw``, a float64 [V] accumulator holding zeros, and clears, in
+    place, the ``alive`` bytes of live slots with a peeled end.
+
+    ``src/dst`` int32 [E] endpoints in ``[0, V)``, ``c`` float32 [E],
+    ``alive`` bool [E] (updated), ``peel`` bool [V] (the round's peel mask).
+    Views are taken as they are; slots before alive's first 16-byte
+    boundary run on the kernel's scalar path.
+    """
+    global launches
+    dev = src.device
+    if dev.type == "cpu":
+        return frontier_spmv_ref(src, dst, c, alive, peel, dw)
+    if dev.type != "cuda":
+        raise ValueError(f"frontier_spmv: unsupported device {dev}")
+    out = _round(src, dst, c, alive, peel, dw, _SLOTS, False)
+    if src.shape[0]:
+        launches += 1
+    return out
+
+
+def frontier_spmv_probe(src, dst, c, alive, peel, dw, *, slots: int, packed: bool):
+    """:func:`frontier_spmv` through a probe variant of the round on CUDA
+    tensors: ``slots`` 16 or 32 a thread; with ``packed``, the peel mask
+    is first packed to one bit a vertex (a second launch).  Not counted."""
+    if src.device.type != "cuda":
+        raise ValueError(f"frontier_spmv_probe: unsupported device {src.device}")
+    if slots not in (16, 32):
+        raise ValueError(f"frontier_spmv_probe: slots {slots} not 16 or 32")
+    return _round(src, dst, c, alive, peel, dw, slots, packed)
+
+
+def suffix_init(src, dst, c, edge_mask, live, a):
+    """Returns ``(w0 [V] float32, f0 float32 scalar, both [E] bool)``:
+    ``both = live[src] & live[dst] & edge_mask``; ``w0`` is
+    ``where(live, a, 0)`` plus the ``both``-masked ``c`` scattered to both
+    ends; ``f0`` sums ``where(live, a, 0)`` and the ``both``-masked ``c``.
+
+    ``src/dst`` int32 [E], ``c`` float32 [E], ``edge_mask`` bool [E],
+    ``live`` bool [V], ``a`` float32 [V].  ``both`` is a fresh tensor.
+    """
+    global suffix_init_launches
+    dev = src.device
+    if dev.type == "cpu":
+        return suffix_init_ref(src, dst, c, edge_mask, live, a)
+    if dev.type != "cuda":
+        raise ValueError(f"suffix_init: unsupported device {dev}")
+    E, V = src.shape[0], live.shape[0]
+    _launch.require(src, "src", torch.int32, dev, numel=E)
+    _launch.require(dst, "dst", torch.int32, dev, numel=E)
+    _launch.require(c, "c", torch.float32, dev, numel=E)
+    _launch.require(edge_mask, "edge_mask", torch.bool, dev, numel=E)
+    _launch.require(live, "live", torch.bool, dev, numel=V)
+    _launch.require(a, "a", torch.float32, dev, numel=V)
+    # the float64 accumulator [V] | f0 | ticket | vertex and edge partials,
+    # zeroed by one memset
+    buf = torch.zeros(V + 1 + _CAP, dtype=torch.float64, device=dev)
+    acc, tail = buf[:V], buf[V:].view(torch.float32)
+    w0 = torch.empty(V, dtype=torch.float32, device=dev)
+    both = torch.empty(E, dtype=torch.bool, device=dev)
+    aligned = all(t.data_ptr() % _VEC == 0 for t in (src, dst, edge_mask, both))
+    n_groups = E // _VEC if aligned else 0
+    n_parts = max(1, -(-8 * V // _PASS_BYTES))
+    fn = _launch.bind("frontier_spmv", "suffix_init_launch", _SUFFIX_ARGS)
+    err = fn(src.data_ptr(), dst.data_ptr(), c.data_ptr(), edge_mask.data_ptr(),
+             live.data_ptr(), a.data_ptr(), acc.data_ptr(), w0.data_ptr(), both.data_ptr(),
+             tail[2:].data_ptr(), tail[2 + _CAP:].data_ptr(), tail[1:].data_ptr(),
+             tail.data_ptr(), E, V, n_groups, n_parts, _CAP, _launch.stream_ptr(dev))
+    _launch.check(err, "suffix_init_launch")
+    suffix_init_launches += 1
+    return w0, tail[0], both

@@ -7,11 +7,15 @@ from __future__ import annotations
 import torch
 
 
-def peel_round_ref(w, a, active, level, dw, thresh, round_):
+def peel_round_ref(w, a, active, level, dw, thresh, round_, clear_dw=False):
     """Returns ``(w', active', level', peeled, partials[3])`` with partials
-    ``[sum(peeled a), sum(peeled w), n_peeled]`` (pre-update ``w``)."""
+    ``[sum(peeled a), sum(peeled w), n_peeled]`` (pre-update ``w``).  A
+    float64 ``dw`` is rounded to float32 first; ``clear_dw`` zeroes ``dw``
+    after use."""
     peeled = active & (w <= thresh)
-    w2 = w - dw
+    w2 = w - dw.to(torch.float32)
+    if clear_dw:
+        dw.zero_()
     active2 = active & ~peeled
     level2 = torch.where(peeled, round_, level)
     pf = peeled.to(torch.float32)

@@ -44,9 +44,10 @@ def _assert_close(got, want, exact):
             torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dw64", [False, True], ids=["dw32", "dw64"])
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
 @pytest.mark.parametrize("V", [1, 255, 257, 100_000])
-def test_peel_round_kernel_matches_plain(cuda, V, integer):
+def test_peel_round_kernel_matches_plain(cuda, V, integer, dw64):
     rng = np.random.default_rng(V)
     if integer:
         w, a, dw = (rng.integers(0, k, V).astype(np.float32) for k in (9, 3, 4))
@@ -54,19 +55,25 @@ def test_peel_round_kernel_matches_plain(cuda, V, integer):
         w, a, dw = (rng.lognormal(m, 1.0, V).astype(np.float32) for m in (2.0, 0.0, 0.0))
     arrs = [torch.from_numpy(x).to(cuda) for x in
             (w, a, rng.random(V) < 0.7, rng.integers(-1, 9, V).astype(np.int32), dw)]
+    if dw64:  # the float64 dw that K2 hands the round
+        arrs[4] = arrs[4].double()
     th = torch.tensor(float(np.median(w)), device=cuda)
     r = torch.tensor(5, dtype=torch.int32, device=cuda)
     n0 = k1_ops.launches
     got = peel_round(*arrs, th, r)
     assert k1_ops.launches == n0 + 1
     _assert_close(got, peel_round_ref(*arrs, th, r), integer)
+    # as a peel's round calls it: the same results, and dw left all zero
+    dw = arrs[4].clone()
+    cleared = peel_round(*arrs[:4], dw, th, r, clear_dw=True)
+    torch.cuda.synchronize()
+    _assert_close(cleared, got, True)
+    assert not bool(dw.any())
 
 
-@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
-@pytest.mark.parametrize("pad", ["full", "workset"])
-def test_frontier_spmv_kernel_matches_plain(cuda, pad, integer):
-    rng = np.random.default_rng(7)
-    V, m, E = 5000, 60_000, 65_536
+def _k2_edges(rng, V, E, m, pad, integer, alive_p=0.9, peel_p=0.2):
+    """K2's inputs on the host: ``m`` real slots, the rest pads of kind
+    ``pad`` (full: src = dst = V-1; workset: endpoint 0; c 0, dead)."""
     pad_id = V - 1 if pad == "full" else 0
     src = np.full(E, pad_id, np.int32)
     dst = np.full(E, pad_id, np.int32)
@@ -74,22 +81,176 @@ def test_frontier_spmv_kernel_matches_plain(cuda, pad, integer):
     c = np.zeros(E, np.float32)
     c[:m] = rng.integers(1, 6, m) if integer else rng.lognormal(1.0, 1.0, m)
     alive = np.zeros(E, bool)
-    alive[:m] = rng.random(m) < 0.9
-    peel = rng.random(V) < 0.2
+    alive[:m] = rng.random(m) < alive_p
+    peel = rng.random(V) < peel_p
     peel[pad_id] = True  # a peeled pad vertex must stay inert
-    arrs = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, alive, peel)]
+    return src, dst, c, alive, peel
+
+
+def _k2_check(arrs, integer, run=None):
+    """K2 (or ``run``) on ``arrs``, updating its ``alive`` in place, against
+    the plain version on a copy of it: dw, drop mass and the updated
+    liveness.  Returns the kernel's (dw, drop)."""
+    src, dst, c, alive, peel = arrs
+    plain = alive.clone()
+    acc = [torch.zeros(peel.shape[0], dtype=torch.float64, device=peel.device)
+           for _ in range(2)]
+    got = (run or frontier_spmv)(src, dst, c, alive, peel, acc[0])
+    want = frontier_spmv_ref(src, dst, c, plain, peel, acc[1])
+    assert got[0] is acc[0]  # added into the accumulator it was given
+    torch.cuda.synchronize()
+    assert torch.equal(alive, plain)  # in place, exactly the plain update
+    _assert_close(got, want, integer)
+    return got
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("pad", ["full", "workset"])
+def test_frontier_spmv_kernel_matches_plain(cuda, pad, integer):
+    rng = np.random.default_rng(7)
+    arrs = [torch.from_numpy(x).to(cuda)
+            for x in _k2_edges(rng, 5000, 65_536, 60_000, pad, integer)]
     n0 = k2_ops.launches
-    got = frontier_spmv(*arrs)
+    _k2_check(arrs, integer)
     assert k2_ops.launches == n0 + 1
-    _assert_close(got, frontier_spmv_ref(*arrs), integer)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("E", [1, 15, 16, 17, 4099, 100_000])
+def test_frontier_spmv_kernel_edge_counts(cuda, E, integer):
+    """Counts below, at and past one 16-slot group and ragged tails: the
+    vector groups and the scalar tail."""
+    rng = np.random.default_rng(E)
+    V = max(E // 4, 8)
+    arrs = [torch.from_numpy(x).to(cuda) for x in _k2_edges(rng, V, E, E, "full", integer)]
+    _k2_check(arrs, integer)
+
+
+@pytest.mark.parametrize("offsets", [(3, 3), (3, 1), (16, 0)],
+                         ids=["same-offset", "mixed-offset", "aligned-offset"])
+def test_frontier_spmv_kernel_takes_unaligned_views(cuda, offsets):
+    """Slices whose start is not on a 16-byte boundary: alive's first slots
+    take the scalar path, then the groups are read as vectors (same
+    offset) or, when src/dst cannot be read as vectors there, every slot
+    takes the scalar path (mixed offsets)."""
+    ka, ke = offsets
+    rng = np.random.default_rng(11)
+    E, V = 10_000, 2000
+    src, dst, c, alive, peel = (torch.from_numpy(x).to(cuda)
+                                for x in _k2_edges(rng, V, E + 16, E + 16, "full", True))
+    views = (src[ke:ke + E], dst[ke:ke + E], c[ke:ke + E], alive[ka:ka + E], peel)
+    assert views[3].data_ptr() % 16 == ka % 16
+    before = alive.clone()
+    dw, drop = _k2_check(views, True)
+    assert float(drop) > 0 and bool(dw.any())
+    # bytes outside the view are left alone
+    assert torch.equal(alive[:ka], before[:ka])
+    assert torch.equal(alive[ka + E:], before[ka + E:])
+
+
+@pytest.mark.parametrize("what", ["all-dead", "nothing-peeled"])
+def test_frontier_spmv_kernel_no_op_rounds(cuda, what):
+    """A round after convergence (no live slot) and a round that peels
+    nothing: liveness unchanged, dw zero, drop mass 0."""
+    rng = np.random.default_rng(13)
+    src, dst, c, alive, peel = _k2_edges(rng, 3000, 70_000, 65_000, "full", False)
+    if what == "all-dead":
+        alive[:] = False
+    else:
+        peel[:] = False
+    arrs = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, alive, peel)]
+    dw, drop = _k2_check(arrs, False)
+    assert torch.equal(arrs[3].cpu(), torch.from_numpy(alive))
+    assert not bool(dw.any()) and float(drop) == 0.0
+
+
+def test_frontier_spmv_is_the_same_bits_every_run(cuda):
+    """The drop partials are summed in block order by the last block, and
+    dw is scattered into float64: three runs on lognormal weights, with hub
+    vertices that take many contributions, give the same dw and drop mass
+    bit for bit."""
+    rng = np.random.default_rng(17)
+    src, dst, c, alive, peel = _k2_edges(rng, 50_000, 1_000_000, 1_000_000, "full", False)
+    dst[::7] = rng.integers(0, 16, dst[::7].shape[0])  # hubs
+    arrs = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, alive, peel)]
+    runs = [_k2_check([*arrs[:3], arrs[3].clone(), arrs[4]], False) for _ in range(3)]
+    for dw, drop in runs[1:]:
+        assert torch.equal(dw, runs[0][0]) and torch.equal(drop, runs[0][1])
+
+
+@pytest.mark.parametrize("slots,packed", [(16, True), (32, False), (32, True)],
+                         ids=["packed16", "slots32", "packed32"])
+def test_frontier_spmv_probe_variants_match_plain(cuda, slots, packed):
+    """The round's probe variants that chip_smoke.py times beside K2."""
+    from repro_torch.kernels.frontier_spmv import frontier_spmv_probe
+
+    rng = np.random.default_rng(19)
+    arrs = [torch.from_numpy(x).to(cuda)
+            for x in _k2_edges(rng, 4099, 100_003, 90_000, "full", True)]
+    n0 = k2_ops.launches
+    _k2_check(arrs, True, run=lambda *a: frontier_spmv_probe(*a, slots=slots, packed=packed))
+    assert k2_ops.launches == n0
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("E,pad,offset", [(1, "full", 0), (17, "full", 0),
+                                          (4099, "workset", 0), (100_000, "full", 0),
+                                          (100_000, "workset", 0), (4099, "full", 5)],
+                         ids=["E1", "E17", "E4099-ws", "E100k", "E100k-ws", "E4099-unaligned"])
+def test_suffix_init_kernel_matches_plain(cuda, E, pad, offset, integer):
+    """The warm peel's prologue on the card against its plain version: w0
+    and f0 (exact on integers), and ``both`` bit for bit; an unaligned view
+    runs every slot on the scalar path."""
+    from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
+
+    rng = np.random.default_rng(E + offset)
+    V = max(E // 4, 8)
+    src, dst, c, emask, _ = _k2_edges(rng, V, E + offset, E, pad, integer)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    live = rng.random(V) < 0.7
+    edges = [torch.from_numpy(x).to(cuda)[offset:] for x in (src, dst, c, emask)]
+    verts = [torch.from_numpy(x).to(cuda) for x in (live, a)]
+    n0 = k2_ops.suffix_init_launches
+    got = suffix_init(*edges, *verts)
+    again = suffix_init(*edges, *verts)
+    torch.cuda.synchronize()
+    assert k2_ops.suffix_init_launches == n0 + 2
+    _assert_close(got, suffix_init_ref(*edges, *verts), integer)
+    for x, y in zip(got, again):  # the same bits every run
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+def test_suffix_init_kernel_in_vertex_range_passes(cuda, monkeypatch, parts):
+    """The prologue adds into its float64 accumulator in passes over vertex
+    ranges (two at Grab4's V); a small pass size forces them here."""
+    from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
+
+    rng = np.random.default_rng(parts)
+    V, E = 5000, 70_000
+    src, dst, c, emask, _ = _k2_edges(rng, V, E, 65_000, "full", True)
+    a = rng.integers(0, 3, V).astype(np.float32)
+    live = rng.random(V) < 0.7
+    args = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, emask, live, a)]
+    monkeypatch.setattr(k2_ops, "_PASS_BYTES", -(-8 * V // parts))
+    _assert_close(suffix_init(*args), suffix_init_ref(*args), True)
 
 
 def test_kernel_wrappers_check_arguments(cuda):
+    from repro_torch.kernels.frontier_spmv import suffix_init
+
     x = torch.zeros(8, device=cuda)
     with pytest.raises(TypeError, match="dtype"):
         peel_round(x, x, x, x.int(), x, x[0], x[0].int())
     with pytest.raises(ValueError, match="elements"):
-        frontier_spmv(x.int(), x[:4].int(), x, x.bool(), x.bool())
+        frontier_spmv(x.int(), x[:4].int(), x, x.bool(), x.bool(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        frontier_spmv(x.int(), x.int(), x, torch.zeros(16, device=cuda).bool()[::2],
+                      x.bool(), x.double())
+    with pytest.raises(TypeError, match="dw"):  # the accumulator is float64
+        frontier_spmv(x.int(), x.int(), x, x.bool(), x.bool(), x)
+    with pytest.raises(TypeError, match="dtype"):
+        suffix_init(x.int(), x.int(), x, x.bool(), x.bool(), x.int())
 
 
 def test_bulk_peel_cuda_equals_cpu(cuda):
@@ -120,6 +281,69 @@ def test_service_cuda_equals_cpu(cuda, spec):
     assert reps[0].live_edges == reps[1].live_edges
     for k, v in states[0].items():
         assert np.array_equal(np.asarray(v), np.asarray(states[1][k])), k
+
+
+# DW and FD weights are not integers: K2's and the prologue's float
+# atomics (and the tick's other float scatters, ROADMAP C.2) add in another
+# order than the CPU's scatters, and from run to run.  So the reports are
+# held as tests/test_torch_service.py::test_service_dw_reports_agree holds
+# the port against the reference: the counts equal, final_g to rtol 1e-5,
+# benign_fraction to rtol 1e-3; two cuda runs against each other the same.
+DW_EQUAL = ("fraud_recall", "n_ticks", "live_edges", "n_expired_edges",
+            "n_workset_ticks", "n_fallback_ticks", "n_predicted_ticks",
+            "n_bucket_miss_ticks")
+
+
+def _reports_agree(got, want):
+    for f in DW_EQUAL:
+        assert getattr(got, f) == getattr(want, f), f
+    np.testing.assert_allclose(got.final_g, want.final_g, rtol=1e-5)
+    np.testing.assert_allclose(got.benign_fraction, want.benign_fraction, rtol=1e-3)
+
+
+@pytest.mark.parametrize("spec", [{}, {"window_ticks": 2, "workset": True}],
+                         ids=["fused", "window2-workset"])
+@pytest.mark.parametrize("semantics", ["DW", "FD"])
+def test_service_float_weights_cuda_matches_cpu(cuda, semantics, spec):
+    stream = make_transaction_stream(n=3000, m=15000, seed=9)
+    run = lambda d: SpadeService(semantics, batch_edges=512, device=d, **spec).run(stream)
+    first, again, cpu = run(cuda), run(cuda), run("cpu")
+    _reports_agree(first, cpu)
+    _reports_agree(again, first)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "internlm2-20b", "deepseek-coder-33b"])
+def test_lm_smoke_config_cuda_matches_cpu(cuda, arch):
+    """The dense LMs' smoke configs (float32, d_head 16: what K3 does not
+    cover) run on cuda through the model's plain attention route, and
+    match the same weights on cpu: prefill and 3 decode steps, logits
+    within chip_smoke.py's LM_TOL (3e-2) of each row's largest |logit|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import TransformerLM, attention, decode_step, prefill
+
+    cfg = get_smoke_config(arch)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = TransformerLM(cfg, device=cuda, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    B, S = 2, 24
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    k0, p0 = k3_ops.launches, attention.plain_routes
+    lg, cache_g = prefill(gpu, tokens.to(cuda))
+    assert k3_ops.launches == k0 and attention.plain_routes == p0 + cfg.n_layers
+    lc, cache_c = prefill(cpu, tokens)
+    for step in range(4):
+        got, want = lg.float().cpu(), lc.float()
+        assert bool(torch.isfinite(got).all())
+        scale = want.abs().amax(-1, keepdim=True)
+        assert bool(((got - want).abs() <= 3e-2 * scale).all()), f"step {step}"
+        if step == 3:
+            break
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, B))
+        pos = torch.full((B,), S + step, dtype=torch.int64)
+        lg, cache_g = decode_step(gpu, cache_g, tok.to(cuda), pos.to(cuda))
+        lc, cache_c = decode_step(cpu, cache_c, tok, pos)
 
 
 # K3 flash_attention: bf16 on the tensor cores against its plain versions

@@ -1,7 +1,8 @@
 """The port's kernels (their plain versions, on the CPU) against the JAX
 reference: the Pallas ``peel_round`` kernel in interpret mode and its
 oracle, the JAX expressions of the round's edge half
-(``repro/core/peel.py:201-210``), and one whole round against
+(``repro/core/peel.py:201-210``) and of the warm peel's prologue
+(``repro/core/peel.py:324-329``), and one whole round against
 ``repro.core.peel._round_step(use_kernel=True)``.
 
 Tolerances: on integer-valued inputs every result is bit-identical (every
@@ -24,7 +25,8 @@ from repro.core import peel as jpeel  # noqa: E402
 from repro.kernels.peel_round import peel_round_ref as j_peel_round_ref  # noqa: E402
 from repro.kernels.peel_round.kernel import peel_round_update  # noqa: E402
 from repro_torch.core import peel as tpeel  # noqa: E402
-from repro_torch.kernels.frontier_spmv import frontier_spmv, frontier_spmv_ref  # noqa: E402
+from repro_torch.kernels.frontier_spmv import (frontier_spmv, frontier_spmv_ref,  # noqa: E402
+                                               suffix_init, suffix_init_ref)
 from repro_torch.kernels.frontier_spmv import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.peel_round import peel_round, peel_round_ref  # noqa: E402
 from repro_torch.kernels.peel_round import ops as k1_ops  # noqa: E402
@@ -112,14 +114,24 @@ def test_frontier_spmv_ref_matches_jax_edge_half(pad, integer):
     """Both pad kinds — full-buffer slots (src = dst = V-1, c = 0, dead) and
     workset lanes (endpoint 0, c = 0, dead) — are inert, with the pad
     vertex peeled or not.  Exact on integer weights; rtol 1e-6 on lognormal
-    weights (the same scatter-add order, different summation of drop_mass)."""
+    weights (the same scatter-add order, different summation of drop_mass).
+    The plain version updates ``alive`` in place to the reference's
+    ``alive & ~hit``: it clears the live slots with a peeled end and
+    changes no other byte."""
     V, m, E = 300, 2000, 2600
     src, dst, c, alive, peel = _edges_with_pads(5, V, m, E, pad, integer)
     for pad_peeled in (False, True):
         peel[V - 1 if pad == "full" else 0] = pad_peeled
         want = _jax_edge_half(*[jnp.asarray(x) for x in (src, dst, c, alive, peel)], V)
-        got = frontier_spmv_ref(*[torch.from_numpy(x) for x in (src, dst, c, alive, peel)])
-        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        t_alive = torch.from_numpy(alive.copy())
+        acc = torch.zeros(V, dtype=torch.float64)
+        got = frontier_spmv_ref(*[torch.from_numpy(x) for x in (src, dst, c)], t_alive,
+                                torch.from_numpy(peel), acc)
+        assert len(got) == 2 and got[0] is acc
+        np.testing.assert_array_equal(t_alive.numpy(), np.asarray(want[2]))
+        hit = peel[src] | peel[dst]
+        changed = t_alive.numpy() != alive
+        np.testing.assert_array_equal(changed, alive & hit)
         if integer:
             np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
             assert float(got[1]) == float(want[1])
@@ -128,11 +140,54 @@ def test_frontier_spmv_ref_matches_jax_edge_half(pad, integer):
             np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
         # the pad lanes themselves contribute nothing
         live = torch.from_numpy(np.arange(E) < m)
-        real = frontier_spmv_ref(*[torch.from_numpy(x)[:m] for x in (src, dst, c, alive)],
-                                 torch.from_numpy(peel))
+        real_alive = torch.from_numpy(alive[:m].copy())
+        real = frontier_spmv_ref(*[torch.from_numpy(x)[:m] for x in (src, dst, c)],
+                                 real_alive, torch.from_numpy(peel),
+                                 torch.zeros(V, dtype=torch.float64))
         np.testing.assert_array_equal(real[0].numpy(), got[0].numpy())
         assert float(real[1]) == float(got[1])
-        assert not bool(got[2][~live].any())
+        assert torch.equal(real_alive, t_alive[:m])
+        assert not bool(t_alive[~live].any())
+
+
+def _jax_prologue(src, dst, c, emask, live, a, V):
+    """The reference's warm-peel prologue, verbatim from
+    repro/core/peel.py:324-329."""
+    import jax
+
+    both = live[src] & live[dst] & emask
+    cm = jnp.where(both, c, 0.0)
+    w0 = jnp.where(live, a, 0.0)
+    w0 = w0 + jax.ops.segment_sum(cm, src, num_segments=V)
+    w0 = w0 + jax.ops.segment_sum(cm, dst, num_segments=V)
+    f0 = jnp.sum(jnp.where(live, a, 0.0)) + jnp.sum(cm)
+    return w0, f0, both
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("pad", ["full", "workset"])
+def test_suffix_init_ref_matches_jax_prologue(pad, integer):
+    """``suffix_init_ref`` against the reference's ``bulk_peel_warm``
+    prologue on the same numpy inputs, with both pad kinds (their mask is
+    false, and the pad vertex in or out of the live set).  Bit-identical on
+    integer weights; rtol 1e-6 on lognormal ones (sums in another order)."""
+    V, m, E = 300, 2000, 2600
+    src, dst, c, emask, _ = _edges_with_pads(6, V, m, E, pad, integer)
+    rng = np.random.default_rng(7)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    live = rng.random(V) < 0.6
+    for pad_live in (False, True):
+        live[V - 1 if pad == "full" else 0] = pad_live
+        want = _jax_prologue(*[jnp.asarray(x) for x in (src, dst, c, emask, live, a)], V)
+        got = suffix_init_ref(*[torch.from_numpy(x) for x in (src, dst, c, emask, live, a)])
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        assert not bool(got[2][m:].any())
+        if integer:
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            assert float(got[1]) == float(want[1])
+        else:
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6)
+            np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
 
 
 def _graph(seed, n, m, with_a):
@@ -166,7 +221,10 @@ def test_round_step_matches_reference_kernel_round(force_peel):
                   level=np.full(n, -1, np.int32), best_g=np.float32(3.0),
                   best_level=np.int32(2), round_=np.int32(4))
     js = jpeel._BulkState(**{k: jnp.asarray(v) for k, v in fields.items()})
-    ts = tpeel._BulkState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    # copies: the port's round updates edge_alive in place; its dw
+    # accumulator (no field of the reference's state) starts at zero
+    ts = tpeel._BulkState(**{k: torch.as_tensor(v).clone() for k, v in fields.items()},
+                          dw=torch.zeros(n, dtype=torch.float64))
     for _ in range(3):
         js = jpeel._round_step(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(c),
                                jnp.asarray(a), 0.1, True, js)
@@ -181,15 +239,25 @@ def test_round_step_matches_reference_kernel_round(force_peel):
 def test_wrappers_take_plain_path_on_cpu_without_launching():
     k1_ops.launches = 0
     k2_ops.launches = 0
+    k2_ops.suffix_init_launches = 0
     w, a, active, level, dw = (torch.from_numpy(x) for x in _k1_inputs(64, 0, True))
     th, r = torch.tensor(5.0), torch.tensor(3, dtype=torch.int32)
     for x, y in zip(peel_round(w, a, active, level, dw, th, r),
                     peel_round_ref(w, a, active, level, dw, th, r)):
         assert torch.equal(x, y)
     e = [torch.from_numpy(x) for x in _edges_with_pads(1, 50, 100, 128, "full", True)]
-    for x, y in zip(frontier_spmv(*e), frontier_spmv_ref(*e)):
+    alive = [e[3].clone(), e[3].clone()]
+    acc = [torch.zeros(50, dtype=torch.float64) for _ in range(2)]
+    for x, y in zip(frontier_spmv(*e[:3], alive[0], e[4], acc[0]),
+                    frontier_spmv_ref(*e[:3], alive[1], e[4], acc[1])):
+        assert torch.equal(x, y)
+    assert torch.equal(alive[0], alive[1]) and not torch.equal(alive[0], e[3])
+    live = e[4].logical_not()
+    a = torch.arange(50, dtype=torch.float32)
+    for x, y in zip(suffix_init(*e[:4], live, a), suffix_init_ref(*e[:4], live, a)):
         assert torch.equal(x, y)
     assert k1_ops.launches == 0 and k2_ops.launches == 0
+    assert k2_ops.suffix_init_launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -197,4 +265,6 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         peel_round(meta, meta, meta.bool(), meta.int(), meta, meta[0], meta[0].int())
     with pytest.raises(ValueError, match="unsupported device"):
-        frontier_spmv(meta.int(), meta.int(), meta, meta.bool(), meta.bool())
+        frontier_spmv(meta.int(), meta.int(), meta, meta.bool(), meta.bool(), meta.double())
+    with pytest.raises(ValueError, match="unsupported device"):
+        suffix_init(meta.int(), meta.int(), meta, meta.bool(), meta.bool(), meta)

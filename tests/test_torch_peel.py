@@ -69,6 +69,27 @@ def test_bulk_peel_bit_identical(seed, with_a, max_rounds):
 
 
 @pytest.mark.parametrize("max_rounds", [0, 3])
+def test_peels_leave_the_graph_untouched(max_rounds):
+    """The round's edge kernel clears liveness in place, so every peel
+    works on a liveness tensor of its own, its prologue's fresh ``both``
+    (for ``bulk_peel`` a copy of ``g.edge_mask``).  The graph's arrays are
+    the same bits afterwards, and a second peel of the same graph gives
+    the same result."""
+    _, tg = _graphs(5, with_a=True)
+    before = {f: getattr(tg, f).clone() for f in ("src", "dst", "c", "edge_mask", "a",
+                                                   "vertex_mask")}
+    first = tpeel.bulk_peel(tg, eps=EPS, max_rounds=max_rounds)
+    keep = first.level >= 1
+    tpeel.bulk_peel_warm(tg, keep, prior_best_g=first.best_g, eps=EPS,
+                         max_rounds=max_rounds)
+    again = tpeel.bulk_peel(tg, eps=EPS, max_rounds=max_rounds)
+    for f, t in before.items():
+        assert torch.equal(getattr(tg, f), t), f
+    for f in ("level", "best_g", "best_level", "n_rounds", "delta"):
+        assert torch.equal(getattr(first, f), getattr(again, f)), f
+
+
+@pytest.mark.parametrize("max_rounds", [0, 3])
 @pytest.mark.parametrize("cut", [1, 2, 4])
 def test_bulk_peel_warm_bit_identical(cut, max_rounds):
     jg, tg = _graphs(5, with_a=True)
