@@ -14,11 +14,10 @@ Phases (any failure exits non-zero):
    every kernel, plain version and library call of phases 2, 5, 6 and 9
    gets a device time (``device_time_ms``: the device kernels of one call
    from ``torch.profiler``, median over back-to-back calls) and a call
-   time (``cuda_time_ms``: events around one call).  K2's round updates
-   its liveness in place, so each timed call starts from the same
-   liveness (restored by a copy left out of both times); K2's probe
-   variants (a bit-packed peel mask, 32 slots a thread) are timed in turns
-   with it, and K2 alone on a dead round;
+   time (``cuda_time_ms``: events around one call).  K1 reads and clears
+   its float64 dw and K2's round updates its liveness and dw in place, so
+   each timed call starts from the same inputs (restored by copies left
+   out of both times); K2 also alone on a dead round;
 3. the port's ``SpadeService`` on ``cuda`` against the same on ``cpu``
    (small stream): DG reports and final states bit-identical; DW and FD,
    fused and windowed workset, cuda against cpu and against a second cuda
@@ -33,23 +32,31 @@ Phases (any failure exits non-zero):
    of its 20 rounds' live, peeled and hit counts, K2 against its plain
    version, its device time and in-place bound; ``suffix_init`` at the
    tick's own inputs against its plain version (integer weights bit for
-   bit) with device times and bound; then a ``torch.profiler`` trace of a
-   few more ticks: device time and launches by kernel and the device's
-   idle share;
+   bit) with device times and bound; the tick's K1, K2 and prologue
+   launches timed in turns against float32-atomic variants built from the
+   same sources (what the float64 accumulator costs); then a ``torch.profiler``
+   trace of a few more ticks: device time and launches by kernel and the
+   device's idle share;
 6. the flash-attention kernel (K3) against its plain versions on the card
    at qwen3-14b's attention shapes (Hq 40, Hkv 8, D 128, bf16, batch 2):
    S 8192 causal, S 4000 (ragged) and a 1024 window at S 4096, elementwise
    and normwise per 64-row band, with controls the check must reject;
-   times of K3, of the blocked plain version and of torch's SDPA;
+   times of K3, of the blocked plain version and of torch's SDPA; and K3's
+   SIMT body (what the tensor-core body does not take) at the dense LMs'
+   smoke-config shapes (float32, D 16), at qwen3-14b's heads in float32
+   (timed, with the plain version and SDPA) and in float16 at D 80;
 7. the LM serving path on ``cuda`` (bf16, K3) against the same weights on
    ``cpu`` (float32, plain attention): a 2-layer qwen3-shaped model
    (d_model 1280, 10 heads over 2 kv heads, d_head 128), 6 prompts,
-   prefill and 4 decode steps, and a wrongly windowed control;
+   prefill and 4 decode steps, and a wrongly windowed control; then the
+   three dense LMs' smoke configs (float32, d_head 16) on cuda against cpu,
+   K3's counters set to 0 just before and read just after (one SIMT launch
+   a layer per prefill);
 8. the LM main path at full width: qwen3-14b (40 layers, d_model 5120,
    random weights from a seeded generator), 2 prompts x 8,192 tokens,
    prefill, 32 greedy decode steps, with K3's launch counter set to 0 just
-   before and read just after (40 per prefill), and no attention call on
-   the model's plain route; then ``torch.profiler``
+   before and read just after (40 per prefill, none on the SIMT body);
+   then ``torch.profiler``
    traces of one more prefill and of four more decode steps;
 9. the destination-row SpMM kernel (K4) against its plain versions on
    the card: gcn-cora's matrices on the Cora-sized graph (both directions,
@@ -134,6 +141,18 @@ LM_SEED = 0  # weights, prompts and attention inputs of phases 6-8
 # cases: causal at the main path's length (timed), ragged, windowed
 ATTN_SHAPE = (2, 40, 8, 128)
 ATTN_CASES = ((8192, None), (4000, None), (4096, 1024))
+# K3's SIMT body (what the tensor-core body does not take), causal:
+# (dtype, batch, Hq, Hkv, S, D, window) at the dense LMs' smoke-config
+# shapes (float32, d_head 16: the shapes of its path, phase 7), at
+# qwen3-14b's heads in float32 (timed) and in float16 at an odd head dim;
+# against the float32 plain versions: f32 FFMA vs f32 einsums (1e-4), and
+# float16's output rounding (1e-2)
+SIMT_CASES = (("float32", 2, 4, 2, 24, 16, None), ("float32", 1, 40, 8, 2048, 128, None),
+              ("float16", 1, 8, 2, 1000, 80, 256))
+SIMT_TOL = {"float32": 1e-4, "float16": 1e-2}
+# the dense LMs whose smoke configs phase 7 runs on cuda through K3's SIMT
+# body against the same weights on cpu
+LM_SMOKE_ARCHS = ("qwen3-14b", "internlm2-20b", "deepseek-coder-33b")
 # the GNN path (phases 9-11): gcn-cora's forward, whose aggregations run
 # through K4 at its layer widths (16 and 7 columns)
 GNN_SEED = 0  # graphs, weights and kernel inputs of phases 9-11
@@ -324,7 +343,8 @@ def k1_inputs(V: int, integer: bool, seed: int):
     active = rng.random(V) < 0.7
     level = rng.integers(-1, 20, V).astype(np.int32)
     cu = lambda x: torch.from_numpy(x).to(DEVICE)
-    return (cu(w), cu(a), cu(active), cu(level), cu(dw),
+    # dw in K2's float64 accumulator
+    return (cu(w), cu(a), cu(active), cu(level), cu(dw).double(),
             torch.tensor(thresh, dtype=torch.float32, device=DEVICE),
             torch.tensor(7, dtype=torch.int32, device=DEVICE))
 
@@ -353,10 +373,12 @@ def k2_inputs(src, dst, V: int, E: int, integer: bool, seed: int, pad: str):
     return cu(s), cu(d), cu(c), cu(alive), cu(peel)
 
 
-def k1_bound_ms(V: int, n_peeled: int, n_blocks: int) -> float:
-    # reads w, dw, level (4 B), active (1 B), a only where peeled (4 B);
-    # writes w', level' (4 B), active', peeled (1 B), partials (12 B/block)
-    nbytes = V * (4 + 4 + 4 + 1) + 4 * n_peeled + V * (4 + 4 + 1 + 1) + 12 * n_blocks
+def k1_bound_ms(V: int, n_peeled: int, n_dw: int, n_blocks: int) -> float:
+    # reads w, level (4 B), the float64 dw (8 B), active (1 B), a only where
+    # peeled (4 B); writes w', level' (4 B), active', peeled (1 B), a zero
+    # where dw was not 0 (8 B), partials (12 B/block)
+    nbytes = (V * (4 + 4 + 8 + 1) + 4 * n_peeled + V * (4 + 4 + 1 + 1) + 8 * n_dw
+              + 12 * n_blocks)
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
@@ -369,11 +391,14 @@ def k2_bound_ms(E: int, V: int, n_alive: int, n_hit: int, n_blocks: int) -> floa
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def k2_in_place_bound_ms(E: int, V: int, n_alive: int, n_hit: int) -> float:
-    # the in-place round: reads alive (1 B/slot), src+dst of live slots
-    # (8 B), c of hit slots (4 B); writes the hit slots' alive bytes (1 B);
-    # reads peel once (1 B/vertex), writes dw once (4 B/vertex)
-    nbytes = E + 8 * n_alive + 4 * n_hit + n_hit + V + 4 * V
+def k2_in_place_bound_ms(E: int, n: dict) -> float:
+    # the in-place round on this input (``n`` from k2_round): reads alive (1
+    # B/slot), src+dst of live slots (8 B), c of hit slots (4 B); writes the
+    # hit slots' alive bytes (1 B); reads the peel byte of each distinct end
+    # of a live slot once, and adds into the float64 dw of each distinct
+    # vertex that takes a contribution (8 B written once); nothing of peel
+    # or dw when nothing is live
+    nbytes = E + 8 * n["n_alive"] + 5 * n["n_hit"] + n["n_ends"] + 8 * n["n_targets"]
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
@@ -383,11 +408,23 @@ def suffix_init_bound_ms(E: int, V: int) -> float:
     return 1e3 * (14 * E + 9 * V) / HBM_BYTES_PER_S
 
 
-def k2_round(args) -> tuple[int, int, int]:
-    """(live slots, peeled vertices, hit slots) of a K2 input."""
+def k2_round(args) -> dict:
+    """The counts of a K2 input: live slots, peeled vertices, hit slots
+    (live, a peeled end), distinct ends of live slots and distinct vertices
+    that take a dw contribution."""
+    import torch
+
     s, d, _, alive, peel = args
-    hit = alive & (peel[s] | peel[d])
-    return int(alive.sum()), int(peel.sum()), int(hit.sum())
+    ps, pd = alive & peel[s], alive & peel[d]
+    ends = torch.zeros_like(peel)
+    ends[s[alive]] = True
+    ends[d[alive]] = True
+    targets = torch.zeros_like(peel)
+    targets[d[ps & ~pd]] = True
+    targets[s[pd & ~ps]] = True
+    return {"n_alive": int(alive.sum()), "n_peeled": int(peel.sum()),
+            "n_hit": int((ps | pd).sum()), "n_ends": int(ends.sum()),
+            "n_targets": int(targets.sum())}
 
 
 def k2_acc(peel):
@@ -416,42 +453,37 @@ def phase_kernels(grab) -> dict:
     from repro_torch.kernels._launch import n_blocks
 
     rec = {"peel_round": {"max_abs_err": 0.0}, "frontier_spmv": {"max_abs_err": 0.0}}
-    # K1 at V = 6,023,168 and at a workset vertex bucket
+    # K1 at V = 6,023,168 and at a workset vertex bucket, on the float64 dw
+    # that K2 hands the round; both versions leave their copy of it zeroed
     for V, tag in ((GRAB_V, "grab4"), (65_536, "bucket")):
         for integer in (True, False):
             args = k1_inputs(V, integer, seed=1 if integer else 2)
-            # dw as float32, and as the float64 that K2 hands the round
-            for dw in (args[4], args[4].double()):
-                args = (*args[:4], dw, *args[5:])
-                got = peel_round(*args)
-                want = peel_round_ref(*args)
-                sync()
-                name = f"peel_round[{tag},{'int' if integer else 'lognormal'},dw {dw.dtype}]"
-                err = compare(name, got, want, exact=integer, rtol=RTOL)
-                rec["peel_round"]["max_abs_err"] = max(rec["peel_round"]["max_abs_err"], err)
-                log(f"K1 peel_round V={V} {'int' if integer else 'lognormal'} dw {dw.dtype}: "
-                    f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}; "
-                    f"peeled={int(want[3].sum())}")
-            args = (*args[:4], args[4].float(), *args[5:])
+            dw0 = args[4]
+            mine, plain = dw0.clone(), dw0.clone()
+            got = peel_round(*args[:4], mine, *args[5:])
+            want = peel_round_ref(*args[:4], plain, *args[5:])
+            sync()
+            name = f"peel_round[{tag},{'int' if integer else 'lognormal'}]"
+            err = compare(name, got, want, exact=integer, rtol=RTOL)
+            check(not bool(mine.any()) and not bool(plain.any()), f"{name}: dw not cleared")
+            rec["peel_round"]["max_abs_err"] = max(rec["peel_round"]["max_abs_err"], err)
+            log(f"K1 peel_round V={V} {'int' if integer else 'lognormal'}: "
+                f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}, "
+                f"dw left zeroed; peeled={int(want[3].sum())}")
         if tag == "grab4":
-            ms, call = timed(lambda: peel_round(*args))
-            plain, plain_call = timed(lambda: peel_round_ref(*args))
-            bound = k1_bound_ms(V, int(want[3].sum()), n_blocks(V, 132 * 8))
-            # as the main path runs it: a float64 dw (4 B more a vertex to
-            # read) that K1 leaves zeroed (8 B written per nonzero entry),
-            # restored by a copy left out of the time
-            dw0 = args[4].double()
+            # each call on the same dw, restored by a copy left out of the time
             dw = dw0.clone()
-            ms64 = in_place_timed(lambda: peel_round(*args[:4], dw, *args[5:], clear_dw=True),
-                                  [(dw, dw0)], call_time=False)[0]
-            extra = 4 * V + 8 * int(dw0.count_nonzero())
+            restores = [(dw, dw0)]
+            ms, call = in_place_timed(lambda: peel_round(*args[:4], dw, *args[5:]), restores)
+            plain, plain_call = in_place_timed(
+                lambda: peel_round_ref(*args[:4], dw, *args[5:]), restores)
+            bound = k1_bound_ms(V, int(want[3].sum()), int(dw0.count_nonzero()),
+                                n_blocks(V, 132 * 8))
             rec["peel_round"].update(ms=ms, plain_ms=plain, bound_ms=bound, call_ms=call,
-                                     plain_call_ms=plain_call, ms_dw_float64=ms64,
-                                     bound_dw_float64_ms=bound + 1e3 * extra / HBM_BYTES_PER_S)
+                                     plain_call_ms=plain_call)
             log(f"K1 peel_round V={V}: kernel {ms!r} ms device ({call!r} ms call), plain "
-                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes); "
-                f"with a float64 dw it leaves zeroed {ms64!r} ms device, bound "
-                f"{rec['peel_round']['bound_dw_float64_ms']!r} ms")
+                f"{plain!r} ms device ({plain_call!r} ms call), bound {bound!r} ms (bytes; "
+                f"{bound / ms!r} of it)")
     # K2 at E = 27,500,032 over the Grab4 base graph, and at a workset bucket
     rng = np.random.default_rng(3)
     small_src = rng.integers(0, 65_536, 240_000).astype(np.int32)
@@ -475,17 +507,16 @@ def phase_kernels(grab) -> dict:
 def k2_timings(args, E: int, V: int) -> dict:
     """K2 on phase 2's round-1-like Grab4 input (lognormal weights): device
     and call times of the kernel and its plain version, each call on the
-    same liveness; its bounds; the probe variants in turns with K2; and K2
-    on a dead round (no live slot)."""
+    same liveness and accumulator; its bounds; and K2 on a dead round (no
+    live slot)."""
     import torch
 
-    from repro_torch.kernels.frontier_spmv import (frontier_spmv, frontier_spmv_probe,
-                                                   frontier_spmv_ref)
+    from repro_torch.kernels.frontier_spmv import frontier_spmv, frontier_spmv_ref
     from repro_torch.kernels._launch import n_blocks
 
     s, d, c, alive0, peel = args
     alive = alive0.clone()
-    n_alive, n_peeled, n_hit = k2_round(args)
+    n = k2_round(args)
     runs = []
     for _ in range(3):
         alive.copy_(alive0)
@@ -502,35 +533,20 @@ def k2_timings(args, E: int, V: int) -> dict:
     ms, call = in_place_timed(lambda: frontier_spmv(s, d, c, alive, peel, acc), restores)
     plain, plain_call = in_place_timed(lambda: frontier_spmv_ref(s, d, c, alive, peel, acc),
                                        restores, calls=10, reps=10)
-    bound = k2_in_place_bound_ms(E, V, n_alive, n_hit)
-    old_bound = k2_bound_ms(E, V, n_alive, n_hit, n_blocks(E, 132 * 16))
-    log(f"K2 frontier_spmv E={E}: n_alive={n_alive} n_peeled={n_peeled} n_hit={n_hit}; "
-        f"kernel {ms!r} ms device ({call!r} ms call), plain {plain!r} ms device "
-        f"({plain_call!r} ms call), in-place bound {bound!r} ms (bytes; "
-        f"{bound / ms!r} of it), out-of-place bound k2_bound_ms {old_bound!r} ms")
-    # the probes, in turns with K2 on the same input: each variant's
-    # device time, pack launch included for the packed mask
-    variants = {"K2 (16 slots)": (16, False), "packed peel": (16, True),
-                "32 slots": (32, False), "32 slots, packed": (32, True)}
-    probes = {k: [] for k in variants}
-    for order in (list(variants), list(variants)[::-1]):
-        for k in order:
-            sl, pk = variants[k]
-            fn = ((lambda: frontier_spmv(s, d, c, alive, peel, acc)) if k.startswith("K2") else
-                  (lambda sl=sl, pk=pk: frontier_spmv_probe(s, d, c, alive, peel, acc,
-                                                            slots=sl, packed=pk)))
-            probes[k].append(in_place_timed(fn, restores, call_time=False)[0])
-    for k, v in probes.items():
-        log(f"K2 probe {k}: {v[0]!r} / {v[1]!r} ms device (in turns)")
+    bound = k2_in_place_bound_ms(E, n)
+    old_bound = k2_bound_ms(E, V, n["n_alive"], n["n_hit"], n_blocks(E, 132 * 16))
+    log(f"K2 frontier_spmv E={E}: " + " ".join(f"{k}={v}" for k, v in n.items())
+        + f"; kernel {ms!r} ms device ({call!r} ms call), plain {plain!r} ms device "
+        f"({plain_call!r} ms call), in-place bound {bound!r} ms (bytes; {bound / ms!r} of "
+        f"it), out-of-place bound k2_bound_ms {old_bound!r} ms")
     # a dead round, into a peel's accumulator: nothing live, so nothing
     # changes and nothing needs restoring
     dead = torch.zeros_like(alive0)
     dead_ms = device_time_ms(lambda: frontier_spmv(s, d, c, dead, peel, acc0))
-    dead_bound = k2_in_place_bound_ms(E, V, 0, 0)
+    dead_bound = k2_in_place_bound_ms(E, k2_round((s, d, c, dead, peel)))
     log(f"K2 dead round E={E}: {dead_ms!r} ms device, bound {dead_bound!r} ms (bytes)")
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "call_ms": call,
-            "plain_call_ms": plain_call, "k2_bound_ms": old_bound, "n_alive": n_alive,
-            "n_peeled": n_peeled, "n_hit": n_hit, "probes_ms": probes,
+            "plain_call_ms": plain_call, "k2_bound_ms": old_bound, **n,
             "dead_round_ms": dead_ms, "dead_round_bound_ms": dead_bound}
 
 
@@ -816,21 +832,22 @@ def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
 
 def tick_rounds(one_tick) -> dict:
     """Run one fused Grab4 tick with recording wrappers installed around
-    ``repro_torch.core.peel``'s ``frontier_spmv`` and ``suffix_init`` (the
-    package is unchanged; the wrappers are removed after the tick), keeping
-    each round's (alive, peel) and the prologue's inputs.  Then: each
-    round's live slots, peeled vertices and hit slots, K2 against its plain
-    version on it, K2's device time, its in-place bound and its share of
-    it; and ``suffix_init`` at the tick's own inputs against its plain
-    version (the tick's DW weights within RTOL, integer weights on the same
-    edges and live set bit for bit), with device and call times."""
+    ``repro_torch.core.peel``'s ``frontier_spmv``, ``peel_round`` and
+    ``suffix_init`` (the package is unchanged; the wrappers are removed
+    after the tick), keeping each round's K2 and K1 inputs and the
+    prologue's.  Then: each round's counts (:func:`k2_round`), K2 against
+    its plain version on it, K2's device time, its in-place bound and its
+    share of it; :func:`accumulator_cost_ms` on the tick; and
+    ``suffix_init`` at the tick's own inputs against its plain version (the
+    tick's DW weights within RTOL, integer weights on the same edges and
+    live set bit for bit), with device and call times."""
     import torch
 
     from repro_torch.core import peel as peel_mod
     from repro_torch.kernels.frontier_spmv import frontier_spmv, suffix_init, suffix_init_ref
 
-    rounds, prologue = [], []
-    real_k2, real_si = peel_mod.frontier_spmv, peel_mod.suffix_init
+    rounds, prologue, k1_rounds = [], [], []
+    real_k2, real_si, real_k1 = peel_mod.frontier_spmv, peel_mod.suffix_init, peel_mod.peel_round
 
     def rec_k2(src, dst, c, alive, peel, dw):
         rounds.append((src, dst, c, alive.clone(), peel.clone()))
@@ -840,13 +857,18 @@ def tick_rounds(one_tick) -> dict:
         prologue.append((src, dst, c, emask, live.clone(), a))
         return real_si(src, dst, c, emask, live, a)
 
-    peel_mod.frontier_spmv, peel_mod.suffix_init = rec_k2, rec_si
+    def rec_k1(w, a, active, level, dw, thresh, round_):
+        k1_rounds.append((w, a, active, level, dw.clone(), thresh, round_))
+        return real_k1(w, a, active, level, dw, thresh, round_)
+
+    peel_mod.frontier_spmv, peel_mod.suffix_init, peel_mod.peel_round = rec_k2, rec_si, rec_k1
     try:
         one_tick()
         sync()
     finally:
         peel_mod.frontier_spmv, peel_mod.suffix_init = real_k2, real_si
-    check(len(rounds) == 20 and len(prologue) == 1,
+        peel_mod.peel_round = real_k1
+    check(len(rounds) == 20 and len(prologue) == 1 and len(k1_rounds) == 20,
           f"tick rounds: recorded {len(rounds)} rounds and {len(prologue)} prologues")
     E, V = rounds[0][0].shape[0], rounds[0][4].shape[0]
     acc0 = k2_acc(rounds[0][4])  # the peel's accumulator
@@ -854,21 +876,21 @@ def tick_rounds(one_tick) -> dict:
     per_round, err = [], 0.0
     for r, args in enumerate(rounds):
         s, d, c, alive0, peel = args
-        n_alive, n_peeled, n_hit = k2_round(args)
+        n = k2_round(args)
         err = max(err, k2_check(f"K2 tick round {r}", args, RTOL, exact=False))
         alive = alive0.clone()
         ms = in_place_timed(lambda: frontier_spmv(s, d, c, alive, peel, acc),
                             [(alive, alive0), (acc, acc0)], calls=20, call_time=False)[0]
-        bound = k2_in_place_bound_ms(E, V, n_alive, n_hit)
-        per_round.append({"n_alive": n_alive, "n_peeled": n_peeled, "n_hit": n_hit,
-                          "ms": ms, "bound_ms": bound, "share": bound / ms})
-        log(f"K2 tick round {r:2d}: n_alive={n_alive} n_peeled={n_peeled} n_hit={n_hit} "
-            f"kernel {ms!r} ms device, in-place bound {bound!r} ms, share {bound / ms!r}")
+        bound = k2_in_place_bound_ms(E, n)
+        per_round.append({**n, "ms": ms, "bound_ms": bound, "share": bound / ms})
+        log(f"K2 tick round {r:2d}: " + " ".join(f"{k}={v}" for k, v in n.items())
+            + f" kernel {ms!r} ms device, in-place bound {bound!r} ms, share {bound / ms!r}")
     total, total_bound = sum(x["ms"] for x in per_round), sum(x["bound_ms"] for x in per_round)
     log(f"K2 tick rounds (E={E}, V={V}): {total!r} ms device over 20 rounds, bound "
         f"{total_bound!r} ms, share {total_bound / total!r}; max_abs_err vs plain "
         f"{err!r} (rtol {RTOL})")
-    del rounds
+    cost = accumulator_cost_ms(rounds, k1_rounds, prologue[0])
+    del rounds, k1_rounds
 
     src, dst, c, emask, live, a = prologue[0]
     si = {"max_abs_err": compare("suffix_init[grab4 tick]", suffix_init(*prologue[0]),
@@ -896,7 +918,159 @@ def tick_rounds(one_tick) -> dict:
         f"{ms!r} ms device ({call!r} ms call), plain {plain!r} ms device ({plain_call!r} ms "
         f"call), bound {bound!r} ms (bytes; {bound / ms!r} of it)")
     return {"rounds": per_round, "k2_tick_ms": total, "k2_tick_bound_ms": total_bound,
+            "accumulator_cost": cost,
             "k2_max_abs_err": err, "suffix_init": si}
+
+
+def float32_variants() -> dict:
+    """Libraries of ``csrc/peel_round.cu`` and ``csrc/frontier_spmv.cu``
+    with their float64 accumulator made float32 (every ``double`` of the
+    source read as ``float``): the same kernels with float32 atomics, built
+    here for :func:`accumulator_cost_ms` only, one ``nvcc`` each, in
+    parallel."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "float32_accumulator"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem in ("peel_round", "frontier_spmv"):
+        src = out_dir / f"{stem}.cu"
+        text = (_build.CSRC / f"{stem}.cu").read_text()
+        src.write_text(re.sub(r"\bdouble\b", "float", text))
+        procs[stem] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(out_dir / f"lib{stem}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for stem, proc in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"float32 variant of {stem}.cu: nvcc failed\n{text}")
+        libs[stem] = ctypes.CDLL(str(out_dir / f"lib{stem}.so"))
+    return libs
+
+
+def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
+    """What the float64 accumulator costs one fused Grab4 tick: each of the
+    tick's 20 K1 and K2 launches and its ``suffix_init``, as the package
+    runs them and with float32 atomics (:func:`float32_variants`), device
+    times in turns on the tick's own inputs (float64, float32, float32,
+    float64).  The float32 K1 reads a float32 dw and clears it, the float32
+    K2 adds into a zeroed float32 dw, and the float32 prologue adds into a
+    float32 accumulator in one pass.  Each variant is first held against
+    the plain versions (RTOL)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+    from repro_torch.kernels.frontier_spmv import (frontier_spmv, frontier_spmv_ref,
+                                                   suffix_init, suffix_init_ref)
+    from repro_torch.kernels.peel_round import peel_round, peel_round_ref
+
+    t0 = time.perf_counter()
+    libs = float32_variants()
+    log(f"accumulator cost: float32 variants built in {time.perf_counter() - t0!r} s")
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    k1_32 = libs["peel_round"].peel_round_launch
+    k1_32.argtypes = [P] * 12 + [I64, ctypes.c_int, P]
+    k2_32 = libs["frontier_spmv"].frontier_spmv_launch
+    k2_32.argtypes = [P] * 9 + [I64] * 3 + [ctypes.c_int, P]
+    si_32 = libs["frontier_spmv"].suffix_init_launch
+    si_32.argtypes = [P] * 13 + [I64] * 3 + [ctypes.c_int, ctypes.c_int, P]
+    stream = _launch.stream_ptr(torch.device(DEVICE))
+    ticket = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    cap = k2_ops._CAP
+
+    def k1_f32(w, a, active, level, dw, thresh, round_):
+        V = w.shape[0]
+        outs = [torch.empty_like(w), torch.empty_like(active), torch.empty_like(level),
+                torch.empty_like(active)]
+        nb = _launch.n_blocks(V, 132 * 8)
+        partials = torch.empty((nb, 3), dtype=torch.float32, device=DEVICE)
+        _launch.check(k1_32(w.data_ptr(), a.data_ptr(), active.data_ptr(), level.data_ptr(),
+                            dw.data_ptr(), thresh.data_ptr(), round_.data_ptr(),
+                            *(o.data_ptr() for o in outs), partials.data_ptr(), V, nb,
+                            stream), "float32 peel_round")
+        return (*outs, partials.sum(0))
+
+    def k2_f32(src, dst, c, alive, peel, dw):
+        E = src.shape[0]
+        drop = torch.empty((), dtype=torch.float32, device=DEVICE)
+        partials = torch.empty(cap, dtype=torch.float32, device=DEVICE)
+        head, n_groups = k2_ops._vector_split(E, alive.data_ptr(), src.data_ptr(),
+                                              dst.data_ptr())
+        _launch.check(k2_32(src.data_ptr(), dst.data_ptr(), c.data_ptr(), alive.data_ptr(),
+                            peel.data_ptr(), dw.data_ptr(), partials.data_ptr(),
+                            ticket.data_ptr(), drop.data_ptr(), E, head, n_groups, cap,
+                            stream), "float32 frontier_spmv")
+        return dw, drop
+
+    def si_f32(src, dst, c, emask, live, a):
+        E, V = src.shape[0], live.shape[0]
+        acc = torch.zeros(V, dtype=torch.float32, device=DEVICE)
+        tail = torch.zeros(2 + 2 * cap, dtype=torch.float32, device=DEVICE)
+        w0 = torch.empty(V, dtype=torch.float32, device=DEVICE)
+        both = torch.empty(E, dtype=torch.bool, device=DEVICE)
+        _launch.check(si_32(src.data_ptr(), dst.data_ptr(), c.data_ptr(), emask.data_ptr(),
+                            live.data_ptr(), a.data_ptr(), acc.data_ptr(), w0.data_ptr(),
+                            both.data_ptr(), tail[2:].data_ptr(), tail[2 + cap:].data_ptr(),
+                            tail[1:].data_ptr(), tail.data_ptr(), E, V, E // 16, 1, cap,
+                            stream), "float32 suffix_init")
+        return w0, tail[0], both
+
+    # the variants compute the same functions
+    s, d, c, alive, peel = rounds[0]
+    a32 = alive.clone()
+    got = k2_f32(s, d, c, a32, peel, torch.zeros(peel.shape[0], device=DEVICE))
+    a_ref = alive.clone()
+    want = frontier_spmv_ref(s, d, c, a_ref, peel, k2_acc(peel))
+    compare("float32 frontier_spmv", (got[0].double(), got[1], a32), (*want, a_ref),
+            exact=False, rtol=RTOL)
+    w, a, act, lev, dw0, th, r = k1_rounds[0]
+    compare("float32 peel_round", k1_f32(w, a, act, lev, dw0.float(), th, r),
+            peel_round_ref(w, a, act, lev, dw0.clone(), th, r), exact=False, rtol=RTOL)
+    compare("float32 suffix_init", si_f32(*prologue), suffix_init_ref(*prologue),
+            exact=False, rtol=RTOL)
+
+    times = {k: {"float64": [], "float32": []} for k in ("frontier_spmv", "peel_round")}
+    for order in (("float64", "float32"), ("float32", "float64")):
+        for kind in order:
+            k2_total = k1_total = 0.0
+            for (s, d, c, alive0, peel), (w, a, act, lev, dw0, th, r) in zip(rounds, k1_rounds):
+                alive = alive0.clone()
+                acc0 = torch.zeros(peel.shape[0], device=DEVICE,
+                                   dtype=torch.float64 if kind == "float64" else torch.float32)
+                acc = acc0.clone()
+                k2 = frontier_spmv if kind == "float64" else k2_f32
+                k2_total += in_place_timed(lambda: k2(s, d, c, alive, peel, acc),
+                                           [(alive, alive0), (acc, acc0)], calls=20,
+                                           call_time=False)[0]
+                dws = dw0 if kind == "float64" else dw0.float()
+                dw = dws.clone()
+                k1 = peel_round if kind == "float64" else k1_f32
+                k1_total += in_place_timed(lambda: k1(w, a, act, lev, dw, th, r),
+                                           [(dw, dws)], calls=20, call_time=False)[0]
+            times["frontier_spmv"][kind].append(k2_total)
+            times["peel_round"][kind].append(k1_total)
+    si = {"float64": [], "float32": []}
+    for kind in ("float64", "float32", "float32", "float64"):
+        si[kind].append(device_time_ms(lambda: (suffix_init if kind == "float64" else si_f32)(
+            *prologue)))
+    times["suffix_init"] = si
+    out = {}
+    for k, v in times.items():
+        f64, f32 = statistics.mean(v["float64"]), statistics.mean(v["float32"])
+        out[k] = {"float64_ms": v["float64"], "float32_ms": v["float32"],
+                  "cost_ms_per_tick": f64 - f32}
+        log(f"accumulator cost, {k} per tick: float64 {v['float64']!r} ms, float32 atomics "
+            f"{v['float32']!r} ms device (in turns); float64 costs {f64 - f32!r} ms a tick")
+    out["total_cost_ms_per_tick"] = sum(out[k]["cost_ms_per_tick"] for k in times)
+    log(f"accumulator cost: {out['total_cost_ms_per_tick']!r} ms device a tick in all")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1059,6 +1233,68 @@ def phase_attention(seed: int) -> tuple[dict, dict]:
     return rec, norm
 
 
+def k3_simt_bound_ms(B, Hq, Hkv, S, D, window, itemsize) -> tuple[float, str]:
+    """K3's SIMT body: f32 FFMA at the FP32 rate, q, k, v and o once each."""
+    flops = 4 * B * Hq * D * attn_pairs(S, window)
+    nbytes = itemsize * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_attention_simt(seed: int) -> dict:
+    """K3's SIMT body against its plain versions at SIMT_CASES (elementwise,
+    |err| <= SIMT_TOL * (1 + |want|)); device and call times of the kernel,
+    of the blocked plain version and of SDPA at the timed case."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rec = {"max_abs_err": 0.0}
+    for dtype, B, Hq, Hkv, S, D, window in SIMT_CASES:
+        dt = getattr(torch, dtype)
+        # the model layout: q [B, S, Hq, D], k/v [B, S, Hkv, D], read as views
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=DEVICE).to(dt)
+                   .permute(0, 2, 1, 3) for h in (Hq, Hkv, Hkv))
+        n0 = k3_ops.launches
+        got = flash_attention(q, k, v, causal=True, window=window)
+        sync()
+        check(k3_ops.launches == n0, "K3 SIMT case ran on the tensor-core body")
+        tag = f"K3 SIMT {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} window={window}"
+        err = 0.0
+        for want in (flash_attention_ref(q, k, v, causal=True, window=window),
+                     attention_ref(q, k, v, causal=True, window=window)):
+            diff = (got.float() - want.float()).abs()
+            err = max(err, float(diff.max()))
+            check(bool((diff <= SIMT_TOL[dtype] * (1 + want.float().abs())).all()),
+                  f"{tag}: max abs err {float(diff.max())!r} beyond {SIMT_TOL[dtype]}")
+        check(torch.equal(flash_attention(q, k, v, causal=True, window=window), got),
+              f"{tag}: two launches gave different bits")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        log(f"{tag}: max_abs_err={err!r} vs flash_attention_ref and attention_ref "
+            f"(atol = rtol = {SIMT_TOL[dtype]}); two launches the same bits")
+        if (dtype, S) == ("float32", 2048):
+            ms, call = timed(lambda: flash_attention(q, k, v), calls=10, reps=10)
+            plain, plain_call = timed(lambda: flash_attention_ref(q, k, v), calls=3, reps=3)
+            lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), calls=10, reps=10)
+            bound, by = k3_simt_bound_ms(B, Hq, Hkv, S, D, window, q.element_size())
+            tflops = 4 * B * Hq * D * attn_pairs(S, window) / ms / 1e9
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                       call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+                       timed_case=tag, tflops=tflops)
+            log(f"{tag}: kernel {ms!r} ms device ({call!r} ms call; {tflops!r} TFLOP/s, "
+                f"{ms / lib!r}x sdpa, {bound / ms!r} of the bound), plain {plain!r} ms device "
+                f"({plain_call!r} ms call), sdpa {lib!r} ms device ({lib_call!r} ms call), "
+                f"bound {bound!r} ms ({by})")
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the LM serving path on cuda against the same weights on cpu
 # ---------------------------------------------------------------------------
@@ -1135,8 +1371,61 @@ def phase_lm_parity(seed: int) -> dict:
     log(f"lm parity cuda(bf16, K3) vs cpu(f32): max logit err {worst!r} (tolerance "
         f"{LM_TOL} of each row's largest logit), cache k max err {kerr!r}; greedy "
         f"tokens equal on all {decided} decided rows; {tied} near-tie rows")
+    del gpu, cpu, cache_g, cache_c
     return {"max_logit_err": worst, "prefill_err_over_scale": sound,
-            "control_err_over_scale": ctrl, "decided_rows": decided, "tied_rows": tied}
+            "control_err_over_scale": ctrl, "decided_rows": decided, "tied_rows": tied,
+            "smoke_configs": lm_smoke_parity(seed)}
+
+
+def lm_smoke_parity(seed: int) -> dict:
+    """The dense LMs' smoke configs (float32, d_head 16) on cuda, whose
+    attention is K3's SIMT body, against the same weights on cpu: prefill
+    of 2 x 24 tokens and 3 decode steps, logits within LM_TOL of each row's
+    largest |logit|.  K3's counters are set to 0 just before and read just
+    after: one SIMT launch a layer per prefill, none on the tensor cores."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import TransformerLM, decode_step, prefill
+
+    k3_ops.launches = 0
+    k3_ops.simt_launches = 0
+    out, layers = {}, 0
+    for arch in LM_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+        gpu = TransformerLM(cfg, device=DEVICE, init=False)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(seed)
+        B, S = 2, 24
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+        lg, cache_g = prefill(gpu, tokens.to(DEVICE))
+        lc, cache_c = prefill(cpu, tokens)
+        layers += cfg.n_layers
+        worst = 0.0
+        for step in range(4):
+            got, want = lg.float().cpu(), lc.float()
+            check(bool(torch.isfinite(got).all()), f"{cfg.name} step {step}: non-finite")
+            rel = float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+            check(rel <= LM_TOL, f"{cfg.name} step {step}: {rel!r} of the row scale, "
+                  f"beyond {LM_TOL}")
+            worst = max(worst, rel)
+            if step == 3:
+                break
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, B))
+            pos = torch.full((B,), S + step, dtype=torch.int64)
+            lg, cache_g = decode_step(gpu, cache_g, tok.to(DEVICE), pos.to(DEVICE))
+            lc, cache_c = decode_step(cpu, cache_c, tok, pos)
+        out[arch] = worst
+        log(f"{cfg.name} cuda (K3 SIMT body, float32) vs cpu: prefill and 3 decode steps, "
+            f"largest error / row scale {worst!r} (tolerance {LM_TOL})")
+    sync()
+    check(k3_ops.simt_launches == layers and k3_ops.launches == 0,
+          f"smoke configs: K3 SIMT launched {k3_ops.simt_launches} times, tensor-core "
+          f"body {k3_ops.launches}; expected {layers} and 0")
+    out["simt_launches"] = k3_ops.simt_launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1149,7 +1438,7 @@ def phase_lm_full(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k3_ops
-    from repro_torch.models import TransformerLM, attention, decode_step, prefill
+    from repro_torch.models import TransformerLM, decode_step, prefill
 
     cfg = get_config(LM_ARCH)
     batch, prompt, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE_STEPS
@@ -1167,7 +1456,7 @@ def phase_lm_full(seed: int) -> dict:
         0, cfg.vocab, (batch, prompt))).to(DEVICE)
 
     k3_ops.launches = 0
-    attention.plain_routes = 0
+    k3_ops.simt_launches = 0
     sync()
     t0 = time.perf_counter()
     logits, cache = prefill(model, tokens)
@@ -1189,8 +1478,8 @@ def phase_lm_full(seed: int) -> dict:
     launches = k3_ops.launches
     check(launches == cfg.n_layers,
           f"{cfg.name}: K3 launched {launches} times, expected {cfg.n_layers} per prefill")
-    check(attention.plain_routes == 0,
-          f"{cfg.name}: {attention.plain_routes} attention calls took the plain route")
+    check(k3_ops.simt_launches == 0,
+          f"{cfg.name}: {k3_ops.simt_launches} attention calls took K3's SIMT body")
     peak = torch.cuda.max_memory_allocated()
     # the first prefill pays first-call costs (library heuristics, the
     # allocator's growth); time a second one as the warm figure
@@ -1205,7 +1494,7 @@ def phase_lm_full(seed: int) -> dict:
            "decode_ms_median": 1e3 * statistics.median(ts), "decode_ms_p90": 1e3 * p90,
            "decode_tokens_per_s": batch / statistics.median(ts),
            "max_memory_allocated_gb": peak / 1e9, "k3_launches": launches,
-           "attention_plain_routes": attention.plain_routes,
+           "k3_simt_launches": k3_ops.simt_launches,
            "init_s": init_s, "cache_gb": 2 * cache.k.numel() * 2 / 1e9,
            "tokens": torch.stack(out_tokens, 1)[:, :8].tolist()}
     log(f"{cfg.name} main path: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
@@ -1611,9 +1900,10 @@ def main() -> int:
     del stream
     t_lm = time.perf_counter()
     attn, attn_norm = phase_attention(LM_SEED)
-    log("phase 6: K3 agrees with its plain versions")
+    attn_simt = phase_attention_simt(LM_SEED)
+    log("phase 6: K3's two bodies agree with their plain versions")
     lm_parity = phase_lm_parity(LM_SEED)
-    log("phase 7: LM cuda==cpu within tolerance")
+    log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
     lm = phase_lm_full(LM_SEED)
     log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
         f"{time.perf_counter() - t_lm!r} s")
@@ -1651,19 +1941,23 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
          "launches": lm["k3_launches"], "bound_by": "operations", **attn},
+        {"name": "flash_attention_simt", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
+         "launches": lm_parity["smoke_configs"]["simt_launches"], **attn_simt},
         {"name": "gather_segsum", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_segsum.cu",
          "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
          "launches": gcn["launches"], **k4},
     ]
-    log(f"kernels: peel_round, frontier_spmv, suffix_init, flash_attention, gather_segsum "
-        f"launches {grab['launches']['peel_round']}, {grab['launches']['frontier_spmv']}, "
-        f"{grab['launches']['suffix_init']}, {lm['k3_launches']}, {gcn['launches']}")
+    log("kernels launched on their paths: " + ", ".join(
+        f"{k['name']} {k['launches']}" for k in kernels))
     log(f"total seconds {time.perf_counter() - t_start!r}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": smi, "kernels": kernels, "grab4": grab, "attention": attn_norm,
+             "attention_simt": attn_simt,
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
              "gcn_cora": gcn}, indent=1))

@@ -144,7 +144,7 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
     peel = s.active & (s.w <= eff_thresh)
     dw, drop_mass = frontier_spmv(src, dst, c, s.edge_alive, peel, s.dw)
     w, active, level, _, partials = peel_round(
-        s.w, a, s.active, s.level, dw, eff_thresh, s.round_, clear_dw=True
+        s.w, a, s.active, s.level, dw, eff_thresh, s.round_
     )
     return _BulkState(
         w=w,

@@ -1,11 +1,16 @@
-// K3 flash_attention: causal / sliding-window GQA attention forward, bf16,
-// for Hopper (sm_90a).
+// K3 flash_attention: causal / sliding-window GQA attention forward for
+// Hopper (sm_90a), two bodies.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, pallas_call at line 116).  Same contract: blocked
 // online softmax in f32, scores scaled by 1/sqrt(D), masked scores at -1e30,
 // queries left-aligned (query i at position i), kv head = q head / G, output
-// acc / max(l, 1e-30) in bf16.
+// acc / max(l, 1e-30) in the inputs' dtype.  The Pallas kernel takes any
+// float dtype and head dim (it casts its tiles to f32); so does K3: the
+// tensor-core body below takes bf16 at D 64 and 128 (the models' serving
+// widths), and the SIMT body at the end of the file takes float32, float16
+// and bf16 at any D up to 256 (the smoke configs' float32 at D 16 among
+// them).
 //
 // Bound on the H100: operations.  A launch does 4*B*Hq*D*(unmasked (q, k)
 // pairs) flops, about 2*B*Hq*D*S^2 when causal: 1.375 TFLOP at B = 2,
@@ -56,6 +61,7 @@
 //   from registers with out's strides.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -558,6 +564,172 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The SIMT body: float32, float16 or bf16 data at any head dim up to 256,
+// every product in f32 FFMA on the CUDA cores, as the Pallas kernel's f32
+// tiles are (so f32 data keeps f32 precision; the tensor cores would round
+// it to tf32 or bf16).  Bound on the H100: operations, 4*B*Hq*D*(unmasked
+// pairs) flops at 67 TFLOP/s.
+//
+// A CTA of 64 threads takes 64 query rows of one (q head, batch), one row
+// a thread, and walks the keys its rows can see in tiles of kKeys (32; 16
+// at D 256), the tile loop of the Pallas grid's kv axis.  Q (as columns,
+// stride 65 so that the transposed writes and the row reads miss no bank)
+// and each K/V tile are converted to f32 in shared memory, zero-padded to
+// DP = D rounded up to a power of two from 16; a thread keeps its row's
+// accumulator (DP floats) and the tile's scores in registers.  The K and V
+// reads are float4 broadcasts, so a shared load feeds four FFMAs.  The
+// online softmax is the reference's per tile: the tile max, one
+// correction exp(m - m_new), masked scores at -1e30 (so a row whose keys
+// are all masked so far gets p = 1, which the correction wipes when its
+// first live key arrives, as in the reference); keys past Skv take no part.
+// A simple kernel first: its speed is recorded in PERF.md beside SDPA's.
+constexpr int kSimtRows = 64;
+constexpr int kSimtPitch = kSimtRows + 1;  // floats between Q columns in shared memory
+constexpr float kSimtNeg = -1e30f;
+
+template <int DP>
+struct SimtCfg {
+  static constexpr int kKeys = DP >= 256 ? 16 : 32;
+  static constexpr int kSmem = (DP * kSimtPitch + 2 * kKeys * DP) * 4;
+};
+
+struct SimtParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
+  int G, Sq, Skv, D, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kSimtRows) flash_simt_kernel(const SimtParams p) {
+  constexpr int R = kSimtRows, KT = SimtCfg<DP>::kKeys;
+  extern __shared__ float sm[];
+  float* qs = sm;                    // [DP][kSimtPitch]: column d of the rows
+  float* ks = qs + DP * kSimtPitch;  // [KT][DP]
+  float* vs = ks + KT * DP;          // [KT][DP]
+  const int h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int q0 = blockIdx.x * R, row = q0 + t;
+  const T* q = (const T*)p.q + b * p.q_sb + h * p.q_sh;
+  const T* k = (const T*)p.k + b * p.k_sb + (h / p.G) * p.k_sh;
+  const T* v = (const T*)p.v + b * p.v_sb + (h / p.G) * p.v_sh;
+  for (int i = t; i < R * DP; i += R) {
+    const int r = i / DP, d = i % DP;
+    qs[d * kSimtPitch + r] =
+        (q0 + r < p.Sq && d < p.D) ? to_f32(q[(int64_t)(q0 + r) * p.q_ss + d]) : 0.f;
+  }
+  // the keys any row of the tile can see
+  int k_end = p.Skv;
+  if (p.causal) k_end = min(k_end, min(q0 + R, p.Sq));
+  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+
+  float acc[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  float m = kSimtNeg, l = 0.f;
+  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
+    const int nk = min(KT, k_end - k0);
+    __syncthreads();  // the previous tile is consumed (and Q is written)
+    for (int i = t; i < KT * DP; i += R) {
+      const int j = i / DP, d = i % DP;
+      const bool in = j < nk && d < p.D;
+      ks[i] = in ? to_f32(k[(int64_t)(k0 + j) * p.k_ss + d]) : 0.f;
+      vs[i] = in ? to_f32(v[(int64_t)(k0 + j) * p.v_ss + d]) : 0.f;
+    }
+    __syncthreads();
+    float s[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DP; d += 4) {
+      const float x0 = qs[d * kSimtPitch + t], x1 = qs[(d + 1) * kSimtPitch + t];
+      const float x2 = qs[(d + 2) * kSimtPitch + t], x3 = qs[(d + 3) * kSimtPitch + t];
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(ks + j * DP + d);
+        s[j] = fmaf(x3, y.w, fmaf(x2, y.z, fmaf(x1, y.y, fmaf(x0, y.x, s[j]))));
+      }
+    }
+    float mt = m;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int key = k0 + j;
+      bool ok = true;
+      if (p.causal) ok = ok && key <= row;
+      if (p.window > 0) ok = ok && key > row - p.window;
+      s[j] = ok ? s[j] * p.scale : kSimtNeg;
+      if (j < nk) mt = fmaxf(mt, s[j]);
+    }
+    const float corr = expf(m - mt);
+    float ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      s[j] = j < nk ? expf(s[j] - mt) : 0.f;
+      ls += s[j];
+    }
+    l = l * corr + ls;
+#pragma unroll
+    for (int d = 0; d < DP; d += 4) {
+      float a0 = acc[d] * corr, a1 = acc[d + 1] * corr;
+      float a2 = acc[d + 2] * corr, a3 = acc[d + 3] * corr;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(vs + j * DP + d);
+        a0 = fmaf(s[j], y.x, a0), a1 = fmaf(s[j], y.y, a1);
+        a2 = fmaf(s[j], y.z, a2), a3 = fmaf(s[j], y.w, a3);
+      }
+      acc[d] = a0, acc[d + 1] = a1, acc[d + 2] = a2, acc[d + 3] = a3;
+    }
+    m = mt;
+  }
+  if (row < p.Sq) {
+    const float den = fmaxf(l, 1e-30f);
+    T* o = (T*)p.o + b * p.o_sb + h * p.o_sh + (int64_t)row * p.o_ss;
+#pragma unroll
+    for (int d = 0; d < DP; ++d)
+      if (d < p.D) o[d] = from_f32<T>(acc[d] / den);
+  }
+}
+
+template <typename T, int DP>
+int launch_simt(const SimtParams& p, int B, int Hq, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_simt_kernel<T, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SimtCfg<DP>::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  dim3 grid((p.Sq + kSimtRows - 1) / kSimtRows, Hq, B);
+  flash_simt_kernel<T, DP><<<grid, kSimtRows, SimtCfg<DP>::kSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_simt_d(const SimtParams& p, int B, int Hq, cudaStream_t stream) {
+  if (p.D <= 16) return launch_simt<T, 16>(p, B, Hq, stream);
+  if (p.D <= 32) return launch_simt<T, 32>(p, B, Hq, stream);
+  if (p.D <= 64) return launch_simt<T, 64>(p, B, Hq, stream);
+  if (p.D <= 128) return launch_simt<T, 128>(p, B, Hq, stream);
+  return launch_simt<T, 256>(p, B, Hq, stream);
+}
+
 }  // namespace
 
 // Dynamic shared memory of one CTA at head dim D (0 for another D).
@@ -593,4 +765,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.scale_log2 = scale_log2;
   if (D == 128) return launch<128>(tq, tk, tv, p, B, Hq, (cudaStream_t)stream);
   return launch<64>(tq, tk, tv, p, B, Hq, (cudaStream_t)stream);
+}
+
+// The SIMT body.  q: [B, Hq, Sq, D], k/v: [B, Hkv, Skv, D], o: [B, Hq, Sq, D]
+// with a unit last stride; `strides` holds the batch, head and sequence
+// strides in elements of q, k, v and o (12 values).  dtype: 0 float32,
+// 1 bf16, 2 float16.  1 <= D <= 256.  Returns a cudaError_t (0 = ok).
+extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v,
+                                           void* o, const int64_t* strides, int B, int Hq,
+                                           int Hkv, int Sq, int Skv, int D, int dtype,
+                                           int causal, int window, float scale,
+                                           void* stream) {
+  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  SimtParams p;
+  p.q = q, p.k = k, p.v = v, p.o = o;
+  p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
+  p.k_sb = strides[3], p.k_sh = strides[4], p.k_ss = strides[5];
+  p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
+  p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
+  p.G = Hq / Hkv, p.Sq = Sq, p.Skv = Skv, p.D = D;
+  p.causal = causal, p.window = window, p.scale = scale;
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_simt_d<float>(p, B, Hq, st);
+  if (dtype == 1) return launch_simt_d<__nv_bfloat16>(p, B, Hq, st);
+  if (dtype == 2) return launch_simt_d<__half>(p, B, Hq, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -54,14 +54,12 @@
 // On integer weights whose sums stay below 2^24 both are exact, hence equal
 // to the plain versions.  The accumulator is 8 B a vertex: the prologue adds
 // into it in passes over vertex ranges that each fit half the L2.
-//
-// The probe entry times two variants of the round on the same inputs: 32
-// slots a thread, and a bit-packed peel mask (packed by peel_pack_kernel).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kVec = 16;  // bytes of one vector load
+constexpr int kSlots = kVec;  // edge slots a thread: one 16-byte liveness load
 
 __device__ __forceinline__ bool byte_of(const uint32_t* words, int j) {
   return (words[j >> 2] >> (8 * (j & 3))) & 0xffu;
@@ -92,44 +90,27 @@ __device__ __forceinline__ bool last_block(float v, float* partials, unsigned* t
   return last;
 }
 
-template <bool kPacked>
-__device__ __forceinline__ bool peeled(const uint8_t* peel, int32_t v) {
-  if (kPacked) {
-    return (__ldg(reinterpret_cast<const uint32_t*>(peel) + (v >> 5)) >> (v & 31)) & 1u;
-  }
-  return __ldg(peel + v) != 0;
-}
-
 // Slot k of the scalar path: the head [0, head), then the tail after the
 // vector groups.
 __device__ __forceinline__ int64_t scalar_slot(int64_t k, int64_t head, int64_t vec_end) {
   return k < head ? k : vec_end + (k - head);
 }
 
-template <int kSlots, bool kPacked>
-__global__ void __launch_bounds__(spade::kThreads, kSlots == 16 ? 3 : 1) frontier_spmv_kernel(
+__global__ void __launch_bounds__(spade::kThreads, 3) frontier_spmv_kernel(
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
     const float* __restrict__ c, uint8_t* __restrict__ alive,
     const uint8_t* __restrict__ peel, double* __restrict__ dw,
     float* __restrict__ partials, unsigned* __restrict__ ticket,
     float* __restrict__ drop_out, int64_t n_edges, int64_t head, int64_t n_groups) {
-  static_assert(kSlots % kVec == 0 && kSlots <= 32, "kSlots: 16 or 32");
   __shared__ float scratch[spade::kWarps];
   float drop = 0.f;
   const int64_t stride = (int64_t)gridDim.x * spade::kThreads;
   const int64_t tid = (int64_t)blockIdx.x * spade::kThreads + threadIdx.x;
   for (int64_t g = tid; g < n_groups; g += stride) {
     const int64_t base = head + g * kSlots;
-    uint32_t a[kSlots / 4];
-#pragma unroll
-    for (int q = 0; q < kSlots / kVec; ++q) {
-      const uint4 v = reinterpret_cast<const uint4*>(alive + base)[q];
-      a[4 * q] = v.x, a[4 * q + 1] = v.y, a[4 * q + 2] = v.z, a[4 * q + 3] = v.w;
-    }
-    uint32_t any = 0;
-#pragma unroll
-    for (int w = 0; w < kSlots / 4; ++w) any |= a[w];
-    if (!any) continue;  // a dead group: 16 bytes read, nothing else
+    const uint4 v = *reinterpret_cast<const uint4*>(alive + base);
+    uint32_t a[4] = {v.x, v.y, v.z, v.w};
+    if (!(a[0] | a[1] | a[2] | a[3])) continue;  // a dead group: 16 bytes read, nothing else
     int32_t s[kSlots], d[kSlots];
 #pragma unroll
     for (int q = 0; q < kSlots / 4; ++q) {
@@ -143,8 +124,8 @@ __global__ void __launch_bounds__(spade::kThreads, kSlots == 16 ? 3 : 1) frontie
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
       const bool live = byte_of(a, j);
-      ps[j] = live && peeled<kPacked>(peel, s[j]);
-      pd[j] = live && peeled<kPacked>(peel, d[j]);
+      ps[j] = live && __ldg(peel + s[j]);
+      pd[j] = live && __ldg(peel + d[j]);
     }
     float cm[kSlots];
     uint32_t hit = 0;
@@ -161,11 +142,7 @@ __global__ void __launch_bounds__(spade::kThreads, kSlots == 16 ? 3 : 1) frontie
       if (ps[j] != pd[j]) atomicAdd(dw + (ps[j] ? d[j] : s[j]), (double)cm[j]);
       if ((hit >> j) & 1u) a[j >> 2] &= ~(0xffu << (8 * (j & 3)));
     }
-#pragma unroll
-    for (int q = 0; q < kSlots / kVec; ++q) {
-      reinterpret_cast<uint4*>(alive + base)[q] =
-          make_uint4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-    }
+    *reinterpret_cast<uint4*>(alive + base) = make_uint4(a[0], a[1], a[2], a[3]);
   }
   const int64_t vec_end = head + n_groups * kSlots;
   const int64_t n_scalar = head + (n_edges - vec_end);
@@ -173,7 +150,7 @@ __global__ void __launch_bounds__(spade::kThreads, kSlots == 16 ? 3 : 1) frontie
     const int64_t i = scalar_slot(k, head, vec_end);
     if (!alive[i]) continue;
     const int32_t si = src[i], di = dst[i];
-    const bool p1 = peeled<kPacked>(peel, si), p2 = peeled<kPacked>(peel, di);
+    const bool p1 = __ldg(peel + si), p2 = __ldg(peel + di);
     if (!(p1 || p2)) continue;
     const float cm = c[i];
     drop += cm;
@@ -186,17 +163,6 @@ __global__ void __launch_bounds__(spade::kThreads, kSlots == 16 ? 3 : 1) frontie
       *drop_out = total;
       *ticket = 0u;  // every block has taken its ticket: ready for the next launch
     }
-  }
-}
-
-// One bit per vertex of the peel mask (bit v & 31 of word v >> 5).
-__global__ void __launch_bounds__(spade::kThreads) peel_pack_kernel(
-    const uint8_t* __restrict__ peel, uint32_t* __restrict__ bits, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * spade::kThreads;
-  for (int64_t v0 = (int64_t)blockIdx.x * spade::kThreads; v0 < n; v0 += stride) {
-    const int64_t v = v0 + threadIdx.x;
-    const uint32_t word = __ballot_sync(0xffffffffu, v < n && peel[v]);
-    if ((threadIdx.x & 31) == 0 && v < n) bits[v >> 5] = word;
   }
 }
 
@@ -216,7 +182,6 @@ __global__ void __launch_bounds__(spade::kThreads) suffix_init_edges_kernel(
     uint8_t* __restrict__ both, float* __restrict__ partials,
     unsigned* __restrict__ ticket, int64_t n_edges, int64_t n_groups,
     int32_t lo, int32_t hi, int first) {
-  constexpr int kSlots = kVec;
   __shared__ float scratch[spade::kWarps];
   float sum = 0.f;
   const int64_t stride = (int64_t)gridDim.x * spade::kThreads;
@@ -336,21 +301,6 @@ int grid_for(const void* kernel, int64_t work, int cap) {
   return want < 1 ? 1 : (int)want;
 }
 
-template <int kSlots, bool kPacked>
-int launch_round(const void* src, const void* dst, const void* c, void* alive,
-                 const void* peel, void* dw, void* partials, void* ticket, void* drop,
-                 int64_t n_edges, int64_t head, int64_t n_groups, int cap,
-                 cudaStream_t stream) {
-  auto kernel = frontier_spmv_kernel<kSlots, kPacked>;
-  const int nb = grid_for((const void*)kernel, n_groups + head + (n_edges - head -
-                                                                  n_groups * kSlots), cap);
-  kernel<<<nb, spade::kThreads, 0, stream>>>(
-      (const int32_t*)src, (const int32_t*)dst, (const float*)c, (uint8_t*)alive,
-      (const uint8_t*)peel, (double*)dw, (float*)partials, (unsigned*)ticket, (float*)drop,
-      n_edges, head, n_groups);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // The round.  `dw` a float64 [V] accumulator holding zeros, which the round
@@ -362,35 +312,12 @@ extern "C" int frontier_spmv_launch(const void* src, const void* dst, const void
                                     void* partials, void* ticket, void* drop,
                                     int64_t n_edges, int64_t head, int64_t n_groups,
                                     int cap, void* stream) {
-  return launch_round<16, false>(src, dst, c, alive, peel, dw, partials, ticket, drop,
-                                 n_edges, head, n_groups, cap, (cudaStream_t)stream);
-}
-
-// The round's probe variants: `slots` 16 or 32 a thread; with `packed`,
-// `peel` is the bit mask from peel_pack_launch.
-extern "C" int frontier_spmv_probe_launch(const void* src, const void* dst, const void* c,
-                                          void* alive, const void* peel, void* dw,
-                                          void* partials, void* ticket, void* drop,
-                                          int64_t n_edges, int64_t head, int64_t n_groups,
-                                          int cap, int slots, int packed, void* stream) {
-  auto st = (cudaStream_t)stream;
-  if (slots == 16 && packed)
-    return launch_round<16, true>(src, dst, c, alive, peel, dw, partials, ticket, drop,
-                                  n_edges, head, n_groups, cap, st);
-  if (slots == 32 && !packed)
-    return launch_round<32, false>(src, dst, c, alive, peel, dw, partials, ticket, drop,
-                                   n_edges, head, n_groups, cap, st);
-  if (slots == 32 && packed)
-    return launch_round<32, true>(src, dst, c, alive, peel, dw, partials, ticket, drop,
-                                  n_edges, head, n_groups, cap, st);
-  return launch_round<16, false>(src, dst, c, alive, peel, dw, partials, ticket, drop,
-                                 n_edges, head, n_groups, cap, st);
-}
-
-extern "C" int peel_pack_launch(const void* peel, void* bits, int64_t n, void* stream) {
-  const int nb = grid_for((const void*)peel_pack_kernel, n, 1 << 16);
-  peel_pack_kernel<<<nb, spade::kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)peel, (uint32_t*)bits, n);
+  const int nb = grid_for((const void*)frontier_spmv_kernel,
+                          n_groups + head + (n_edges - head - n_groups * kSlots), cap);
+  frontier_spmv_kernel<<<nb, spade::kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)dst, (const float*)c, (uint8_t*)alive,
+      (const uint8_t*)peel, (double*)dw, (float*)partials, (unsigned*)ticket, (float*)drop,
+      n_edges, head, n_groups);
   return (int)cudaGetLastError();
 }
 

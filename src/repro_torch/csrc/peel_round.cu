@@ -10,10 +10,11 @@
 // n_peeled] into partials[n_blocks][3], summed over blocks by the wrapper in
 // a fixed order (no atomics, so the sums are deterministic).
 //
-// Bound on the H100: memory.  Per vertex it reads w, dw, level (4 B each),
-// active (1 B) and, for peeled vertices only, a (4 B); it writes w', level'
-// (4 B each), active', peeled (1 B each): about 23-27 B/vertex, i.e. about
-// 0.14-0.16 GB at V = 6,023,168 (Grab4), about 45 us at 3.35 TB/s.  The
+// Bound on the H100: memory.  Per vertex it reads w, level (4 B each), dw
+// (8 B), active (1 B) and, for peeled vertices only, a (4 B); it writes w',
+// level' (4 B each), active', peeled (1 B each) and, where dw was not 0,
+// a zero (8 B): about 27-39 B/vertex, i.e. about 0.16-0.23 GB at
+// V = 6,023,168 (Grab4), about 49-70 us at 3.35 TB/s.  The
 // operation count (a compare and a subtract) is negligible.  The design is
 // one coalesced grid-stride pass: neighbouring threads touch neighbouring
 // addresses, each array is read once, and the threshold and round number
@@ -22,22 +23,17 @@
 // recomputes it in another order).  Vectorised 16-byte loads are left for
 // a later change.
 //
-// dw comes as float32 or as float64 (K2's accumulator, frontier_spmv.cu);
-// a float64 dw is rounded to float32 once, on load (8 B a vertex then).
-// With `clear_dw` the kernel writes 0 back where dw was not 0, so the
+// dw is K2's float64 accumulator (frontier_spmv.cu), rounded to float32
+// once, on load.  The kernel writes 0 back where dw was not 0, so the
 // peel's accumulator is zero again for the next round without a memset.
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(double x) { return __double2float_rn(x); }
-
-template <typename D, bool kClear>
 __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
     const float* __restrict__ w, const float* __restrict__ a,
     const uint8_t* __restrict__ active, const int32_t* __restrict__ level,
-    D* __restrict__ dw, const float* __restrict__ thresh,
+    double* __restrict__ dw, const float* __restrict__ thresh,
     const int32_t* __restrict__ round_, float* __restrict__ w_out,
     uint8_t* __restrict__ active_out, int32_t* __restrict__ level_out,
     uint8_t* __restrict__ peeled_out, float* __restrict__ partials,
@@ -52,9 +48,9 @@ __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
     const float wi = w[i];
     const bool act = active[i] != 0;
     const bool p = act && (wi <= th);
-    const D d = dw[i];
-    w_out[i] = wi - to_float(d);
-    if (kClear && d != D(0)) dw[i] = D(0);
+    const double d = dw[i];
+    w_out[i] = wi - __double2float_rn(d);
+    if (d != 0.0) dw[i] = 0.0;
     active_out[i] = (uint8_t)(act && !p);
     level_out[i] = p ? r : level[i];
     peeled_out[i] = (uint8_t)p;
@@ -74,36 +70,19 @@ __global__ void __launch_bounds__(spade::kThreads) peel_round_kernel(
   }
 }
 
-template <typename D, bool kClear>
-void launch(const void* w, const void* a, const void* active, const void* level, void* dw,
-            const void* thresh, const void* round_, void* w_out, void* active_out,
-            void* level_out, void* peeled_out, void* partials, int64_t n, int n_blocks,
-            cudaStream_t stream) {
-  peel_round_kernel<D, kClear><<<n_blocks, spade::kThreads, 0, stream>>>(
-      (const float*)w, (const float*)a, (const uint8_t*)active, (const int32_t*)level,
-      (D*)dw, (const float*)thresh, (const int32_t*)round_, (float*)w_out,
-      (uint8_t*)active_out, (int32_t*)level_out, (uint8_t*)peeled_out, (float*)partials, n);
-}
-
 }  // namespace
 
+// `dw` a float64 [V], left all zero.
 extern "C" int peel_round_launch(const void* w, const void* a,
                                  const void* active, const void* level,
                                  void* dw, const void* thresh,
                                  const void* round_, void* w_out,
                                  void* active_out, void* level_out,
                                  void* peeled_out, void* partials, int64_t n,
-                                 int n_blocks, int dw_is_double, int clear_dw,
-                                 void* stream) {
-  auto st = (cudaStream_t)stream;
-  auto go = [&](auto fn) {
-    fn(w, a, active, level, dw, thresh, round_, w_out, active_out, level_out, peeled_out,
-       partials, n, n_blocks, st);
-  };
-  if (dw_is_double) {
-    clear_dw ? go(launch<double, true>) : go(launch<double, false>);
-  } else {
-    clear_dw ? go(launch<float, true>) : go(launch<float, false>);
-  }
+                                 int n_blocks, void* stream) {
+  peel_round_kernel<<<n_blocks, spade::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)a, (const uint8_t*)active, (const int32_t*)level,
+      (double*)dw, (const float*)thresh, (const int32_t*)round_, (float*)w_out,
+      (uint8_t*)active_out, (int32_t*)level_out, (uint8_t*)peeled_out, (float*)partials, n);
   return (int)cudaGetLastError();
 }

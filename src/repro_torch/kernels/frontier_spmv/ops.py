@@ -16,9 +16,7 @@
 On CPU tensors each runs its plain version (:mod:`.ref`), which keeps the
 same contract; on CUDA tensors each launches its kernel or raises.
 ``launches`` and ``suffix_init_launches`` count kernel launches (not CPU
-calls).  :func:`frontier_spmv_probe` runs the round's probe variants (32
-slots a thread, a bit-packed peel mask) for timing; it is not on the
-serving path and counts nothing.
+calls).
 """
 
 from __future__ import annotations
@@ -30,8 +28,7 @@ import torch
 from repro_torch.kernels import _launch
 from .ref import frontier_spmv_ref, suffix_init_ref
 
-__all__ = ["frontier_spmv", "frontier_spmv_probe", "suffix_init", "launches",
-           "suffix_init_launches"]
+__all__ = ["frontier_spmv", "suffix_init", "launches", "suffix_init_launches"]
 
 launches = 0
 suffix_init_launches = 0
@@ -41,29 +38,18 @@ _VEC = 16  # bytes of one vector load
 _PASS_BYTES = 24 << 20  # float64 accumulator bytes one prologue pass adds into
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_ROUND_ARGS = [_P] * 9 + [_I64] * 3 + [ctypes.c_int]
+_ROUND_ARGS = [_P] * 9 + [_I64] * 3 + [ctypes.c_int, _P]
 _SUFFIX_ARGS = [_P] * 13 + [_I64] * 3 + [ctypes.c_int, ctypes.c_int, _P]
 
 
-def _vector_split(n: int, slots: int, alive_ptr: int, *word_ptrs: int) -> tuple[int, int]:
+def _vector_split(n: int, alive_ptr: int, *word_ptrs: int) -> tuple[int, int]:
     """``(head, n_groups)``: the slots before alive's first 16-byte boundary
-    take the scalar path, then groups of ``slots`` are read as vectors, if
+    take the scalar path, then groups of 16 slots are read as vectors, if
     every int32/float32 array is 16-byte aligned there; else no group."""
     head = min((-alive_ptr) % _VEC, n)
     if any((p + 4 * head) % _VEC for p in word_ptrs):
         return 0, 0
-    return head, (n - head) // slots
-
-
-def _round_checks(src, dst, c, alive, peel):
-    dev = src.device
-    E, V = src.shape[0], peel.shape[0]
-    _launch.require(src, "src", torch.int32, dev, numel=E)
-    _launch.require(dst, "dst", torch.int32, dev, numel=E)
-    _launch.require(c, "c", torch.float32, dev, numel=E)
-    _launch.require(alive, "alive", torch.bool, dev, numel=E)
-    _launch.require(peel, "peel", torch.bool, dev, numel=V)
-    return dev, E, V
+    return head, (n - head) // _SLOTS
 
 
 _tickets: dict[torch.device, torch.Tensor] = {}
@@ -75,36 +61,6 @@ def _ticket(dev) -> torch.Tensor:
     if dev not in _tickets:
         _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _tickets[dev]
-
-
-def _round(src, dst, c, alive, peel, dw, slots: int, packed: bool):
-    dev, E, V = _round_checks(src, dst, c, alive, peel)
-    _launch.require(dw, "dw", torch.float64, dev, numel=V)
-    if E == 0:
-        return dw, torch.zeros((), dtype=torch.float32, device=dev)
-    drop = torch.empty((), dtype=torch.float32, device=dev)
-    partials = torch.empty(_CAP, dtype=torch.float32, device=dev)
-    head, n_groups = _vector_split(E, slots, alive.data_ptr(), src.data_ptr(),
-                                   dst.data_ptr())
-    if packed:
-        bits = torch.empty((V + 31) // 32, dtype=torch.int32, device=dev)
-        fn = _launch.bind("frontier_spmv", "peel_pack_launch", [_P, _P, _I64, _P])
-        _launch.check(fn(peel.data_ptr(), bits.data_ptr(), V, _launch.stream_ptr(dev)),
-                      "peel_pack_launch")
-        peel = bits
-    ptrs = (src.data_ptr(), dst.data_ptr(), c.data_ptr(), alive.data_ptr(),
-            peel.data_ptr(), dw.data_ptr(), partials.data_ptr(), _ticket(dev).data_ptr(),
-            drop.data_ptr())
-    if slots == _SLOTS and not packed:
-        fn = _launch.bind("frontier_spmv", "frontier_spmv_launch", _ROUND_ARGS + [_P])
-        err = fn(*ptrs, E, head, n_groups, _CAP, _launch.stream_ptr(dev))
-    else:
-        fn = _launch.bind("frontier_spmv", "frontier_spmv_probe_launch",
-                          _ROUND_ARGS + [ctypes.c_int, ctypes.c_int, _P])
-        err = fn(*ptrs, E, head, n_groups, _CAP, slots, int(packed),
-                 _launch.stream_ptr(dev))
-    _launch.check(err, "frontier_spmv_launch")
-    return dw, drop
 
 
 def frontier_spmv(src, dst, c, alive, peel, dw):
@@ -123,21 +79,25 @@ def frontier_spmv(src, dst, c, alive, peel, dw):
         return frontier_spmv_ref(src, dst, c, alive, peel, dw)
     if dev.type != "cuda":
         raise ValueError(f"frontier_spmv: unsupported device {dev}")
-    out = _round(src, dst, c, alive, peel, dw, _SLOTS, False)
-    if src.shape[0]:
-        launches += 1
-    return out
-
-
-def frontier_spmv_probe(src, dst, c, alive, peel, dw, *, slots: int, packed: bool):
-    """:func:`frontier_spmv` through a probe variant of the round on CUDA
-    tensors: ``slots`` 16 or 32 a thread; with ``packed``, the peel mask
-    is first packed to one bit a vertex (a second launch).  Not counted."""
-    if src.device.type != "cuda":
-        raise ValueError(f"frontier_spmv_probe: unsupported device {src.device}")
-    if slots not in (16, 32):
-        raise ValueError(f"frontier_spmv_probe: slots {slots} not 16 or 32")
-    return _round(src, dst, c, alive, peel, dw, slots, packed)
+    E, V = src.shape[0], peel.shape[0]
+    _launch.require(src, "src", torch.int32, dev, numel=E)
+    _launch.require(dst, "dst", torch.int32, dev, numel=E)
+    _launch.require(c, "c", torch.float32, dev, numel=E)
+    _launch.require(alive, "alive", torch.bool, dev, numel=E)
+    _launch.require(peel, "peel", torch.bool, dev, numel=V)
+    _launch.require(dw, "dw", torch.float64, dev, numel=V)
+    if E == 0:
+        return dw, torch.zeros((), dtype=torch.float32, device=dev)
+    drop = torch.empty((), dtype=torch.float32, device=dev)
+    partials = torch.empty(_CAP, dtype=torch.float32, device=dev)
+    head, n_groups = _vector_split(E, alive.data_ptr(), src.data_ptr(), dst.data_ptr())
+    fn = _launch.bind("frontier_spmv", "frontier_spmv_launch", _ROUND_ARGS)
+    err = fn(src.data_ptr(), dst.data_ptr(), c.data_ptr(), alive.data_ptr(),
+             peel.data_ptr(), dw.data_ptr(), partials.data_ptr(), _ticket(dev).data_ptr(),
+             drop.data_ptr(), E, head, n_groups, _CAP, _launch.stream_ptr(dev))
+    _launch.check(err, "frontier_spmv_launch")
+    launches += 1
+    return dw, drop
 
 
 def suffix_init(src, dst, c, edge_mask, live, a):

@@ -7,15 +7,13 @@ from __future__ import annotations
 import torch
 
 
-def peel_round_ref(w, a, active, level, dw, thresh, round_, clear_dw=False):
+def peel_round_ref(w, a, active, level, dw, thresh, round_):
     """Returns ``(w', active', level', peeled, partials[3])`` with partials
-    ``[sum(peeled a), sum(peeled w), n_peeled]`` (pre-update ``w``).  A
-    float64 ``dw`` is rounded to float32 first; ``clear_dw`` zeroes ``dw``
-    after use."""
+    ``[sum(peeled a), sum(peeled w), n_peeled]`` (pre-update ``w``).  The
+    float64 accumulator ``dw`` is rounded to float32 and left all zero."""
     peeled = active & (w <= thresh)
     w2 = w - dw.to(torch.float32)
-    if clear_dw:
-        dw.zero_()
+    dw.zero_()
     active2 = active & ~peeled
     level2 = torch.where(peeled, round_, level)
     pf = peeled.to(torch.float32)

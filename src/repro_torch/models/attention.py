@@ -3,7 +3,8 @@ blocked causal / sliding-window GQA forward and the KV-cache decode.
 
 :func:`flash_attention` takes the model layout and hands strided views to
 the kernel wrapper :func:`repro_torch.kernels.flash_attention.flash_attention`:
-K3 on CUDA tensors, its plain version on CPU tensors.  Queries are
+K3 on CUDA tensors (its tensor-core body for bf16 at head dims 64 and 128,
+its SIMT body for the rest), its plain version on CPU tensors.  Queries are
 left-aligned (query i at position i) there, as in the reference.
 :func:`decode_attention` is plain PyTorch, as it is plain jnp in the
 reference.  The reference's right-aligned ``dense_attention`` has no
@@ -15,13 +16,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
-__all__ = ["flash_attention", "decode_attention", "plain_routes"]
+__all__ = ["flash_attention", "decode_attention"]
 
 _NEG = -1e30
-plain_routes = 0  # calls that K3 does not cover, run by the plain version
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_block=512,
@@ -32,21 +31,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_block=512,
     [B, S, Hkv, G, D].  q is read as the ``[B, Hq, S, D]`` view of
     ``[B, S, Hq, D]`` (q head ``h = kv * G + g``), k/v as ``[B, Hkv, Skv, D]``
     views: nothing is copied or repeated per group.  ``q_block``/``kv_block``
-    tile the plain path only.  The route is chosen from q's dtype and head
-    dim alone, before any launch; every other argument fault raises in
-    the kernel wrapper.
+    tile the plain CPU path only.
     """
-    global plain_routes
     B, S, Hkv, G, D = q.shape
     qh = q.reshape(B, S, Hkv * G, D).permute(0, 2, 1, 3)
-    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    if q.dtype == torch.bfloat16 and D in fa_ops.HEAD_DIMS:
-        o = fa_ops.flash_attention(qh, kh, vh, causal=causal, window=window,
-                                   block_q=q_block, block_k=kv_block)
-    else:
-        plain_routes += 1
-        o = flash_attention_ref(qh, kh, vh, causal=causal, window=window,
-                                block_q=q_block, block_k=kv_block)
+    o = fa_ops.flash_attention(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                               causal=causal, window=window,
+                               block_q=q_block, block_k=kv_block)
     return o.permute(0, 2, 1, 3).reshape(B, S, Hkv, G, D)
 
 

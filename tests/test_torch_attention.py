@@ -112,10 +112,11 @@ def test_plain_attention_matches_jax(B, Hq, Hkv, Sq, Skv, D, causal, window, dty
     # the blocked version on the CUDA kernel's tiles
     tiled = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
                                 block_q=k3_ops.TILE_Q, block_k=k3_ops.TILE_K)
-    n0 = k3_ops.launches
+    n0 = k3_ops.launches, k3_ops.simt_launches
     wrapped = flash_attention(tq, tk, tv, causal=causal, window=window,
                               block_q=64, block_k=128)
-    assert k3_ops.launches == n0  # CPU tensors never launch the kernel
+    # CPU tensors never launch either body of the kernel
+    assert (k3_ops.launches, k3_ops.simt_launches) == n0
     for got in (dense, blocked, tiled, wrapped):
         assert got.dtype == tq.dtype and tuple(got.shape) == (B, Hq, Sq, D)
         _close(got, want_ref, dtype)
@@ -198,22 +199,35 @@ def test_layers_match_jax(dtype):
 
 def test_kernel_argument_check():
     """What K3 does not cover raises before any launch (checked on CPU
-    tensors: the check does not look at the device type)."""
+    tensors: the check does not look at the device type).  K3 covers what
+    the Pallas kernel does: float32, float16 and bf16 at any head dim up
+    to 256 (bf16 at D 64 and 128 on its tensor-core body, which alone
+    needs TMA-sized strides)."""
     bf = torch.bfloat16
     q = torch.zeros(1, 4, 8, 128, dtype=bf)
     kv = torch.zeros(1, 2, 8, 128, dtype=bf)
     check_kernel_args(q, kv, kv)  # covered: bf16, D = 128, G = 2
     check_kernel_args(q[..., :64].contiguous(), kv[..., :64].contiguous(),
                       kv[..., :64].contiguous(), window=4)  # D = 64
-    with pytest.raises(TypeError, match="bfloat16"):
-        check_kernel_args(q.float(), kv.float(), kv.float())
-    with pytest.raises(TypeError, match="bfloat16"):
-        check_kernel_args(q.half(), kv.half(), kv.half())
+    assert k3_ops.tensor_core_body(q) and not k3_ops.tensor_core_body(q.float())
+    for dt in (torch.float32, torch.float16):  # the SIMT body
+        check_kernel_args(q.to(dt), kv.to(dt), kv.to(dt))
+    d16 = torch.zeros(1, 2, 8, 16)
+    check_kernel_args(torch.zeros(1, 4, 8, 16), d16, d16)  # the smoke configs' D
+    d20 = torch.zeros(1, 2, 8, 20, dtype=bf)
+    check_kernel_args(torch.zeros(1, 4, 8, 20, dtype=bf), d20, d20)  # any stride
+    with pytest.raises(TypeError, match="float32, torch.float16 or torch.bfloat16"):
+        check_kernel_args(q.double(), kv.double(), kv.double())
+    with pytest.raises(TypeError, match="q is torch.bfloat16"):
+        check_kernel_args(q, kv.float(), kv.float())
     with pytest.raises(ValueError, match="head dim"):
-        d32 = torch.zeros(1, 2, 8, 32, dtype=bf)
-        check_kernel_args(torch.zeros(1, 4, 8, 32, dtype=bf), d32, d32)
+        d300 = torch.zeros(1, 2, 8, 300)
+        check_kernel_args(torch.zeros(1, 4, 8, 300), d300, d300)
     with pytest.raises(ValueError, match="strides"):
         check_kernel_args(q.transpose(2, 3), kv, kv)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        wide = torch.zeros(1, 4, 8, 132, dtype=bf)[..., :128]  # a 264-byte row
+        check_kernel_args(wide, kv, kv)
     with pytest.raises(ValueError, match="kv heads"):
         kv3 = torch.zeros(1, 3, 8, 128, dtype=bf)
         check_kernel_args(q, kv3, kv3)

@@ -44,31 +44,28 @@ def _assert_close(got, want, exact):
             torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dw64", [False, True], ids=["dw32", "dw64"])
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
 @pytest.mark.parametrize("V", [1, 255, 257, 100_000])
-def test_peel_round_kernel_matches_plain(cuda, V, integer, dw64):
+def test_peel_round_kernel_matches_plain(cuda, V, integer):
+    """K1 against its plain version on the float64 dw that K2 hands the
+    round (some entries zero, as after a sparse round); both leave their
+    dw all zero."""
     rng = np.random.default_rng(V)
     if integer:
         w, a, dw = (rng.integers(0, k, V).astype(np.float32) for k in (9, 3, 4))
     else:
         w, a, dw = (rng.lognormal(m, 1.0, V).astype(np.float32) for m in (2.0, 0.0, 0.0))
+        dw[rng.random(V) < 0.5] = 0.0
     arrs = [torch.from_numpy(x).to(cuda) for x in
-            (w, a, rng.random(V) < 0.7, rng.integers(-1, 9, V).astype(np.int32), dw)]
-    if dw64:  # the float64 dw that K2 hands the round
-        arrs[4] = arrs[4].double()
+            (w, a, rng.random(V) < 0.7, rng.integers(-1, 9, V).astype(np.int32))]
+    dw = [torch.from_numpy(dw).to(cuda, torch.float64) for _ in range(2)]
     th = torch.tensor(float(np.median(w)), device=cuda)
     r = torch.tensor(5, dtype=torch.int32, device=cuda)
     n0 = k1_ops.launches
-    got = peel_round(*arrs, th, r)
+    got = peel_round(*arrs, dw[0], th, r)
     assert k1_ops.launches == n0 + 1
-    _assert_close(got, peel_round_ref(*arrs, th, r), integer)
-    # as a peel's round calls it: the same results, and dw left all zero
-    dw = arrs[4].clone()
-    cleared = peel_round(*arrs[:4], dw, th, r, clear_dw=True)
-    torch.cuda.synchronize()
-    _assert_close(cleared, got, True)
-    assert not bool(dw.any())
+    _assert_close(got, peel_round_ref(*arrs, dw[1], th, r), integer)
+    assert not bool(dw[0].any()) and not bool(dw[1].any())
 
 
 def _k2_edges(rng, V, E, m, pad, integer, alive_p=0.9, peel_p=0.2):
@@ -87,15 +84,15 @@ def _k2_edges(rng, V, E, m, pad, integer, alive_p=0.9, peel_p=0.2):
     return src, dst, c, alive, peel
 
 
-def _k2_check(arrs, integer, run=None):
-    """K2 (or ``run``) on ``arrs``, updating its ``alive`` in place, against
+def _k2_check(arrs, integer):
+    """K2 on ``arrs``, updating its ``alive`` in place, against
     the plain version on a copy of it: dw, drop mass and the updated
     liveness.  Returns the kernel's (dw, drop)."""
     src, dst, c, alive, peel = arrs
     plain = alive.clone()
     acc = [torch.zeros(peel.shape[0], dtype=torch.float64, device=peel.device)
            for _ in range(2)]
-    got = (run or frontier_spmv)(src, dst, c, alive, peel, acc[0])
+    got = frontier_spmv(src, dst, c, alive, peel, acc[0])
     want = frontier_spmv_ref(src, dst, c, plain, peel, acc[1])
     assert got[0] is acc[0]  # added into the accumulator it was given
     torch.cuda.synchronize()
@@ -178,20 +175,6 @@ def test_frontier_spmv_is_the_same_bits_every_run(cuda):
         assert torch.equal(dw, runs[0][0]) and torch.equal(drop, runs[0][1])
 
 
-@pytest.mark.parametrize("slots,packed", [(16, True), (32, False), (32, True)],
-                         ids=["packed16", "slots32", "packed32"])
-def test_frontier_spmv_probe_variants_match_plain(cuda, slots, packed):
-    """The round's probe variants that chip_smoke.py times beside K2."""
-    from repro_torch.kernels.frontier_spmv import frontier_spmv_probe
-
-    rng = np.random.default_rng(19)
-    arrs = [torch.from_numpy(x).to(cuda)
-            for x in _k2_edges(rng, 4099, 100_003, 90_000, "full", True)]
-    n0 = k2_ops.launches
-    _k2_check(arrs, True, run=lambda *a: frontier_spmv_probe(*a, slots=slots, packed=packed))
-    assert k2_ops.launches == n0
-
-
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
 @pytest.mark.parametrize("E,pad,offset", [(1, "full", 0), (17, "full", 0),
                                           (4099, "workset", 0), (100_000, "full", 0),
@@ -241,7 +224,9 @@ def test_kernel_wrappers_check_arguments(cuda):
 
     x = torch.zeros(8, device=cuda)
     with pytest.raises(TypeError, match="dtype"):
-        peel_round(x, x, x, x.int(), x, x[0], x[0].int())
+        peel_round(x, x, x, x.int(), x.double(), x[0], x[0].int())
+    with pytest.raises(TypeError, match="dw"):  # the accumulator is float64
+        peel_round(x, x, x.bool(), x.int(), x, x[0], x[0].int())
     with pytest.raises(ValueError, match="elements"):
         frontier_spmv(x.int(), x[:4].int(), x, x.bool(), x.bool(), x.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -314,13 +299,13 @@ def test_service_float_weights_cuda_matches_cpu(cuda, semantics, spec):
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "internlm2-20b", "deepseek-coder-33b"])
 def test_lm_smoke_config_cuda_matches_cpu(cuda, arch):
-    """The dense LMs' smoke configs (float32, d_head 16: what K3 does not
-    cover) run on cuda through the model's plain attention route, and
-    match the same weights on cpu: prefill and 3 decode steps, logits
-    within chip_smoke.py's LM_TOL (3e-2) of each row's largest |logit|."""
+    """The dense LMs' smoke configs (float32, d_head 16) run on cuda through
+    K3's SIMT body, one launch a layer per prefill, and match the same
+    weights on cpu: prefill and 3 decode steps, logits within
+    chip_smoke.py's LM_TOL (3e-2) of each row's largest |logit|."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import ops as k3_ops
-    from repro_torch.models import TransformerLM, attention, decode_step, prefill
+    from repro_torch.models import TransformerLM, decode_step, prefill
 
     cfg = get_smoke_config(arch)
     cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
@@ -329,9 +314,9 @@ def test_lm_smoke_config_cuda_matches_cpu(cuda, arch):
     rng = np.random.default_rng(2)
     B, S = 2, 24
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
-    k0, p0 = k3_ops.launches, attention.plain_routes
+    k0, s0 = k3_ops.launches, k3_ops.simt_launches
     lg, cache_g = prefill(gpu, tokens.to(cuda))
-    assert k3_ops.launches == k0 and attention.plain_routes == p0 + cfg.n_layers
+    assert k3_ops.launches == k0 and k3_ops.simt_launches == s0 + cfg.n_layers
     lc, cache_c = prefill(cpu, tokens)
     for step in range(4):
         got, want = lg.float().cpu(), lc.float()
@@ -436,17 +421,69 @@ def test_model_flash_attention_cuda_matches_cpu(cuda):
 
 
 def test_flash_attention_wrapper_raises_on_cuda(cuda):
+    """What neither body takes raises before any launch: float64, mixed
+    dtypes, head dims past 256, a non-unit last stride."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops as k3_ops
 
-    q = torch.zeros(1, 2, 16, 128, device=cuda)
-    n0 = k3_ops.launches
+    q = torch.zeros(1, 2, 16, 128, device=cuda, dtype=torch.float64)
+    n0 = k3_ops.launches, k3_ops.simt_launches
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="q is torch.float32"):
+        flash_attention(q.float(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        x = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
+        x = torch.zeros(1, 2, 16, 300, device=cuda)
         flash_attention(x, x, x)
-    assert k3_ops.launches == n0
+    with pytest.raises(ValueError, match="strides"):
+        x = torch.zeros(1, 2, 64, 16, device=cuda).transpose(2, 3)
+        flash_attention(x, x, x)
+    assert (k3_ops.launches, k3_ops.simt_launches) == n0
+
+
+# K3's SIMT body (float32, float16, bf16 at any head dim up to 256) against
+# the plain versions on the same inputs: f32 FFMA against f32 einsums, so
+# float32 agrees to 1e-4 (atol = rtol); float16 and bf16 outputs are
+# rounded to their type, so 1e-2 and 2e-2 (the bf16 tolerance above).
+SIMT_CASES = [
+    # (dtype, B, Hq, Hkv, Sq, Skv, D, causal, window)
+    ("float32", 2, 4, 2, 24, 24, 16, True, None),    # the smoke configs' shapes
+    ("float32", 1, 10, 2, 333, 333, 128, True, None),
+    ("float32", 2, 6, 3, 197, 197, 64, True, 100),
+    ("float32", 1, 4, 1, 100, 300, 32, False, None),  # not causal, Sq != Skv
+    ("float32", 1, 2, 2, 70, 70, 256, True, None),    # the largest head dim
+    ("float32", 1, 4, 2, 129, 129, 20, True, 7),      # D off the power-of-two widths
+    ("float16", 2, 8, 2, 200, 200, 80, True, 50),
+    ("bfloat16", 1, 4, 4, 300, 90, 96, False, None),
+    ("bfloat16", 1, 5, 1, 65, 65, 16, True, 1),
+]
+
+
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,Sq,Skv,D,causal,window", SIMT_CASES,
+                         ids=[f"simt{i}" for i in range(len(SIMT_CASES))])
+def test_flash_attention_simt_body_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Skv, D,
+                                                 causal, window):
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    dt = getattr(torch, dtype)
+    tol = {"float32": 1e-4, "float16": 1e-2, "bfloat16": 2e-2}[dtype]
+    rng = np.random.default_rng(Sq + D)
+    # the model layout [B, S, H, D], read as [B, H, S, D] views
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        cuda, dt).transpose(1, 2) for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                                            (B, Skv, Hkv, D)))
+    n0 = k3_ops.launches, k3_ops.simt_launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (k3_ops.launches, k3_ops.simt_launches) == (n0[0], n0[1] + 2)
+    assert got.dtype == dt and got.shape == q.shape and got.stride() == q.stride()
+    assert torch.equal(got, again)
+    for want in (attention_ref(q, k, v, causal=causal, window=window),
+                 flash_attention_ref(q, k, v, causal=causal, window=window)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 # K4 gather_segsum: float32 FFMA over destination rows against the plain

@@ -67,8 +67,11 @@ def test_peel_round_ref_matches_pallas_and_oracle(V, seed, integer):
                            interpret=True)
     jk = (*jk[:4], jk[4].sum(0))
     jr = j_peel_round_ref(*jargs, jnp.float32(5.0), jnp.int32(7))
-    got = peel_round_ref(*[torch.from_numpy(x) for x in (w, a, active, level, dw)],
+    # dw in the float64 accumulator K2 hands the round (exact), left zeroed
+    acc = torch.from_numpy(dw).double()
+    got = peel_round_ref(*[torch.from_numpy(x) for x in (w, a, active, level)], acc,
                          torch.tensor(5.0), torch.tensor(7, dtype=torch.int32))
+    assert not bool(acc.any())
     for want in (jk, jr):
         for i in range(4):  # w', active', level', peeled: exact
             np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
@@ -242,9 +245,11 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     k2_ops.suffix_init_launches = 0
     w, a, active, level, dw = (torch.from_numpy(x) for x in _k1_inputs(64, 0, True))
     th, r = torch.tensor(5.0), torch.tensor(3, dtype=torch.int32)
-    for x, y in zip(peel_round(w, a, active, level, dw, th, r),
-                    peel_round_ref(w, a, active, level, dw, th, r)):
+    dw = [dw.double(), dw.double()]
+    for x, y in zip(peel_round(w, a, active, level, dw[0], th, r),
+                    peel_round_ref(w, a, active, level, dw[1], th, r)):
         assert torch.equal(x, y)
+    assert not bool(dw[0].any())
     e = [torch.from_numpy(x) for x in _edges_with_pads(1, 50, 100, 128, "full", True)]
     alive = [e[3].clone(), e[3].clone()]
     acc = [torch.zeros(50, dtype=torch.float64) for _ in range(2)]
