@@ -6,8 +6,9 @@ sm_90a kernels).
 
 Phases (any failure exits non-zero):
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a) and
-   print the card's name and power limit;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a; the
+   seconds of each source's build) and print the card's name and power
+   limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    Grab4 shapes of the main path (integer weights: exact; lognormal
    weights: stated rtol) and on one workset bucket shape, and time both;
@@ -22,21 +23,25 @@ Phases (any failure exits non-zero):
    (small stream): DG reports and final states bit-identical; DW and FD,
    fused and windowed workset, cuda against cpu and against a second cuda
    run (counts equal, ``final_g`` rtol 1e-5, ``benign_fraction`` rtol
-   1e-3);
+   1e-3; the two cuda runs' final ``w0`` and ``benign_fraction`` bit for
+   bit);
 4. the main path at full width: the Grab4 stream (6,023,000 vertices,
    ~25.0M base edges), DW, 4096-edge ticks, eps 0.1, max_rounds 20,
    window 64, through the fused engine and the workset engine, with the
    kernels' launch counters set to 0 just before and read just after
-   (``suffix_init`` once per full-buffer tick);
+   (``suffix_init`` twice per tick, the warm peel's prologue and the
+   ``w0`` bookkeeping, and twice at start-up, the peel and the state's
+   ``w0``);
 5. one steady-state fused Grab4 tick with K2's two entries recorded: each
    of its 20 rounds' live, peeled and hit counts, K2 against its plain
    version, its device time and in-place bound; ``suffix_init`` at the
    tick's own inputs against its plain version (integer weights bit for
-   bit) with device times and bound; the tick's K1, K2 and prologue
-   launches timed in turns against float32-atomic variants built from the
-   same sources (what the float64 accumulator costs); then a ``torch.profiler``
-   trace of a few more ticks: device time and launches by kernel and the
-   device's idle share;
+   bit, three runs the same bits) with device times and bound; the tick's
+   K1 and K2 launches timed in turns against float32-atomic variants built
+   from the same sources (what the float64 accumulator costs); the tick's
+   w0 bookkeeping (one ``suffix_init``, float64 sums rounded once) against
+   four float32 scatters, in turns; then a ``torch.profiler`` trace of a few more ticks: device time and
+   launches by kernel and the device's idle share;
 6. the flash-attention kernel (K3) against its plain versions on the card
    at qwen3-14b's attention shapes (Hq 40, Hkv 8, D 128, bf16, batch 2):
    S 8192 causal, S 4000 (ragged) and a 1024 window at S 4096, elementwise
@@ -44,7 +49,8 @@ Phases (any failure exits non-zero):
    times of K3, of the blocked plain version and of torch's SDPA; and K3's
    SIMT body (what the tensor-core body does not take) at the dense LMs'
    smoke-config shapes (float32, D 16), at qwen3-14b's heads in float32
-   (timed, with the plain version and SDPA) and in float16 at D 80;
+   (timed, with the plain version and SDPA) and in float16 at D 80 (timed
+   beside SDPA in float16, logged);
 7. the LM serving path on ``cuda`` (bf16, K3) against the same weights on
    ``cpu`` (float32, plain attention): a 2-layer qwen3-shaped model
    (d_model 1280, 10 heads over 2 kv heads, d_head 128), 6 prompts,
@@ -176,7 +182,7 @@ GNN_TOL = 1e-4
 # a torch.profiler trace of a short window of small kernels can come back
 # without device events (seen once on the H100, phase 11 at full_graph_sm):
 # it is taken again, up to this many times in all, before a phase fails
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 5
 
 
 def log(*args) -> None:
@@ -219,34 +225,44 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_time_ms(fn, calls: int = 50, skip: str | None = None) -> float:
+def device_time_ms(fn, calls: int = 50, restore=None) -> float:
     """Device time: ``torch.profiler`` over ``calls`` back-to-back calls of
     ``fn`` (after one untraced call), the device kernels (and copies) that
     each call launches summed; the median over the calls in ms, or the mean
-    when the calls do not all launch the same number of kernels.  Events
-    whose name holds ``skip`` are left out (a restore copy that ``fn``
-    makes before the call it times)."""
+    when the calls do not all launch the same number of kernels.
+    ``restore``, when given, runs before every call and its copies are left
+    out.  A trace that records no device time is taken again, after a
+    pause, over twice the calls; after PROFILE_ATTEMPTS such traces the
+    run fails: no other clock stands in for the device's."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    def one():
+        if restore is not None:
+            restore()
+        fn()
+
+    one()
     sync()
+    n = calls
     for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
+            for _ in range(n):
+                one()
             sync()
         evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
-                      and not (skip and skip in e.name)),
+                      and not (restore is not None and "Memcpy" in e.name)),
                      key=lambda e: e.time_range.start)
         us = [e.time_range.elapsed_us() for e in evs]
         if sum(us) > 0:
             break
-        log(f"device_time_ms: trace {attempt + 1} recorded no device time")
+        log(f"device_time_ms: trace {attempt + 1} ({n} calls) recorded no device time")
+        time.sleep(0.2)
+        n *= 2
     check(sum(us) > 0, "device_time_ms: no device time recorded")
-    per, rest = divmod(len(us), calls)
+    per, rest = divmod(len(us), n)
     if rest:
-        return sum(us) / calls / 1e3
-    return statistics.median(sum(us[i * per:(i + 1) * per]) for i in range(calls)) / 1e3
+        return sum(us) / n / 1e3
+    return statistics.median(sum(us[i * per:(i + 1) * per]) for i in range(n)) / 1e3
 
 
 def timed(fn, calls: int = 50, reps: int = 20) -> tuple[float, float]:
@@ -266,11 +282,7 @@ def in_place_timed(fn, restores, calls: int = 50, reps: int = 20,
         for t, t0 in restores:
             t.copy_(t0)
 
-    def one():
-        restore()
-        fn()
-
-    dev = device_time_ms(one, calls, skip="Memcpy")
+    dev = device_time_ms(fn, calls, restore=restore)
     if not call_time:
         return dev, None
     times = []
@@ -558,6 +570,8 @@ def k2_timings(args, E: int, V: int) -> dict:
 def phase_parity() -> None:
     import dataclasses
 
+    import torch
+
     from repro_torch.convert import state_to_numpy
     from repro_torch.graphstore.generators import make_transaction_stream
     from repro_torch.serve import SpadeService
@@ -581,17 +595,27 @@ def phase_parity() -> None:
         log(f"service parity cuda==cpu {kw or 'fused'}: bit-identical state, "
             f"final_g={reps[0].final_g!r} recall={reps[0].fraud_recall!r} "
             f"ticks={reps[0].n_ticks}")
-    # float weights: DW amounts and FD's 1/log degrees.  The float atomics
-    # of K2 and the prologue (and the tick's other float scatters) add in
-    # another order than the cpu's scatters and from run to run, so the
-    # reports are held as tests/test_torch_service.py holds the port
-    # against the reference: the counts equal, final_g to rtol 1e-5,
-    # benign_fraction to rtol 1e-3; and two cuda runs against each other
+    # float weights: DW amounts and FD's 1/log degrees.  K2, the prologue
+    # and the tick's w0 bookkeeping sum in float64 and round once, the cpu's
+    # scatters in float32 in their own order, so the reports are held as
+    # tests/test_torch_service.py holds the port against the reference: the
+    # counts equal, final_g to rtol 1e-5, benign_fraction to rtol 1e-3; and
+    # two cuda runs against each other, w0 and benign_fraction bit for bit
     for sem in ("DW", "FD"):
         for kw in ({}, {"window_ticks": 2, "workset": True}):
-            runs = {f"{device}{i}": SpadeService(sem, batch_edges=512, device=device,
-                                                 **kw).run(stream)
-                    for device, i in ((DEVICE, 0), (DEVICE, 1), ("cpu", 0))}
+            runs, w0 = {}, {}
+            for device, i in ((DEVICE, 0), (DEVICE, 1), ("cpu", 0)):
+                svc = SpadeService(sem, batch_edges=512, device=device, **kw)
+                runs[f"{device}{i}"] = svc.run(stream)
+                w0[f"{device}{i}"] = svc.final_state.w0.cpu()
+            # the w0 bookkeeping sums in float64 and rounds once: two cuda
+            # runs end with the same bits, hence the same benign fraction
+            check(torch.equal(w0[f"{DEVICE}0"], w0[f"{DEVICE}1"]),
+                  f"service {sem} {kw}: two {DEVICE} runs end with different w0 bits")
+            check(runs[f"{DEVICE}0"].benign_fraction == runs[f"{DEVICE}1"].benign_fraction,
+                  f"service {sem} {kw}: two {DEVICE} runs give benign_fraction "
+                  f"{runs[f'{DEVICE}0'].benign_fraction!r} and "
+                  f"{runs[f'{DEVICE}1'].benign_fraction!r}")
             for a, b in ((f"{DEVICE}0", "cpu0"), (f"{DEVICE}1", f"{DEVICE}0")):
                 got, want = runs[a], runs[b]
                 for f in DW_EQUAL:
@@ -605,8 +629,8 @@ def phase_parity() -> None:
                           f"rtol {rtol}")
             g = [runs[k].final_g for k in (f"{DEVICE}0", f"{DEVICE}1", "cpu0")]
             log(f"service {sem} {kw or 'fused'}: cuda, cuda again and cpu agree "
-                f"(counts equal, final_g rtol 1e-5, benign_fraction rtol 1e-3); "
-                f"final_g {g!r}")
+                f"(counts equal, final_g rtol 1e-5, benign_fraction rtol 1e-3; the two "
+                f"cuda runs' w0 and benign_fraction bit for bit); final_g {g!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -680,11 +704,13 @@ def phase_grab(stream, n_ticks: int) -> dict:
         ring = [min(BATCH, n_inc - i * BATCH) for i in range(n_ticks)]
         live_expect = m_base + sum(ring[-WINDOW:])
         check(l1 > 0 and l2 > 0, f"grab4 {name}: a kernel never launched")
-        # every peel opens with one suffix_init: the start-up bulk peel and
-        # each tick's warm peel (full buffer, or the workset's)
-        check(lp == rep.n_ticks + 1,
-              f"grab4 {name}: suffix_init launched {lp} times, expected {rep.n_ticks} ticks "
-              f"+ 1 start-up")
+        # every peel opens with one suffix_init (the start-up bulk peel and
+        # each tick's warm peel, full buffer or workset), each tick's w0
+        # bookkeeping is one more, and so is the start-up state's w0
+        # (DeviceGraph.peel_weights)
+        check(lp == 2 * rep.n_ticks + 2,
+              f"grab4 {name}: suffix_init launched {lp} times, expected 2 x {rep.n_ticks} "
+              f"ticks + 2 at start-up")
         check(math.isfinite(rep.final_g), f"grab4 {name}: best_g not finite")
         check(rep.live_edges == live_expect,
               f"grab4 {name}: live_edges {rep.live_edges} != {live_expect}")
@@ -820,14 +846,61 @@ def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
         state = inc.slide_and_maintain(state, drop, *next(ticks), valid, eps=0.1,
                                        max_rounds=20)
 
+    cost_w0 = w0_bookkeeping_ms(state, drop, batches[0], valid)
     recorded = tick_rounds(one_tick)
+    recorded["w0_bookkeeping"] = cost_w0
     if not n_ticks:
         return {}, recorded
     prof = trace("grab4 fused slide tick", n_ticks, one_tick,
                  {"peel_round": "peel_round_kernel",
                   "frontier_spmv": "frontier_spmv_kernel",
-                  "suffix_init": "suffix_init_"})
+                  "suffix_init": "suffix_init_",
+                  "suffix_init_count": "suffix_init_count",
+                  "suffix_init_scatter": "suffix_init_scatter",
+                  "suffix_init_bins": "suffix_init_bins"})
     return prof, recorded
+
+
+def w0_bookkeeping_ms(state, drop, batch, valid) -> dict:
+    """What a fused slide tick's w0 bookkeeping costs on the device, on a
+    Grab4 tick's own inputs: as ``core.incremental._tick_w0`` makes it (the
+    dropped ``-c`` and the inserted ``cv`` at both ends by one
+    ``suffix_init`` over those lanes: float64 sums, rounded once) and as it
+    was made before it gave the same bits every run (four float32
+    scatter-adds through ``scatter_drop``), device times in turns (package,
+    float32, float32, package); the package's result is first held against
+    the float32 one (RTOL)."""
+    import torch
+
+    from repro_torch.core import incremental as inc
+    from repro_torch.graphstore.structs import scatter_drop
+
+    src, dst, c = batch
+    bk = inc._slide_prologue(state, drop, src, dst, valid)
+    g0, w0 = state.graph, state.w0
+
+    def package():
+        return inc._tick_w0(state, bk, src, dst, c, valid, True, 0)
+
+    def float32_scatters():
+        cv = torch.where(valid, c.to(torch.float32), 0.0)
+        w = scatter_drop(w0, g0.src, None, -bk.cd, accumulate=True)
+        w = scatter_drop(w, g0.dst, None, -bk.cd, accumulate=True)
+        w = scatter_drop(w, src, None, cv, accumulate=True)
+        return scatter_drop(w, dst, None, cv, accumulate=True)
+
+    compare("w0 bookkeeping, package vs float32 scatters", (package(),),
+            (float32_scatters(),), exact=False, rtol=RTOL)
+    times = {"package": [], "float32_scatters": []}
+    for kind in ("package", "float32_scatters", "float32_scatters", "package"):
+        fn = package if kind == "package" else float32_scatters
+        times[kind].append(device_time_ms(fn, calls=20))
+    cost = statistics.mean(times["package"]) - statistics.mean(times["float32_scatters"])
+    log(f"w0 bookkeeping of a fused Grab4 tick (E={g0.e_capacity}, V={w0.shape[0]}, dropped "
+        f"{int(bk.dropped.sum())}), in turns: package (one suffix_init, float64, rounded once) "
+        f"{times['package']!r} ms, four float32 scatters {times['float32_scatters']!r} ms "
+        f"device; the repair costs {cost!r} ms a tick")
+    return {**times, "cost_ms_per_tick": cost}
 
 
 def tick_rounds(one_tick) -> dict:
@@ -889,7 +962,7 @@ def tick_rounds(one_tick) -> dict:
     log(f"K2 tick rounds (E={E}, V={V}): {total!r} ms device over 20 rounds, bound "
         f"{total_bound!r} ms, share {total_bound / total!r}; max_abs_err vs plain "
         f"{err!r} (rtol {RTOL})")
-    cost = accumulator_cost_ms(rounds, k1_rounds, prologue[0])
+    cost = accumulator_cost_ms(rounds, k1_rounds)
     del rounds, k1_rounds
 
     src, dst, c, emask, live, a = prologue[0]
@@ -918,8 +991,7 @@ def tick_rounds(one_tick) -> dict:
         f"{ms!r} ms device ({call!r} ms call), plain {plain!r} ms device ({plain_call!r} ms "
         f"call), bound {bound!r} ms (bytes; {bound / ms!r} of it)")
     return {"rounds": per_round, "k2_tick_ms": total, "k2_tick_bound_ms": total_bound,
-            "accumulator_cost": cost,
-            "k2_max_abs_err": err, "suffix_init": si}
+            "accumulator_cost": cost, "k2_max_abs_err": err, "suffix_init": si}
 
 
 def float32_variants() -> dict:
@@ -952,23 +1024,22 @@ def float32_variants() -> dict:
     return libs
 
 
-def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
+def accumulator_cost_ms(rounds, k1_rounds) -> dict:
     """What the float64 accumulator costs one fused Grab4 tick: each of the
-    tick's 20 K1 and K2 launches and its ``suffix_init``, as the package
-    runs them and with float32 atomics (:func:`float32_variants`), device
-    times in turns on the tick's own inputs (float64, float32, float32,
-    float64).  The float32 K1 reads a float32 dw and clears it, the float32
-    K2 adds into a zeroed float32 dw, and the float32 prologue adds into a
-    float32 accumulator in one pass.  Each variant is first held against
-    the plain versions (RTOL)."""
+    tick's 20 K1 and K2 launches as the package runs them and with float32
+    atomics (:func:`float32_variants`), device times in turns on the tick's
+    own inputs (float64, float32, float32, float64).  The float32 K1 reads a
+    float32 dw and clears it, the float32 K2 adds into a zeroed float32 dw.
+    Each variant is first held against the plain versions (RTOL).  The
+    prologue is not compared: its float64 sums live in shared memory, with
+    no global atomic for float32 ones to replace."""
     import ctypes
 
     import torch
 
     from repro_torch.kernels import _launch
     from repro_torch.kernels.frontier_spmv import ops as k2_ops
-    from repro_torch.kernels.frontier_spmv import (frontier_spmv, frontier_spmv_ref,
-                                                   suffix_init, suffix_init_ref)
+    from repro_torch.kernels.frontier_spmv import frontier_spmv, frontier_spmv_ref
     from repro_torch.kernels.peel_round import peel_round, peel_round_ref
 
     t0 = time.perf_counter()
@@ -979,8 +1050,6 @@ def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
     k1_32.argtypes = [P] * 12 + [I64, ctypes.c_int, P]
     k2_32 = libs["frontier_spmv"].frontier_spmv_launch
     k2_32.argtypes = [P] * 9 + [I64] * 3 + [ctypes.c_int, P]
-    si_32 = libs["frontier_spmv"].suffix_init_launch
-    si_32.argtypes = [P] * 13 + [I64] * 3 + [ctypes.c_int, ctypes.c_int, P]
     stream = _launch.stream_ptr(torch.device(DEVICE))
     ticket = torch.zeros(1, dtype=torch.int32, device=DEVICE)
     cap = k2_ops._CAP
@@ -1009,19 +1078,6 @@ def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
                             stream), "float32 frontier_spmv")
         return dw, drop
 
-    def si_f32(src, dst, c, emask, live, a):
-        E, V = src.shape[0], live.shape[0]
-        acc = torch.zeros(V, dtype=torch.float32, device=DEVICE)
-        tail = torch.zeros(2 + 2 * cap, dtype=torch.float32, device=DEVICE)
-        w0 = torch.empty(V, dtype=torch.float32, device=DEVICE)
-        both = torch.empty(E, dtype=torch.bool, device=DEVICE)
-        _launch.check(si_32(src.data_ptr(), dst.data_ptr(), c.data_ptr(), emask.data_ptr(),
-                            live.data_ptr(), a.data_ptr(), acc.data_ptr(), w0.data_ptr(),
-                            both.data_ptr(), tail[2:].data_ptr(), tail[2 + cap:].data_ptr(),
-                            tail[1:].data_ptr(), tail.data_ptr(), E, V, E // 16, 1, cap,
-                            stream), "float32 suffix_init")
-        return w0, tail[0], both
-
     # the variants compute the same functions
     s, d, c, alive, peel = rounds[0]
     a32 = alive.clone()
@@ -1033,8 +1089,6 @@ def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
     w, a, act, lev, dw0, th, r = k1_rounds[0]
     compare("float32 peel_round", k1_f32(w, a, act, lev, dw0.float(), th, r),
             peel_round_ref(w, a, act, lev, dw0.clone(), th, r), exact=False, rtol=RTOL)
-    compare("float32 suffix_init", si_f32(*prologue), suffix_init_ref(*prologue),
-            exact=False, rtol=RTOL)
 
     times = {k: {"float64": [], "float32": []} for k in ("frontier_spmv", "peel_round")}
     for order in (("float64", "float32"), ("float32", "float64")):
@@ -1056,11 +1110,6 @@ def accumulator_cost_ms(rounds, k1_rounds, prologue) -> dict:
                                            [(dw, dws)], calls=20, call_time=False)[0]
             times["frontier_spmv"][kind].append(k2_total)
             times["peel_round"][kind].append(k1_total)
-    si = {"float64": [], "float32": []}
-    for kind in ("float64", "float32", "float32", "float64"):
-        si[kind].append(device_time_ms(lambda: (suffix_init if kind == "float64" else si_f32)(
-            *prologue)))
-    times["suffix_init"] = si
     out = {}
     for k, v in times.items():
         f64, f32 = statistics.mean(v["float64"]), statistics.mean(v["float32"])
@@ -1290,6 +1339,25 @@ def phase_attention_simt(seed: int) -> dict:
                 f"{ms / lib!r}x sdpa, {bound / ms!r} of the bound), plain {plain!r} ms device "
                 f"({plain_call!r} ms call), sdpa {lib!r} ms device ({lib_call!r} ms call), "
                 f"bound {bound!r} ms ({by})")
+        if dtype == "float16":
+            # logged, not a gate: the SIMT body against SDPA in float16 on the
+            # same tensors (the library reaches the tensor cores on 16-bit data)
+            ok = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+            if window is not None:
+                ok &= ~torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril(-window)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=ok,
+                                                          enable_gqa=True)
+            diff = float((sdpa().float() - got.float()).abs().max())
+            ms16 = device_time_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                                  calls=10)
+            lib16 = device_time_ms(sdpa, calls=10)
+            bound16, by16 = k3_simt_bound_ms(B, Hq, Hkv, S, D, window, q.element_size())
+            rec["float16_case"] = {"case": tag, "ms": ms16, "library_ms": lib16,
+                                   "bound_ms": bound16, "bound_by": by16,
+                                   "sdpa_max_abs_diff": diff}
+            log(f"{tag}: kernel {ms16!r} ms device, sdpa (float16, boolean mask) {lib16!r} ms "
+                f"device ({ms16 / lib16!r}x), bound {bound16!r} ms ({by16}); sdpa's output "
+                f"within {diff!r} of the kernel's (logged, not a gate)")
         del q, k, v, got
     torch.cuda.empty_cache()
     return rec
@@ -1868,7 +1936,9 @@ def main() -> int:
     # phase 1: build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     libs = _build.build_all()
-    log(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0!r} s")
+    build_s = time.perf_counter() - t0
+    log(f"phase 1: built {sorted(libs)} in {build_s!r} s; per source (nvcc in parallel): "
+        + ", ".join(f"{k} {v!r} s" for k, v in sorted(_build.BUILD_SECONDS.items())))
     for stem, text in sorted(_build.BUILD_LOG.items()):
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line

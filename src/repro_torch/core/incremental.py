@@ -52,6 +52,7 @@ from repro_torch.graphstore.structs import (
     remove_edges,
     scatter_drop,
 )
+from repro_torch.kernels.frontier_spmv import suffix_init
 
 __all__ = [
     "DeviceSpadeState",
@@ -189,9 +190,9 @@ def _slide_epilogue(
     ``with_drops = False`` (insert-only ticks, or nothing dropped) skips the
     dropped-mass w0 decrement.  ``d_bucket > 0`` compacts the dropped edges
     into a ``d_bucket``-sized buffer by a searchsorted gather first, so the
-    decrement scatters O(dropped) updates instead of O(E_capacity).
+    decrement (:func:`_tick_w0`) takes O(dropped) lanes instead of
+    O(E_capacity).
     """
-    g0 = state.graph
     suffix_level = torch.where(res.level >= 0, res.level, res.n_rounds)
     new_level = torch.where(bk.keep, bk.r0 + suffix_level, state.level)
     improved = res.best_g > bk.prior_g
@@ -199,23 +200,7 @@ def _slide_epilogue(
         improved, (res.level >= res.best_level) & bk.keep & g.vertex_mask,
         state.community,
     )
-    w0 = state.w0
-    if with_drops and d_bucket:
-        E = g0.e_capacity
-        dsum = torch.cumsum(bk.dropped.to(torch.int32), 0, dtype=torch.int32)
-        lane = torch.arange(d_bucket, dtype=torch.int32, device=g0.device)
-        didx = torch.searchsorted(dsum, lane + 1, out_int32=True)
-        dlive = lane < dsum[E - 1]
-        didx = torch.where(dlive, didx, 0)
-        dc = torch.where(dlive, bk.cd[didx], 0.0)
-        w0 = scatter_drop(w0, g0.src[didx], dlive, -dc, accumulate=True)
-        w0 = scatter_drop(w0, g0.dst[didx], dlive, -dc, accumulate=True)
-    elif with_drops:
-        w0 = scatter_drop(w0, g0.src, None, -bk.cd, accumulate=True)
-        w0 = scatter_drop(w0, g0.dst, None, -bk.cd, accumulate=True)
-    cv = torch.where(valid, c.to(torch.float32), 0.0)
-    w0 = scatter_drop(w0, src, None, cv, accumulate=True)
-    w0 = scatter_drop(w0, dst, None, cv, accumulate=True)
+    w0 = _tick_w0(state, bk, src, dst, c, valid, with_drops, d_bucket)
     return DeviceSpadeState(
         graph=g,
         level=new_level,
@@ -224,6 +209,48 @@ def _slide_epilogue(
         edge_count=state.edge_count - n_removed + bk.n_new,
         w0=w0,
     )
+
+
+def _tick_w0(state: DeviceSpadeState, bk: _SlideBookkeeping, src, dst, c, valid,
+             with_drops: bool, d_bucket: int) -> torch.Tensor:
+    """``state.w0`` after a tick: the dropped ``-c`` and the inserted
+    ``cv`` added at both ends of their edges by one :func:`suffix_init`
+    over those lanes (every vertex live, ``a = w0``): float64 sums rounded
+    to float32 once, so the bits are the same whatever order the device
+    adds them in, and groups of slots with no dropped edge cost the kernel
+    one mask read.
+
+    Each end of a batch lane lands as ``w0.at[end].add(cv, mode="drop")``
+    would land it: an end in ``[-V, 0)`` counts from the end of ``w0``,
+    any other end outside ``[0, V)`` goes to a spare vertex ``V`` that is
+    cut off, and the lane's other end still takes ``cv``.  The graph's
+    stored ends are in ``[0, V)`` (the peel that stores an edge indexes
+    with them)."""
+    g0 = state.graph
+    V = state.w0.shape[0]
+    cv = torch.where(valid, c.to(torch.float32), 0.0)
+
+    def end(x):
+        x = torch.where(x < 0, x + V, x)
+        return torch.where(valid & (x >= 0) & (x < V), x, V)
+
+    bsrc, bdst = end(src), end(dst)
+    if with_drops and d_bucket:
+        E = g0.e_capacity
+        dsum = torch.cumsum(bk.dropped.to(torch.int32), 0, dtype=torch.int32)
+        lane = torch.arange(d_bucket, dtype=torch.int32, device=g0.device)
+        didx = torch.searchsorted(dsum, lane + 1, out_int32=True)
+        dlive = lane < dsum[E - 1]
+        didx = torch.where(dlive, didx, 0)
+        lanes = ([g0.src[didx], bsrc], [g0.dst[didx], bdst],
+                 [-torch.where(dlive, bk.cd[didx], 0.0), cv], [dlive, valid])
+    elif with_drops:
+        lanes = [g0.src, bsrc], [g0.dst, bdst], [-bk.cd, cv], [bk.dropped, valid]
+    else:
+        lanes = [bsrc], [bdst], [cv], [valid]
+    live = torch.ones(V + 1, dtype=torch.bool, device=g0.device)
+    a = torch.cat([state.w0, state.w0.new_zeros(1)])
+    return suffix_init(*(torch.cat(x) for x in lanes), live, a)[0][:V]
 
 
 def _zero_i32(like: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the block; the result is valid in thread 0 only.
-// `scratch` holds kWarps floats of shared memory.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+// Sum of v over a block of NW warps; the result is valid in thread 0 only.
+// `scratch` holds NW floats of shared memory.
+template <int NW>
+__device__ __forceinline__ float block_sum_of(float v, float* scratch) {
+  static_assert(NW <= 32, "one warp sums the warps' partials");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   v = warp_sum(v);
@@ -30,11 +32,17 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   float t = 0.f;
   if (warp == 0) {
-    t = lane < kWarps ? scratch[lane] : 0.f;
+    t = lane < NW ? scratch[lane] : 0.f;
     t = warp_sum(t);
   }
   __syncthreads();  // scratch may be reused by the next call
   return t;
+}
+
+// Sum of v over a block of kThreads; valid in thread 0 only.  `scratch`
+// holds kWarps floats of shared memory.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  return block_sum_of<kWarps>(v, scratch);
 }
 
 }  // namespace spade

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kBM = 128;  // query rows per CTA (64 per consumer warpgroup)
@@ -571,27 +573,47 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // it to tf32 or bf16).  Bound on the H100: operations, 4*B*Hq*D*(unmasked
 // pairs) flops at 67 TFLOP/s.
 //
-// A CTA of 64 threads takes 64 query rows of one (q head, batch), one row
-// a thread, and walks the keys its rows can see in tiles of kKeys (32; 16
-// at D 256), the tile loop of the Pallas grid's kv axis.  Q (as columns,
-// stride 65 so that the transposed writes and the row reads miss no bank)
-// and each K/V tile are converted to f32 in shared memory, zero-padded to
-// DP = D rounded up to a power of two from 16; a thread keeps its row's
-// accumulator (DP floats) and the tile's scores in registers.  The K and V
-// reads are float4 broadcasts, so a shared load feeds four FFMAs.  The
-// online softmax is the reference's per tile: the tile max, one
-// correction exp(m - m_new), masked scores at -1e30 (so a row whose keys
-// are all masked so far gets p = 1, which the correction wipes when its
-// first live key arrives, as in the reference); keys past Skv take no part.
-// A simple kernel first: its speed is recorded in PERF.md beside SDPA's.
-constexpr int kSimtRows = 64;
-constexpr int kSimtPitch = kSimtRows + 1;  // floats between Q columns in shared memory
+// It is built as a register-blocked SGEMM, which is how the FP32 pipes are
+// fed without tensor cores.  A CTA of 256 threads takes 64 query rows of
+// one (q head, batch) and walks the keys its rows can see in tiles of 64,
+// the tile loop of the Pallas grid's kv axis.  Q, each K tile and each V
+// tile sit in shared memory as f32, zero-padded to DP = 64, 128 or 256
+// columns (D rounded up); Q and K rows are stored with their 16-byte chunks
+// XOR-swizzled by the row, so every read below is free of bank conflicts.
+// Thread (row group rg, lane group cg) owns rows 4rg..4rg+3: of S the keys
+// cg + 16j (j < 4), of O the columns 64c + 4cg..+3 (c < DP/64).  S = Q K^T
+// is built from float4 outer products (4 Q and 4 K chunks feed 64 FFMAs; the
+// warp's 16 lanes of a row read one Q chunk, a broadcast), then masked,
+// scaled and run through the reference's per-tile online softmax: the tile
+// max over the row's 16 lanes by xor shuffles, one correction
+// exp(m - m_new), masked scores at -1e30 (a row whose keys are all masked
+// so far gets p = 1, which the correction wipes when its first live key
+// arrives, as in the reference), keys past Skv taking no part.  P goes to
+// shared memory (swizzled) and O += P V takes float4 outer products of P
+// and V again.  Each row's l is summed per lane and over its 16 lanes once,
+// at the end, in a fixed order: no atomics, the same bits every launch.
+//
+// Loading: one K and one V buffer, refilled as soon as they are consumed,
+// so tile j+1's K streams in during tile j's softmax and P V, and its V
+// during tile j+1's Q K^T.  float32 data with 16-byte aligned rows goes by
+// cp.async (16 bytes, zero-filled past the ends); float16, bf16 and other
+// float32 data by loads converted to f32 in registers.  Grid (q tiles x
+// Hq, B), the head fastest and the q tiles reversed, so every head's
+// heaviest causal tiles start first.
+// Shared memory: (3 * 64 * DP + 64 * 64) * 4 bytes, 112 KB at DP 128 (two
+// CTAs, 16 warps an SM), 208 KB at DP 256.
+constexpr int kSimtRows = 64;      // query rows per CTA
+constexpr int kSimtKeys = 64;      // keys per kv tile
+constexpr int kSimtThreads = 256;  // 16 row groups of 4 rows x 16 lanes
 constexpr float kSimtNeg = -1e30f;
 
 template <int DP>
 struct SimtCfg {
-  static constexpr int kKeys = DP >= 256 ? 16 : 32;
-  static constexpr int kSmem = (DP * kSimtPitch + 2 * kKeys * DP) * 4;
+  static constexpr int kTile = kSimtRows * DP;  // floats of Q, of a K and of a V tile
+  static constexpr int kP = kSimtRows * kSimtKeys;
+  static constexpr int kSmem = (3 * kTile + kP) * 4;
+  static constexpr int kCols = DP / 64;  // float4 column chunks of O a thread owns
+  static constexpr int kMinBlocks = DP >= 256 ? 1 : 2;
 };
 
 struct SimtParams {
@@ -600,7 +622,7 @@ struct SimtParams {
   const void* v;
   void* o;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int G, Sq, Skv, D, causal, window;
+  int G, Hkv, Sq, Skv, D, causal, window, async_copy;
   float scale;
 };
 
@@ -616,93 +638,214 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
+// Float offset of 16-byte chunk `ch` of row `r` in a tile of W floats a row,
+// the chunks swizzled by the row (W / 4 >= 8).
+template <int W>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * W + ((ch ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const void* gmem, bool full) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [r0, r0 + 64) of a [S, D] slab with sequence stride ss into a
+// [64][DP] f32 tile (swizzled or not), zero past r_end and past D: by
+// cp.async when `async_copy` (float32 with 16-byte aligned rows), else by
+// converting loads.
+template <typename T, int DP, bool kSwizzle>
+__device__ __forceinline__ void load_tile(float* tile, const T* g, int64_t ss, int r0,
+                                          int r_end, int D, bool async_copy) {
+  constexpr int kChunks = DP / 4;
+  for (int i = threadIdx.x; i < kSimtRows * kChunks; i += kSimtThreads) {
+    const int r = i / kChunks, ch = i % kChunks, d = 4 * ch;
+    float* out = tile + (kSwizzle ? swz<DP>(r, ch) : r * DP + d);
+    const bool in = r0 + r < r_end;
+    const T* row = g + (int64_t)(r0 + r) * ss;
+    if (std::is_same<T, float>::value && async_copy) {
+      const bool full = in && d < D;
+      cp_async16(out, full ? (const void*)(row + d) : (const void*)g, full);
+      continue;
+    }
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (in) {
+      if (d < D) x.x = to_f32(row[d]);
+      if (d + 1 < D) x.y = to_f32(row[d + 1]);
+      if (d + 2 < D) x.z = to_f32(row[d + 2]);
+      if (d + 3 < D) x.w = to_f32(row[d + 3]);
+    }
+    *reinterpret_cast<float4*>(out) = x;
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
 template <typename T, int DP>
-__global__ void __launch_bounds__(kSimtRows) flash_simt_kernel(const SimtParams p) {
-  constexpr int R = kSimtRows, KT = SimtCfg<DP>::kKeys;
-  extern __shared__ float sm[];
-  float* qs = sm;                    // [DP][kSimtPitch]: column d of the rows
-  float* ks = qs + DP * kSimtPitch;  // [KT][DP]
-  float* vs = ks + KT * DP;          // [KT][DP]
-  const int h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int q0 = blockIdx.x * R, row = q0 + t;
+__global__ void __launch_bounds__(kSimtThreads, SimtCfg<DP>::kMinBlocks)
+    flash_simt_kernel(const SimtParams p) {
+  using C = SimtCfg<DP>;
+  constexpr int NC = C::kCols;
+  extern __shared__ float4 simt_sm[];
+  float* qs = reinterpret_cast<float*>(simt_sm);  // [64][DP] swizzled
+  float* ks = qs + C::kTile;                      // [64][DP] swizzled
+  float* vs = ks + C::kTile;                      // [64][DP]
+  float* ps = vs + C::kTile;                      // [64][64] swizzled
+  // blockIdx.x runs over (q tile, head) with the head fastest and the q
+  // tiles from the last: every head's heaviest causal tiles start first
+  const int n_heads = p.G * p.Hkv;
+  const int h = blockIdx.x % n_heads, b = blockIdx.y;
+  const int n_qt = (p.Sq + kSimtRows - 1) / kSimtRows;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_heads)) * kSimtRows;
+  const int lane = threadIdx.x & 31;
+  const int rg = 2 * (threadIdx.x >> 5) + (lane >> 4);  // rows 4rg .. 4rg + 3
+  const int cg = lane & 15;
   const T* q = (const T*)p.q + b * p.q_sb + h * p.q_sh;
   const T* k = (const T*)p.k + b * p.k_sb + (h / p.G) * p.k_sh;
   const T* v = (const T*)p.v + b * p.v_sb + (h / p.G) * p.v_sh;
-  for (int i = t; i < R * DP; i += R) {
-    const int r = i / DP, d = i % DP;
-    qs[d * kSimtPitch + r] =
-        (q0 + r < p.Sq && d < p.D) ? to_f32(q[(int64_t)(q0 + r) * p.q_ss + d]) : 0.f;
-  }
+  const bool async_copy = p.async_copy;
   // the keys any row of the tile can see
   int k_end = p.Skv;
-  if (p.causal) k_end = min(k_end, min(q0 + R, p.Sq));
+  if (p.causal) k_end = min(k_end, min(q0 + kSimtRows, p.Sq));
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
 
-  float acc[DP];
+  // groups in order: Q, K_0, V_0, then K_{j+1} and V_{j+1} in tile j
+  load_tile<T, DP, true>(qs, q, p.q_ss, q0, p.Sq, p.D, async_copy);
+  cp_async_commit();
+  if (k_begin < k_end) load_tile<T, DP, true>(ks, k, p.k_ss, k_begin, k_end, p.D, async_copy);
+  cp_async_commit();
+  if (k_begin < k_end) load_tile<T, DP, false>(vs, v, p.v_ss, k_begin, k_end, p.D, async_copy);
+  cp_async_commit();
+
+  float o[4][4 * NC];
+  float m[4], l[4];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
-  float m = kSimtNeg, l = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
-    const int nk = min(KT, k_end - k0);
-    __syncthreads();  // the previous tile is consumed (and Q is written)
-    for (int i = t; i < KT * DP; i += R) {
-      const int j = i / DP, d = i % DP;
-      const bool in = j < nk && d < p.D;
-      ks[i] = in ? to_f32(k[(int64_t)(k0 + j) * p.k_ss + d]) : 0.f;
-      vs[i] = in ? to_f32(v[(int64_t)(k0 + j) * p.v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-    float s[KT];
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kSimtNeg, l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      const float x0 = qs[d * kSimtPitch + t], x1 = qs[(d + 1) * kSimtPitch + t];
-      const float x2 = qs[(d + 2) * kSimtPitch + t], x3 = qs[(d + 3) * kSimtPitch + t];
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const float4 y = *reinterpret_cast<const float4*>(ks + j * DP + d);
-        s[j] = fmaf(x3, y.w, fmaf(x2, y.z, fmaf(x1, y.y, fmaf(x0, y.x, s[j]))));
-      }
-    }
-    float mt = m;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const int key = k0 + j;
-      bool ok = true;
-      if (p.causal) ok = ok && key <= row;
-      if (p.window > 0) ok = ok && key > row - p.window;
-      s[j] = ok ? s[j] * p.scale : kSimtNeg;
-      if (j < nk) mt = fmaxf(mt, s[j]);
-    }
-    const float corr = expf(m - mt);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      s[j] = j < nk ? expf(s[j] - mt) : 0.f;
-      ls += s[j];
-    }
-    l = l * corr + ls;
-#pragma unroll
-    for (int d = 0; d < DP; d += 4) {
-      float a0 = acc[d] * corr, a1 = acc[d + 1] * corr;
-      float a2 = acc[d + 2] * corr, a3 = acc[d + 3] * corr;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const float4 y = *reinterpret_cast<const float4*>(vs + j * DP + d);
-        a0 = fmaf(s[j], y.x, a0), a1 = fmaf(s[j], y.y, a1);
-        a2 = fmaf(s[j], y.z, a2), a3 = fmaf(s[j], y.w, a3);
-      }
-      acc[d] = a0, acc[d + 1] = a1, acc[d + 2] = a2, acc[d + 3] = a3;
-    }
-    m = mt;
+    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.f;
   }
-  if (row < p.Sq) {
-    const float den = fmaxf(l, 1e-30f);
-    T* o = (T*)p.o + b * p.o_sb + h * p.o_sh + (int64_t)row * p.o_ss;
+  for (int k0 = k_begin; k0 < k_end; k0 += kSimtKeys) {
+    cp_async_wait<1>();  // Q and K_j have landed (V_j may be in flight)
+    __syncthreads();
+    float s[4][4];
 #pragma unroll
-    for (int d = 0; d < DP; ++d)
-      if (d < p.D) o[d] = from_f32<T>(acc[d] / den);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < DP / 4; ++ch) {
+      float4 qf[4], kf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(qs + swz<DP>(4 * rg + i, ch));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(ks + swz<DP>(cg + 16 * j, ch));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+        }
+    }
+    __syncthreads();  // K_j is consumed: refill its buffer with K_{j+1}
+    const int k_next = k0 + kSimtKeys;
+    if (k_next < k_end)
+      load_tile<T, DP, true>(ks, k, p.k_ss, k_next, k_end, p.D, async_copy);
+    cp_async_commit();
+
+    const int nk = min(kSimtKeys, k_end - k0);  // keys of the tile inside [k_begin, k_end)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * rg + i;
+      float mt = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + cg + 16 * j;
+        bool ok = true;
+        if (p.causal) ok = ok && key <= row;
+        if (p.window > 0) ok = ok && key > row - p.window;
+        s[i][j] = ok ? s[i][j] * p.scale : kSimtNeg;
+        if (cg + 16 * j < nk) mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int x = 8; x > 0; x >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
+      const float corr = expf(m[i] - mt);
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = cg + 16 * j;
+        const float e = kk < nk ? expf(s[i][j] - mt) : 0.f;
+        ls += e;
+        ps[swz<kSimtKeys>(4 * rg + i, kk >> 2) + (kk & 3)] = e;
+      }
+      l[i] = l[i] * corr + ls;
+      m[i] = mt;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) o[i][c] *= corr;
+    }
+    cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
+    __syncthreads();     // and P is written
+    const int n_chunks = (nk + 3) >> 2;
+#pragma unroll 2
+    for (int kc = 0; kc < n_chunks; ++kc) {
+      float4 pf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(ps + swz<kSimtKeys>(4 * rg + i, kc));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = vs + (4 * kc + e) * DP + 4 * cg;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 vf = *reinterpret_cast<const float4*>(vrow + 64 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pv = lane_of(pf[i], e);
+            o[i][4 * c] = fmaf(pv, vf.x, o[i][4 * c]);
+            o[i][4 * c + 1] = fmaf(pv, vf.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(pv, vf.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(pv, vf.w, o[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // V_j and P are consumed: refill V with V_{j+1}
+    if (k_next < k_end)
+      load_tile<T, DP, false>(vs, v, p.v_ss, k_next, k_end, p.D, async_copy);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int x = 8; x > 0; x >>= 1) li += __shfl_xor_sync(0xffffffffu, li, x);
+    const int row = q0 + 4 * rg + i;
+    if (row >= p.Sq) continue;
+    const float den = fmaxf(li, 1e-30f);
+    T* out = (T*)p.o + b * p.o_sb + h * p.o_sh + (int64_t)row * p.o_ss;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * c + 4 * cg + e;
+        if (col < p.D) out[col] = from_f32<T>(o[i][4 * c + e] / den);
+      }
   }
 }
 
@@ -716,15 +859,15 @@ int launch_simt(const SimtParams& p, int B, int Hq, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid((p.Sq + kSimtRows - 1) / kSimtRows, Hq, B);
-  flash_simt_kernel<T, DP><<<grid, kSimtRows, SimtCfg<DP>::kSmem, stream>>>(p);
+  const int64_t n_qt = (p.Sq + kSimtRows - 1) / kSimtRows;
+  if (n_qt * Hq > INT32_MAX || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)(n_qt * Hq), B);
+  flash_simt_kernel<T, DP><<<grid, kSimtThreads, SimtCfg<DP>::kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_simt_d(const SimtParams& p, int B, int Hq, cudaStream_t stream) {
-  if (p.D <= 16) return launch_simt<T, 16>(p, B, Hq, stream);
-  if (p.D <= 32) return launch_simt<T, 32>(p, B, Hq, stream);
   if (p.D <= 64) return launch_simt<T, 64>(p, B, Hq, stream);
   if (p.D <= 128) return launch_simt<T, 128>(p, B, Hq, stream);
   return launch_simt<T, 256>(p, B, Hq, stream);
@@ -783,8 +926,14 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
   p.k_sb = strides[3], p.k_sh = strides[4], p.k_ss = strides[5];
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
-  p.G = Hq / Hkv, p.Sq = Sq, p.Skv = Skv, p.D = D;
+  p.G = Hq / Hkv, p.Hkv = Hkv, p.Sq = Sq, p.Skv = Skv, p.D = D;
   p.causal = causal, p.window = window, p.scale = scale;
+  // cp.async takes float32 rows whose every 16-byte chunk is aligned
+  bool aligned = dtype == 0 && D % 4 == 0;
+  aligned = aligned && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+            (uintptr_t)v % 16 == 0;
+  for (int i = 0; i < 9; ++i) aligned = aligned && strides[i] % 4 == 0;
+  p.async_copy = aligned;
   auto st = (cudaStream_t)stream;
   if (dtype == 0) return launch_simt_d<float>(p, B, Hq, st);
   if (dtype == 1) return launch_simt_d<__nv_bfloat16>(p, B, Hq, st);

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.frontier_spmv import suffix_init
 
 __all__ = ["DeviceGraph", "device_graph_from_coo", "compact_slots",
            "append_edges", "remove_edges", "scatter_drop"]
@@ -93,11 +94,15 @@ class DeviceGraph:
         ).sum()
 
     def peel_weights(self) -> torch.Tensor:
-        """w_u(S_0) for every vertex: a_u + incident suspiciousness."""
-        cm = torch.where(self.edge_mask, self.c, 0.0)
-        w = torch.where(self.vertex_mask, self.a, 0.0)
-        z = torch.zeros_like(w)
-        return (w + z.index_add(0, self.src, cm)) + z.index_add(0, self.dst, cm)
+        """w_u(S_0) for every vertex: a_u + incident suspiciousness.
+
+        The static peel's own prologue (:func:`suffix_init` over every
+        slot, as ``core.peel.bulk_peel`` calls it), so a state seeded from
+        it holds the same bits as that peel's weights; on CUDA the sums are
+        float64, rounded once, and repeat their bits run to run."""
+        a = torch.where(self.vertex_mask, self.a, 0.0)
+        return suffix_init(self.src, self.dst, self.c, self.edge_mask,
+                           torch.ones_like(self.vertex_mask), a)[0]
 
 
 def device_graph_from_coo(

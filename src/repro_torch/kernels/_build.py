@@ -16,10 +16,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
-__all__ = ["build_all", "load", "BUILD_LOG", "CSRC", "BUILD_DIR"]
+__all__ = ["build_all", "load", "BUILD_LOG", "BUILD_SECONDS", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 BUILD_LOG: dict[str, str] = {}  # source stem -> nvcc output of this process
+BUILD_SECONDS: dict[str, float] = {}  # source stem -> seconds its nvcc took
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -56,7 +59,10 @@ def _target(source: Path) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Build every ``csrc/*.cu`` that has no up-to-date library, one
-    ``nvcc`` per source in parallel.  Returns ``{stem: library path}``."""
+    ``nvcc`` per source in parallel.  Returns ``{stem: library path}``;
+    each source's nvcc output goes to :data:`BUILD_LOG` and its seconds
+    (start of the build to the end of its ``nvcc``) to
+    :data:`BUILD_SECONDS`."""
     sources = sorted(CSRC.glob("*.cu"))
     targets = {s.stem: _target(s) for s in sources}
     todo = [(s, targets[s.stem]) for s in sources if not targets[s.stem].exists()]
@@ -65,17 +71,27 @@ def build_all() -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
+    t0 = time.perf_counter()
     for source, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile(mode="w+")  # a pipe could fill and stall nvcc
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
-        procs.append((source, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        procs.append((source, out, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    running = list(procs)
+    while running:
+        for item in list(running):
+            if item[4].poll() is not None:
+                BUILD_SECONDS[item[0].stem] = time.perf_counter() - t0
+                running.remove(item)
+        time.sleep(0.02)
     failed = []
-    for source, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        BUILD_LOG[source.stem] = log
+    for source, out, tmp, log, proc in procs:
+        log.seek(0)
+        BUILD_LOG[source.stem] = log.read()
+        log.close()
         if proc.returncode != 0:
-            failed.append(f"{source.name}:\n{log}")
+            failed.append(f"{source.name}:\n{BUILD_LOG[source.stem]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -11,7 +11,11 @@
   passes its own accumulator, which the elementwise kernel leaves zeroed,
   so a round needs no memset.
 * :func:`suffix_init` — the warm peel's prologue, the induced weights of
-  the restricted set (``repro/core/peel.py:324-329``).
+  the restricted set (``repro/core/peel.py:324-329``): a count pass, a
+  scatter of (vertex, c) pairs binned by vertex range, and one CTA a bin
+  adding its pairs in shared memory.  Its bins (:func:`bin_shift`) and its
+  pair buffer (:func:`prologue_scratch_bytes`, kept per device and grown to
+  the largest E seen) are sized here.
 
 On CPU tensors each runs its plain version (:mod:`.ref`), which keeps the
 same contract; on CUDA tensors each launches its kernel or raises.
@@ -28,18 +32,22 @@ import torch
 from repro_torch.kernels import _launch
 from .ref import frontier_spmv_ref, suffix_init_ref
 
-__all__ = ["frontier_spmv", "suffix_init", "launches", "suffix_init_launches"]
+__all__ = ["frontier_spmv", "suffix_init", "launches", "suffix_init_launches", "bin_shift",
+           "prologue_scratch_bytes"]
 
 launches = 0
 suffix_init_launches = 0
 _SLOTS = 16  # edge slots per thread on the vector path (one 16-byte alive load)
 _CAP = 4096  # most blocks of one launch: room for their partial sums
 _VEC = 16  # bytes of one vector load
-_PASS_BYTES = 24 << 20  # float64 accumulator bytes one prologue pass adds into
+_MAX_SHIFT = 13  # the prologue's bins hold at most 2^13 vertices (64 KB of float64)
+_MIN_SHIFT = 8
+_MAX_BINS = 8192  # csrc kMaxBins: so V <= 2^26
+_PAIR_BYTES = 8  # a (vertex, c) pair of the prologue's scatter
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ROUND_ARGS = [_P] * 9 + [_I64] * 3 + [ctypes.c_int, _P]
-_SUFFIX_ARGS = [_P] * 13 + [_I64] * 3 + [ctypes.c_int, ctypes.c_int, _P]
+_SUFFIX_ARGS = [_P] * 16 + [_I64] * 3 + [ctypes.c_int] * 3 + [_P]
 
 
 def _vector_split(n: int, alive_ptr: int, *word_ptrs: int) -> tuple[int, int]:
@@ -61,6 +69,59 @@ def _ticket(dev) -> torch.Tensor:
     if dev not in _tickets:
         _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _tickets[dev]
+
+
+def bin_shift(V: int) -> int:
+    """log2 of the prologue's bin: ``2**shift`` consecutive vertices whose
+    float64 sums one CTA keeps in shared memory: bins of at least 256
+    vertices, 65 to 128 bins from V = 2^15 to 2^20, bins of 8,192 vertices
+    from there on; raises past ``8192 * 2**13`` vertices (the kernel's most
+    bins)."""
+    if V < 1:
+        raise ValueError(f"suffix_init: {V} vertices")
+    shift = min(_MAX_SHIFT, max(_MIN_SHIFT, (V - 1).bit_length() - 7))
+    if -(-V // (1 << shift)) > _MAX_BINS:
+        raise ValueError(f"suffix_init: {V} vertices exceed the kernel's "
+                         f"{_MAX_BINS} bins of {1 << _MAX_SHIFT}")
+    return shift
+
+
+def prologue_scratch_bytes(E: int) -> int:
+    """Bytes of the prologue's pair buffer for E slots: room for two
+    (vertex, c) pairs a slot, what every slot being induced would need."""
+    return 2 * _PAIR_BYTES * max(E, 1)
+
+
+class _Scratch:
+    """The prologue's scratch on one device: the pair buffer, and the
+    per-bin counts, region starts and cursors with the two tickets (the
+    counts and tickets hold zeros between calls; the kernels leave them
+    so), and the block partials."""
+
+    def __init__(self, dev: torch.device, E: int):
+        self.pairs = torch.empty(prologue_scratch_bytes(E), dtype=torch.uint8, device=dev)
+        # bin_count | ticket x 2 | bin_start (n + 1) | cursor
+        self.bins = torch.zeros(3 * _MAX_BINS + 3, dtype=torch.int32, device=dev)
+        self.partials = torch.empty(_CAP + _MAX_BINS, dtype=torch.float32, device=dev)
+
+    def ptrs(self) -> list[int]:
+        b = self.bins
+        return [self.pairs.data_ptr(), b.data_ptr(), b[_MAX_BINS + 2:].data_ptr(),
+                b[2 * _MAX_BINS + 3:].data_ptr(), b[_MAX_BINS:].data_ptr(),
+                self.partials.data_ptr(), self.partials[_CAP:].data_ptr()]
+
+
+_scratch: dict[torch.device, _Scratch] = {}
+
+
+def _prologue_scratch(dev, E: int) -> _Scratch:
+    """The prologue's scratch on ``dev``, made once and remade only when a
+    larger E needs a larger pair buffer."""
+    s = _scratch.get(dev)
+    if s is None or s.pairs.numel() < prologue_scratch_bytes(E):
+        _scratch.pop(dev, None)
+        s = _scratch[dev] = _Scratch(dev, E)
+    return s
 
 
 def frontier_spmv(src, dst, c, alive, peel, dw):
@@ -122,20 +183,20 @@ def suffix_init(src, dst, c, edge_mask, live, a):
     _launch.require(edge_mask, "edge_mask", torch.bool, dev, numel=E)
     _launch.require(live, "live", torch.bool, dev, numel=V)
     _launch.require(a, "a", torch.float32, dev, numel=V)
-    # the float64 accumulator [V] | f0 | ticket | vertex and edge partials,
-    # zeroed by one memset
-    buf = torch.zeros(V + 1 + _CAP, dtype=torch.float64, device=dev)
-    acc, tail = buf[:V], buf[V:].view(torch.float32)
+    if E >= 1 << 31:
+        raise ValueError(f"suffix_init: {E} slots; the pair buffer is indexed by uint32")
+    shift = bin_shift(V)
+    scratch = _prologue_scratch(dev, E)
     w0 = torch.empty(V, dtype=torch.float32, device=dev)
+    f0 = torch.empty((), dtype=torch.float32, device=dev)
     both = torch.empty(E, dtype=torch.bool, device=dev)
     aligned = all(t.data_ptr() % _VEC == 0 for t in (src, dst, edge_mask, both))
     n_groups = E // _VEC if aligned else 0
-    n_parts = max(1, -(-8 * V // _PASS_BYTES))
+    vec = int(aligned and c.data_ptr() % _VEC == 0)
     fn = _launch.bind("frontier_spmv", "suffix_init_launch", _SUFFIX_ARGS)
     err = fn(src.data_ptr(), dst.data_ptr(), c.data_ptr(), edge_mask.data_ptr(),
-             live.data_ptr(), a.data_ptr(), acc.data_ptr(), w0.data_ptr(), both.data_ptr(),
-             tail[2:].data_ptr(), tail[2 + _CAP:].data_ptr(), tail[1:].data_ptr(),
-             tail.data_ptr(), E, V, n_groups, n_parts, _CAP, _launch.stream_ptr(dev))
+             live.data_ptr(), a.data_ptr(), w0.data_ptr(), both.data_ptr(), *scratch.ptrs(),
+             f0.data_ptr(), E, V, n_groups, vec, shift, _CAP, _launch.stream_ptr(dev))
     _launch.check(err, "suffix_init_launch")
     suffix_init_launches += 1
-    return w0, tail[0], both
+    return w0, f0, both

@@ -203,20 +203,58 @@ def test_suffix_init_kernel_matches_plain(cuda, E, pad, offset, integer):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("parts", [2, 3])
-def test_suffix_init_kernel_in_vertex_range_passes(cuda, monkeypatch, parts):
-    """The prologue adds into its float64 accumulator in passes over vertex
-    ranges (two at Grab4's V); a small pass size forces them here."""
+def _assert_prologue(got, want, integer):
+    """``suffix_init`` against its plain version: bit for bit on integer
+    weights, else w0 and f0 within 1e-6 relative (float64 sums rounded once
+    against float32 sums in another order) and ``both`` bit for bit."""
+    if integer:
+        _assert_close(got, want, True)
+        return
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w.cpu(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("V", [5000, 1_000_003])
+def test_suffix_init_kernel_in_vertex_range_passes(cuda, V, integer):
+    """The prologue's bins are vertex ranges (20 of 256 at V 5,000, 123 of
+    8,192 at V 1,000,003), the last one ragged; every bin's pairs land in
+    its own CTA's float64 accumulator.  Three calls give the same bits."""
     from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
 
-    rng = np.random.default_rng(parts)
-    V, E = 5000, 70_000
-    src, dst, c, emask, _ = _k2_edges(rng, V, E, 65_000, "full", True)
-    a = rng.integers(0, 3, V).astype(np.float32)
+    rng = np.random.default_rng(V)
+    E = 14 * V + 5
+    src, dst, c, emask, _ = _k2_edges(rng, V, E, 13 * V, "full", integer)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
     live = rng.random(V) < 0.7
     args = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, emask, live, a)]
-    monkeypatch.setattr(k2_ops, "_PASS_BYTES", -(-8 * V // parts))
-    _assert_close(suffix_init(*args), suffix_init_ref(*args), True)
+    assert -(-V // (1 << k2_ops.bin_shift(V))) > 1 and V % (1 << k2_ops.bin_shift(V))
+    got = suffix_init(*args)
+    _assert_prologue(got, suffix_init_ref(*args), integer)
+    for _ in range(2):
+        for x, y in zip(suffix_init(*args), got):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("case", ["nothing-live", "E-below-a-group"])
+def test_suffix_init_kernel_edge_cases(cuda, case, integer):
+    """No live vertex (no pair at all: w0 and f0 0, ``both`` empty of
+    true), and fewer slots than one 16-slot vector group (every slot on the
+    count pass's scalar path; a scatter batch with a ragged end)."""
+    from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
+
+    rng = np.random.default_rng(7 if integer else 8)
+    V, E = (3000, 40_000) if case == "nothing-live" else (9, 11)
+    src, dst, c, emask, _ = _k2_edges(rng, V, E, E - 2, "full", integer)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    live = np.zeros(V, bool) if case == "nothing-live" else rng.random(V) < 0.8
+    args = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, emask, live, a)]
+    got = suffix_init(*args)
+    _assert_prologue(got, suffix_init_ref(*args), integer)
+    if case == "nothing-live":
+        assert not bool(got[0].any()) and float(got[1]) == 0.0 and not bool(got[2].any())
 
 
 def test_kernel_wrappers_check_arguments(cuda):
@@ -268,9 +306,9 @@ def test_service_cuda_equals_cpu(cuda, spec):
         assert np.array_equal(np.asarray(v), np.asarray(states[1][k])), k
 
 
-# DW and FD weights are not integers: K2's and the prologue's float
-# atomics (and the tick's other float scatters, ROADMAP C.2) add in another
-# order than the CPU's scatters, and from run to run.  So the reports are
+# DW and FD weights are not integers: K2, the prologue and the tick's w0
+# bookkeeping sum in float64 and round once, the CPU's scatters in float32
+# in their own order.  So the reports are
 # held as tests/test_torch_service.py::test_service_dw_reports_agree holds
 # the port against the reference: the counts equal, final_g to rtol 1e-5,
 # benign_fraction to rtol 1e-3; two cuda runs against each other the same.
@@ -295,6 +333,57 @@ def test_service_float_weights_cuda_matches_cpu(cuda, semantics, spec):
     first, again, cpu = run(cuda), run(cuda), run("cpu")
     _reports_agree(first, cpu)
     _reports_agree(again, first)
+
+
+@pytest.mark.parametrize("semantics", ["DW", "FD"])
+def test_service_windowed_w0_same_bits_every_run(cuda, semantics):
+    """The tick's w0 bookkeeping adds its deltas in float64 and rounds once
+    (and the start-up w0 is the static peel's own prologue), so two cuda
+    runs of the windowed service end with the same w0 bits and the same
+    benign fraction."""
+    stream = make_transaction_stream(n=3000, m=15000, seed=9)
+    runs = []
+    for _ in range(2):
+        svc = SpadeService(semantics, batch_edges=512, device=cuda, window_ticks=2)
+        rep = svc.run(stream)
+        runs.append((rep, svc.final_state.w0.cpu()))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][0].benign_fraction == runs[1][0].benign_fraction
+
+
+@pytest.mark.parametrize("with_drops,d_bucket", [(False, 0), (True, 0), (True, 32)],
+                         ids=["insert", "drops-full", "drops-compacted"])
+def test_tick_w0_cuda_equals_cpu(cuda, with_drops, d_bucket):
+    """The tick's w0 bookkeeping on the card (one ``suffix_init`` over the
+    dropped and inserted lanes and a spare vertex) equals the plain version
+    on the cpu bit for bit on integer weights, lanes with one end outside
+    ``[0, V)`` among them."""
+    from repro_torch.core import incremental as ti
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    rng = np.random.default_rng(12)
+    n, m = 300, 2000
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = src != dst
+    c = rng.integers(1, 6, keep.sum()).astype(np.float32)
+    V = 320
+    far_s = np.array([3, V + 5, 7, 9, 11, 12], np.int32)
+    far_d = np.array([V, 6, -1, -V - 1, 13, 14], np.int32)
+    far_c = np.array([2, 3, 4, 5, 6, 7], np.float32)
+    far_valid = np.array([True, True, True, True, True, False])
+    drop = np.arange(2048) < 40
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        g = device_graph_from_coo(n, src[keep], dst[keep], c, n_capacity=V,
+                                  e_capacity=2048, device=d)
+        state = ti.init_state(g, eps=0.1)
+        T = lambda *xs: [torch.from_numpy(x).to(d) for x in xs]
+        s_in, d_in = T(far_s % n, far_d % n)
+        bk = ti._slide_prologue(state, T(drop)[0] if with_drops else None, s_in, d_in,
+                                T(far_valid)[0])
+        out.append(ti._tick_w0(state, bk, *T(far_s, far_d, far_c, far_valid),
+                               with_drops, d_bucket).cpu())
+    assert torch.equal(out[0], out[1])
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "internlm2-20b", "deepseek-coder-33b"])
@@ -456,6 +545,14 @@ SIMT_CASES = [
     ("float16", 2, 8, 2, 200, 200, 80, True, 50),
     ("bfloat16", 1, 4, 4, 300, 90, 96, False, None),
     ("bfloat16", 1, 5, 1, 65, 65, 16, True, 1),
+    # across the 64-row and 64-key tile edges: ragged Sq and Skv, D from 1
+    # to 256, G 1 and 5, windowed without causality (every row keeps a key)
+    ("float32", 1, 10, 2, 200, 200, 1, True, None),
+    ("float32", 1, 5, 1, 150, 130, 33, False, 40),
+    ("float32", 2, 4, 4, 129, 257, 100, False, None),
+    ("float32", 1, 3, 3, 65, 65, 256, True, 30),
+    ("float16", 1, 10, 2, 190, 190, 80, True, None),
+    ("bfloat16", 1, 5, 1, 127, 127, 16, False, None),
 ]
 
 

@@ -38,12 +38,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _jax_state(seed=77):
+def _jax_state(seed=77, integer=True):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, N, 500)
     dst = rng.integers(0, N, 500)
     keep = src != dst
-    c = rng.integers(1, 6, keep.sum()).astype(np.float32)
+    c = (rng.integers(1, 6, keep.sum()) if integer
+         else rng.lognormal(1.0, 1.0, keep.sum())).astype(np.float32)
     a = rng.integers(0, 2, N).astype(np.float32)
     g = jst.device_graph_from_coo(N, src[keep], dst[keep], c, a,
                                   n_capacity=V_CAP, e_capacity=E_CAP)
@@ -179,6 +180,71 @@ def test_tick_replay_bit_identical(seed, max_rounds):
     np.testing.assert_array_equal(
         ti.benign_mask(tf, *[torch.from_numpy(x) for x in (bs, bd, bc)]).numpy(),
         np.asarray(ji.benign_mask(jf, *[jnp.asarray(x) for x in (bs, bd, bc)])))
+
+
+def test_slide_w0_on_float_weights_within_tolerance():
+    """On DW-like lognormal weights the port adds a tick's w0 deltas in
+    float64 and rounds once, the reference in float32 scatter by scatter:
+    w0 after each windowed slide (window of 2 ticks) agrees to rtol 1e-5,
+    the final_g tolerance of the DW service tests."""
+    rng = np.random.default_rng(300)
+    j0 = jax_to_numpy(_jax_state(integer=False))
+    js = _jax_state(integer=False)
+    ts = state_from_numpy(j0, device="cpu")
+    m_base = int(j0["edge_count"])
+    ring: list[int] = []
+    slots = np.arange(E_CAP)
+    for t in range(8):
+        n_exp = ring.pop(0) if len(ring) >= 2 else 0
+        drop = (slots >= m_base) & (slots < m_base + n_exp)
+        bs, bd, _, valid = _tick(rng, np.asarray(js.level)[:N], "any")
+        bc = rng.lognormal(1.0, 1.0, B).astype(np.float32)
+        js = ji.slide_and_maintain(js, *[jnp.asarray(x) for x in (drop, bs, bd, bc, valid)],
+                                   eps=EPS, max_rounds=3)
+        ts = ti.slide_and_maintain(ts, *[torch.from_numpy(x) for x in (drop, bs, bd, bc, valid)],
+                                   eps=EPS, max_rounds=3)
+        np.testing.assert_allclose(ts.w0.numpy(), np.asarray(js.w0), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"tick {t}")
+        ring.append(int(valid.sum()))
+
+
+@pytest.mark.parametrize("d_bucket", [0, 32])
+def test_slide_w0_lane_with_one_end_out_of_range(d_bucket):
+    """A batch lane with one end outside ``[0, V)`` still adds its ``cv``
+    at the other end, as the reference's ``.at[end].add(mode="drop")``
+    does (an end in ``[-V, 0)`` counts from the end): both packages' tick
+    epilogues on the same re-peel of one windowed slide (full-width and
+    compacted drops), then ``w0`` and the whole state bit for bit."""
+    j0 = jax_to_numpy(_jax_state())
+    js = _jax_state()
+    ts = state_from_numpy(j0, device="cpu")
+    drop = np.arange(E_CAP) < 24
+    bs = np.array([3, 5, 7, 9], np.int32)
+    bd = np.array([4, 6, 8, 10], np.int32)
+    bc = np.array([2, 3, 4, 5], np.float32)
+    valid = np.array([True, True, True, False])
+    # the epilogue's lanes: dst past V, src past V, dst -1 (vertex V-1), dst < -V
+    far_s = np.array([3, V_CAP + 5, 7, 9], np.int32)
+    far_d = np.array([V_CAP, 6, -1, -V_CAP - 1], np.int32)
+    far_valid = np.ones(B, bool)
+    J = lambda *xs: [jnp.asarray(x) for x in xs]
+    T = lambda *xs: [torch.from_numpy(x) for x in xs]
+
+    out = []
+    for mod, arr, st in ((ji, J, js), (ti, T, ts)):
+        d, s, dd, c, v = arr(drop, bs, bd, bc, valid)
+        bk = mod._slide_prologue(st, d, s, dd, v)
+        g, n_removed = mod.remove_edges(st.graph, d)
+        g = mod.append_edges(g, st.edge_count - n_removed, s, dd, c, valid=v)
+        res = mod.bulk_peel_warm(g, bk.keep, prior_best_g=bk.prior_g, eps=EPS,
+                                 max_rounds=3)
+        out.append(mod._slide_epilogue(st, g, res, bk, n_removed,
+                                       *arr(far_s, far_d, bc, far_valid),
+                                       d_bucket=d_bucket))
+    jn, tn = out
+    assert_same(tn, jn, f"d_bucket={d_bucket}")
+    w_before = j0["w0"]
+    assert np.asarray(jn.w0)[V_CAP - 1] != w_before[V_CAP - 1]  # -1 wrapped and landed
 
 
 def test_predictive_hit_miss_fallback_matches_reference():

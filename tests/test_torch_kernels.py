@@ -265,6 +265,23 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     assert k2_ops.suffix_init_launches == 0
 
 
+@pytest.mark.parametrize("V,shift", [(1, 8), (5000, 8), (100_000, 10), (1_000_003, 13),
+                                     (6_023_168, 13), (1 << 26, 13)])
+def test_suffix_init_bins_and_scratch_sizing(V, shift):
+    """The prologue's bins: 2^shift vertices each (64 KB of float64 at most
+    in one CTA's shared memory), at most 8,192 of them; its pair buffer, two
+    8-byte pairs a slot (440 MB at the spade-grab edge capacity)."""
+    assert k2_ops.bin_shift(V) == shift
+    assert -(-V // (1 << shift)) <= 8192 and 8 << shift <= 64 << 10
+    assert k2_ops.prologue_scratch_bytes(27_500_032) == 440_000_512
+
+
+@pytest.mark.parametrize("V", [0, (1 << 26) + 1])
+def test_suffix_init_refuses_vertex_counts_it_cannot_bin(V):
+    with pytest.raises(ValueError, match="vertices"):
+        k2_ops.bin_shift(V)
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
