@@ -26,7 +26,9 @@ Phases (any failure exits non-zero):
    1e-3; the two cuda runs' final ``w0`` and ``benign_fraction`` bit for
    bit);
 4. the main path at full width: the Grab4 stream (6,023,000 vertices,
-   ~25.0M base edges), DW, 4096-edge ticks, eps 0.1, max_rounds 20,
+   ~25.0M base edges), DW, the spade-grab config's tick size, eps and
+   max_rounds (4096-edge ticks, 0.1, 20; its capacities, rounded up to 512,
+   must hold the stream's vertices and the base graph plus the window),
    window 64, through the fused engine and the workset engine, with the
    kernels' launch counters set to 0 just before and read just after
    (``suffix_init`` twice per tick, the warm peel's prologue and the
@@ -84,7 +86,21 @@ Phases (any failure exits non-zero):
     per forward); the logits against the same forward with every
     aggregation computed by ``spmm_ref`` (both directions, both layer
     widths); rows-build seconds, the median of 10 forwards, nodes/s, peak
-    memory and a ``torch.profiler`` trace.
+    memory and a ``torch.profiler`` trace;
+12. the host plane against the device plane on the card, tick by tick
+    (:func:`cross_plane_ticks`): 12a, 16 insert-only ticks of 512 edges
+    (FD: 32) on ``make_transaction_stream(n=16_000, m=100_000)``, the
+    port's host ``Spade`` through ``InsertBatchEdges`` against
+    ``init_state`` + ``insert_and_maintain`` on cuda, for DG and a user
+    semantics with a vertex prior (integer amounts: batch weights, live
+    edge multiset and ``w0`` bit for bit after every tick) and for DW and
+    FD (the rtol of CROSS_RTOL_*); ``best_g`` at most its community's
+    density after every tick; a final ``full_refresh`` at least
+    ``g_host / (2(1+eps))``; 12b, a window of 2 ticks on a 3,000-vertex
+    stream, ``slide_and_maintain`` against ``Spade.DeleteEdge``; 12c,
+    ``exact_peel`` on cuda against ``static_peel`` at 3,000 vertices
+    (order equal, ``delta`` bit for bit, tied weights included).  The
+    kernels' launches in phase 12 are logged apart from the main path's.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -109,8 +125,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
-GRAB_V = 6_023_168  # Grab4 vertex capacity (6,023,001 rounded up to 512)
-GRAB_E = 27_500_032  # spade-grab edge capacity (27,500,000 rounded up to 512)
+# Grab4's sizes, from the spade-grab config (load_grab_config, called by
+# main): the vertex and edge capacities rounded up to 512 as the services
+# round them (6,023,168 and 27,500,032), the tick size, eps and max_rounds
+GRAB_V = GRAB_E = BATCH = EPS = MAX_ROUNDS = None
 RTOL = 1e-4  # float sums over millions of lognormal terms in another order
 # the service reports that must be equal under float weights (DW, FD):
 # tests/test_torch_service.py's DW_EQUAL
@@ -118,7 +136,6 @@ DW_EQUAL = ("fraud_recall", "n_ticks", "live_edges", "n_expired_edges",
             "n_workset_ticks", "n_fallback_ticks", "n_predicted_ticks",
             "n_bucket_miss_ticks")
 WINDOW = 64
-BATCH = 4096
 DEVICE = "cuda"  # the phases below run here; main() refuses to run without it
 BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 ATTN_TOL = 2e-2  # K3 vs its float32 plain versions: bf16 P and output rounding
@@ -297,6 +314,18 @@ def in_place_timed(fn, restores, calls: int = 50, reps: int = 20,
         if i >= 3:
             times.append(t0.elapsed_time(t1))
     return dev, statistics.median(times)
+
+
+def load_grab_config() -> None:
+    """Set Grab4's sizes (GRAB_V, GRAB_E, BATCH, EPS, MAX_ROUNDS) from the
+    spade-grab config."""
+    global GRAB_V, GRAB_E, BATCH, EPS, MAX_ROUNDS
+    from repro_torch.configs import get_config
+
+    cfg = get_config("spade-grab")
+    GRAB_V = -(-cfg.n_capacity // 512) * 512
+    GRAB_E = -(-cfg.e_capacity // 512) * 512
+    BATCH, EPS, MAX_ROUNDS = cfg.batch_edges, cfg.eps, cfg.max_rounds
 
 
 def fail(msg: str) -> None:
@@ -660,20 +689,26 @@ def phase_grab(stream, n_ticks: int) -> dict:
     )
     m_base = stream.base_src.shape[0]
     n = stream.n_vertices
+    e_cap = m_base + (WINDOW + 1) * BATCH
     log(f"grab4: n={n} m_base={m_base} increments={stream.inc_src.shape[0]} "
-        f"(this run: {n_ticks} ticks of {BATCH}, window {WINDOW})")
+        f"(this run: {n_ticks} ticks of {BATCH}, window {WINDOW}, eps {EPS}, "
+        f"max_rounds {MAX_ROUNDS}: spade-grab's); buffers {GRAB_V} x {GRAB_E}")
+    # the stream's Grab4 vertices plus its joining actor, and the base graph
+    # plus the window, fit the config's capacities as the buffers round them
+    check(n <= GRAB_V, f"grab4: {n} vertices exceed the capacity {GRAB_V}")
+    check(e_cap <= GRAB_E, f"grab4: {m_base} base edges + a {WINDOW}-tick window "
+          f"({e_cap}) exceed the capacity {GRAB_E}")
 
     # the start-up bulk peel alone, on the graph the service builds
     sem = resolve("DW")
     base_w, in_deg = sem.seed_base(stream.base_src, stream.base_dst,
                                    stream.base_amt, n)
-    e_cap = m_base + (WINDOW + 1) * BATCH
     g = device_graph_from_coo(n, stream.base_src, stream.base_dst, base_w,
                               n_capacity=-(-n // 512) * 512,
                               e_capacity=-(-e_cap // 512) * 512, device=DEVICE)
     sync()
     t0 = time.perf_counter()
-    res = peel_mod.bulk_peel(g, eps=0.1)
+    res = peel_mod.bulk_peel(g, eps=EPS)
     sync()
     startup_s = time.perf_counter() - t0
     startup_rounds = int(res.n_rounds)
@@ -690,7 +725,7 @@ def phase_grab(stream, n_ticks: int) -> dict:
         k2_ops.launches = 0
         k2_ops.suffix_init_launches = 0
         reads0 = peel_mod.HOST_READS[0]
-        svc = SpadeService("DW", batch_edges=BATCH, eps=0.1, max_rounds=20,
+        svc = SpadeService("DW", batch_edges=BATCH, eps=EPS, max_rounds=MAX_ROUNDS,
                            window_ticks=WINDOW, device=DEVICE, **kw)
         t0 = time.perf_counter()
         rep = svc.run(cut)
@@ -812,7 +847,7 @@ def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
     g = device_graph_from_coo(n, stream.base_src, stream.base_dst, base_w,
                               n_capacity=-(-n // 512) * 512,
                               e_capacity=-(-e_cap // 512) * 512, device=DEVICE)
-    state = inc.init_state(g, eps=0.1)
+    state = inc.init_state(g, eps=EPS)
     deg = torch.zeros(g.n_capacity, dtype=torch.int32, device=DEVICE)
     deg[:n] = torch.from_numpy(in_deg.astype(np.int32)).to(DEVICE)
     slots = torch.arange(g.e_capacity, dtype=torch.int32, device=DEVICE)
@@ -830,11 +865,11 @@ def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
     for t in range(window + 1):  # fill the window, then one untraced slide
         batch, deg = tick(t, state, deg)
         if t < window:
-            state = inc.insert_and_maintain(state, *batch, valid, eps=0.1,
-                                            max_rounds=20)
+            state = inc.insert_and_maintain(state, *batch, valid, eps=EPS,
+                                            max_rounds=MAX_ROUNDS)
         else:
-            state = inc.slide_and_maintain(state, drop, *batch, valid, eps=0.1,
-                                           max_rounds=20)
+            state = inc.slide_and_maintain(state, drop, *batch, valid, eps=EPS,
+                                           max_rounds=MAX_ROUNDS)
     batches = []
     for t in range(window + 1, window + 2 + n_ticks):
         batch, deg = tick(t, state, deg)
@@ -843,8 +878,8 @@ def phase_profile(stream, n_ticks: int) -> tuple[dict, dict]:
 
     def one_tick():
         nonlocal state
-        state = inc.slide_and_maintain(state, drop, *next(ticks), valid, eps=0.1,
-                                       max_rounds=20)
+        state = inc.slide_and_maintain(state, drop, *next(ticks), valid, eps=EPS,
+                                       max_rounds=MAX_ROUNDS)
 
     cost_w0 = w0_bookkeeping_ms(state, drop, batches[0], valid)
     recorded = tick_rounds(one_tick)
@@ -1908,6 +1943,392 @@ def phase_gcn(seed: int, cpu_logits, kept: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the host plane against the device plane, tick by tick
+# ---------------------------------------------------------------------------
+
+# 12a: insert-only ticks on the stream size that paper_tables' edge-grouping
+# benchmark serves through the host plane (16,000 vertices, ~93,000 base
+# edges); FD's host inserts go one edge a call (cross_plane_ticks), ~55 ms
+# each at this size on a CPU, so its ticks are smaller; 12b: a window of 2
+# ticks whose expiry the host makes through DeleteEdge (up to several
+# seconds a deletion at this size on a CPU, so few and small ticks); 12c:
+# exact_peel at 3,000 vertices
+CROSS_INSERT = {"n": 16_000, "m": 100_000, "batch": 512, "fd_batch": 32, "ticks": 16,
+                "seed": 3}
+CROSS_WINDOW = {"n": 3_000, "m": 15_000, "batch": 8, "ticks": 8, "window": 2, "seed": 5}
+CROSS_EXACT = {"n": 3_000, "m": 15_000, "seed": 6}
+# tolerances on lognormal weights (DW, FD): the device weighs a tick in
+# float32, the host funnel in float64 snapped to 2^-30 (one float32 rounding
+# and FD's float32 log: rtol 1e-6); the device's w0 and best_g carry a
+# float32 rounding per tick (rtol 1e-5).  Integer weights: bit for bit, and
+# best_g (f / |S| rounded once to float32) within rtol 2^-23 of the exact
+# density
+CROSS_RTOL_W = 1e-6
+CROSS_RTOL_ACC = 1e-5
+CROSS_RTOL_INT = 2.0 ** -23
+
+
+def parity_semantics():
+    """A user semantics that is not DG/DW/FD: an odd src + dst doubles the
+    amount, the vertex prior is id % 3 (tests/test_window_differential.py's
+    PARITY_SEM); integer-valued on integer amounts."""
+    from repro_torch.core.semantics import SuspSemantics
+
+    return SuspSemantics(
+        name="XPARITY",
+        esusp=lambda xp, src, dst, raw, deg, aux: raw * (1.0 + (src + dst) % 2),
+        vsusp=lambda xp, ids, deg, aux: (ids % 3) * 1.0,
+    )
+
+
+def integer_amounts(stream):
+    """The stream with its amounts rounded up to integers: every sum of
+    phase 12's integer semantics stays below 2^24, exact in float32."""
+    return dataclasses.replace(stream, base_amt=np.ceil(stream.base_amt),
+                               inc_amt=np.ceil(stream.inc_amt))
+
+
+def arrival_in_degree(dst: np.ndarray) -> np.ndarray:
+    """The in-degree each edge's destination has just before the edge is
+    added, in stream order: what the host funnel's ``esusp`` reads while
+    ``Spade.LoadGraph`` adds the base graph edge by edge."""
+    order = np.argsort(dst, kind="stable")
+    d = dst[order]
+    deg = np.empty(dst.shape[0], np.int64)
+    deg[order] = np.arange(d.shape[0]) - np.searchsorted(d, d, side="left")
+    return deg
+
+
+def host_base_weights(sem, src, dst, raw) -> np.ndarray:
+    """The base graph's edge weights as the host funnel gives them (arrival
+    degrees, float64, snapped), in float32.  For a semantics that reads no
+    degree these are ``seed_base``'s weights."""
+    from repro_torch.core.semantics import _QUANTUM, quantize_susp_array
+
+    w = np.asarray(sem.esusp(np, src, dst, np.asarray(raw, np.float64),
+                             arrival_in_degree(dst), None), np.float64)
+    w = np.maximum(quantize_susp_array(np.broadcast_to(w, src.shape)), _QUANTUM)
+    return w.astype(np.float32)
+
+
+def cross_close(name: str, got, want, rtol: float) -> float:
+    """``got`` equal to ``want`` (rtol 0: bit for bit, after ``want`` is
+    rounded to ``got``'s float32) or within ``rtol`` of it; returns the max
+    relative error."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"{name}: shape {got.shape} vs {want.shape}")
+    if not rtol:
+        check(np.array_equal(got, want.astype(np.float32).astype(np.float64)),
+              f"{name}: not bit-identical")
+        return 0.0
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    err = float(rel.max()) if rel.size else 0.0
+    check(err <= rtol, f"{name}: max relative error {err!r} beyond rtol {rtol}")
+    return err
+
+
+def device_edges(state):
+    """The device graph's live edges as host arrays, sorted by (src, dst, c)."""
+    g = state.graph
+    em = g.edge_mask.cpu().numpy()
+    s, d, c = (x.cpu().numpy()[em] for x in (g.src, g.dst, g.c))
+    o = np.lexsort((c, d, s))
+    return s[o].astype(np.int64), d[o].astype(np.int64), c[o].astype(np.float64)
+
+
+def pair_sums(s, d, c, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Edge weight summed per unordered vertex pair, as ``AdjGraph.adj``
+    combines it: (sorted pair keys, float64 sums)."""
+    key = np.minimum(s, d) * n + np.maximum(s, d)
+    keys, inv = np.unique(key, return_inverse=True)
+    return keys, np.bincount(inv, weights=c, minlength=keys.shape[0])
+
+
+def host_pair_sums(g) -> tuple[np.ndarray, np.ndarray]:
+    """The host graph's combined adjacency as (sorted pair keys, sums)."""
+    keys, vals = [], []
+    for u in range(g.n):
+        for v, c in g.adj[u].items():
+            if u <= v:
+                keys.append(u * g.n + v)
+                vals.append(c)
+    keys = np.asarray(keys, np.int64)
+    o = np.argsort(keys)
+    return keys[o], np.asarray(vals, np.float64)[o]
+
+
+def community_density(state, n: int) -> float:
+    """g(S) of the device's own community, from its live edges and priors,
+    in float64."""
+    comm = state.community.cpu().numpy()[:n]
+    size = int(comm.sum())
+    check(size > 0, "the device community is empty")
+    s, d, c = device_edges(state)
+    inside = comm[s] & comm[d]
+    a = state.graph.a.cpu().numpy()[:n].astype(np.float64)
+    return (a[comm].sum() + c[inside].sum()) / size
+
+
+def cross_plane_ticks(sem, stream, ticks: int, batch: int, device, eps: float,
+                      max_rounds: int, window: int = 0, integer: bool = True,
+                      tag: str = "") -> dict:
+    """The port's host oracle (``Spade``) and its device plane take the same
+    ticks of ``stream``; after every tick: the device batch weights equal
+    the host funnel's, the device's live edge multiset equals the host's
+    (the base graph and the resident ticks, and the host graph's combined
+    adjacency), ``state.w0[:n]`` equals ``peeling_weights_full`` of the host
+    graph (bit for bit on integer weights, else within the stated rtol),
+    and ``best_g`` is at most the density of the device's own community.
+    After the last tick a ``full_refresh`` holds the bulk peel's guarantee
+    against ``Spade.Detect``.
+
+    Insert-only (``window = 0``): ``insert_and_maintain``, and the host
+    takes each tick through one ``InsertBatchEdges`` (no grouping); for a
+    degree-reading semantics one call per edge, since the host funnel reads
+    the degree of the graph as it stands and a batch's edges enter it only
+    after the whole batch is weighed, while ``batch_weights`` gives each
+    edge its arrival degree.  The device graph is seeded with the host
+    funnel's base weights (:func:`host_base_weights`).  Windowed: after
+    ``window`` ticks each tick is ``slide_and_maintain`` on the device and
+    one ``Spade.DeleteEdge`` per expired edge on the host.  Returns the
+    counts and the host and device seconds."""
+    import torch
+
+    from repro_torch.core import Spade, peeling_weights_full
+    from repro_torch.core import incremental as inc
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    dev = torch.device(device)
+    rtol_w = 0.0 if integer else CROSS_RTOL_W
+    rtol_acc = 0.0 if integer else CROSS_RTOL_ACC
+    rtol_g = CROSS_RTOL_INT if integer else CROSS_RTOL_ACC
+    sync_dev = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    n = stream.n_vertices
+    src, dst, raw = stream.base_src, stream.base_dst, stream.base_amt
+    m_base = src.shape[0]
+    n_inc = min(ticks * batch, stream.inc_src.shape[0])
+    ticks = -(-n_inc // batch)
+    out = {"semantics": sem.name, "n": n, "base_edges": m_base, "ticks": ticks,
+           "batch": batch, "window": window, "deletions": 0,
+           "max_delete_s": 0.0, "host_s": 0.0, "device_s": 0.0}
+
+    t0 = time.perf_counter()
+    sp = Spade(metric=sem)
+    sp.LoadGraph(src, dst, raw, n_vertices=n)
+    out["host_s"] += time.perf_counter() - t0
+    funnel = sp.metric
+
+    base_w = host_base_weights(sem, src, dst, raw)
+    in_deg = np.bincount(dst, minlength=n)
+    a0 = sem.seed_vertices(n, in_deg)
+    if not sem.uses_degree:
+        check(np.array_equal(base_w, sem.seed_base(src, dst, raw, n)[0]),
+              f"{tag}: seed_base's weights differ from the host funnel's")
+    e_cap = m_base + ((window + 1) if window else ticks) * batch
+    t0 = time.perf_counter()
+    g = device_graph_from_coo(n, src, dst, base_w, a=a0,
+                              n_capacity=-(-n // 512) * 512,
+                              e_capacity=-(-e_cap // 512) * 512, device=dev)
+    state = inc.init_state(g, eps=eps)
+    deg = torch.zeros(g.n_capacity, dtype=torch.int32, device=dev)
+    deg[:n] = torch.from_numpy(in_deg.astype(np.int32)).to(dev)
+    sync_dev()
+    out["device_s"] += time.perf_counter() - t0
+    slots = torch.arange(g.e_capacity, dtype=torch.int32, device=dev)
+
+    # the host's edges: the base graph, then each resident tick (src, dst,
+    # the funnel's weights)
+    mirror = [(src, dst, base_w.astype(np.float64))]
+    errs = {"weights": 0.0, "edges": 0.0, "w0": 0.0}
+    for t in range(ticks):
+        lo, hi = t * batch, min((t + 1) * batch, n_inc)
+        cnt = hi - lo
+        bs = np.zeros(batch, np.int32)
+        bd = np.zeros(batch, np.int32)
+        amt = np.zeros(batch, np.float32)
+        valid = np.zeros(batch, bool)
+        bs[:cnt], bd[:cnt] = stream.inc_src[lo:hi], stream.inc_dst[lo:hi]
+        amt[:cnt], valid[:cnt] = stream.inc_amt[lo:hi], True
+        edges = [(int(u), int(v), float(r)) for u, v, r in
+                 zip(stream.inc_src[lo:hi], stream.inc_dst[lo:hi], stream.inc_amt[lo:hi])]
+        expired = mirror.pop(1) if window and len(mirror) > window else None
+
+        # the device tick
+        t0 = time.perf_counter()
+        bs_d, bd_d = (torch.from_numpy(x).to(dev) for x in (bs, bd))
+        valid_d = torch.from_numpy(valid).to(dev)
+        w, deg = sem.batch_weights(deg, bs_d, bd_d, torch.from_numpy(amt).to(dev), valid_d)
+        if expired is not None:
+            drop = (slots >= m_base) & (slots < m_base + expired[0].shape[0])
+            state = inc.slide_and_maintain(state, drop, bs_d, bd_d, w, valid_d, eps=eps,
+                                           max_rounds=max_rounds)
+        else:
+            state = inc.insert_and_maintain(state, bs_d, bd_d, w, valid_d, eps=eps,
+                                            max_rounds=max_rounds)
+        sync_dev()
+        out["device_s"] += time.perf_counter() - t0
+
+        # the host tick: the funnel's weights, as each edge is inserted
+        host_w = []
+        t0 = time.perf_counter()
+        if sem.uses_degree:
+            for e in edges:
+                host_w.append(funnel.edge_susp(e[0], e[1], e[2], sp.graph))
+                sp.InsertBatchEdges([e])
+        else:
+            host_w = [funnel.edge_susp(u, v, r, sp.graph) for u, v, r in edges]
+            sp.InsertBatchEdges(edges)
+        out["host_s"] += time.perf_counter() - t0
+        for u, v, c in zip(*(x.tolist() for x in expired)) if expired else ():
+            t0 = time.perf_counter()
+            sp.DeleteEdge(u, v, c)
+            dt = time.perf_counter() - t0
+            out["host_s"] += dt
+            out["deletions"] += 1
+            out["max_delete_s"] = max(out["max_delete_s"], dt)
+        mirror.append((bs[:cnt].astype(np.int64), bd[:cnt].astype(np.int64),
+                       np.asarray(host_w, np.float64)))
+
+        at = f"{tag} tick {t}"
+        # 1. the batch weights
+        errs["weights"] = max(errs["weights"], cross_close(
+            f"{at}: batch weights", w[:cnt].cpu().numpy(), host_w, rtol_w))
+        # 2. the live edge multiset: against the host's base graph and
+        # resident ticks, and summed per vertex pair against its graph
+        s, d, c = device_edges(state)
+        ms, md, mc = (np.concatenate(x) for x in zip(*mirror))
+        o = np.lexsort((mc, md, ms))
+        check(np.array_equal(s, ms[o]) and np.array_equal(d, md[o]),
+              f"{at}: live edge endpoints differ from the host's")
+        errs["edges"] = max(errs["edges"], cross_close(f"{at}: live edge weights", c,
+                                                       mc[o], rtol_w))
+        check(int(state.edge_count) == s.shape[0],
+              f"{at}: edge_count {int(state.edge_count)} vs {s.shape[0]} live slots")
+        dk, dv = pair_sums(s, d, c, n)
+        hk, hv = host_pair_sums(sp.graph)
+        check(np.array_equal(dk, hk), f"{at}: vertex pairs differ from the host graph's")
+        cross_close(f"{at}: weight per vertex pair", dv, hv, rtol_acc)
+        # 3. w0, priors included
+        errs["w0"] = max(errs["w0"], cross_close(
+            f"{at}: w0", state.w0[:n].cpu().numpy(), peeling_weights_full(sp.graph)[:n],
+            rtol_acc))
+        # 4. best_g is at most the density of the device's own community
+        best_g, g_comm = float(state.best_g), community_density(state, n)
+        check(best_g <= g_comm * (1.0 + rtol_g),
+              f"{at}: best_g {best_g!r} above its community's density {g_comm!r}")
+
+    t0 = time.perf_counter()
+    refreshed = inc.full_refresh(state, eps=eps)
+    sync_dev()
+    out["device_s"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, g_host = sp.Detect()
+    out["host_s"] += time.perf_counter() - t0
+    g_ref = float(refreshed.best_g)
+    check(g_ref >= g_host / (2.0 * (1.0 + eps)) * (1.0 - rtol_g),
+          f"{tag}: full_refresh best_g {g_ref!r} below g_host {g_host!r} / (2(1+eps))")
+    out.update(best_g=float(state.best_g), refreshed_best_g=g_ref, g_host=g_host,
+               live_edges=int(state.edge_count), max_rel_err=errs)
+    return out
+
+
+def exact_peel_check(n: int, m: int, seed: int, device, tied: bool) -> dict:
+    """``exact_peel`` on ``device`` against the host oracle's ``static_peel``
+    on the base graph of a ``(n, m)`` transaction stream, integer weights
+    (``tied``: every edge 1 and no priors, so most weights tie), buffers
+    padded to multiples of 512: the same order, ``delta`` bit for bit,
+    ``best_g`` within rtol 1e-6 of ``detect``'s density."""
+    import torch
+
+    from repro_torch.core.peel import exact_peel
+    from repro_torch.core.reference import AdjGraph, detect, static_peel
+    from repro_torch.graphstore.generators import make_transaction_stream
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    dev = torch.device(device)
+    stream = make_transaction_stream(n=n, m=m, seed=seed)
+    n = stream.n_vertices
+    src, dst = stream.base_src, stream.base_dst
+    rng = np.random.default_rng(seed)
+    if tied:
+        c, a = np.ones(src.shape[0], np.float32), np.zeros(n, np.float32)
+    else:
+        c = np.ceil(stream.base_amt).astype(np.float32)
+        a = rng.integers(0, 3, n).astype(np.float32)
+    g = device_graph_from_coo(n, src, dst, c, a, n_capacity=-(-n // 512) * 512,
+                              e_capacity=-(-src.shape[0] // 512) * 512, device=dev)
+    t0 = time.perf_counter()
+    res = exact_peel(g)
+    order = res.order.cpu().numpy()
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = static_peel(AdjGraph.from_arrays(n, src, dst, c, a))
+    _, g_host = detect(host)
+    host_s = time.perf_counter() - t0
+    tag = f"exact_peel[{'tied' if tied else 'int'}]"
+    check(np.array_equal(order[:n], host.order()), f"{tag}: order differs from static_peel's")
+    check(bool((order[n:] == -1).all()), f"{tag}: padding slots in the order")
+    cross_close(f"{tag}: delta", res.delta.cpu().numpy()[:n], host.delta(), 0.0)
+    best_g = float(res.best_g)
+    check(abs(best_g - g_host) <= 1e-6 * abs(g_host),
+          f"{tag}: best_g {best_g!r} vs detect's {g_host!r} beyond rtol 1e-6")
+    delta = host.delta()
+    return {"n": n, "edges": int(src.shape[0]), "n_capacity": g.n_capacity,
+            "tied_neighbours": int((delta[1:] == delta[:-1]).sum()),
+            "best_g": best_g, "g_host": g_host, "device_s": device_s, "host_s": host_s}
+
+
+def phase_cross_plane(card: str) -> dict:
+    """12a, 12b and 12c on the card (sizes above, eps and max_rounds from
+    the spade-grab config)."""
+    from repro_torch.core.semantics import resolve
+    from repro_torch.graphstore.generators import make_transaction_stream
+
+    log(f"phase 12: host seconds are the host CPU of the machine that holds {card}; "
+        f"device seconds are the {DEVICE} side's, synchronized")
+    out = {"insert": [], "window": [], "exact": []}
+    p = CROSS_INSERT
+    stream = make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"])
+    for sem, integer, batch in (("DG", True, p["batch"]),
+                                (parity_semantics(), True, p["batch"]),
+                                ("DW", False, p["batch"]), ("FD", False, p["fd_batch"])):
+        sem = resolve(sem)
+        rec = cross_plane_ticks(sem, integer_amounts(stream) if integer else stream,
+                                p["ticks"], batch, DEVICE, EPS, MAX_ROUNDS,
+                                integer=integer, tag=f"12a {sem.name}")
+        out["insert"].append(rec)
+        log(f"12a {sem.name} insert-only, {rec['ticks']} ticks of {rec['batch']} on "
+            f"n={rec['n']} base={rec['base_edges']}: weights, live edges, w0 "
+            f"{'bit for bit' if integer else 'within rtol'} every tick (max rel err "
+            f"{rec['max_rel_err']!r}); best_g {rec['best_g']!r}, refreshed "
+            f"{rec['refreshed_best_g']!r} vs g_host {rec['g_host']!r}; host "
+            f"{rec['host_s']!r} s, device {rec['device_s']!r} s")
+    p = CROSS_WINDOW
+    stream = integer_amounts(make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"]))
+    for sem in ("DG", parity_semantics()):
+        sem = resolve(sem)
+        rec = cross_plane_ticks(sem, stream, p["ticks"], p["batch"], DEVICE, EPS,
+                                MAX_ROUNDS, window=p["window"], tag=f"12b {sem.name}")
+        out["window"].append(rec)
+        log(f"12b {sem.name} window {rec['window']}, {rec['ticks']} ticks of "
+            f"{rec['batch']} on n={rec['n']} base={rec['base_edges']}: "
+            f"{rec['deletions']} host DeleteEdge calls (slowest {rec['max_delete_s']!r} s); "
+            f"weights, live edges, w0 bit for bit every tick; host {rec['host_s']!r} s, "
+            f"device {rec['device_s']!r} s")
+    p = CROSS_EXACT
+    for tied in (False, True):
+        rec = exact_peel_check(p["n"], p["m"], p["seed"], DEVICE, tied)
+        out["exact"].append(rec)
+        log(f"12c exact_peel {'tied' if tied else 'int'} n={rec['n']} "
+            f"(capacity {rec['n_capacity']}) E={rec['edges']}: order and delta equal to "
+            f"static_peel's ({rec['tied_neighbours']} equal neighbouring deltas), best_g "
+            f"{rec['best_g']!r} vs {rec['g_host']!r}; device {rec['device_s']!r} s, host "
+            f"{rec['host_s']!r} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -1927,6 +2348,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+
+    load_grab_config()
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -1949,10 +2372,14 @@ def main() -> int:
     log("  K3 dynamic shared memory per CTA: " + ", ".join(
         f"D {d}: {k3_ops.smem_bytes(d)} bytes" for d in k3_ops.HEAD_DIMS))
 
+    from repro_torch.configs import SPADE_SHAPES
     from repro_torch.graphstore.generators import make_transaction_stream
 
     t0 = time.perf_counter()
-    stream = make_transaction_stream(n=6_023_000, m=27_800_000, seed=0)
+    # Grab4's 6,023,000 vertices; 27.8M background edges, 90 % of which
+    # (with the two standing dense blocks, ~25.0M) form the base graph
+    stream = make_transaction_stream(n=SPADE_SHAPES["grab4_stream"].n_nodes,
+                                     m=27_800_000, seed=0)
     log(f"grab4 stream generated in {time.perf_counter() - t0!r} s")
 
     rec = phase_kernels({"src": stream.base_src.astype(np.int32),
@@ -1987,6 +2414,22 @@ def main() -> int:
     gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
     log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
         f"{time.perf_counter() - t_gnn!r} s")
+
+    # phase 12 launches K1, K2 and suffix_init off the main path: counted
+    # apart from the main-path counts of the kernels line
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+    from repro_torch.kernels.peel_round import ops as k1_ops
+
+    t_cross = time.perf_counter()
+    k1_ops.launches = k2_ops.launches = k2_ops.suffix_init_launches = 0
+    cross = phase_cross_plane(smi)
+    cross["launches"] = {"peel_round": k1_ops.launches, "frontier_spmv": k2_ops.launches,
+                         "suffix_init": k2_ops.suffix_init_launches}
+    check(all(cross["launches"].values()),
+          f"phase 12: a kernel never launched: {cross['launches']!r}")
+    log(f"phase 12: host plane == device plane tick by tick, exact_peel == static_peel; "
+        f"{time.perf_counter() - t_cross!r} s on {smi}; launches off the main path "
+        f"{cross['launches']!r}")
 
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
@@ -2030,7 +2473,7 @@ def main() -> int:
              "attention_simt": attn_simt,
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
-             "gcn_cora": gcn}, indent=1))
+             "gcn_cora": gcn, "cross_plane": cross}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

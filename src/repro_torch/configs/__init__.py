@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(arch)`` -> full config,
 ``get_smoke_config(arch)`` -> the reduced same-family config,
-``ARCH_FAMILY`` -> ``"lm"`` | ``"gnn"``.
+``ARCH_FAMILY`` -> ``"lm"`` | ``"gnn"`` | ``"spade"``.
 
-Here are the dense LMs and the four GNNs.  The MoE archs
+Here are the dense LMs, the four GNNs and the paper's own workload,
+``spade-grab``.  The MoE archs
 (``mixtral-8x7b``, ``olmoe-1b-7b``) wait for the port of ``models/moe.py``
 (ROADMAP A.11) and ``two-tower-retrieval`` for ``models/two_tower.py``
 (ROADMAP A.10); asking for one raises ``NotImplementedError``.
@@ -12,11 +13,12 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, GNNConfig, LMConfig, MoESpec,
-                                      ShapeSpec)
+from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, SPADE_SHAPES, GNNConfig,
+                                      LMConfig, MoESpec, ShapeSpec, SpadeConfig)
 
-__all__ = ["ARCHS", "ARCH_FAMILY", "GNN_SHAPES", "LM_SHAPES", "GNNConfig", "LMConfig",
-           "MoESpec", "ShapeSpec", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "ARCH_FAMILY", "GNN_SHAPES", "LM_SHAPES", "SPADE_SHAPES", "GNNConfig",
+           "LMConfig", "MoESpec", "ShapeSpec", "SpadeConfig", "get_config",
+           "get_smoke_config"]
 
 _MODULES = {
     "internlm2-20b": "internlm2_20b",
@@ -26,6 +28,7 @@ _MODULES = {
     "gat-cora": "gat_cora",
     "dimenet": "dimenet",
     "gcn-cora": "gcn_cora",
+    "spade-grab": "spade_grab",
 }
 _NOT_YET = {
     "mixtral-8x7b": "is a MoE LM; the port has no moe.py yet (ROADMAP A.11)",
@@ -44,6 +47,7 @@ ARCH_FAMILY = {
     "gat-cora": "gnn",
     "dimenet": "gnn",
     "gcn-cora": "gnn",
+    "spade-grab": "spade",
 }
 
 
@@ -53,9 +57,9 @@ def _module(arch: str):
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
-def get_config(arch: str) -> LMConfig | GNNConfig:
+def get_config(arch: str) -> LMConfig | GNNConfig | SpadeConfig:
     return _module(arch).CONFIG
 
 
-def get_smoke_config(arch: str) -> LMConfig | GNNConfig:
+def get_smoke_config(arch: str) -> LMConfig | GNNConfig | SpadeConfig:
     return _module(arch).SMOKE_CONFIG

@@ -1,8 +1,9 @@
-"""Config dataclasses of the LM and GNN families and their shape specs.
+"""Config dataclasses of the LM, GNN and Spade families and their shape specs.
 
-A copy of the LM and GNN halves of ``repro/configs/base.py`` (``MoESpec``,
-``LMConfig``, ``GNNConfig``, ``ShapeSpec``, ``LM_SHAPES``, ``GNN_SHAPES``),
-kept free of ``jax`` and of ``repro``.  Configs are shapes only: no
+A copy of the LM, GNN and Spade parts of ``repro/configs/base.py``
+(``MoESpec``, ``LMConfig``, ``GNNConfig``, ``SpadeConfig``, ``ShapeSpec``,
+``LM_SHAPES``, ``GNN_SHAPES``, ``SPADE_SHAPES``), kept free of ``jax`` and
+of ``repro``.  Configs are shapes only: no
 weights are read from anywhere.
 """
 
@@ -11,7 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Literal
 
-__all__ = ["MoESpec", "LMConfig", "GNNConfig", "ShapeSpec", "LM_SHAPES", "GNN_SHAPES"]
+__all__ = ["MoESpec", "LMConfig", "GNNConfig", "SpadeConfig", "ShapeSpec", "LM_SHAPES",
+           "GNN_SHAPES", "SPADE_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -90,9 +92,22 @@ class GNNConfig:
 
 
 @dataclass(frozen=True)
+class SpadeConfig:
+    """The paper's own workload: evolving-graph peeling at Grab scale."""
+
+    name: str
+    n_capacity: int
+    e_capacity: int
+    batch_edges: int = 4096
+    eps: float = 0.1
+    max_rounds: int = 64
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: Literal["train", "prefill", "decode", "graph_full", "graph_mini", "graph_batch"]
+    kind: Literal["train", "prefill", "decode", "graph_full", "graph_mini", "graph_batch",
+                  "spade_stream", "spade_static"]
     # LM
     seq_len: int = 0
     global_batch: int = 0
@@ -131,4 +146,11 @@ GNN_SHAPES = {
     "molecule": ShapeSpec(
         "molecule", "graph_batch", n_nodes=30, n_edges=64, n_graphs=128, d_feat=32
     ),
+}
+
+SPADE_SHAPES = {
+    "grab4_static": ShapeSpec("grab4_static", "spade_static", n_nodes=6_023_000,
+                              n_edges=25_000_000),
+    "grab4_stream": ShapeSpec("grab4_stream", "spade_stream", n_nodes=6_023_000,
+                              n_edges=27_500_000),
 }

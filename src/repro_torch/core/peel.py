@@ -1,5 +1,9 @@
-"""Device-plane bulk peeling on torch (the counterpart of
-``repro.core.peel``).
+"""Device-plane peeling on torch (the counterpart of ``repro.core.peel``).
+
+:func:`exact_peel` is the paper-faithful sequential peel (Algorithm 1, one
+vertex per step, the (w, id) tie-break of the host oracle), in plain torch
+on the graph's device; the reference's is jnp as well, not a Pallas
+kernel.  It has no caller on the serving path: it is the device oracle.
 
 :func:`bulk_peel` is the threshold bulk peel (Bahmani et al.): each round
 peels every active vertex with ``w_u <= 2(1+eps) g(S)`` and carries a
@@ -37,7 +41,7 @@ round's edge kernel clears the slots that leave the set in that one
 tensor.
 
 ``unroll`` (an XLA lowering knob of the reference) has no meaning in eager
-torch and is dropped; ``exact_peel`` is still to be ported (ROADMAP A.4).
+torch and is dropped.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ __all__ = [
     "PeelResultDevice",
     "HOST_READS",
     "host_read",
+    "exact_peel",
     "bulk_peel",
     "bulk_peel_warm",
     "bulk_peel_warm_workset",
@@ -79,13 +84,14 @@ def host_read(t: torch.Tensor) -> list:
 class PeelResultDevice(NamedTuple):
     """Result of a device peel.
 
-    ``level[u]``: round at which u was peeled (int32; never peeled = -1).
-    ``best_level``: community = vertices with ``level >= best_level``.
+    ``level[u]``: step/round at which u was peeled (int32; never peeled =
+    -1).  ``best_level``: community = vertices with ``level >= best_level``.
     ``best_g``: density of the detected community.  ``n_rounds``: rounds
-    executed.  ``delta``: final weights per vertex id.  Scalars are 0-dim
-    device tensors.  (The reference's ``order`` field belongs to
-    ``exact_peel``, which is not ported yet; bulk peels fill it with
-    zeros there.)
+    (bulk) or steps (exact) executed.  ``delta``: bulk peels — final
+    weights per vertex id; exact peel — peel-time weights aligned with
+    ``order``.  ``order``: exact peel only — the peeling sequence (vertex
+    ids, -1 past the last vertex); ``None`` for bulk peels (the reference
+    fills it with zeros there).  Scalars are 0-dim device tensors.
     """
 
     level: torch.Tensor
@@ -93,9 +99,67 @@ class PeelResultDevice(NamedTuple):
     best_g: torch.Tensor
     n_rounds: torch.Tensor
     delta: torch.Tensor
+    order: torch.Tensor | None = None
 
     def community_mask(self) -> torch.Tensor:
         return self.level >= self.best_level
+
+
+# ---------------------------------------------------------------------------
+# exact sequential peel (paper-faithful)
+# ---------------------------------------------------------------------------
+
+
+def exact_peel(g: DeviceGraph) -> PeelResultDevice:
+    """Algorithm 1, one vertex per step, deterministic (w, id) tie-break.
+
+    Each of the ``n_capacity`` steps takes the active vertex of least
+    weight (``torch.argmin`` returns the first minimum, so ties go to the
+    lowest id, as in the host oracle's heap) and subtracts its live
+    incident suspiciousness from its neighbours.  Steps after the last
+    active vertex are no-ops, as in the reference's ``fori_loop``; no step
+    reads anything on the host.  O(V) steps of O(E) work: an oracle, not a
+    serving path.
+    """
+    V = g.n_capacity
+    dev = g.device
+    cm = torch.where(g.edge_mask, g.c, 0.0)
+    w = g.peel_weights()
+    f = g.f_total()
+    n_act = g.vertex_mask.sum().to(torch.int32)
+    n0 = n_act
+    active = g.vertex_mask
+    ids = torch.arange(V, device=dev)
+    order = torch.full((V,), -1, dtype=torch.int32, device=dev)
+    delta = torch.zeros(V, dtype=torch.float32, device=dev)
+    level = torch.full((V,), -1, dtype=torch.int32, device=dev)
+    best_g = _scalar(-_INF, torch.float32, dev)
+    best_i = _scalar(0, torch.int32, dev)
+    for i in range(V):
+        key = torch.where(active, w, _INF)
+        u = torch.argmin(key)
+        wu = key[u]
+        # density of the set *before* this peel
+        g_cur = torch.where(n_act > 0, f / torch.clamp(n_act, min=1), -_INF)
+        improved = g_cur > best_g
+        best_g = torch.where(improved, g_cur, best_g)
+        best_i = torch.where(improved, i, best_i)
+
+        live = torch.where(active, 1.0, 0.0)
+        from_u = torch.where((g.src == u) & g.edge_mask, cm, 0.0) * live[g.dst]
+        to_u = torch.where((g.dst == u) & g.edge_mask, cm, 0.0) * live[g.src]
+        dw = (torch.zeros(V, dtype=torch.float32, device=dev).index_add_(0, g.dst, from_u)
+              + torch.zeros(V, dtype=torch.float32, device=dev).index_add_(0, g.src, to_u))
+        peel_now = n_act > 0
+        w = torch.where(peel_now, w - dw, w)
+        active = active & ~((ids == u) & peel_now)
+        order[i] = torch.where(peel_now, u, -1)
+        delta[i] = torch.where(peel_now, wu, 0.0)
+        level[u] = torch.where(peel_now, i, level[u])
+        f = torch.where(peel_now, f - wu, f)
+        n_act = n_act - peel_now.to(torch.int32)
+    return PeelResultDevice(level=level, best_level=best_i, best_g=best_g,
+                            n_rounds=n0, delta=delta, order=order)
 
 
 class _BulkState(NamedTuple):

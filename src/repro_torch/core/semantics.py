@@ -1,13 +1,15 @@
 """The pluggable semantics plane on torch: one ``SuspSemantics`` definition
-for the port's device engine.
+compiled into the port's host oracle and its device engine.
 
 The counterpart of ``repro.core.semantics``.  The numpy half — the dyadic
 snap (``quantize_susp``), the batch-seeding rule (``seed_base`` /
-``seed_vertices``) and the ``register``/``resolve``/``available`` registry
-with DG, DW and FD — is a copy of the reference's, kept here so the port
-never imports ``repro``.  ``batch_weights`` is ported to torch: the hooks
-receive the :mod:`repro_torch.core.xp` shim as ``xp``.  ``host_metric``
-belongs to the host plane, which is still to be ported (ROADMAP A.7).
+``seed_vertices``), the host adapter (``host_metric``: scalar float64
+hooks with ``xp = numpy`` and ``aux = None``, snapped by the metric
+funnel of :mod:`repro_torch.core.metrics`) and the
+``register``/``resolve``/``available`` registry with DG, DW and FD — is a
+copy of the reference's, kept here so the port never imports ``repro``.
+``batch_weights`` is ported to torch: the hooks receive the
+:mod:`repro_torch.core.xp` shim as ``xp``.
 
 Hook signatures (all vectorized; ``aux`` is the per-edge application
 payload — the bundled service feeds the transaction timestamp — or
@@ -184,6 +186,36 @@ class SuspSemantics:
         w = torch.broadcast_to(torch.as_tensor(w, device=src.device), src.shape)
         w = torch.where(valid, w.to(torch.float32), 0.0)
         return w, new_deg
+
+    # -- host-plane adapter -------------------------------------------------
+
+    def host_metric(self):
+        """Compile this semantics into the host oracle's per-edge form
+        (a :class:`~repro_torch.core.metrics.DensityMetric`): scalar float64
+        evaluation against the live :class:`AdjGraph`, snapped by the
+        metric funnel.  The host plane has no aux channel — hooks receive
+        ``aux = None``."""
+        from .metrics import DensityMetric  # late: metrics imports this module
+
+        sem = self
+
+        def vsusp(u: int, g) -> float:
+            if sem.vsusp is None:
+                return 0.0
+            deg = int(g.in_deg[u]) if u < g.n else 0
+            out = sem.vsusp(np, np.asarray([u], np.int64),
+                            np.asarray([deg], np.int64), None)
+            return float(np.asarray(out, np.float64).reshape(-1)[0])
+
+        def esusp(u: int, v: int, raw: float, g) -> float:
+            deg = int(g.in_deg[v]) if v < g.n else 0
+            out = sem.esusp(np, np.asarray([u], np.int64),
+                            np.asarray([v], np.int64),
+                            np.asarray([raw], np.float64),
+                            np.asarray([deg], np.int64), None)
+            return float(np.asarray(out, np.float64).reshape(-1)[0])
+
+        return DensityMetric(name=sem.name, vsusp=vsusp, esusp=esusp)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.frontier_spmv import suffix_init
 
 __all__ = ["DeviceGraph", "device_graph_from_coo", "compact_slots",
-           "append_edges", "remove_edges", "scatter_drop"]
+           "append_edges", "remove_edges", "scatter_drop", "csr_sort"]
 
 
 def scatter_drop(
@@ -210,4 +210,22 @@ def remove_edges(
             edge_mask=live,
         ),
         n_removed,
+    )
+
+
+def csr_sort(g: DeviceGraph) -> DeviceGraph:
+    """Sort edge slots by (src, dst) for locality (host-side utility).
+
+    The sort is ``np.lexsort`` on the host, as in the reference; the sorted
+    buffers go back to the graph's device.
+    """
+    src = g.src.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    order = torch.from_numpy(np.lexsort((dst, src))).to(g.device)
+    return dataclasses.replace(
+        g,
+        src=g.src[order],
+        dst=g.dst[order],
+        c=g.c[order],
+        edge_mask=g.edge_mask[order],
     )

@@ -1,11 +1,17 @@
-"""Streaming fraud-detection serving driver on torch (device plane):
+"""Streaming fraud-detection serving CLI on torch, routed through the
+:class:`repro_torch.serve.SpadeService` facade:
 
+    # host oracle (exact per-edge reorders, edge grouping; NumPy on the host)
+    PYTHONPATH=src python -m repro_torch.launch.serve --plane host \
+        --semantics FD --edges 5000 --batch 100 --grouping
+
+    # device plane, sliding window + predictive workset engine
     PYTHONPATH=src python -m repro_torch.launch.serve --semantics DW \
         --batch 512 --window 8 --workset --refresh-every 32
 
-``--device`` defaults to ``cuda`` (raising without a GPU); pass
-``--device cpu`` for the plain PyTorch path.  The host plane and
-``--mesh`` are not ported yet (ROADMAP A.7, A.9).
+``--device`` (device plane only) defaults to ``cuda``, raising without a
+GPU; pass ``--device cpu`` for the plain PyTorch path.  ``--mesh`` is not
+ported yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -22,44 +28,69 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--semantics", "--metric", dest="semantics",
                     choices=list(available()), default="DW",
                     help="registered suspiciousness semantics")
-    ap.add_argument("--plane", choices=["device"], default="device")
+    ap.add_argument("--plane", choices=["device", "host"], default="device")
     ap.add_argument("--device", default=None,
-                    help="torch device (default cuda; 'cpu' for the CPU)")
+                    help="torch device of the device plane (default cuda; "
+                         "'cpu' for the CPU)")
     ap.add_argument("--vertices", type=int, default=20000)
     ap.add_argument("--edges", type=int, default=80000)
     ap.add_argument("--batch", type=int, default=0,
-                    help="edges per tick (0: the default, 1024)")
+                    help="edges per tick (0: plane default — 1 on host, "
+                         "1024 on device)")
+    ap.add_argument("--grouping", action="store_true",
+                    help="host plane: benign/urgent edge grouping")
     ap.add_argument("--window", type=int, default=0,
-                    help="sliding window depth in ticks")
+                    help="sliding window depth in ticks (device plane)")
     ap.add_argument("--workset", action="store_true",
-                    help="affected-area workset engine")
+                    help="affected-area workset engine (device plane)")
     ap.add_argument("--no-predictive", action="store_true",
                     help="workset: synced bucket selection instead of the "
-                         "predictive selector")
+                         "predictive selector (device plane)")
     ap.add_argument("--refresh-every", type=int, default=0)
     ap.add_argument("--max-rounds", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    spec = EngineSpec(
-        batch_edges=args.batch or None,
-        window_ticks=args.window,
-        workset=args.workset,
-        predictive=not args.no_predictive,
-        refresh_every=args.refresh_every,
-        max_rounds=args.max_rounds,
-        device=args.device,
-    )
+    if args.plane == "host":
+        device_flags = [name for name, on in [
+            ("--device", args.device is not None), ("--window", args.window),
+            ("--workset", args.workset),
+            ("--no-predictive", args.no_predictive),
+            ("--refresh-every", args.refresh_every),
+        ] if on]
+        if device_flags:
+            ap.error(f"{', '.join(device_flags)} require --plane device")
+        spec = EngineSpec(plane="host", grouping=args.grouping,
+                          batch_edges=args.batch or None)
+    else:
+        if args.grouping:
+            ap.error("--grouping requires --plane host")
+        spec = EngineSpec(
+            batch_edges=args.batch or None,
+            window_ticks=args.window,
+            workset=args.workset,
+            predictive=not args.no_predictive,
+            refresh_every=args.refresh_every,
+            max_rounds=args.max_rounds,
+            device=args.device,
+        )
     service = SpadeService(semantics=args.semantics, spec=spec)
     stream = make_transaction_stream(n=args.vertices, m=args.edges,
                                      seed=args.seed)
     rep = service.run(stream)
-    print(f"device={service.device} edges={rep.n_edges} ticks={rep.n_ticks} "
-          f"us/edge={rep.mean_us_per_edge:.1f} "
-          f"recall={rep.fraud_recall:.2f} g={rep.final_g:.1f} "
-          f"live={rep.live_edges} "
-          f"ws/fb={rep.n_workset_ticks}/{rep.n_fallback_ticks} "
-          f"pred/miss={rep.n_predicted_ticks}/{rep.n_bucket_miss_ticks}")
+    if args.plane == "host":
+        print(f"plane=host edges={rep.n_edges} reorders={rep.n_reorders} "
+              f"us/edge={rep.mean_us_per_edge:.1f} "
+              f"recall={rep.fraud_recall:.2f} "
+              f"prevention={rep.prevention_ratio} "
+              f"latency_s={rep.detection_latency_s}")
+    else:
+        print(f"device={service.device} edges={rep.n_edges} ticks={rep.n_ticks} "
+              f"us/edge={rep.mean_us_per_edge:.1f} "
+              f"recall={rep.fraud_recall:.2f} g={rep.final_g:.1f} "
+              f"live={rep.live_edges} "
+              f"ws/fb={rep.n_workset_ticks}/{rep.n_fallback_ticks} "
+              f"pred/miss={rep.n_predicted_ticks}/{rep.n_bucket_miss_ticks}")
 
 
 if __name__ == "__main__":

@@ -1,3 +1,5 @@
+from .service import ServiceReport, run_service
 from .spade_service import DeviceServiceReport, EngineSpec, SpadeService
 
-__all__ = ["SpadeService", "EngineSpec", "DeviceServiceReport"]
+__all__ = ["SpadeService", "EngineSpec", "ServiceReport",
+           "DeviceServiceReport", "run_service"]

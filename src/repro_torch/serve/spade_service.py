@@ -1,8 +1,13 @@
-"""``SpadeService`` on torch: the device-plane serving loop on one device
-(the counterpart of ``repro.serve.spade_service``).
+"""``SpadeService`` on torch: one facade over the host plane and the
+device plane on one device (the counterpart of
+``repro.serve.spade_service``).
 
     ``SpadeService(semantics, spec: EngineSpec).run(stream)``
 
+With ``EngineSpec(plane="host")`` it replays the stream through the exact
+host oracle (``repro_torch.core.Spade``: per-edge reorders with edge
+grouping, NumPy on the host CPU) and returns a
+:class:`repro_torch.serve.service.ServiceReport`.  The device plane
 replays a transaction stream in fixed-size ticks: the base graph is
 seeded through the semantics' batch-seeding rule, each tick is weighted
 by the semantics' ``batch_weights`` and maintained through the fused,
@@ -11,9 +16,9 @@ counts, the ever-detected set) accumulate on the device and are drained
 once at shutdown.  The stream's increments are copied to the device once,
 before the first tick.
 
-``EngineSpec.device`` picks the device: ``None`` means ``cuda`` and raises
-without a GPU; ``"cpu"`` runs the plain PyTorch path.  The host plane and
-the mesh-sharded engine are not ported yet (ROADMAP A.7 and A.9).
+``EngineSpec.device`` picks the device plane's device: ``None`` means
+``cuda`` and raises without a GPU; ``"cpu"`` runs the plain PyTorch path.
+The mesh-sharded engine is not ported yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ from repro_torch.core.incremental import (
     slide_and_maintain_auto,
     slide_and_maintain_predictive,
 )
+from repro_torch.core.metrics import DensityMetric
 from repro_torch.core.semantics import SuspSemantics, resolve
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.generators import TxStream
 from repro_torch.graphstore.structs import device_graph_from_coo
+from repro_torch.serve.service import _run_host_service
 
 __all__ = ["EngineSpec", "SpadeService", "DeviceServiceReport"]
 
@@ -54,14 +61,21 @@ class EngineSpec:
     Device-plane fields as in the reference: ``window_ticks`` (N-tick
     sliding window; 0 = unbounded insert-only), ``workset`` (affected-area
     engine), ``predictive`` (previous-tick bucket prediction; ignored
-    unless ``workset``), ``min_bucket``, ``batch_edges`` (tick size,
-    default 1024), ``eps``, ``max_rounds``, ``refresh_every``,
-    ``capacity_slack``.  ``device``: ``None`` (``cuda``, raising without a
-    GPU) or an explicit device such as ``"cpu"``.
+    unless ``workset``), ``min_bucket``, ``batch_edges`` (tick size),
+    ``eps``, ``max_rounds``, ``refresh_every``, ``capacity_slack``.
+    ``device``: ``None`` (``cuda``, raising without a GPU) or an explicit
+    device such as ``"cpu"``.
 
-    ``plane="host"`` and ``mesh`` are accepted only to raise
-    ``NotImplementedError``: the host plane is ROADMAP A.7 and the
-    mesh-sharded engine ROADMAP A.9.
+    Host-plane fields: ``grouping`` (benign/urgent edge grouping, Def
+    4.1), ``flush_every`` (simulated seconds between forced buffer
+    flushes), ``batch_edges`` (edges per InsertBatchEdges call).  The host
+    oracle is NumPy on the host CPU, so ``device`` is refused there, as
+    ``mesh``, ``workset`` and ``window_ticks`` are.
+
+    ``batch_edges = None`` resolves per plane — 1024-edge device ticks,
+    per-edge (batch 1) host reorders, the paper's deployment shape for
+    each.  ``mesh`` is accepted only to raise ``NotImplementedError``: the
+    mesh-sharded engine is ROADMAP A.9.
     """
 
     plane: str = "device"
@@ -75,24 +89,35 @@ class EngineSpec:
     workset: bool = False
     predictive: bool = True
     min_bucket: int = 64
+    grouping: bool = True
+    flush_every: float = 1.0
     device: str | None = None
 
     def __post_init__(self):
+        if self.plane not in ("device", "host"):
+            raise ValueError(f"plane must be 'device' or 'host', got {self.plane!r}")
+        if self.batch_edges is not None and self.batch_edges <= 0:
+            raise ValueError("batch_edges must be positive")
         if self.plane == "host":
-            raise NotImplementedError(
-                "repro_torch: the host plane is not ported yet (ROADMAP A.7)")
-        if self.plane != "device":
-            raise ValueError(f"plane must be 'device', got {self.plane!r}")
-        if self.mesh is not None:
+            if self.mesh is not None or self.workset or self.window_ticks:
+                raise ValueError(
+                    "mesh/workset/window_ticks are device-plane settings; "
+                    "the host oracle serves per-edge with grouping/flush_every")
+            if self.device is not None:
+                raise ValueError(
+                    "device is a device-plane setting; the host oracle runs "
+                    "in NumPy on the host CPU")
+        elif self.mesh is not None:
             raise NotImplementedError(
                 "repro_torch: the mesh-sharded engine is not ported yet "
                 "(ROADMAP A.9)")
-        if self.batch_edges is not None and self.batch_edges <= 0:
-            raise ValueError("batch_edges must be positive")
 
     @property
     def effective_batch_edges(self) -> int:
-        return 1024 if self.batch_edges is None else self.batch_edges
+        """``batch_edges`` with the per-plane default resolved."""
+        if self.batch_edges is not None:
+            return self.batch_edges
+        return 1024 if self.plane == "device" else 1
 
 
 @dataclass
@@ -120,26 +145,47 @@ class DeviceServiceReport:
 class SpadeService:
     """The serving entrypoint: a semantics x an engine spec.
 
-    ``semantics`` is a registered name or a :class:`SuspSemantics`;
-    keyword overrides are merged into ``spec``
-    (``SpadeService("DG", window_ticks=8, device="cpu")``).  The device is
-    resolved here, so a missing GPU raises at construction.
+    ``semantics`` is a registered name, a :class:`SuspSemantics`, or (host
+    plane only) a :class:`DensityMetric`; keyword overrides are merged
+    into ``spec`` (``SpadeService("DG", window_ticks=8, device="cpu")``,
+    ``SpadeService("FD", plane="host")``).  The device plane's device is
+    resolved here, so a missing GPU raises at construction; the host
+    plane has no device (``device`` is ``None``).
     """
 
-    def __init__(self, semantics: SuspSemantics | str = "DW",
+    def __init__(self, semantics: SuspSemantics | DensityMetric | str = "DW",
                  spec: EngineSpec | None = None, **overrides):
         if spec is None:
             spec = EngineSpec(**overrides)
         elif overrides:
             spec = dataclasses.replace(spec, **overrides)
         self.spec = spec
-        self.device = resolve_device(spec.device)
-        self.semantics = resolve(semantics)
+        if isinstance(semantics, DensityMetric):
+            if spec.plane != "host":
+                raise TypeError(
+                    f"DensityMetric {semantics.name!r} is host-plane-only "
+                    "(scalar per-edge hooks); device planes need a "
+                    "SuspSemantics — see repro_torch.core.semantics")
+            self.semantics: SuspSemantics | DensityMetric = semantics
+        else:
+            self.semantics = resolve(semantics)
+        self.device = resolve_device(spec.device) if spec.plane == "device" else None
         self.final_state: DeviceSpadeState | None = None
 
-    def run(self, stream: TxStream) -> DeviceServiceReport:
-        """Replay ``stream`` through the configured engine; the maintained
-        state at shutdown is kept as ``final_state``."""
+    def run(self, stream: TxStream):
+        """Replay ``stream`` through the configured engine.
+
+        Returns a :class:`DeviceServiceReport` (device plane; the
+        maintained state at shutdown is kept as ``final_state``) or a
+        :class:`repro_torch.serve.service.ServiceReport` (host plane)."""
+        if self.spec.plane == "host":
+            return _run_host_service(
+                stream,
+                metric=self.semantics,
+                edge_grouping=self.spec.grouping,
+                batch_size=self.spec.effective_batch_edges,
+                flush_every=self.spec.flush_every,
+            )
         report, self.final_state = _run_device_service(
             stream, self.semantics, self.spec, self.device)
         return report

@@ -291,6 +291,59 @@ def test_bulk_peel_cuda_equals_cpu(cuda):
         assert torch.equal(getattr(res[0], f).cpu(), getattr(res[1], f)), f
 
 
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("semantics,integer", [("DG", True), ("XPARITY", True),
+                                               ("DW", False)])
+def test_cross_plane_insert_ticks_cuda(cuda, semantics, integer):
+    """chip_smoke.py's phase 12a at a small size on cuda: the port's host
+    oracle and its device plane take the same 512-edge ticks; after every
+    tick the batch weights, the live edge multiset and w0 equal the host's
+    (bit for bit on integer weights), best_g is at most its community's
+    density; a final full_refresh holds the bulk guarantee.  K1, K2 and
+    suffix_init launch."""
+    from repro_torch.core.semantics import resolve
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+    from repro_torch.kernels.peel_round import ops as k1_ops
+
+    cs = _chip_smoke()
+    sem = cs.parity_semantics() if semantics == "XPARITY" else resolve(semantics)
+    stream = make_transaction_stream(n=3000, m=15000, seed=3)
+    n1, n2, n3 = k1_ops.launches, k2_ops.launches, k2_ops.suffix_init_launches
+    rec = cs.cross_plane_ticks(sem, cs.integer_amounts(stream) if integer else stream,
+                               4, 512, cuda, 0.1, 20, integer=integer, tag=semantics)
+    assert rec["ticks"] == 4
+    assert k1_ops.launches > n1 and k2_ops.launches > n2
+    assert k2_ops.suffix_init_launches > n3
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["int", "tied"])
+def test_exact_peel_cuda_matches_static_peel(cuda, tied):
+    """exact_peel on cuda: static_peel's order (ties to the lowest id, as
+    torch.argmin's first minimum gives on the card) and delta bit for bit,
+    and the same bits as on cpu."""
+    from repro_torch.core.peel import exact_peel
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    rec = _chip_smoke().exact_peel_check(600, 3000, 6, cuda, tied)
+    assert rec["tied_neighbours"] > 0
+    rng = np.random.default_rng(6)
+    src, dst = rng.integers(0, 300, 1500), rng.integers(0, 300, 1500)
+    keep = src != dst
+    res = [exact_peel(device_graph_from_coo(300, src[keep], dst[keep], device=d))
+           for d in (cuda, "cpu")]
+    for f in ("order", "delta", "level", "best_g", "best_level"):
+        assert torch.equal(getattr(res[0], f).cpu(), getattr(res[1], f)), f
+
+
 @pytest.mark.parametrize("spec", [{}, {"window_ticks": 2, "workset": True}],
                          ids=["fused", "window2-workset"])
 def test_service_cuda_equals_cpu(cuda, spec):

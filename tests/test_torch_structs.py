@@ -27,7 +27,8 @@ from repro_torch.core import semantics as tsem  # noqa: E402
 from repro_torch.graphstore import generators as tgen  # noqa: E402
 from repro_torch.graphstore import structs as tst  # noqa: E402
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 FIELDS = ("src", "dst", "c", "edge_mask", "a", "vertex_mask")
 
 
@@ -171,16 +172,26 @@ def test_xp_shim_runs_numpy_style_hooks_on_tensors():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of ``repro_torch`` imports in a fresh interpreter without
-    pulling in ``jax`` or anything of ``repro``."""
+    """Every module of ``repro_torch``, every example twin
+    (``examples/torch_*.py``) and ``chip_smoke.py`` import in a fresh
+    interpreter without pulling in ``jax`` or anything of ``repro``."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "for n in ('repro_torch.core.reference', 'repro_torch.core.spade',\n"
+        "          'repro_torch.core.metrics', 'repro_torch.serve.service',\n"
+        "          'repro_torch.configs.spade_grab', 'repro_torch._warnings'):\n"
+        "    assert n in names, n\n"
+        f"files = sorted(__import__('glob').glob({str(ROOT / 'examples' / 'torch_*.py')!r}))\n"
+        f"files.append({str(ROOT / 'chip_smoke.py')!r})\n"
+        "for f in files:\n"
+        "    spec = importlib.util.spec_from_file_location('_twin', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 51 and len(files) == 6, (names, files)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
