@@ -100,7 +100,24 @@ Phases (any failure exits non-zero):
     stream, ``slide_and_maintain`` against ``Spade.DeleteEdge``; 12c,
     ``exact_peel`` on cuda against ``static_peel`` at 3,000 vertices
     (order equal, ``delta`` bit for bit, tied weights included).  The
-    kernels' launches in phase 12 are logged apart from the main path's.
+    kernels' launches in phase 12 are logged apart from the main path's;
+13. the edge-sharded engine (``repro_torch.dist``, ``SpadeService(mesh=
+    DeviceMesh)``) held against the single-device engine: 13a, world 1 on
+    ``nccl`` in this process at Grab4 width (DW, the first 32 ticks, window
+    64, fused and predictive workset): the final states bit for bit, the
+    same K1/K2/``suffix_init`` launches, one all_reduce a round; then
+    fused slide ticks (window 4) timed, traced, and with each all_reduce
+    timed; 13b, two spawned ``gloo`` ranks on the one card, Grab4 (the
+    stream handed over in a file under ``build/``), 8 ticks, window 4, DG
+    bit for bit (the ranks' edge blocks joined included) and DW within
+    SHARD_RTOL, bytes exchanged per slide, the all_reduce ms per round,
+    and K2's launches in every rank on the vector path (no scalar head
+    slot, no unaligned launch, as counted at launch; a control on offset
+    views must fail that check); 13c, four ``gloo`` ranks on cuda against
+    the same four on cpu on phase 12a's stream, the same K2 check.  Phase 2 also
+    holds ``suffix_init``'s float64 mode (what the sharded prologue
+    all-reduces) against its plain version.  The kernels' launches in phase
+    13 are logged apart from the main path's.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -120,6 +137,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -542,7 +560,74 @@ def phase_kernels(grab) -> dict:
                 f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'}")
         if tag == "grab4":
             rec["frontier_spmv"].update(k2_timings(args, E, V))
+            rec["suffix_init_f64"] = suffix_init_f64_check(grab, V, E)
     return rec
+
+
+def suffix_init_f64_inputs(src, dst, V: int, E: int, integer: bool, seed: int):
+    """``suffix_init``'s inputs over phase 2's K2 slots: its liveness as the
+    edge mask, 90 % of the vertices live, ``a`` integer or lognormal."""
+    import torch
+
+    s, d, c, emask, _ = k2_inputs(src, dst, V, E, integer, seed, pad="full")
+    rng = np.random.default_rng(seed + 100)
+    live = rng.random(V) < 0.9
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    return s, d, c, emask, torch.from_numpy(live).to(DEVICE), torch.from_numpy(a).to(DEVICE)
+
+
+def suffix_init_f64_bound_ms(E: int, V: int) -> float:
+    # as suffix_init_bound_ms, but the float64 accumulators written (8 B a
+    # vertex) in place of w0 (4 B)
+    return 1e3 * (14 * E + 13 * V) / HBM_BYTES_PER_S
+
+
+def suffix_init_f64_check(grab, V: int, E: int) -> dict:
+    """``suffix_init``'s float64 mode (what the edge-sharded peel all-reduces)
+    at Grab4 shapes against its plain version: the accumulators, the vertex
+    sum and ``both``, bit for bit on integer weights and within RTOL on
+    lognormal ones; and ``w0``/``f0`` formed from them as the sharded
+    prologue forms them equal to the kernel's own ``w0``/``f0`` bit for bit
+    (what makes a world of one repeat the single-device engine).  Device
+    and call times of the mode, of the plain version and, in turns, of the
+    usual mode."""
+    import torch
+
+    from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
+
+    acc = lambda: torch.empty(V + 1, dtype=torch.float64, device=DEVICE)
+    out = {"max_abs_err": 0.0}
+    for integer in (True, False):
+        args = suffix_init_f64_inputs(grab["src"], grab["dst"], V, E, integer,
+                                      seed=6 if integer else 7)
+        name = f"suffix_init[f64,{'int' if integer else 'lognormal'}]"
+        got = suffix_init(*args, acc=acc())
+        want = suffix_init_ref(*args, acc=acc())
+        sync()
+        err = compare(name, got, want, exact=integer, rtol=RTOL)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        live, a = args[4], args[5]
+        w0, f0, both = suffix_init(*args)
+        mine = torch.where(live, (a.double() + got[0][:V]).float(), 0.0)
+        f_mine = (got[1].double() + got[0][V]).float()
+        sync()
+        check(torch.equal(mine, w0) and torch.equal(f_mine, f0) and torch.equal(both, got[2]),
+              f"{name}: w0/f0 formed from the float64 mode differ from the kernel's")
+        log(f"suffix_init float64 mode E={E} V={V} {'int' if integer else 'lognormal'}: "
+            f"accumulators, vertex sum and both "
+            f"{'bit-identical' if integer else f'max_abs_err={err!r} (rtol {RTOL})'} to the "
+            f"plain version; w0 and f0 formed from them equal the kernel's bit for bit")
+    buf = acc()
+    ms, call = timed(lambda: suffix_init(*args, acc=buf))
+    plain = device_time_ms(lambda: suffix_init_ref(*args, acc=buf), calls=10)
+    turns = [device_time_ms(fn) for fn in (lambda: suffix_init(*args), lambda: suffix_init(*args, acc=buf),
+                                           lambda: suffix_init(*args, acc=buf), lambda: suffix_init(*args))]
+    bound = suffix_init_f64_bound_ms(E, V)
+    out.update(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, turns_usual_f64_ms=turns)
+    log(f"suffix_init float64 mode E={E} V={V}: {ms!r} ms device ({call!r} ms call), plain "
+        f"{plain!r} ms, bound {bound!r} ms (bytes; {bound / ms!r} of it); in turns usual / "
+        f"float64 / float64 / usual {turns!r} ms")
+    return out
 
 
 def k2_timings(args, E: int, V: int) -> dict:
@@ -672,21 +757,14 @@ def phase_grab(stream, n_ticks: int) -> dict:
 
     from repro_torch.core import peel as peel_mod
     from repro_torch.core.semantics import resolve
-    from repro_torch.graphstore.generators import TxStream
     from repro_torch.graphstore.structs import device_graph_from_coo
     from repro_torch.kernels.frontier_spmv import ops as k2_ops
     from repro_torch.kernels.peel_round import ops as k1_ops
     from repro_torch.serve import SpadeService
 
-    n_inc = min(n_ticks * BATCH, stream.inc_src.shape[0])
+    cut = cut_stream(stream, n_ticks, BATCH)
+    n_inc = cut.inc_src.shape[0]
     n_ticks = -(-n_inc // BATCH)
-    cut = TxStream(
-        n_vertices=stream.n_vertices, base_src=stream.base_src,
-        base_dst=stream.base_dst, base_amt=stream.base_amt,
-        inc_src=stream.inc_src[:n_inc], inc_dst=stream.inc_dst[:n_inc],
-        inc_amt=stream.inc_amt[:n_inc], inc_time=stream.inc_time[:n_inc],
-        fraud_label=stream.fraud_label[:n_inc], fraud_block=stream.fraud_block,
-    )
     m_base = stream.base_src.shape[0]
     n = stream.n_vertices
     e_cap = m_base + (WINDOW + 1) * BATCH
@@ -2329,6 +2407,523 @@ def phase_cross_plane(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the edge-sharded engine (repro_torch.dist) on the card
+# ---------------------------------------------------------------------------
+
+# 13a: Grab4 ticks per engine at world 1 (nccl), and the slide ticks timed
+# after them (window 4, as phase 5: 8 timed, 4 traced, 4 with each
+# all_reduce timed)
+SHARD_TICKS = 32
+SHARD_TIMED = {"window": 4, "timed": 8, "traced": 4, "reduce_timed": 4}
+# 13b: world 2 (gloo) on the one card, Grab4, window 4 (ticks 5-8 slide)
+SHARD_PAIR = {"ticks": 8, "window": 4, "semantics": ("DG", "DW")}
+# 13c: four gloo ranks on cuda against the same on cpu, phase 12a's stream;
+# each rank's cpu run takes 2 threads (the card machine's 8 cores)
+SHARD_SMALL = {"n": 16_000, "m": 100_000, "seed": 3, "batch": 512, "ticks": 8,
+               "window": 4, "world": 4, "cpu_threads": 2}
+# DW across ranks: each rank's float64 sums add in another order before
+# the one rounding, so w0 and final_g may move by a float32 ulp or so
+SHARD_RTOL = 1e-5
+SHARD_STATE = ("level", "best_g", "community", "w0", "edge_count")
+# seconds a spawn of 13b or 13c may take before its ranks are stopped
+SHARD_TIMEOUT = 300
+SHARD_EDGES = ("src", "dst", "c", "edge_mask")
+
+
+def cut_stream(stream, n_ticks: int, batch: int):
+    """The stream's base graph and its first ``n_ticks`` ticks of increments."""
+    from repro_torch.graphstore.generators import TxStream
+
+    n_inc = min(n_ticks * batch, stream.inc_src.shape[0])
+    return TxStream(
+        n_vertices=stream.n_vertices, base_src=stream.base_src,
+        base_dst=stream.base_dst, base_amt=stream.base_amt,
+        inc_src=stream.inc_src[:n_inc], inc_dst=stream.inc_dst[:n_inc],
+        inc_amt=stream.inc_amt[:n_inc], inc_time=stream.inc_time[:n_inc],
+        fraud_label=stream.fraud_label[:n_inc], fraud_block=stream.fraud_block,
+    )
+
+
+def grab_config(**extra) -> dict:
+    """The spade-grab sizes this process runs with, for a spawned rank."""
+    return {"batch": BATCH, "eps": EPS, "max_rounds": MAX_ROUNDS, **extra}
+
+
+def set_grab_config(cfg: dict) -> None:
+    global BATCH, EPS, MAX_ROUNDS
+    BATCH, EPS, MAX_ROUNDS = cfg["batch"], cfg["eps"], cfg["max_rounds"]
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+    from repro_torch.kernels.peel_round import ops as k1_ops
+
+    return {"peel_round": k1_ops.launches, "frontier_spmv": k2_ops.launches,
+            "suffix_init": k2_ops.suffix_init_launches}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.dist import graph as dg
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+    from repro_torch.kernels.peel_round import ops as k1_ops
+
+    k1_ops.launches = k2_ops.launches = k2_ops.suffix_init_launches = 0
+    k2_ops.head_slots = k2_ops.unaligned_launches = 0
+    dg.reset_stats()
+
+
+def k2_split() -> dict:
+    """How K2's round launches since zero_kernel_counts() split their
+    slots: those before alive's first 16-byte boundary (the scalar head),
+    and the launches whose word arrays were off the vector alignment."""
+    from repro_torch.kernels.frontier_spmv import ops as k2_ops
+
+    return {"head_slots": k2_ops.head_slots,
+            "unaligned_launches": k2_ops.unaligned_launches}
+
+
+def vector_split_ok(split: dict) -> bool:
+    return split["head_slots"] == 0 and split["unaligned_launches"] == 0
+
+
+def vector_split_control() -> dict:
+    """The control of 13b's split check: K2 on views of fresh buffers from
+    slot 1 (a scalar head of 15 slots) and with only the word arrays one
+    slot off (no vector group); the check must reject both."""
+    import torch
+
+    from repro_torch.kernels.frontier_spmv import frontier_spmv
+
+    E, V = 4096, 1024
+    gen = torch.Generator().manual_seed(0)
+    src, dst = (torch.randint(0, V, (E + 1,), generator=gen, dtype=torch.int32).to(DEVICE)
+                for _ in range(2))
+    c = torch.ones(E + 1, device=DEVICE)
+    peel = torch.zeros(V, dtype=torch.bool, device=DEVICE)
+    peel[::3] = True
+    out = {}
+    for name, lo, alive_lo in (("slot 1 on", 1, 1), ("words one slot off", 1, 0)):
+        alive = torch.ones(E + 1, dtype=torch.bool, device=DEVICE)
+        dw = torch.zeros(V, dtype=torch.float64, device=DEVICE)
+        zero_kernel_counts()
+        frontier_spmv(src[lo:lo + E], dst[lo:lo + E], c[lo:lo + E],
+                      alive[alive_lo:alive_lo + E], peel, dw)
+        torch.cuda.synchronize()
+        out[name] = k2_split()
+        check(not vector_split_ok(out[name]),
+              f"13b control: K2 on views ({name}) passes the split check: {out[name]!r}")
+    zero_kernel_counts()
+    return out
+
+
+def quantiles(xs) -> dict:
+    xs = sorted(xs)
+    return {"median": statistics.median(xs), "p90": xs[min(len(xs) - 1, int(0.9 * len(xs)))]}
+
+
+def serve(sem: str, stream, mesh=None, device: str | None = None, **kw):
+    """``SpadeService`` at the spade-grab config's tick, eps and max_rounds:
+    (report, the final state as numpy)."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.serve import SpadeService
+
+    svc = SpadeService(sem, batch_edges=kw.pop("batch", BATCH), eps=EPS,
+                       max_rounds=MAX_ROUNDS, device=device or DEVICE, mesh=mesh, **kw)
+    rep = svc.run(stream)
+    return rep, state_to_numpy(svc.final_state)
+
+
+def same_state(tag: str, got: dict, want: dict, fields=SHARD_STATE + SHARD_EDGES) -> None:
+    for f in fields:
+        check(np.array_equal(got[f], want[f]), f"{tag}: {f} differs")
+
+
+def joined(ranks: list[dict], E: int) -> dict:
+    """One state of the ranks' blocks: rank 0's replicated fields and the
+    edge blocks joined in rank order, cut to ``E`` slots."""
+    out = dict(ranks[0])
+    for f in SHARD_EDGES:
+        out[f] = np.concatenate([r[f] for r in ranks])[:E]
+    return out
+
+
+def phase_sharded_grab(stream) -> dict:
+    """13a: world 1 on ``nccl`` at full width.  The service with and without
+    a one-rank mesh on the first SHARD_TICKS ticks, fused and predictive
+    workset: final states equal bit for bit; the same K1, K2 and
+    ``suffix_init`` launches as the single-device run, that is 20 a tick
+    (+ the start-up peel's rounds) and 2 a tick (+ 2), and one all_reduce a
+    round.  Then fused slide ticks timed (wall and device) and traced, and
+    the all_reduce ms per round."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import graph as dg
+
+    cut = cut_stream(stream, SHARD_TICKS, BATCH)
+    n_ticks = -(-cut.inc_src.shape[0] // BATCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    # nccl on the card (a cpu rehearsal of this phase takes gloo)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                            world_size=1)
+    out = {"ticks": n_ticks, "backend": backend, "configs": {}}
+    try:
+        mesh = DeviceMesh(DEVICE, [0], mesh_dim_names=("data",))
+        for name, kw in (("fused", {}), ("predictive", {"workset": True})):
+            zero_kernel_counts()
+            rep1, want = serve("DW", cut, window_ticks=WINDOW, **kw)
+            n1 = kernel_counts()
+            zero_kernel_counts()
+            rep, got = serve("DW", cut, mesh=mesh, window_ticks=WINDOW, **kw)
+            n = kernel_counts()
+            ar = dg.STATS["round_all_reduces"]
+            same_state(f"13a {name}", got, want)
+            for f in DW_EQUAL + ("final_g",):
+                check(getattr(rep, f) == getattr(rep1, f),
+                      f"13a {name}: report.{f} {getattr(rep, f)!r} vs {getattr(rep1, f)!r}")
+            startup = n1["peel_round"] - MAX_ROUNDS * n_ticks
+            check(n == n1 and startup > 0 and n["peel_round"] == n["frontier_spmv"] == ar,
+                  f"13a {name}: launches {n!r} and {ar} round all_reduces; the single-device "
+                  f"run's {n1!r}: expected K1 = K2 = {MAX_ROUNDS} x {n_ticks} ticks + the "
+                  f"start-up rounds, one all_reduce a round")
+            check(n["suffix_init"] == 2 * n_ticks + 2,
+                  f"13a {name}: suffix_init launched {n['suffix_init']} times")
+            row = {"launches": n, "startup_rounds": startup, "round_all_reduces": ar, "all_reduces": dg.STATS["all_reduces"],
+                   "final_g": rep.final_g, "tick_wall_s": quantiles(rep.tick_seconds),
+                   "single_tick_wall_s": quantiles(rep1.tick_seconds),
+                   "fallback_ticks": rep.n_fallback_ticks, "predicted_ticks": rep.n_predicted_ticks}
+            out["configs"][name] = row
+            log(f"13a {name} world 1 (nccl), {n_ticks} ticks: level, best_g, community, w0, "
+                f"edge_count and the edge buffers equal the single-device engine's bit for bit; "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        out["slide_ticks"] = sharded_slide_ticks(stream, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def sharded_slide_ticks(stream, mesh) -> dict:
+    """Fused slide ticks of the world-1 engine at Grab4 width (window 4, as
+    phase 5): wall and device (CUDA events) time of each, a torch.profiler
+    trace, and the all_reduce ms per round with each all_reduce timed."""
+    import torch
+
+    from repro_torch.core.semantics import resolve
+    from repro_torch.dist import graph as dg
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    p = SHARD_TIMED
+    sem = resolve("DW")
+    n, m_base = stream.n_vertices, stream.base_src.shape[0]
+    base_w, in_deg = sem.seed_base(stream.base_src, stream.base_dst, stream.base_amt, n)
+    e_cap = m_base + (p["window"] + 1) * BATCH
+    g = device_graph_from_coo(n, stream.base_src, stream.base_dst, base_w,
+                              n_capacity=-(-n // 512) * 512,
+                              e_capacity=-(-e_cap // 512) * 512, device=DEVICE)
+    state = dg.init_sharded_state(dg.shard_graph(g, mesh), mesh, eps=EPS)
+    del g
+    deg = torch.zeros(state.graph.n_capacity, dtype=torch.int32, device=DEVICE)
+    deg[:n] = torch.from_numpy(in_deg.astype(np.int32)).to(DEVICE)
+    slots = torch.arange(state.graph.e_capacity, dtype=torch.int32, device=DEVICE)
+    drop = (slots >= m_base) & (slots < m_base + BATCH)
+    valid = torch.ones(BATCH, dtype=torch.bool, device=DEVICE)
+    t = 0
+
+    def one_tick():
+        nonlocal state, deg, t
+        sl = slice(t * BATCH, (t + 1) * BATCH)
+        cu = lambda x, dt: torch.from_numpy(x[sl].astype(dt)).to(DEVICE)
+        bs, bd = cu(stream.inc_src, np.int32), cu(stream.inc_dst, np.int32)
+        w, deg = sem.batch_weights(deg, bs, bd, cu(stream.inc_amt, np.float32), valid)
+        if t < p["window"]:
+            state = dg.sharded_insert_and_maintain(state, bs, bd, w, valid, mesh, eps=EPS,
+                                                   max_rounds=MAX_ROUNDS)
+        else:
+            state = dg.sharded_slide_and_maintain(state, drop, bs, bd, w, valid, mesh,
+                                                  eps=EPS, max_rounds=MAX_ROUNDS)
+        t += 1
+
+    for _ in range(p["window"] + 1):  # fill the window, then one untimed slide
+        one_tick()
+    zero_kernel_counts()
+    walls, events = [], []
+    for _ in range(p["timed"]):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sync()
+        t0 = time.perf_counter()
+        e0.record()
+        one_tick()
+        e1.record()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        events.append(e0.elapsed_time(e1) / 1e3)
+    n, ar = kernel_counts(), dg.STATS["round_all_reduces"]
+    k = p["timed"]
+    check(n["peel_round"] == n["frontier_spmv"] == ar == MAX_ROUNDS * k
+          and n["suffix_init"] == 2 * k,
+          f"13a slide ticks: launches {n!r} and {ar} round all_reduces in {k} ticks")
+    prof = trace("13a sharded fused slide tick", p["traced"], one_tick,
+                 {"peel_round": "peel_round_kernel", "frontier_spmv": "frontier_spmv_kernel",
+                  "suffix_init": "suffix_init_", "nccl": "nccl"})
+    dg.reset_stats()
+    dg.TIME_REDUCES[0] = True
+    try:
+        for _ in range(p["reduce_timed"]):
+            one_tick()
+    finally:
+        dg.TIME_REDUCES[0] = False
+    st = dict(dg.STATS)
+    out = {"tick_wall_s": quantiles(walls), "tick_device_s": quantiles(events),
+           "trace": prof, "reduce_ms_per_round":
+           1e3 * st["round_reduce_seconds"] / max(st["round_all_reduces"], 1),
+           "reduce_ms_per_tick": 1e3 * st["reduce_seconds"] / p["reduce_timed"],
+           "reduced_bytes_per_tick": st["reduced_bytes"] / p["reduce_timed"],
+           "exchange_bytes_per_slide": st["exchange_bytes"] / max(st["slides"], 1),
+           "moved_edges": st["moved_edges"], "stats": st}
+    log(f"13a sharded fused slide ticks (world 1, window {p['window']}): wall "
+        f"{out['tick_wall_s']!r} s, device (events) {out['tick_device_s']!r} s; all_reduce "
+        f"{out['reduce_ms_per_round']!r} ms a round ({st['round_all_reduces']} timed), "
+        f"{out['reduce_ms_per_tick']!r} ms and {out['reduced_bytes_per_tick']!r} bytes a tick; "
+        f"exchange {out['exchange_bytes_per_slide']!r} bytes a slide, "
+        f"{st['moved_edges']} edges moved")
+    return out
+
+
+def pair_rank(mesh, path: str, device: str, cfg: dict) -> dict:
+    """A rank of 13b: the service over a two-rank gloo mesh on the card, on
+    the Grab4 stream saved at ``path``, for each semantics; each
+    all_reduce timed.  Returns each run's report, state (this rank's
+    blocks), kernel launches, how K2's launches split their slots
+    (:func:`k2_split`) and engine stats."""
+    from repro_torch.dist import graph as dg
+    from repro_torch.graphstore.generators import TxStream
+
+    set_grab_config(cfg)
+    with np.load(path) as z:
+        stream = TxStream(n_vertices=int(z["n_vertices"]),
+                          **{k: z[k] for k in z.files if k != "n_vertices"})
+    out = {}
+    dg.TIME_REDUCES[0] = True
+    for sem in SHARD_PAIR["semantics"]:
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        rep, state = serve(sem, stream, mesh=mesh, device=device,
+                           window_ticks=cfg["window"])
+        out[sem] = {"report": rep, "state": state, "launches": kernel_counts(),
+                    "split": k2_split(), "stats": dict(dg.STATS),
+                    "seconds": time.perf_counter() - t0}
+    return out
+
+
+def phase_sharded_pair(stream) -> dict:
+    """13b: world 2 on the one card over gloo, Grab4, SHARD_PAIR's ticks and
+    window, against the single-device engine: DG bit for bit (the joined
+    edge buffers too), DW's final_g and w0 within SHARD_RTOL and its edge
+    buffers bit for bit (the layout does not depend on the sums)."""
+    from repro_torch.dist import spawn
+
+    p = SHARD_PAIR
+    cut = cut_stream(stream, p["ticks"], BATCH)
+    path = ROOT / "build" / "phase13" / "grab4_stream.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **dataclasses.asdict(cut))
+    want = {sem: serve(sem, cut, window_ticks=p["window"]) for sem in p["semantics"]}
+    t0 = time.perf_counter()
+    ranks = spawn(pair_rank, 2, backend="gloo", device=DEVICE,
+                  args=(str(path), DEVICE, grab_config(window=p["window"])),
+                  timeout=SHARD_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    path.unlink()
+    out = {"spawn_s": spawn_s, "split_control": vector_split_control()}
+    for sem in p["semantics"]:
+        split = [r[sem]["split"] for r in ranks]
+        check(all(vector_split_ok(x) for x in split),
+              f"13b {sem}: K2's launches left the vector path: {split!r}")
+        rep1, st1 = want[sem]
+        E = st1["src"].shape[0]
+        got = joined([r[sem]["state"] for r in ranks], E)
+        for r in ranks[1:]:
+            same_state(f"13b {sem}: rank 0 vs another rank", r[sem]["state"], ranks[0][sem]["state"],
+                       fields=SHARD_STATE)
+        rep = ranks[0][sem]["report"]
+        same_state(f"13b {sem} edges", got, st1, fields=SHARD_EDGES + ("edge_count",))
+        n_level = int((got["level"] != st1["level"]).sum())
+        if sem == "DG":
+            same_state(f"13b {sem}", got, st1)
+            check(rep.final_g == rep1.final_g, f"13b DG: final_g {rep.final_g!r} vs {rep1.final_g!r}")
+        else:
+            check(abs(rep.final_g - rep1.final_g) <= SHARD_RTOL * abs(rep1.final_g),
+                  f"13b {sem}: final_g {rep.final_g!r} vs {rep1.final_g!r}")
+            err = np.abs(got["w0"].astype(np.float64) - st1["w0"])
+            check(bool((err <= SHARD_RTOL * np.maximum(np.abs(st1["w0"]), 1.0)).all()),
+                  f"13b {sem}: w0 beyond rtol {SHARD_RTOL} (max abs err {float(err.max())!r})")
+        st = ranks[0][sem]["stats"]
+        launches = {k: sum(r[sem]["launches"][k] for r in ranks) for k in ranks[0][sem]["launches"]}
+        row = {"final_g": rep.final_g, "single_final_g": rep1.final_g,
+               "level_differs": n_level, "launches": launches,
+               "tick_wall_s": quantiles(rep.tick_seconds),
+               "single_tick_wall_s": quantiles(rep1.tick_seconds),
+               "reduce_ms_per_round": 1e3 * st["round_reduce_seconds"]
+               / max(st["round_all_reduces"], 1),
+               "reduced_bytes": st["reduced_bytes"], "slides": st["slides"],
+               "moved_edges": st["moved_edges"],
+               "exchange_bytes_per_slide": st["exchange_bytes"] / max(st["slides"], 1),
+               "k2_split": split, "rank_seconds": [r[sem]["seconds"] for r in ranks]}
+        out[sem] = row
+        log(f"13b {sem} world 2 (gloo, one card), {rep.n_ticks} ticks, window {p['window']}: "
+            + ("bit for bit with the single-device engine, edge buffers joined included; "
+               if sem == "DG" else f"final_g and w0 within rtol {SHARD_RTOL}, edge buffers bit "
+               f"for bit, {n_level} level entries differ; ")
+            + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    log(f"13b: K2's launches in the ranks ran every slot past the tail on the vector "
+        f"path (scalar head slots and unaligned launches 0 on each rank); the check's "
+        f"control on views rejected {out['split_control']!r}.  Collectives staged through "
+        f"the host by hand: 0, by construction (every one is an all_reduce, which gloo "
+        f"takes on CUDA tensors); gloo's own copies through host memory are inside "
+        f"reduce_ms_per_round")
+    return out
+
+
+def small_rank(mesh, p: dict, device: str, cfg: dict) -> dict:
+    """A rank of 13c: the service over a gloo mesh on the card and the same
+    over a cpu mesh of the same ranks, on phase 12a's stream."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.graphstore.generators import make_transaction_stream
+
+    import torch
+
+    set_grab_config(cfg)
+    torch.set_num_threads(p["cpu_threads"])
+    cpu_mesh = DeviceMesh("cpu", list(range(p["world"])), mesh_dim_names=("data",))
+    stream = cut_stream(make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"]),
+                        p["ticks"], p["batch"])
+    out = {}
+    for sem, kw in (("DG", {}), ("DG", {"workset": True}), ("DW", {})):
+        tag = f"{sem}{'-workset' if kw else ''}"
+        zero_kernel_counts()
+        res = serve(sem, stream, mesh=mesh, device=device, batch=p["batch"],
+                    window_ticks=p["window"], **kw)
+        launches, split = kernel_counts(), k2_split()
+        ref = serve(sem, stream, mesh=cpu_mesh, device="cpu", batch=p["batch"],
+                    window_ticks=p["window"], **kw)
+        out[tag] = {"cuda": res, "cpu": ref, "launches": launches, "split": split}
+    zero_kernel_counts()
+    res = sharded_deletes(stream, mesh, device)
+    launches, split = kernel_counts(), k2_split()
+    out["DG-delete"] = {"cuda": res, "cpu": sharded_deletes(stream, cpu_mesh, "cpu"),
+                        "launches": launches, "split": split}
+    return out
+
+
+def sharded_deletes(stream, mesh, device: str):
+    """Inserts and slot-range deletions through the sharded engine (unit
+    weights) over ``stream``'s base graph: deletions in the middle of the
+    live prefix move survivors across rank boundaries.  Returns a report
+    of the final state (final_g, live edges, ticks, edges moved) and the
+    state."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.dist import graph as dg
+    from repro_torch.graphstore.structs import device_graph_from_coo
+
+    n, m_base = stream.n_vertices, stream.base_src.shape[0]
+    g = device_graph_from_coo(n, stream.base_src, stream.base_dst,
+                              n_capacity=-(-n // 512) * 512,
+                              e_capacity=-(-(m_base + 4 * 512) // 512) * 512, device=device)
+    state = dg.init_sharded_state(dg.shard_graph(g, mesh), mesh, eps=EPS)
+    rng = np.random.default_rng(5)
+    slots = torch.arange(state.graph.e_capacity, dtype=torch.int32, device=device)
+    moved = dg.STATS["moved_edges"]
+    for _ in range(4):
+        bs = torch.from_numpy(rng.integers(0, n, 512).astype(np.int32)).to(device)
+        bd = torch.from_numpy(rng.integers(0, n, 512).astype(np.int32)).to(device)
+        state = dg.sharded_insert_and_maintain(state, bs, bd, torch.ones(512, device=device),
+                                               bs != bd, mesh, eps=EPS, max_rounds=MAX_ROUNDS)
+        lo = int(rng.integers(0, m_base // 2))
+        drop = (slots >= lo) & (slots < lo + int(rng.integers(1, 2048)))
+        state = dg.sharded_delete_and_maintain(state, drop, mesh, eps=EPS,
+                                               max_rounds=MAX_ROUNDS)
+    rep = SimpleNamespace(final_g=float(state.best_g), live_edges=int(state.edge_count),
+                          n_ticks=8, moved_edges=dg.STATS["moved_edges"] - moved)
+    return rep, state_to_numpy(state)
+
+
+def phase_sharded_small() -> dict:
+    """13c: four gloo ranks on cuda against the same four on cpu (phase 12a's
+    stream, window SHARD_SMALL["window"]): DG fused and predictive workset
+    bit for bit, DW within SHARD_RTOL; every rank's replicated state the
+    same."""
+    from repro_torch.dist import spawn
+
+    p = SHARD_SMALL
+    t0 = time.perf_counter()
+    ranks = spawn(small_rank, p["world"], backend="gloo", device=DEVICE,
+                  args=(p, DEVICE, grab_config()), timeout=SHARD_TIMEOUT)
+    out = {"seconds": time.perf_counter() - t0, "launches": {}}
+    for tag in ranks[0]:
+        for r in ranks[1:]:
+            same_state(f"13c {tag}: rank 0 vs another rank", r[tag]["cuda"][1],
+                       ranks[0][tag]["cuda"][1], fields=SHARD_STATE)
+        for r in ranks:
+            (rep, got), (rep1, want) = r[tag]["cuda"], r[tag]["cpu"]
+            # DW's weights are computed on each device (its float32 math may
+            # differ by an ulp): the layout is held exactly, c through final_g
+            same_state(f"13c {tag} edges", got, want,
+                       fields=("src", "dst", "edge_mask", "edge_count"))
+            if tag.startswith("DG"):
+                same_state(f"13c {tag}", got, want)
+                check(rep.final_g == rep1.final_g, f"13c {tag}: final_g differs")
+            else:
+                check(abs(rep.final_g - rep1.final_g) <= SHARD_RTOL * abs(rep1.final_g),
+                      f"13c {tag}: final_g {rep.final_g!r} vs cpu {rep1.final_g!r}")
+        out["launches"][tag] = {k: sum(r[tag]["launches"][k] for r in ranks)
+                                for k in ranks[0][tag]["launches"]}
+        split = [r[tag]["split"] for r in ranks]
+        check(all(vector_split_ok(x) for x in split),
+              f"13c {tag}: K2's launches left the vector path: {split!r}")
+        rep = ranks[0][tag]["cuda"][0]
+        moved = getattr(rep, "moved_edges", None)
+        if moved is not None:
+            check(moved > 0, f"13c {tag}: no edge changed rank")
+            out["moved_edges"] = moved
+        log(f"13c {tag} world {p['world']} (gloo) on cuda == the same on cpu "
+            f"({'bit for bit' if tag.startswith('DG') else f'rtol {SHARD_RTOL}'}): "
+            f"final_g {rep.final_g!r}, live_edges {rep.live_edges}, {rep.n_ticks} ticks, "
+            + (f"{moved} edges moved across ranks, " if moved is not None else "")
+            + f"launches {out['launches'][tag]!r}")
+    return out
+
+
+def phase_sharded(stream) -> dict:
+    import torch
+
+    if DEVICE == "cuda":  # the spawned ranks need room on the card
+        torch.cuda.empty_cache()
+        log(f"phase 13: this process holds {torch.cuda.memory_reserved() / 2**30!r} GiB "
+            f"of the card before the ranks start")
+    t0 = time.perf_counter()
+    out = {"grab_world1": phase_sharded_grab(stream)}
+    log(f"13a: {time.perf_counter() - t0!r} s")
+    t1 = time.perf_counter()
+    out["grab_world2"] = phase_sharded_pair(stream)
+    log(f"13b: {time.perf_counter() - t1!r} s")
+    t1 = time.perf_counter()
+    out["small_world4"] = phase_sharded_small()
+    log(f"13c: {time.perf_counter() - t1!r} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -2394,7 +2989,6 @@ def main() -> int:
     log("phase 5: a tick's K2 rounds and prologue recorded and timed"
         + (", and the tick traced" if args.profile_ticks else ""))
 
-    del stream
     t_lm = time.perf_counter()
     attn, attn_norm = phase_attention(LM_SEED)
     attn_simt = phase_attention_simt(LM_SEED)
@@ -2431,6 +3025,14 @@ def main() -> int:
         f"{time.perf_counter() - t_cross!r} s on {smi}; launches off the main path "
         f"{cross['launches']!r}")
 
+    # phase 13 launches K1, K2 and suffix_init off the main path too (13a in
+    # this process, 13b and 13c in spawned ranks): logged apart
+    sharded = phase_sharded(stream)
+    del stream
+    log(f"phase 13: the edge-sharded engine on {smi}: world 1 (nccl) and world 2 (gloo) "
+        f"held against the single-device engine at Grab4 width, world 4 (gloo) cuda == "
+        f"cpu; {sharded['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -2449,7 +3051,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/frontier_spmv.cu",
          "replaces": "src/repro/core/peel.py:324",
          "launches": grab["launches"]["suffix_init"], "bound_by": "bytes",
-         "library_ms": None, **tick["suffix_init"]},
+         "library_ms": None, **tick["suffix_init"],
+         **{f"f64_mode_{k}": v for k, v in rec["suffix_init_f64"].items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
@@ -2473,7 +3076,8 @@ def main() -> int:
              "attention_simt": attn_simt,
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
-             "gcn_cora": gcn, "cross_plane": cross}, indent=1))
+             "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded}, indent=1,
+            default=repr))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

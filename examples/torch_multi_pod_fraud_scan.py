@@ -1,7 +1,8 @@
 """Device-plane example on the PyTorch port (the torch twin of
 ``examples/multi_pod_fraud_scan.py``): bulk peeling + incremental
 maintenance of a million-edge evolving graph with the device engine, on
-one device (the mesh-sharded engine is ROADMAP A.9).
+one device.  The edge-sharded engine over several ranks is
+``repro_torch.dist`` (``python -m repro_torch.launch.serve --mesh N``).
 
     PYTHONPATH=src python examples/torch_multi_pod_fraud_scan.py [--device cpu]
 

@@ -127,16 +127,34 @@ class _SlideBookkeeping(NamedTuple):
     r0: torch.Tensor
     keep: torch.Tensor
     prior_g: torch.Tensor
+    # (src, dst, c, mask) of the dropped edges in slot order, when the
+    # caller gathered them (the edge-sharded engine); else None and
+    # _tick_w0 reads them from the state's graph
+    drop_lanes: tuple | None = None
 
 
 def _masked_min(mask, values) -> torch.Tensor:
     return torch.where(mask, values, _LEVEL_NEW).min()
 
 
+def _drop_terms(state: DeviceSpadeState, dropped) -> tuple:
+    """What the prologue needs of the dropped slots: their least endpoint
+    level, whether there is one, and the old community's exact density
+    loss in the post-deletion graph (the dropped mass with both endpoints
+    inside S^P)."""
+    g0 = state.graph
+    lvl = torch.minimum(_masked_min(dropped, state.level[g0.src]),
+                        _masked_min(dropped, state.level[g0.dst]))
+    in_comm = state.community[g0.src] & state.community[g0.dst]
+    return lvl, dropped.any(), torch.where(dropped & in_comm, g0.c, 0.0).sum()
+
+
 def _slide_prologue(state: DeviceSpadeState, drop, src, dst,
-                    valid) -> _SlideBookkeeping:
+                    valid, drop_terms=_drop_terms) -> _SlideBookkeeping:
     """``drop = None`` marks an insert-only tick: the dropped bookkeeping
-    is skipped entirely."""
+    is skipped entirely.  ``drop_terms(state, dropped)`` gives
+    :func:`_drop_terms`' three values; the edge-sharded engine passes one
+    that reduces them across its ranks."""
     g0 = state.graph
     dev = g0.device
     n_new = valid.sum().to(torch.int32)
@@ -151,16 +169,9 @@ def _slide_prologue(state: DeviceSpadeState, drop, src, dst,
         cd = torch.where(dropped, g0.c, 0.0)
         # affected suffix start: min endpoint level over dropped AND
         # inserted edges
-        lvl = torch.minimum(
-            torch.minimum(_masked_min(dropped, state.level[g0.src]),
-                          _masked_min(dropped, state.level[g0.dst])),
-            lvl,
-        )
-        any_update = dropped.any() | (n_new > 0)
-        # exact density loss of the old community in the post-deletion
-        # graph: the dropped mass with both endpoints inside S^P
-        in_comm = state.community[g0.src] & state.community[g0.dst]
-        comm_loss = torch.where(dropped & in_comm, g0.c, 0.0).sum()
+        lvl_drop, any_drop, comm_loss = drop_terms(state, dropped)
+        lvl = torch.minimum(lvl_drop, lvl)
+        any_update = any_drop | (n_new > 0)
     r0 = torch.where(any_update, lvl, _LEVEL_NEW)
     r0 = torch.clamp(r0, max=_R0_CAP)
     # re-seed the best tracker with the old community's exact
@@ -235,7 +246,10 @@ def _tick_w0(state: DeviceSpadeState, bk: _SlideBookkeeping, src, dst, c, valid,
         return torch.where(valid & (x >= 0) & (x < V), x, V)
 
     bsrc, bdst = end(src), end(dst)
-    if with_drops and d_bucket:
+    if with_drops and bk.drop_lanes is not None:
+        ds, dd, dc, dm = bk.drop_lanes
+        lanes = [ds, bsrc], [dd, bdst], [-dc, cv], [dm, valid]
+    elif with_drops and d_bucket:
         E = g0.e_capacity
         dsum = torch.cumsum(bk.dropped.to(torch.int32), 0, dtype=torch.int32)
         lane = torch.arange(d_bucket, dtype=torch.int32, device=g0.device)
@@ -332,31 +346,48 @@ def _slide_phase_a(state, drop, src, dst, c, valid):
     return g, bk, n_removed, nv, ne
 
 
+class _Peels(NamedTuple):
+    """The two warm peels a dispatcher chooses between, and the edge
+    capacity its edge buckets are sized against: the single-device
+    engine's (:func:`_local_peels`), or the edge-sharded engine's, whose
+    edge buckets are per rank (``repro_torch.dist.graph``)."""
+
+    warm: object  # (g, keep, prior_best_g, eps, max_rounds) -> PeelResultDevice
+    workset: object  # the same, with keyword v_bucket and e_bucket
+    e_capacity: int
+
+
+def _local_peels(g: DeviceGraph) -> _Peels:
+    return _Peels(bulk_peel_warm, bulk_peel_warm_workset, g.e_capacity)
+
+
 def _phase_b(state, g, bk, n_removed, src, dst, c, valid, eps, max_rounds,
              v_bucket: int = 0, e_bucket: int = 0, with_drops: bool = True,
-             d_bucket: int = 0) -> DeviceSpadeState:
+             d_bucket: int = 0, peels: _Peels | None = None) -> DeviceSpadeState:
     """Warm re-peel + state merge.  ``v_bucket/e_bucket = 0`` selects the
     full-buffer fallback; otherwise the bucketed workset path."""
+    peels = peels or _local_peels(state.graph)
     if v_bucket and e_bucket:
-        res = bulk_peel_warm_workset(
-            g, bk.keep, prior_best_g=bk.prior_g, eps=eps,
+        res = peels.workset(
+            g, bk.keep, bk.prior_g, eps=eps,
             max_rounds=max_rounds, v_bucket=v_bucket, e_bucket=e_bucket,
         )
     else:
-        res = bulk_peel_warm(g, bk.keep, prior_best_g=bk.prior_g, eps=eps,
-                             max_rounds=max_rounds)
+        res = peels.warm(g, bk.keep, bk.prior_g, eps=eps, max_rounds=max_rounds)
     return _slide_epilogue(state, g, res, bk, n_removed, src, dst, c, valid,
                            with_drops=with_drops, d_bucket=d_bucket)
 
 
 def _dispatch_phase_b(state, g, bk, n_removed, src, dst, c, valid, nv, ne,
-                      eps, max_rounds, min_bucket, with_drops=True
+                      eps, max_rounds, min_bucket, with_drops=True,
+                      peels: _Peels | None = None
                       ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
+    peels = peels or _local_peels(state.graph)
     n_cap, e_cap = state.graph.n_capacity, state.graph.e_capacity
     # the tick's one device->host read: three scalars in one transfer
     nv_i, ne_i, nd_i = host_read(torch.stack([nv, ne, n_removed]))
     bv = select_bucket(nv_i, n_cap, floor=min_bucket)
-    be = select_bucket(ne_i, e_cap, floor=min_bucket)
+    be = select_bucket(ne_i, peels.e_capacity, floor=min_bucket)
     if bv is None or be is None:  # suffix too large: full-buffer fallback
         bv = be = 0
     with_drops = with_drops and nd_i > 0
@@ -365,7 +396,7 @@ def _dispatch_phase_b(state, g, bk, n_removed, src, dst, c, valid, nv, ne,
         bd = select_bucket(nd_i, e_cap, floor=min_bucket) or 0
     new_state = _phase_b(state, g, bk, n_removed, src, dst, c, valid, eps,
                          max_rounds, v_bucket=bv, e_bucket=be,
-                         with_drops=with_drops, d_bucket=bd)
+                         with_drops=with_drops, d_bucket=bd, peels=peels)
     return new_state, WorksetTickInfo(nv_i, ne_i, bv, be, not (bv and be))
 
 
@@ -434,7 +465,7 @@ class BucketPredictor:
 def _predictive_dispatch(
     state, g, bk, n_removed, src, dst, c, valid, nv, ne,
     predictor: BucketPredictor, eps, max_rounds, with_drops=True,
-    n_dropped=None,
+    n_dropped=None, peels: _Peels | None = None,
 ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
     """``n_dropped`` is the host's count of live edges in the drop mask
     (the windowed service knows it from its ring), which sizes the
@@ -445,7 +476,7 @@ def _predictive_dispatch(
         # no history yet: the synced dispatch seeds the predictor
         new_state, info = _dispatch_phase_b(
             state, g, bk, n_removed, src, dst, c, valid, nv, ne, eps,
-            max_rounds, predictor.min_bucket, with_drops=with_drops,
+            max_rounds, predictor.min_bucket, with_drops=with_drops, peels=peels,
         )
         predictor.observe(info.n_suffix_vertices, info.n_suffix_edges)
         return new_state, info
@@ -461,15 +492,18 @@ def _predictive_dispatch(
     bv, be = pred
     hit = False
     if bv and be:
+        peels = peels or _local_peels(state.graph)
         res, hit = bulk_peel_warm_checked(
             g, bk.keep, bk.prior_g, nv_i, ne_i, eps=eps,
             max_rounds=max_rounds, v_bucket=bv, e_bucket=be,
+            warm=peels.warm, workset=peels.workset,
         )
         new_state = _slide_epilogue(state, g, res, bk, n_removed, src, dst,
                                     c, valid, with_drops=wd, d_bucket=bd)
     else:  # recent suffixes outgrew the ladder: full buffer, no check
         new_state = _phase_b(state, g, bk, n_removed, src, dst, c, valid,
-                             eps, max_rounds, with_drops=wd, d_bucket=bd)
+                             eps, max_rounds, with_drops=wd, d_bucket=bd,
+                             peels=peels)
     predictor.observe(nv_i, ne_i)
     return new_state, WorksetTickInfo(
         nv_i, ne_i,

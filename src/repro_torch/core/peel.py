@@ -179,7 +179,7 @@ def _scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
+def _round_step(src, dst, c, a, eps: float, s: _BulkState, reduce=None) -> _BulkState:
     """One bulk-peeling round over explicit COO arrays (the full buffer, or
     the gathered workset with locally relabeled endpoints).
 
@@ -193,6 +193,10 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
     edge kernel updates ``s.edge_alive`` in place and adds into ``s.dw``,
     which the elementwise kernel reads and leaves zeroed; the new state
     keeps both tensors.
+
+    ``reduce(dw, drop_mass) -> drop_mass``, when given, runs between the
+    two kernels: the edge-sharded engine (``repro_torch.dist.graph``) sums
+    the ranks' ``dw`` and dropped mass there, in place in ``dw``.
     """
     g_cur = s.f / torch.clamp(s.n_act, min=1).to(torch.float32)
     improved = (g_cur > s.best_g) & (s.n_act > 0)
@@ -207,6 +211,8 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
     eff_thresh = torch.where((s.active & (s.w <= thresh)).any(), thresh, wmin)
     peel = s.active & (s.w <= eff_thresh)
     dw, drop_mass = frontier_spmv(src, dst, c, s.edge_alive, peel, s.dw)
+    if reduce is not None:
+        drop_mass = reduce(dw, drop_mass)
     w, active, level, _, partials = peel_round(
         s.w, a, s.active, s.level, dw, eff_thresh, s.round_
     )
@@ -225,23 +231,24 @@ def _round_step(src, dst, c, a, eps: float, s: _BulkState) -> _BulkState:
 
 
 def _run_rounds(src, dst, c, a, eps: float, s: _BulkState,
-                max_rounds: int) -> _BulkState:
+                max_rounds: int, reduce=None) -> _BulkState:
     if max_rounds > 0:
         for _ in range(max_rounds):
-            s = _round_step(src, dst, c, a, eps, s)
+            s = _round_step(src, dst, c, a, eps, s, reduce)
         return s
     while host_read(s.n_act)[0] > 0:
-        s = _round_step(src, dst, c, a, eps, s)
+        s = _round_step(src, dst, c, a, eps, s, reduce)
     return s
 
 
-def _init_state(w0, active, edge_alive, f0, best_g) -> _BulkState:
+def _init_state(w0, active, edge_alive, f0, best_g, dw=None) -> _BulkState:
+    """``dw``: the peel's float64 accumulator, zeros (a fresh one if None)."""
     dev = w0.device
     return _BulkState(
         w=w0,
         active=active,
         edge_alive=edge_alive,
-        dw=torch.zeros(w0.shape, dtype=torch.float64, device=dev),
+        dw=torch.zeros(w0.shape, dtype=torch.float64, device=dev) if dw is None else dw,
         f=f0,
         n_act=active.sum().to(torch.int32),
         level=torch.full(w0.shape, -1, dtype=torch.int32, device=dev),
@@ -431,6 +438,8 @@ def bulk_peel_warm_checked(
     *,
     v_bucket: int,
     e_bucket: int,
+    warm=None,
+    workset=None,
 ) -> tuple[PeelResultDevice, bool]:
     """Warm peel with a bucket-fit check: the workset path when this tick's
     counts ``nv/ne`` fit the predicted buckets, else the full-buffer warm
@@ -439,14 +448,16 @@ def bulk_peel_warm_checked(
     The reference decides on the device (``lax.cond``).  Eager torch has no
     device-side branch, so here the counts come in as host integers — the
     caller's one blocking read per tick — and the branch is taken on the
-    host.  Returns ``(result, fits)``.
+    host.  ``warm``/``workset`` replace :func:`bulk_peel_warm` and
+    :func:`bulk_peel_warm_workset` (the edge-sharded engine passes its
+    own).  Returns ``(result, fits)``.
     """
     fits = nv <= v_bucket and ne <= e_bucket
     if fits:
-        res = bulk_peel_warm_workset(g, keep, prior_best_g, eps=eps,
-                                     max_rounds=max_rounds,
-                                     v_bucket=v_bucket, e_bucket=e_bucket)
+        res = (workset or bulk_peel_warm_workset)(
+            g, keep, prior_best_g, eps=eps, max_rounds=max_rounds,
+            v_bucket=v_bucket, e_bucket=e_bucket)
     else:
-        res = bulk_peel_warm(g, keep, prior_best_g, eps=eps,
-                             max_rounds=max_rounds)
+        res = (warm or bulk_peel_warm)(g, keep, prior_best_g, eps=eps,
+                                       max_rounds=max_rounds)
     return res, fits

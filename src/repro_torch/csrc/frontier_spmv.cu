@@ -190,6 +190,11 @@ __global__ void __launch_bounds__(spade::kThreads, 3) frontier_spmv_kernel(
 //           holds every float32 exactly), and write
 //           w0 = live ? float(double(a) + acc) : 0, coalesced; the last
 //           block sums the vertex and edge partials into f0 in block order.
+// The float64 mode (acc64 not null) writes the accumulators instead, for
+// an edge-sharded peel that adds the ranks' sums before it rounds:
+// acc64[v] = acc (no a, not rounded; 0 off live), acc64[V] = the edge sum
+// of f0 (the float32 block-order sum, widened), f0 = the vertex sum alone;
+// w0 is not written.
 // The counts, cursors and tickets are left 0 (as the round's ticket); the
 // pair buffer is scratch the wrapper keeps per device.
 
@@ -428,8 +433,8 @@ __global__ void __launch_bounds__(kBinThreads, 2) suffix_init_bins_kernel(
     const uint2* __restrict__ pairs, const uint32_t* __restrict__ bin_start,
     const uint8_t* __restrict__ live, const float* __restrict__ a, float* __restrict__ w0,
     float* __restrict__ vpartials, const float* __restrict__ epartials, int n_eblocks,
-    unsigned* __restrict__ ticket, float* __restrict__ f0_out, int64_t n_vertices,
-    int shift) {
+    unsigned* __restrict__ ticket, float* __restrict__ f0_out, double* __restrict__ acc_out,
+    int64_t n_vertices, int shift) {
   constexpr int NW = kBinThreads / 32;
   extern __shared__ double acc[];  // [2^shift]
   __shared__ float scratch[NW];
@@ -458,13 +463,21 @@ __global__ void __launch_bounds__(kBinThreads, 2) suffix_init_bins_kernel(
       sum += av;
       x = (float)((double)av + acc[k]);
     }
-    w0[lo + k] = x;
+    if (acc_out)
+      acc_out[lo + k] = acc[k];
+    else
+      w0[lo + k] = x;
   }
   if (last_block<NW>(sum, vpartials, ticket, scratch)) {
     const float vsum = ordered_sum<NW>(vpartials, gridDim.x, scratch);
     const float esum = ordered_sum<NW>(epartials, n_eblocks, scratch);
     if (threadIdx.x == 0) {
-      *f0_out = vsum + esum;
+      if (acc_out) {
+        acc_out[n_vertices] = (double)esum;
+        *f0_out = vsum;
+      } else {
+        *f0_out = vsum + esum;
+      }
       *ticket = 0u;
     }
   }
@@ -542,12 +555,13 @@ extern "C" int frontier_spmv_launch(const void* src, const void* dst, const void
 // uint32s; `pairs` room for two pairs (8 B each) a slot; `epartials` room
 // for `cap` floats and `vpartials` for n_bins.  Vector groups of 16 slots
 // cover [0, 16 * n_groups) in the count pass; `vec` lets the scatter pass
-// read whole groups of 16 slots as vectors.
+// read whole groups of 16 slots as vectors.  `acc64` null, or V + 1
+// doubles: the float64 mode (the bins kernel above).
 extern "C" int suffix_init_launch(const void* src, const void* dst, const void* c,
                                   const void* emask, const void* live, const void* a,
                                   void* w0, void* both, void* pairs, void* bin_count,
                                   void* bin_start, void* cursor, void* ticket,
-                                  void* epartials, void* vpartials, void* f0,
+                                  void* epartials, void* vpartials, void* f0, void* acc64,
                                   int64_t n_edges, int64_t n_vertices, int64_t n_groups,
                                   int vec, int shift, int cap, void* stream) {
   auto st = (cudaStream_t)stream;
@@ -579,6 +593,6 @@ extern "C" int suffix_init_launch(const void* src, const void* dst, const void* 
   suffix_init_bins_kernel<<<n_bins, kBinThreads, bins_smem, st>>>(
       (const uint2*)pairs, (const uint32_t*)bin_start, (const uint8_t*)live, (const float*)a,
       (float*)w0, (float*)vpartials, (const float*)epartials, nbs, tickets + 1, (float*)f0,
-      n_vertices, shift);
+      (double*)acc64, n_vertices, shift);
   return (int)cudaGetLastError();
 }

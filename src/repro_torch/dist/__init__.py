@@ -1,0 +1,49 @@
+"""The dist plane on ``torch.distributed``: the edge-sharded Spade engine
+(:mod:`repro_torch.dist.graph`) and :func:`spawn`, which starts a job's
+ranks on one host."""
+
+from .graph import (
+    STATS,
+    TIME_REDUCES,
+    ShardedGraph,
+    init_sharded_state,
+    reset_stats,
+    shard_graph,
+    sharded_bulk_peel,
+    sharded_bulk_peel_warm,
+    sharded_bulk_peel_warm_workset,
+    sharded_delete_and_maintain,
+    sharded_full_refresh,
+    sharded_insert_and_maintain,
+    sharded_insert_and_maintain_auto,
+    sharded_insert_and_maintain_predictive,
+    sharded_peel_weights,
+    sharded_slide_and_maintain,
+    sharded_slide_and_maintain_auto,
+    sharded_slide_and_maintain_predictive,
+    sharded_workset_sizes,
+)
+from .spawn import spawn
+
+__all__ = [
+    "STATS",
+    "TIME_REDUCES",
+    "ShardedGraph",
+    "init_sharded_state",
+    "reset_stats",
+    "shard_graph",
+    "sharded_bulk_peel",
+    "sharded_bulk_peel_warm",
+    "sharded_bulk_peel_warm_workset",
+    "sharded_delete_and_maintain",
+    "sharded_full_refresh",
+    "sharded_insert_and_maintain",
+    "sharded_insert_and_maintain_auto",
+    "sharded_insert_and_maintain_predictive",
+    "sharded_peel_weights",
+    "sharded_slide_and_maintain",
+    "sharded_slide_and_maintain_auto",
+    "sharded_slide_and_maintain_predictive",
+    "sharded_workset_sizes",
+    "spawn",
+]

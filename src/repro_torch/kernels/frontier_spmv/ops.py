@@ -15,7 +15,10 @@
   scatter of (vertex, c) pairs binned by vertex range, and one CTA a bin
   adding its pairs in shared memory.  Its bins (:func:`bin_shift`) and its
   pair buffer (:func:`prologue_scratch_bytes`, kept per device and grown to
-  the largest E seen) are sized here.
+  the largest E seen) are sized here.  Its float64 mode (``acc=``) hands
+  back the sums before ``a`` is added and before rounding, so an
+  edge-sharded peel (``repro_torch.dist.graph``) adds the ranks' sums in
+  float64 and rounds once.
 
 On CPU tensors each runs its plain version (:mod:`.ref`), which keeps the
 same contract; on CUDA tensors each launches its kernel or raises.
@@ -37,6 +40,11 @@ __all__ = ["frontier_spmv", "suffix_init", "launches", "suffix_init_launches", "
 
 launches = 0
 suffix_init_launches = 0
+# how K2's round launches split their slots (_vector_split): the slots
+# before alive's first 16-byte boundary, on the scalar path, and the
+# launches whose word arrays were off the vector alignment (all scalar)
+head_slots = 0
+unaligned_launches = 0
 _SLOTS = 16  # edge slots per thread on the vector path (one 16-byte alive load)
 _CAP = 4096  # most blocks of one launch: room for their partial sums
 _VEC = 16  # bytes of one vector load
@@ -47,7 +55,7 @@ _PAIR_BYTES = 8  # a (vertex, c) pair of the prologue's scatter
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ROUND_ARGS = [_P] * 9 + [_I64] * 3 + [ctypes.c_int, _P]
-_SUFFIX_ARGS = [_P] * 16 + [_I64] * 3 + [ctypes.c_int] * 3 + [_P]
+_SUFFIX_ARGS = [_P] * 17 + [_I64] * 3 + [ctypes.c_int] * 3 + [_P]
 
 
 def _vector_split(n: int, alive_ptr: int, *word_ptrs: int) -> tuple[int, int]:
@@ -134,7 +142,7 @@ def frontier_spmv(src, dst, c, alive, peel, dw):
     Views are taken as they are; slots before alive's first 16-byte
     boundary run on the kernel's scalar path.
     """
-    global launches
+    global launches, head_slots, unaligned_launches
     dev = src.device
     if dev.type == "cpu":
         return frontier_spmv_ref(src, dst, c, alive, peel, dw)
@@ -158,10 +166,12 @@ def frontier_spmv(src, dst, c, alive, peel, dw):
              drop.data_ptr(), E, head, n_groups, _CAP, _launch.stream_ptr(dev))
     _launch.check(err, "frontier_spmv_launch")
     launches += 1
+    head_slots += head
+    unaligned_launches += n_groups == 0 and E - head >= _SLOTS
     return dw, drop
 
 
-def suffix_init(src, dst, c, edge_mask, live, a):
+def suffix_init(src, dst, c, edge_mask, live, a, acc=None):
     """Returns ``(w0 [V] float32, f0 float32 scalar, both [E] bool)``:
     ``both = live[src] & live[dst] & edge_mask``; ``w0`` is
     ``where(live, a, 0)`` plus the ``both``-masked ``c`` scattered to both
@@ -169,11 +179,19 @@ def suffix_init(src, dst, c, edge_mask, live, a):
 
     ``src/dst`` int32 [E], ``c`` float32 [E], ``edge_mask`` bool [E],
     ``live`` bool [V], ``a`` float32 [V].  ``both`` is a fresh tensor.
+
+    The float64 mode: given ``acc``, a float64 [V + 1] tensor, writes the
+    ``both``-masked ``c`` at each vertex into ``acc[:V]`` (float64, no
+    ``a``, not rounded) and the edge part of ``f0`` into ``acc[V]`` (the
+    float32 sum, widened), and returns ``(acc, vsum, both)`` with ``vsum``
+    the float32 sum of ``where(live, a, 0)``.  Then
+    ``where(live, float(double(a) + acc[:V]), 0)`` is ``w0`` and
+    ``float(double(vsum) + acc[V])`` is ``f0``, bit for bit.
     """
     global suffix_init_launches
     dev = src.device
     if dev.type == "cpu":
-        return suffix_init_ref(src, dst, c, edge_mask, live, a)
+        return suffix_init_ref(src, dst, c, edge_mask, live, a, acc=acc)
     if dev.type != "cuda":
         raise ValueError(f"suffix_init: unsupported device {dev}")
     E, V = src.shape[0], live.shape[0]
@@ -183,11 +201,13 @@ def suffix_init(src, dst, c, edge_mask, live, a):
     _launch.require(edge_mask, "edge_mask", torch.bool, dev, numel=E)
     _launch.require(live, "live", torch.bool, dev, numel=V)
     _launch.require(a, "a", torch.float32, dev, numel=V)
+    if acc is not None:
+        _launch.require(acc, "acc", torch.float64, dev, numel=V + 1)
     if E >= 1 << 31:
         raise ValueError(f"suffix_init: {E} slots; the pair buffer is indexed by uint32")
     shift = bin_shift(V)
     scratch = _prologue_scratch(dev, E)
-    w0 = torch.empty(V, dtype=torch.float32, device=dev)
+    w0 = torch.empty(V, dtype=torch.float32, device=dev) if acc is None else acc
     f0 = torch.empty((), dtype=torch.float32, device=dev)
     both = torch.empty(E, dtype=torch.bool, device=dev)
     aligned = all(t.data_ptr() % _VEC == 0 for t in (src, dst, edge_mask, both))
@@ -195,8 +215,10 @@ def suffix_init(src, dst, c, edge_mask, live, a):
     vec = int(aligned and c.data_ptr() % _VEC == 0)
     fn = _launch.bind("frontier_spmv", "suffix_init_launch", _SUFFIX_ARGS)
     err = fn(src.data_ptr(), dst.data_ptr(), c.data_ptr(), edge_mask.data_ptr(),
-             live.data_ptr(), a.data_ptr(), w0.data_ptr(), both.data_ptr(), *scratch.ptrs(),
-             f0.data_ptr(), E, V, n_groups, vec, shift, _CAP, _launch.stream_ptr(dev))
+             live.data_ptr(), a.data_ptr(), None if acc is not None else w0.data_ptr(),
+             both.data_ptr(), *scratch.ptrs(), f0.data_ptr(),
+             None if acc is None else acc.data_ptr(), E, V, n_groups, vec, shift, _CAP,
+             _launch.stream_ptr(dev))
     _launch.check(err, "suffix_init_launch")
     suffix_init_launches += 1
     return w0, f0, both

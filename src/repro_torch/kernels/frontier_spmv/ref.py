@@ -39,13 +39,25 @@ def frontier_spmv_ref(src, dst, c, alive, peel, dw):
     return dw, drop_mass
 
 
-def suffix_init_ref(src, dst, c, edge_mask, live, a):
+def suffix_init_ref(src, dst, c, edge_mask, live, a, acc=None):
     """Returns ``(w0 [V], f0, both [E])`` of the vertex set ``live``:
     ``both`` marks the live edges with both ends in it, ``w0[v]`` is
     ``a[v]`` plus the weight of its ``both`` edges (``v`` in ``live``, else
-    0) and ``f0`` is the set's total weight."""
+    0) and ``f0`` is the set's total weight.
+
+    The float64 mode (``acc``, float64 [V + 1]) writes the weight of each
+    vertex's ``both`` edges, summed in float64, into ``acc[:V]`` and the
+    float32 sum of the ``both``-masked ``c`` into ``acc[V]``, and returns
+    ``(acc, the float32 sum of where(live, a, 0), both)``."""
     both = live[src] & live[dst] & edge_mask
     cm = torch.where(both, c, 0.0)
+    if acc is not None:
+        V = live.shape[0]
+        cm64 = cm.to(torch.float64)
+        acc.zero_()
+        acc[:V].index_add_(0, src, cm64).index_add_(0, dst, cm64)
+        acc[V] = cm.sum()
+        return acc, torch.where(live, a, 0.0).sum(), both
     w0 = torch.where(live, a, 0.0)
     z = torch.zeros_like(w0)
     w0 = (w0 + z.index_add(0, src, cm)) + z.index_add(0, dst, cm)

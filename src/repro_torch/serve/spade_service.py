@@ -18,7 +18,10 @@ before the first tick.
 
 ``EngineSpec.device`` picks the device plane's device: ``None`` means
 ``cuda`` and raises without a GPU; ``"cpu"`` runs the plain PyTorch path.
-The mesh-sharded engine is not ported yet (ROADMAP A.9).
+``EngineSpec(mesh=DeviceMesh, shard_axis=...)`` serves through the
+edge-sharded engine (:mod:`repro_torch.dist.graph`): every rank of the
+mesh runs the service on the same stream, holds its block of the edge
+buffers and gets the same report (tick times are the slowest rank's).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.incremental import (
     BucketPredictor,
@@ -47,6 +52,17 @@ from repro_torch.core.incremental import (
 from repro_torch.core.metrics import DensityMetric
 from repro_torch.core.semantics import SuspSemantics, resolve
 from repro_torch.device import resolve_device
+from repro_torch.dist.graph import (
+    init_sharded_state,
+    shard_graph,
+    sharded_full_refresh,
+    sharded_insert_and_maintain,
+    sharded_insert_and_maintain_auto,
+    sharded_insert_and_maintain_predictive,
+    sharded_slide_and_maintain,
+    sharded_slide_and_maintain_auto,
+    sharded_slide_and_maintain_predictive,
+)
 from repro_torch.graphstore.generators import TxStream
 from repro_torch.graphstore.structs import device_graph_from_coo
 from repro_torch.serve.service import _run_host_service
@@ -58,7 +74,10 @@ __all__ = ["EngineSpec", "SpadeService", "DeviceServiceReport"]
 class EngineSpec:
     """Declarative serving-engine configuration (the *where and how*).
 
-    Device-plane fields as in the reference: ``window_ticks`` (N-tick
+    Device-plane fields as in the reference: ``mesh``/``shard_axis`` (a
+    ``torch.distributed`` ``DeviceMesh`` and the name of its dim the edge
+    buffers are cut along; vertex state replicated; the mesh's device type
+    must be ``device``'s), ``window_ticks`` (N-tick
     sliding window; 0 = unbounded insert-only), ``workset`` (affected-area
     engine), ``predictive`` (previous-tick bucket prediction; ignored
     unless ``workset``), ``min_bucket``, ``batch_edges`` (tick size),
@@ -74,12 +93,12 @@ class EngineSpec:
 
     ``batch_edges = None`` resolves per plane — 1024-edge device ticks,
     per-edge (batch 1) host reorders, the paper's deployment shape for
-    each.  ``mesh`` is accepted only to raise ``NotImplementedError``: the
-    mesh-sharded engine is ROADMAP A.9.
+    each.  A ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError``.
     """
 
     plane: str = "device"
-    mesh: object | None = None
+    mesh: DeviceMesh | None = None
+    shard_axis: str = "data"
     batch_edges: int | None = None
     eps: float = 0.1
     max_rounds: int = 20
@@ -107,10 +126,9 @@ class EngineSpec:
                 raise ValueError(
                     "device is a device-plane setting; the host oracle runs "
                     "in NumPy on the host CPU")
-        elif self.mesh is not None:
-            raise NotImplementedError(
-                "repro_torch: the mesh-sharded engine is not ported yet "
-                "(ROADMAP A.9)")
+        elif self.mesh is not None and not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                            f"{type(self.mesh).__name__}")
 
     @property
     def effective_batch_edges(self) -> int:
@@ -170,6 +188,9 @@ class SpadeService:
         else:
             self.semantics = resolve(semantics)
         self.device = resolve_device(spec.device) if spec.plane == "device" else None
+        if spec.mesh is not None and spec.mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {spec.mesh.device_type}, the service on "
+                             f"{self.device}")
         self.final_state: DeviceSpadeState | None = None
 
     def run(self, stream: TxStream):
@@ -223,18 +244,33 @@ def _run_device_service(stream: TxStream, sem: SuspSemantics,
         device=device,
     )
     predictive = spec.workset and spec.predictive
-    state = init_state(g, eps=eps)
-    if predictive:
-        predictor = BucketPredictor(g.n_capacity, g.e_capacity,
-                                    min_bucket=spec.min_bucket)
-        maintain = partial(insert_and_maintain_predictive, predictor=predictor)
-        slide = partial(slide_and_maintain_predictive, predictor=predictor)
-    elif spec.workset:
-        maintain = partial(insert_and_maintain_auto, min_bucket=spec.min_bucket)
-        slide = partial(slide_and_maintain_auto, min_bucket=spec.min_bucket)
+    mesh, axis = spec.mesh, spec.shard_axis
+    if mesh is not None:
+        g = shard_graph(g, mesh, axis=axis)
+        state = init_sharded_state(g, mesh, axis=axis, eps=eps)
+        on_mesh = {"mesh": mesh, "axis": axis}
+        refresh = partial(sharded_full_refresh, **on_mesh)
+        e_bucket_cap = g.e_local  # the sharded workset's edge buckets are per rank
+        fused = (sharded_insert_and_maintain, sharded_slide_and_maintain)
+        auto = (sharded_insert_and_maintain_auto, sharded_slide_and_maintain_auto)
+        pred = (sharded_insert_and_maintain_predictive,
+                sharded_slide_and_maintain_predictive)
     else:
-        maintain = insert_and_maintain
-        slide = slide_and_maintain
+        state = init_state(g, eps=eps)
+        on_mesh = {}
+        refresh = full_refresh
+        e_bucket_cap = g.e_capacity
+        fused = (insert_and_maintain, slide_and_maintain)
+        auto = (insert_and_maintain_auto, slide_and_maintain_auto)
+        pred = (insert_and_maintain_predictive, slide_and_maintain_predictive)
+    if predictive:
+        predictor = BucketPredictor(g.n_capacity, e_bucket_cap,
+                                    min_bucket=spec.min_bucket)
+        maintain, slide = (partial(f, predictor=predictor, **on_mesh) for f in pred)
+    elif spec.workset:
+        maintain, slide = (partial(f, min_bucket=spec.min_bucket, **on_mesh) for f in auto)
+    else:
+        maintain, slide = (partial(f, **on_mesh) for f in fused)
     deg = torch.zeros(g.n_capacity, dtype=torch.int32, device=device)
     deg[:n] = torch.from_numpy(in_deg.astype(np.int32)).to(device)
 
@@ -300,10 +336,14 @@ def _run_device_service(stream: TxStream, sem: SuspSemantics,
             ever_detected |= state.community
         n_ticks += 1
         if spec.refresh_every and n_ticks % spec.refresh_every == 0:
-            state = full_refresh(state, eps=eps)
+            state = refresh(state, eps=eps)
             n_refresh += 1
 
     # drain the device-resident stats once, after the loop
+    if mesh is not None:  # one report on every rank: the slowest rank's ticks
+        t = torch.tensor(tick_seconds, dtype=torch.float64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
+        tick_seconds = t.tolist()
     benign_total = int(benign_acc)
     comm = torch.nonzero(ever_detected | state.community).flatten()
     fraud = set(stream.fraud_block.tolist())

@@ -2,11 +2,13 @@
 the CPU (the kernels' plain versions).
 
 ``test_custom_semantics_cross_plane_differential`` makes the checks of
-``tests/test_window_differential.py::test_custom_semantics_cross_plane_differential``
-on one device, with no mesh: a user semantics with a vertex prior through
-the port's host ``Spade`` (expiry by ``DeleteEdge``) and the port's fused
-and workset engines, with the JAX package's single-device fused engine
-taking the same ticks beside them.  On integer weights the window's edge
+``tests/test_window_differential.py::test_custom_semantics_cross_plane_differential``:
+a user semantics with a vertex prior through the port's host ``Spade``
+(expiry by ``DeleteEdge``) and the port's fused and workset engines, with
+the JAX package's single-device fused engine taking the same ticks beside
+them, and the port's edge-sharded engine (``state_sh``: two ``gloo``
+ranks on the CPU, spawned, replaying the same ticks and a last insert
+through the workset engine).  On integer weights the window's edge
 multiset, ``w0`` and the host funnel's batch weights are bit-identical
 across the planes, every engine's state is bit-identical, and ``best_g``
 is at most its community's density and the brute-forced optimum.
@@ -20,6 +22,7 @@ the CPU: 12a (insert-only ticks, DG, the parity semantics, DW and FD), 12b
 from __future__ import annotations
 
 import itertools
+import multiprocessing
 import sys
 from pathlib import Path
 
@@ -28,12 +31,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
+if multiprocessing.parent_process() is None:  # not in a spawned rank: no jax there
+    import jax.numpy as jnp
 
-from repro.core import incremental as ji  # noqa: E402
-from repro.core.semantics import SuspSemantics as JaxSemantics  # noqa: E402
-from repro.graphstore import structs as jst  # noqa: E402
+    from repro.core import incremental as ji
+    from repro.core.semantics import SuspSemantics as JaxSemantics
+    from repro.graphstore import structs as jst
 from repro_torch.convert import state_to_numpy  # noqa: E402
+from repro_torch.dist import spawn  # noqa: E402
 from repro_torch.core import Spade, peeling_weights_full  # noqa: E402
 from repro_torch.core import incremental as ti  # noqa: E402
 from repro_torch.core.peel import bulk_peel  # noqa: E402
@@ -135,6 +140,7 @@ def test_custom_semantics_cross_plane_differential():
     slots = torch.arange(E_CAP, dtype=torch.int32)
     jslots = jnp.arange(E_CAP, dtype=jnp.int32)
 
+    replay, want_sh = [], []  # the ticks for the sharded engine, and the states it must reach
     for t, batch in enumerate(ticks):
         expired = ring.pop(0) if len(ring) >= window else []
         bs = np.zeros(B, np.int32)
@@ -163,6 +169,8 @@ def test_custom_semantics_cross_plane_differential():
                                        jnp.asarray(valid), eps=EPS, max_rounds=MAX_ROUNDS)
         _same_state(state, state_ws, f"ws-tick{t}")
         _same_as_jax(state, jstate, f"jax-tick{t}")
+        replay.append((bs, bd, w.numpy(), valid, len(expired)))
+        want_sh.append(state_to_numpy(state))
 
         sp.InsertBatchEdges([(u, v, float(r)) for u, v, r in batch])
         for u, v, c in expired:
@@ -185,11 +193,60 @@ def test_custom_semantics_cross_plane_differential():
         assert float(state.best_g) <= g_comm + 1e-4
         assert float(state.best_g) <= _brute_best_density(mirror, a0) + 1e-4
 
+    # an insert-only tick through the workset engines, sharded included
+    last = [torch.tensor([0, 1, 2, 3], dtype=torch.int32),
+            torch.tensor([4, 5, 6, 7], dtype=torch.int32),
+            torch.tensor([2.0, 3.0, 1.0, 4.0]), torch.ones(4, dtype=torch.bool)]
+    w, deg = sem.batch_weights(deg, *last)
+    last[2] = w
+    state_ws, _ = ti.insert_and_maintain_auto(state_ws, *last, eps=EPS, max_rounds=MAX_ROUNDS,
+                                              min_bucket=4)
+    replay.append(tuple(x.numpy() for x in last))
+    want_sh.append(state_to_numpy(state_ws))
+
+    # the edge-sharded engine on two ranks: every tick's state, the ranks'
+    # blocks joined, bit for bit
+    ranks = spawn(_sharded_replay, 2, backend="gloo", device="cpu",
+                  args=((src, dst, base_w, a0), m_base, replay), timeout=300)
+    for t, want in enumerate(want_sh):
+        for r in ranks:
+            for f in ("level", "best_g", "community", "edge_count", "w0"):
+                np.testing.assert_array_equal(r[t][f], want[f], err_msg=f"sh-tick{t}:{f}")
+        for f in ("src", "dst", "c", "edge_mask"):
+            got = np.concatenate([r[t][f] for r in ranks])
+            np.testing.assert_array_equal(got, want[f], err_msg=f"sh-tick{t}:graph.{f}")
+
     # a full refresh agrees with a scratch bulk peel of the survivors
     refreshed = ti.full_refresh(state, eps=EPS)
     scratch = bulk_peel(state.graph, eps=EPS)
     np.testing.assert_array_equal(refreshed.level.numpy(), scratch.level.numpy())
     assert float(refreshed.best_g) == float(scratch.best_g)
+
+
+def _sharded_replay(mesh, base, m_base: int, replay) -> list[dict]:
+    """A rank of the sharded row: the window ticks through
+    ``sharded_slide_and_maintain``, the last (insert-only) tick through
+    ``sharded_insert_and_maintain_auto``; this rank's state after each."""
+    from repro_torch.dist import graph as dg
+
+    torch.set_num_threads(1)
+    src, dst, base_w, a0 = base
+    g = tst.device_graph_from_coo(N, src, dst, base_w, a=a0, n_capacity=V_CAP,
+                                  e_capacity=E_CAP, device="cpu")
+    state = dg.init_sharded_state(dg.shard_graph(g, mesh), mesh, eps=EPS)
+    slots = torch.arange(E_CAP, dtype=torch.int32)
+    out = []
+    for tick in replay[:-1]:
+        bs, bd, w, valid = (torch.from_numpy(x) for x in tick[:4])
+        drop = (slots >= m_base) & (slots < m_base + tick[4])
+        state = dg.sharded_slide_and_maintain(state, drop, bs, bd, w, valid, mesh, eps=EPS,
+                                              max_rounds=MAX_ROUNDS)
+        out.append(state_to_numpy(state))
+    state, _ = dg.sharded_insert_and_maintain_auto(
+        state, *(torch.from_numpy(x) for x in replay[-1]), mesh, eps=EPS,
+        max_rounds=MAX_ROUNDS, min_bucket=4)
+    out.append(state_to_numpy(state))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -123,13 +123,15 @@ def test_frontier_spmv_kernel_edge_counts(cuda, E, integer):
     _k2_check(arrs, integer)
 
 
-@pytest.mark.parametrize("offsets", [(3, 3), (3, 1), (16, 0)],
+@pytest.mark.parametrize("offsets,split", [((3, 3), (13, 0)), ((3, 1), (0, 1)),
+                                            ((16, 0), (0, 0))],
                          ids=["same-offset", "mixed-offset", "aligned-offset"])
-def test_frontier_spmv_kernel_takes_unaligned_views(cuda, offsets):
+def test_frontier_spmv_kernel_takes_unaligned_views(cuda, offsets, split):
     """Slices whose start is not on a 16-byte boundary: alive's first slots
     take the scalar path, then the groups are read as vectors (same
     offset) or, when src/dst cannot be read as vectors there, every slot
-    takes the scalar path (mixed offsets)."""
+    takes the scalar path (mixed offsets).  The wrapper counts both
+    (``head_slots``, ``unaligned_launches``)."""
     ka, ke = offsets
     rng = np.random.default_rng(11)
     E, V = 10_000, 2000
@@ -138,7 +140,9 @@ def test_frontier_spmv_kernel_takes_unaligned_views(cuda, offsets):
     views = (src[ke:ke + E], dst[ke:ke + E], c[ke:ke + E], alive[ka:ka + E], peel)
     assert views[3].data_ptr() % 16 == ka % 16
     before = alive.clone()
+    k2_ops.head_slots = k2_ops.unaligned_launches = 0
     dw, drop = _k2_check(views, True)
+    assert (k2_ops.head_slots, k2_ops.unaligned_launches) == split
     assert float(drop) > 0 and bool(dw.any())
     # bytes outside the view are left alone
     assert torch.equal(alive[:ka], before[:ka])
@@ -255,6 +259,40 @@ def test_suffix_init_kernel_edge_cases(cuda, case, integer):
     _assert_prologue(got, suffix_init_ref(*args), integer)
     if case == "nothing-live":
         assert not bool(got[0].any()) and float(got[1]) == 0.0 and not bool(got[2].any())
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("V", [5000, 1_000_003])
+def test_suffix_init_kernel_float64_mode(cuda, V, integer):
+    """The float64 mode on the card against its plain version (the
+    accumulators, vertex sum and ``both``: bit for bit on integer weights,
+    else rtol 1e-6 and, for the float64 sums, 1e-12), and ``w0``/``f0``
+    formed from it, as the edge-sharded prologue forms them, equal to the
+    usual mode's bit for bit."""
+    from repro_torch.kernels.frontier_spmv import suffix_init, suffix_init_ref
+
+    rng = np.random.default_rng(V + 1)
+    E = 14 * V + 5
+    src, dst, c, emask, _ = _k2_edges(rng, V, E, 13 * V, "full", integer)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    live = rng.random(V) < 0.7
+    args = [torch.from_numpy(x).to(cuda) for x in (src, dst, c, emask, live, a)]
+    n0 = k2_ops.suffix_init_launches
+    acc = torch.full((V + 1,), float("nan"), dtype=torch.float64, device=cuda)
+    got = suffix_init(*args, acc=acc)
+    want = suffix_init_ref(*args, acc=torch.empty_like(acc))
+    torch.cuda.synchronize()
+    assert k2_ops.suffix_init_launches == n0 + 1 and got[0] is acc
+    assert torch.equal(got[2], want[2])
+    if integer:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        torch.testing.assert_close(got[0][:V].cpu(), want[0][:V].cpu(), rtol=1e-12, atol=1e-9)
+        torch.testing.assert_close(got[0][V:].cpu(), want[0][V:].cpu(), rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got[1].cpu(), want[1].cpu(), rtol=1e-6, atol=1e-6)
+    w0, f0, both = suffix_init(*args)
+    assert torch.equal(torch.where(args[4], (args[5].double() + acc[:V]).float(), 0.0), w0)
+    assert torch.equal((got[1].double() + acc[V]).float(), f0)
 
 
 def test_kernel_wrappers_check_arguments(cuda):
@@ -743,3 +781,31 @@ def test_gnn_forward_cuda_matches_cpu(cuda, arch):
     want = cpu(g_cpu)
     scale = want.abs().amax(-1, keepdim=True).clamp(min=1e-6)
     assert bool(((got.cpu() - want).abs() <= 1e-4 * scale).all())
+
+
+def _sharded_service_rank(mesh, device: str, spec: dict):
+    """A rank of the sharded service on ``device``: its report and state."""
+    stream = make_transaction_stream(n=3000, m=15000, seed=9)
+    svc = SpadeService("DG", batch_edges=512, device=device, mesh=mesh, **spec)
+    return svc.run(stream).final_g, state_to_numpy(svc.final_state)
+
+
+@pytest.mark.parametrize("spec", [{"window_ticks": 2}, {"window_ticks": 2, "workset": True}],
+                         ids=["window2", "window2-workset"])
+def test_sharded_service_on_the_card_equals_one_device(cuda, spec):
+    """Two gloo ranks on the card (gloo takes the engine's CUDA all_reduces;
+    nccl would need a card a rank): every rank's replicated state and the
+    ranks' edge blocks joined equal the single-device service's on cuda
+    bit for bit (DG)."""
+    from repro_torch.dist import spawn
+
+    ranks = spawn(_sharded_service_rank, 2, backend="gloo", device="cuda",
+                  args=("cuda", spec), timeout=300)
+    want_g, want = _sharded_service_rank(None, "cuda", spec)
+    for g, got in ranks:
+        assert g == want_g
+        for f in ("level", "best_g", "community", "edge_count", "w0"):
+            assert np.array_equal(got[f], want[f]), f
+    for f in ("src", "dst", "c", "edge_mask"):
+        joined = np.concatenate([r[1][f] for r in ranks])[:want[f].shape[0]]
+        assert np.array_equal(joined, want[f]), f

@@ -26,6 +26,15 @@ RUNS = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _own_registry(monkeypatch):
+    """A semantics an example registers ("TDW") stays inside its test, so
+    the registry the other tests of this process see is the package's own."""
+    from repro_torch.core import semantics
+
+    monkeypatch.setattr(semantics, "_REGISTRY", dict(semantics._REGISTRY))
+
+
 @pytest.mark.parametrize("name", list(RUNS))
 def test_example_twin_runs_on_cpu(name, capsys, monkeypatch):
     argv, expect = RUNS[name]

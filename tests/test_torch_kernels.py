@@ -193,6 +193,42 @@ def test_suffix_init_ref_matches_jax_prologue(pad, integer):
             np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
 
 
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "lognormal"])
+@pytest.mark.parametrize("pad", ["full", "workset"])
+def test_suffix_init_ref_float64_mode(pad, integer):
+    """``suffix_init_ref``'s float64 mode against its usual mode on the same
+    inputs: the accumulators (no ``a``, float64) plus ``where(live, a, 0)``,
+    rounded once, give ``w0``; the vertex sum plus ``acc[V]`` gives ``f0``;
+    ``both`` is the same.  Bit for bit on integer weights; on lognormal
+    weights the usual mode adds in float32 (rtol 1e-6).  A second call
+    overwrites the whole buffer (it starts from garbage)."""
+    V, m, E = 300, 2000, 2600
+    src, dst, c, emask, _ = _edges_with_pads(6, V, m, E, pad, integer)
+    rng = np.random.default_rng(8)
+    a = (rng.integers(0, 3, V) if integer else rng.lognormal(0.0, 1.0, V)).astype(np.float32)
+    live = rng.random(V) < 0.6
+    args = [torch.from_numpy(x) for x in (src, dst, c, emask, live, a)]
+    w0, f0, both = suffix_init_ref(*args)
+    acc = torch.full((V + 1,), float("nan"), dtype=torch.float64)
+    got, vsum, both64 = suffix_init_ref(*args, acc=acc)
+    assert got is acc and vsum.dtype == torch.float32
+    assert torch.equal(both64, both)
+    assert not bool(acc[:V][~args[4]].any())  # nothing off the live set
+    mine = torch.where(args[4], (args[5].double() + acc[:V]).float(), 0.0)
+    f_mine = (vsum.double() + acc[V]).float()
+    if integer:
+        assert torch.equal(mine, w0) and float(f_mine) == float(f0)
+    else:
+        np.testing.assert_allclose(mine.numpy(), w0.numpy(), rtol=1e-6)
+        np.testing.assert_allclose(float(f_mine), float(f0), rtol=1e-6)
+    # and the float64 sums are the exact per-vertex sums of the both-masked c
+    cm = np.where(both.numpy(), c, 0.0).astype(np.float64)
+    exact = np.zeros(V)
+    np.add.at(exact, src, cm)
+    np.add.at(exact, dst, cm)
+    np.testing.assert_allclose(acc[:V].numpy(), exact, rtol=1e-12)
+
+
 def _graph(seed, n, m, with_a):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n, m)

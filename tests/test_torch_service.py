@@ -82,8 +82,12 @@ def test_entry_points_need_a_device_without_gpu():
         state_from_numpy({})
     # the host plane is NumPy on the host CPU: it needs no device
     assert SpadeService("DG", plane="host").device is None
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # a mesh must be a torch.distributed DeviceMesh, and only on the device
+    # plane (the sharded engine runs under torch.distributed: tests/test_torch_dist.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         EngineSpec(mesh=object())
+    with pytest.raises(ValueError, match="device-plane settings"):
+        EngineSpec(plane="host", mesh=object())
 
 
 def test_launch_cli_runs_on_cpu(capsys):

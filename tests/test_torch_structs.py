@@ -182,7 +182,8 @@ def test_port_imports_neither_jax_nor_repro():
         "for n in names: importlib.import_module(n)\n"
         "for n in ('repro_torch.core.reference', 'repro_torch.core.spade',\n"
         "          'repro_torch.core.metrics', 'repro_torch.serve.service',\n"
-        "          'repro_torch.configs.spade_grab', 'repro_torch._warnings'):\n"
+        "          'repro_torch.configs.spade_grab', 'repro_torch._warnings',\n"
+        "          'repro_torch.dist.graph', 'repro_torch.dist.spawn'):\n"
         "    assert n in names, n\n"
         f"files = sorted(__import__('glob').glob({str(ROOT / 'examples' / 'torch_*.py')!r}))\n"
         f"files.append({str(ROOT / 'chip_smoke.py')!r})\n"
@@ -191,7 +192,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 51 and len(files) == 6, (names, files)\n"
+        "assert len(names) >= 54 and len(files) == 6, (names, files)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
