@@ -57,9 +57,14 @@ Phases (any failure exits non-zero):
    ``cpu`` (float32, plain attention): a 2-layer qwen3-shaped model
    (d_model 1280, 10 heads over 2 kv heads, d_head 128), 6 prompts,
    prefill and 4 decode steps, and a wrongly windowed control; then the
-   three dense LMs' smoke configs (float32, d_head 16) on cuda against cpu,
-   K3's counters set to 0 just before and read just after (one SIMT launch
-   a layer per prefill);
+   five LMs' smoke configs (float32, d_head 16; the three dense ones and
+   the MoE ``mixtral-8x7b``, with its rolling cache, and ``olmoe-1b-7b``)
+   on cuda against cpu: prefill, 3 decode steps, ``forward`` and
+   ``lm_loss``, the MoE routing recorded on both devices and held to rule
+   1 (:func:`routing_check`: the same experts but on near-ties, which are
+   counted and leave their sequence out of the output checks), K3's
+   counters set to 0 just before and read just after (one SIMT launch a
+   layer per prefill, forward and ``lm_loss``);
 8. the LM main path at full width: qwen3-14b (40 layers, d_model 5120,
    random weights from a seeded generator), 2 prompts x 8,192 tokens,
    prefill, 32 greedy decode steps, with K3's launch counter set to 0 just
@@ -117,7 +122,22 @@ Phases (any failure exits non-zero):
     the same four on cpu on phase 12a's stream, the same K2 check.  Phase 2 also
     holds ``suffix_init``'s float64 mode (what the sharded prologue
     all-reduces) against its plain version.  The kernels' launches in phase
-    13 are logged apart from the main path's.
+    13 are logged apart from the main path's;
+14. the MoE LMs at full width: 14a, K3 at their attention shapes (bf16, D
+    128, B 2, S 8192; olmoe-1b-7b's 16 q over 16 kv heads causal, mixtral-
+    8x7b's 32 over 8 with its 4096 window) against its plain versions as in
+    phase 6, timed beside SDPA; 14b, one layer's ``moe_ffn`` at each
+    config's width on 512 tokens, cuda bf16 against cpu float32 on the same
+    weights (routing under rule 1, drops counted on both, outputs normwise,
+    two cuda runs the same bits); 14c, olmoe-1b-7b at full depth and 14d,
+    mixtral-8x7b at 24 of its 32 layers (one card's memory), random weights
+    from a seeded generator, phase 8's traffic (2 x 8,192-token prefill,
+    K3's counters set to 0 just before and read just after: a tensor-core
+    launch a layer, none SIMT; 32 decode steps, mixtral's wrapping its
+    rolling 4096-slot cache; ``forward`` and ``lm_loss`` over the prompts),
+    the cache's slots held against layer 0's keys recomputed, drops per
+    prefill, and ``torch.profiler`` traces of a prefill and four decode
+    steps.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -128,6 +148,7 @@ and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -191,9 +212,18 @@ ATTN_CASES = ((8192, None), (4000, None), (4096, 1024))
 SIMT_CASES = (("float32", 2, 4, 2, 24, 16, None), ("float32", 1, 40, 8, 2048, 128, None),
               ("float16", 1, 8, 2, 1000, 80, 256))
 SIMT_TOL = {"float32": 1e-4, "float16": 1e-2}
-# the dense LMs whose smoke configs phase 7 runs on cuda through K3's SIMT
-# body against the same weights on cpu
-LM_SMOKE_ARCHS = ("qwen3-14b", "internlm2-20b", "deepseek-coder-33b")
+# the LMs whose smoke configs phase 7 runs on cuda through K3's SIMT body
+# against the same weights on cpu
+LM_SMOKE_ARCHS = ("qwen3-14b", "internlm2-20b", "deepseek-coder-33b", "mixtral-8x7b",
+                  "olmoe-1b-7b")
+# phase 7's losses (float32 on both devices) and phase 14b's aux loss
+LOSS_RTOL = 1e-4
+# MoE routing, rule 1: a token whose top-(K+1) router logits on the cpu hold
+# two closer than this may pick another expert on the card (the float32
+# router products of the same inputs differ there by float32 rounding);
+# such near-ties are counted and logged, and a token routed differently is
+# left out of the output checks
+ROUTE_MARGIN = 1e-4
 # the GNN path (phases 9-11): gcn-cora's forward, whose aggregations run
 # through K4 at its layer widths (16 and 7 columns)
 GNN_SEED = 0  # graphs, weights and kernel inputs of phases 9-11
@@ -229,6 +259,15 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
+    return out.stdout.strip().splitlines()[0]
+
+
+def sm_clocks() -> str:
+    """The card's SM clock, its largest, power draw and temperature, as
+    ``nvidia-smi`` reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -853,11 +892,12 @@ def phase_grab(stream, n_ticks: int) -> dict:
     return out
 
 
-def trace(name: str, reps: int, fn, shares: dict[str, str]) -> dict:
+def trace(name: str, reps: int, fn, shares: dict[str, str | tuple[str, ...]]) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``fn``: wall and device-busy
     ms per call, the device's idle share over the traced window, each
-    ``shares`` kernel's share of device time, ms and launches per call (by
-    a substring of its name) and the top kernels by device time per call."""
+    ``shares`` kernel group's share of device time, ms and launches per
+    call (the kernels whose name holds the group's substring, or one of its
+    substrings) and the top kernels by device time per call."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -880,14 +920,14 @@ def trace(name: str, reps: int, fn, shares: dict[str, str]) -> dict:
         log(f"{name} profile: trace {attempt + 1} recorded no device time")
     check(busy > 0, f"{name} profile: no device time recorded")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    groups = {k: [v for key, v in kernels.items()
+                  if any(t in key for t in ((tag,) if isinstance(tag, str) else tag))]
+              for k, tag in shares.items()}
     out = {"calls": reps, "wall_ms": wall_us / 1e3 / reps,
            "device_busy_ms": busy / 1e3 / reps, "idle_share": 1.0 - busy / wall_us,
-           "shares": {k: sum(us for key, (us, _) in kernels.items() if tag in key) / busy
-                      for k, tag in shares.items()},
-           "kernel_ms": {k: sum(us for key, (us, _) in kernels.items() if tag in key)
-                         / 1e3 / reps for k, tag in shares.items()},
-           "kernel_launches": {k: sum(n for key, (_, n) in kernels.items() if tag in key)
-                               / reps for k, tag in shares.items()},
+           "shares": {k: sum(us for us, _ in g) / busy for k, g in groups.items()},
+           "kernel_ms": {k: sum(us for us, _ in g) / 1e3 / reps for k, g in groups.items()},
+           "kernel_launches": {k: sum(n for _, n in g) / reps for k, g in groups.items()},
            "top": [(k[:90], us / 1e3 / reps, cnt / reps) for k, (us, cnt) in top[:15]]}
     log(f"{name} profiled ({reps}x): wall {out['wall_ms']!r} ms, device busy "
         f"{out['device_busy_ms']!r} ms, idle share {out['idle_share']!r}; shares of "
@@ -1284,23 +1324,26 @@ def attn_check(name, got, want) -> tuple[float, float]:
     return worst, rel
 
 
-def attention_p_rounded(q, k, v, p_dtype):
-    """Dense causal attention of q [B, G, S, D] over one kv head k/v
-    [B, 1, S, D] in float32, with the unnormalised P = exp(s - m) rounded
-    to ``p_dtype`` before P V and l summed in float32: what K3 does with
-    bf16, and a control with a coarser type."""
+def attention_p_rounded(q, k, v, p_dtype, window=None):
+    """Dense causal (windowed) attention of q [B, G, S, D] over one kv head
+    k/v [B, 1, S, D] in float32, with the unnormalised P = exp(s - m)
+    rounded to ``p_dtype`` before P V and l summed in float32: what K3 does
+    with bf16, and a control with a coarser type."""
     import torch
 
     S, D = q.shape[2], q.shape[3]
     s = torch.einsum("bgqd,bkd->bgqk", q.float(), k[:, 0].float()) / D ** 0.5
-    s.masked_fill_(torch.ones(S, S, dtype=torch.bool, device=q.device).triu_(1), -1e30)
+    masked = torch.ones(S, S, dtype=torch.bool, device=q.device).triu_(1)
+    if window is not None:
+        masked |= torch.ones(S, S, dtype=torch.bool, device=q.device).tril_(-window)
+    s.masked_fill_(masked, -1e30)
     p = s.sub_(s.amax(-1, keepdim=True)).exp_()
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bgqk,bkd->bgqd", p.to(p_dtype).float(), v[:, 0].float()) / l
     return o.to(q.dtype)
 
 
-def attn_controls(q, k, v, got, G: int) -> dict:
+def attn_controls(q, k, v, got, G: int, window=None) -> dict:
     """Band relative errors against the dense ``attention_ref``, kv head by
     kv head, of K3 (``got``), of the plain version with P rounded to bf16
     (K3's rounding) and to fp8 (a kernel that loses precision), and of the
@@ -1318,12 +1361,12 @@ def attn_controls(q, k, v, got, G: int) -> dict:
     rel = {n: 0.0 for n in names}
     for j in range(Hkv):
         qj, kj, vj = q[:, j * G:(j + 1) * G], k[:, j:j + 1], v[:, j:j + 1]
-        want = attention_ref(qj, kj, vj, causal=True)
+        want = attention_ref(qj, kj, vj, causal=True, window=window)
         late = want.clone()
         late[:, :, S // 2:] = (late[:, :, S // 2:].float() / 1.05).to(late.dtype)
         cands = {"K3": got[:, j * G:(j + 1) * G],
-                 "P bf16": attention_p_rounded(qj, kj, vj, torch.bfloat16),
-                 "P fp8": attention_p_rounded(qj, kj, vj, torch.float8_e4m3fn),
+                 "P bf16": attention_p_rounded(qj, kj, vj, torch.bfloat16, window),
+                 "P fp8": attention_p_rounded(qj, kj, vj, torch.float8_e4m3fn, window),
                  "l +5% late": late}
         for n, c in cands.items():
             _, ok, r = attn_errs(c, want)
@@ -1558,21 +1601,96 @@ def phase_lm_parity(seed: int) -> dict:
             "smoke_configs": lm_smoke_parity(seed)}
 
 
+@contextlib.contextmanager
+def routing_recorded(rec: list):
+    """Inside, every MoE FFN call of the port's transformer first appends
+    the :class:`~repro_torch.models.moe.Routing` of its input to ``rec``
+    (routed once more, for the record: keep it out of timed runs)."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.moe import moe_route
+
+    ffn = ttf.moe_ffn
+
+    def recorded(x, router, w_gate, w_up, w_down, spec):
+        rec.append(moe_route(x, router, spec))
+        return ffn(x, router, w_gate, w_up, w_down, spec)
+
+    ttf.moe_ffn = recorded
+    try:
+        yield rec
+    finally:
+        ttf.moe_ffn = ffn
+
+
+def near_ties(logits, K: int):
+    """Tokens whose top-(K+1) router logits [T, E] hold two closer than
+    ROUTE_MARGIN (a bool tensor on the logits' device)."""
+    top = logits.float().topk(K + 1, dim=-1).values
+    return (top[:, :-1] - top[:, 1:]).amin(dim=-1) < ROUTE_MARGIN
+
+
+def routing_check(name: str, got: list, want: list, n_rows: int) -> dict:
+    """Rule 1 on recorded routings of the same calls on two devices (``want``
+    the cpu's): ``topi`` equal on every token but near-ties of ``want``'s
+    logits; the keep masks equal when every token is routed alike.  Returns
+    the counts and ``rows``, the sequences (of ``n_rows`` in the flat token
+    order) holding a token routed differently; clears both lists."""
+    import torch
+
+    check(len(got) == len(want) > 0, f"{name}: {len(got)} vs {len(want)} MoE calls recorded")
+    out = {"near_ties": 0, "rerouted": 0, "dropped": [0, 0], "rows": set()}
+    for i, (g, w) in enumerate(zip(got, want)):
+        differ = (g.topi.cpu() != w.topi.cpu()).any(dim=-1)
+        ties = near_ties(w.logits, w.topi.shape[1]).cpu()
+        check(bool(ties[differ].all()), f"{name} call {i}: topi differs on "
+              f"{int((differ & ~ties).sum())} tokens that are not near-ties")
+        if not differ.any():
+            check(torch.equal(g.keep.cpu(), w.keep.cpu()), f"{name} call {i}: keep masks differ")
+        out["near_ties"] += int(ties.sum())
+        out["rerouted"] += int(differ.sum())
+        out["dropped"][0] += int((~g.keep).sum())
+        out["dropped"][1] += int((~w.keep).sum())
+        per_row = len(differ) // n_rows
+        out["rows"] |= {int(t) // per_row for t in torch.nonzero(differ).flatten()}
+    check(out["rerouted"] > 0 or out["dropped"][0] == out["dropped"][1],
+          f"{name}: dropped assignments {out['dropped']!r} differ with no token rerouted")
+    got.clear()
+    want.clear()
+    return out
+
+
+def rows_rel_err(got, want, rows_out=()) -> float:
+    """Largest ``max |got - want| / max |want|`` over the last-axis rows of
+    logits [B, ..., V], leaving out the batch rows in ``rows_out``."""
+    import torch
+
+    keep = [b for b in range(got.shape[0]) if b not in rows_out]
+    check(bool(keep), "every sequence was routed differently")
+    got, want = got.float().cpu()[keep], want.float().cpu()[keep]
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+
+
 def lm_smoke_parity(seed: int) -> dict:
-    """The dense LMs' smoke configs (float32, d_head 16) on cuda, whose
+    """The five LMs' smoke configs (float32, d_head 16) on cuda, whose
     attention is K3's SIMT body, against the same weights on cpu: prefill
-    of 2 x 24 tokens and 3 decode steps, logits within LM_TOL of each row's
-    largest |logit|.  K3's counters are set to 0 just before and read just
-    after: one SIMT launch a layer per prefill, none on the tensor cores."""
+    of 2 x 24 tokens and 3 decode steps, then ``forward`` and ``lm_loss``
+    over the prompts; logits within LM_TOL of each row's largest |logit|,
+    loss, NLL and aux loss within LOSS_RTOL.  The MoE configs' routing is
+    recorded on both devices and held to rule 1 (:func:`routing_check`); a
+    sequence with a token routed differently is left out of what follows.
+    K3's counters are set to 0 just before and read just after: one SIMT
+    launch a layer per prefill, forward and ``lm_loss``, none on the
+    tensor cores."""
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import ops as k3_ops
-    from repro_torch.models import TransformerLM, decode_step, prefill
+    from repro_torch.models import TransformerLM, decode_step, forward, lm_loss, prefill
 
     k3_ops.launches = 0
     k3_ops.simt_launches = 0
-    out, layers = {}, 0
+    out, launches = {}, 0
     for arch in LM_SMOKE_ARCHS:
         cfg = get_smoke_config(arch)
         cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
@@ -1581,14 +1699,25 @@ def lm_smoke_parity(seed: int) -> dict:
         rng = np.random.default_rng(seed)
         B, S = 2, 24
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
-        lg, cache_g = prefill(gpu, tokens.to(DEVICE))
-        lc, cache_c = prefill(cpu, tokens)
-        layers += cfg.n_layers
+        rec_g, rec_c, routing = [], [], []
+
+        def both(fn, *args):
+            """``fn`` on cuda, then on cpu, each routing recorded; the
+            sequences rerouted so far are out."""
+            with routing_recorded(rec_g):
+                g = fn(gpu, *(a.to(DEVICE) for a in args))
+            with routing_recorded(rec_c):
+                c = fn(cpu, *args)
+            if cfg.moe is not None:
+                routing.append(routing_check(f"{cfg.name} {fn.__name__}", rec_g, rec_c, B))
+            return g, c
+
+        (lg, cache_g), (lc, cache_c) = both(prefill, tokens)
+        launches += cfg.n_layers
         worst = 0.0
         for step in range(4):
-            got, want = lg.float().cpu(), lc.float()
-            check(bool(torch.isfinite(got).all()), f"{cfg.name} step {step}: non-finite")
-            rel = float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+            rows = set().union(*(r["rows"] for r in routing))
+            rel = rows_rel_err(lg, lc, rows)
             check(rel <= LM_TOL, f"{cfg.name} step {step}: {rel!r} of the row scale, "
                   f"beyond {LM_TOL}")
             worst = max(worst, rel)
@@ -1596,15 +1725,47 @@ def lm_smoke_parity(seed: int) -> dict:
                 break
             tok = torch.from_numpy(rng.integers(0, cfg.vocab, B))
             pos = torch.full((B,), S + step, dtype=torch.int64)
-            lg, cache_g = decode_step(gpu, cache_g, tok.to(DEVICE), pos.to(DEVICE))
-            lc, cache_c = decode_step(cpu, cache_c, tok, pos)
-        out[arch] = worst
-        log(f"{cfg.name} cuda (K3 SIMT body, float32) vs cpu: prefill and 3 decode steps, "
-            f"largest error / row scale {worst!r} (tolerance {LM_TOL})")
+
+            def decode(m, t, p):
+                return decode_step(m, cache_g if m is gpu else cache_c, t, p)
+
+            (lg, _), (lc, _) = both(decode, tok, pos)
+        # the scoring forward and the loss over the prompts (next tokens)
+        routing_prefix = len(routing)
+        (fg, ag), (fc, ac) = both(forward, tokens)
+        labels = torch.roll(tokens, -1, dims=1)
+        (loss_g, parts_g), (loss_c, parts_c) = both(lm_loss, tokens, labels)
+        launches += 2 * cfg.n_layers
+        rows = set().union(*(r["rows"] for r in routing[routing_prefix:]))
+        rel_f = rows_rel_err(fg, fc, rows)
+        check(rel_f <= LM_TOL, f"{cfg.name} forward: {rel_f!r} of the row scale, "
+              f"beyond {LM_TOL}")
+        losses = {"loss": (loss_g, loss_c), "nll": (parts_g["nll"], parts_c["nll"]),
+                  "aux": (ag, ac)}
+        loss_err = {k: abs(float(g) - float(c)) / max(abs(float(c)), 1e-30)
+                    for k, (g, c) in losses.items() if float(c) != 0.0 or float(g) != 0.0}
+        if not rows:  # the aux loss and the mean NLL mix every sequence
+            check(all(e <= LOSS_RTOL for e in loss_err.values()),
+                  f"{cfg.name} lm_loss: relative errors {loss_err!r} beyond {LOSS_RTOL}")
+        check(cfg.moe is not None or float(ag) == 0.0, f"{cfg.name}: dense aux {float(ag)!r}")
+        out[arch] = {"logits": worst, "forward": rel_f, "loss": float(loss_c),
+                     "loss_rel_err": loss_err,
+                     "routing": [{k: (sorted(v) if k == "rows" else v) for k, v in r.items()}
+                                 for r in routing]}
+        ties = sum(r["near_ties"] for r in routing)
+        rerouted = sum(r["rerouted"] for r in routing)
+        log(f"{cfg.name} cuda (K3 SIMT body, float32) vs cpu: prefill, 3 decode steps, "
+            f"forward and lm_loss; largest error / row scale {worst!r} (serving), "
+            f"{rel_f!r} (forward), tolerance {LM_TOL}; lm_loss {float(loss_g)!r} vs "
+            f"{float(loss_c)!r} (relative errors {loss_err!r}, tolerance {LOSS_RTOL})"
+            + (f"; routing over {len(routing)} passes: {ties} near-tie tokens (margin "
+               f"{ROUTE_MARGIN}), {rerouted} routed differently, dropped assignments "
+               f"cuda/cpu {[sum(r['dropped'][i] for r in routing) for i in (0, 1)]!r}"
+               if cfg.moe is not None else ""))
     sync()
-    check(k3_ops.simt_launches == layers and k3_ops.launches == 0,
+    check(k3_ops.simt_launches == launches and k3_ops.launches == 0,
           f"smoke configs: K3 SIMT launched {k3_ops.simt_launches} times, tensor-core "
-          f"body {k3_ops.launches}; expected {layers} and 0")
+          f"body {k3_ops.launches}; expected {launches} and 0")
     out["simt_launches"] = k3_ops.simt_launches
     return out
 
@@ -2924,6 +3085,376 @@ def phase_sharded(stream) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE LMs at full width (olmoe-1b-7b, mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b at its full depth; mixtral-8x7b at 24 of its 32 layers: its
+# 46.7B bf16 parameters (93.4 GB) do not fit one 80 GB card, and 24 layers
+# (35.1B, 70.2 GB) is the largest multiple of 4 that leaves >= 8 GB for the
+# prefill's buffers and the rolling cache.  Traffic as phase 8's
+MOE_LAYERS = {"olmoe-1b-7b": 16, "mixtral-8x7b": 24}
+# 14b: one layer's moe_ffn on this many tokens (32 blocks of 16: capacity 2
+# for olmoe, 5 for mixtral, so drops), cuda bf16 against cpu float32 on the
+# same weights, normwise over the tokens routed alike: the bf16 rounding of
+# x @ w_gate, x @ w_up, h and y (2^-9 each) and of the gated sum
+MOE_FFN_TOKENS = 512
+MOE_FFN_TOL = 1e-2
+
+
+def moe_attention(seed: int) -> dict:
+    """14a: K3 at the MoE LMs' attention shapes (bf16, D 128, B 2, S 8192;
+    olmoe's 16 q over 16 kv heads, causal; mixtral's 32 over 8, window
+    4096) against its plain versions as in phase 6, with the controls; its
+    device time, its operations bound over the window's pairs, and SDPA's
+    device time (mixtral's window through a boolean mask, on k and v
+    repeated to the q heads outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    for arch in MOE_LAYERS:
+        cfg = get_config(arch)
+        B, S = LM_BATCH, LM_PROMPT
+        Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.sliding_window
+        G = Hq // Hkv
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=DEVICE,
+                               dtype=torch.float32).to(torch.bfloat16).permute(0, 2, 1, 3)
+                   for h in (Hq, Hkv, Hkv))
+        n0, s0 = k3_ops.launches, k3_ops.simt_launches
+        got = flash_attention(q, k, v, causal=True, window=window)
+        sync()
+        check(k3_ops.launches == n0 + 1 and k3_ops.simt_launches == s0,
+              f"{arch} attention did not run on K3's tensor-core body")
+        tag = f"K3 {arch} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} window={window}"
+        err, rel = attn_check(f"{tag} vs flash_attention_ref", got,
+                              flash_attention_ref(q, k, v, causal=True, window=window))
+        for j in range(Hkv):
+            e, r = attn_check(
+                f"{tag} vs attention_ref (kv head {j})", got[:, j * G:(j + 1) * G],
+                attention_ref(q[:, j * G:(j + 1) * G], k[:, j:j + 1], v[:, j:j + 1],
+                              causal=True, window=window))
+            err, rel = max(err, e), max(rel, r)
+        controls = attn_controls(q, k, v, got, G, window)
+        k3 = lambda: flash_attention(q, k, v, causal=True, window=window)
+        if window is None:
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)
+        else:
+            ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+            ok = torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril()
+            ok &= ~torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril(-window)
+            sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=ok)
+        # device times in turns (K3, SDPA, SDPA, K3) with the SM clock
+        # read before them: the spread of one call
+        clocks = sm_clocks()
+        turns = [device_time_ms(fn) for fn in (k3, sdpa, sdpa, k3)]
+        ms, lib = statistics.mean(turns[::3]), statistics.mean(turns[1:3])
+        call, lib_call = cuda_time_ms(k3, reps=10), cuda_time_ms(sdpa, reps=10)
+        sdpa_diff = float((sdpa().float() - got.float()).abs().max())
+        bound = k3_bound_ms(B, Hq, Hkv, S, D, window)
+        tflops = 4 * B * Hq * D * attn_pairs(S, window) / ms / 1e9
+        out[arch] = {"shape": tag, "max_abs_err": err, "band_rel_err": rel,
+                     "controls": controls, "ms": ms, "call_ms": call, "library_ms": lib,
+                     "library_call_ms": lib_call, "bound_ms": bound, "bound_by": "operations",
+                     "tflops": tflops, "sdpa_max_abs_diff": sdpa_diff,
+                     "turns_k3_sdpa_sdpa_k3": turns, "sm_clocks": clocks}
+        log(f"{tag}: max_abs_err={err!r}, band relative err {rel!r} vs flash_attention_ref "
+            f"and attention_ref; device ms in turns K3, sdpa, sdpa, K3: {turns!r} "
+            f"(SM clock, power before: {clocks}); kernel {ms!r} ms device ({call!r} ms "
+            f"call; {tflops!r} "
+            f"TFLOP/s, {ms / lib!r}x sdpa, {bound / ms!r} of the bound), sdpa {lib!r} ms "
+            f"device ({lib_call!r} ms call; within {sdpa_diff!r} of K3), bound {bound!r} ms "
+            f"(operations)")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ffn_parity(seed: int) -> dict:
+    """14b: one layer's ``moe_ffn`` at each MoE config's width (D, E, K, F,
+    capacity factor) on MOE_FFN_TOKENS tokens, cuda bf16 against cpu
+    float32 on the same weights (seeded draws): routing under rule 1,
+    dropped assignments counted on both devices, outputs normwise within
+    MOE_FFN_TOL over the tokens routed alike, aux within LOSS_RTOL, and two
+    cuda runs the same bits; its device time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe_ffn
+    from repro_torch.models.layers import normal_init
+    from repro_torch.models.moe import moe_route
+
+    out = {}
+    for arch in MOE_LAYERS:
+        cfg = get_config(arch)
+        spec, D, T = cfg.moe, cfg.d_model, MOE_FFN_TOKENS
+        E, K, F = spec.n_experts, spec.top_k, spec.d_ff_expert
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        bf16 = torch.bfloat16
+        w = [normal_init((D, E), D, torch.float32, DEVICE, gen),
+             normal_init((E, D, F), D, bf16, DEVICE, gen),
+             normal_init((E, D, F), D, bf16, DEVICE, gen),
+             normal_init((E, F, D), F, bf16, DEVICE, gen)]
+        x = torch.randn((T, D), generator=gen, device=DEVICE).to(bf16)
+        with torch.inference_mode():
+            got, aux = moe_ffn(x, *w, spec)
+            again, aux2 = moe_ffn(x, *w, spec)
+            sync()
+            check(torch.equal(got, again) and torch.equal(aux, aux2),
+                  f"{arch} moe_ffn: two cuda runs gave different bits")
+            r_g = moe_route(x, w[0], spec)
+            x_c = x.float().cpu()
+            w_c = [t.float().cpu() for t in w]
+            r_c = moe_route(x_c, w_c[0], spec)
+            want, aux_c = moe_ffn(x_c, *w_c, spec)
+        routing = routing_check(f"{arch} moe_ffn", [r_g], [r_c], T)
+        alike = ((r_g.topi.cpu() == r_c.topi).all(-1)
+                 & (r_g.keep.cpu() == r_c.keep).reshape(T, K).all(-1))
+        diff = got.float().cpu()[alike] - want[alike]
+        rel = float(diff.norm() / want[alike].norm())
+        aux_err = abs(float(aux) - float(aux_c)) / abs(float(aux_c))
+        check(rel <= MOE_FFN_TOL, f"{arch} moe_ffn: normwise err {rel!r} beyond {MOE_FFN_TOL}")
+        check(aux_err <= LOSS_RTOL, f"{arch} moe_ffn: aux {float(aux)!r} vs {float(aux_c)!r}")
+        ms = device_time_ms(lambda: moe_ffn(x, *w, spec), calls=10)
+        bound, by = moe_ffn_bound_ms(spec, D, T, r_g.slot.shape[0] * r_g.capacity)
+        out[arch] = {"tokens": T, "capacity": r_g.capacity, "blocks": r_g.slot.shape[0],
+                     "dropped_cuda": routing["dropped"][0], "dropped_cpu": routing["dropped"][1],
+                     "near_ties": routing["near_ties"], "rerouted": routing["rerouted"],
+                     "tokens_compared": int(alike.sum()), "normwise_err": rel,
+                     "max_abs_err": float(diff.abs().max()), "aux_rel_err": aux_err, "ms": ms,
+                     "bound_ms": bound, "bound_by": by}
+        log(f"{arch} moe_ffn (D {D}, E {E}, top-{K}, F {F}, {T} tokens in "
+            f"{r_g.slot.shape[0]} blocks, capacity {r_g.capacity}) cuda bf16 vs cpu float32: "
+            f"normwise err {rel!r} over {int(alike.sum())} tokens routed alike (tolerance "
+            f"{MOE_FFN_TOL}), max abs err {float(diff.abs().max())!r}, aux relative err "
+            f"{aux_err!r}; {routing['near_ties']} near-tie tokens, {routing['rerouted']} "
+            f"routed differently; dropped assignments cuda {routing['dropped'][0]}, cpu "
+            f"{routing['dropped'][1]} of {T * K}; two cuda runs the same bits; "
+            f"{ms!r} ms device, bound {bound!r} ms ({by}; {bound / ms!r} of it)")
+        del w, w_c, x, got, again, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_ffn_bound_ms(spec, D: int, T: int, rows: int) -> tuple[float, str]:
+    """One ``moe_ffn`` call in bf16: the router (float32) and every
+    expert's weights read once, x read and the output written once; the
+    products of the ``rows`` capacity-buffer rows an expert (three of D x
+    F each, what the function computes) at the bf16 tensor-core rate."""
+    E, F = spec.n_experts, spec.d_ff_expert
+    nbytes = 4 * D * E + 2 * 3 * E * D * F + 2 * 2 * T * D
+    flops = 2 * 3 * E * rows * D * F
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def layer0_keys(model, tokens, pos):
+    """Layer 0's roped keys of ``tokens`` [B, S] at positions ``pos`` [S]
+    (what its attention block writes to the cache), computed again."""
+    from repro_torch.models.layers import apply_rope, rms_norm, rope_angles
+
+    cfg, lp = model.cfg, model.layers[0]
+    B, S = tokens.shape
+    k = (rms_norm(model.embed[tokens], lp.attn_norm) @ lp.wk).reshape(
+        B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        k = rms_norm(k, lp.k_norm)
+    cos, sin = rope_angles(pos, cfg.d_head, cfg.rope_theta)
+    return apply_rope(k, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def moe_lm_full(arch: str, seed: int) -> dict:
+    """14c / 14d: an MoE LM at full width (MOE_LAYERS deep), random weights
+    from a seeded generator on the card, phase 8's traffic: 2 x 8,192-token
+    prefill (K3's counters set to 0 just before and read just after: a
+    tensor-core launch a layer, none SIMT), 32 greedy decode steps, then
+    ``forward`` and ``lm_loss`` over the prompts; the cache's slots checked
+    against layer 0's keys recomputed (after the prefill, and the last
+    decode step's); drops per prefill from one more, recorded, prefill;
+    ``torch.profiler`` traces of a prefill and four decode steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import (TransformerLM, cache_window, decode_step, forward,
+                                    lm_loss, moe_ffn, prefill)
+    from repro_torch.models.moe import moe_route
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS[arch])
+    batch, prompt, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    sync()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} of {get_config(arch).n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, {cfg.n_params} "
+        f"params ({n_bytes / 1e9!r} GB), random init {init_s!r} s")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt))).to(DEVICE)
+    W, rolling = cache_window(cfg, prompt)
+
+    k3_ops.launches = 0
+    k3_ops.simt_launches = 0
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, tokens)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    launches, simt = k3_ops.launches, k3_ops.simt_launches
+    check(launches == cfg.n_layers and simt == 0,
+          f"{cfg.name}: K3 launched {launches} times (SIMT {simt}), expected "
+          f"{cfg.n_layers} per prefill on the tensor cores")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: non-finite logits")
+    check(tuple(cache.k.shape) == (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.d_head),
+          f"{cfg.name}: cache {tuple(cache.k.shape)}")
+    with torch.inference_mode():
+        pos = torch.arange(prompt - W, prompt, device=DEVICE)
+        want = layer0_keys(model, tokens, torch.arange(prompt, device=DEVICE))[:, prompt - W:]
+        got = cache.k[0][:, pos % W]
+        slot_err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        slot_bits = torch.equal(got, want)
+    check(slot_err <= 1e-2, f"{cfg.name}: cache slots p % W do not hold positions "
+          f"{prompt - W}-{prompt - 1} (layer 0 keys off by {slot_err!r} of their scale)")
+    log(f"{cfg.name}: cache {tuple(cache.k.shape)} ({'rolling' if rolling else 'full'}), "
+        f"slots p % {W} hold positions {prompt - W}-{prompt - 1}: layer 0's keys recomputed "
+        f"within {slot_err!r} of their scale (bit for bit: {slot_bits})")
+    steps, out_tokens = [], []
+    tok = logits.argmax(-1)
+    for i in range(n_dec):
+        out_tokens.append(tok)
+        last_tok = tok
+        t0 = time.perf_counter()
+        logits, cache = decode_step(model, cache, tok, torch.full(
+            (batch,), prompt + i, dtype=torch.int64, device=DEVICE))
+        sync()
+        steps.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name} decode step {i}: non-finite logits")
+        tok = logits.argmax(-1)
+    check(k3_ops.launches == launches, f"{cfg.name}: decode launched K3")
+    last = prompt + n_dec - 1
+    with torch.inference_mode():
+        want = layer0_keys(model, last_tok[:, None],
+                           torch.tensor([last], device=DEVICE))[:, 0]
+        got = cache.k[0][:, last % W]
+        wrap_err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    check(wrap_err <= 1e-2, f"{cfg.name}: decode position {last} is not in slot {last % W} "
+          f"({wrap_err!r})")
+    log(f"{cfg.name}: decode position {last} in slot {last % W} (layer 0's key within "
+        f"{wrap_err!r} of its scale)")
+    peak_serve = torch.cuda.max_memory_allocated()
+
+    # drops per prefill: one more prefill, its routing recorded (untimed)
+    rec = []
+    with routing_recorded(rec):
+        prefill(model, tokens)
+    drops = [int((~r.keep).sum()) for r in rec]
+    n_assign = batch * prompt * cfg.moe.top_k
+    rec = None
+    t0 = time.perf_counter()
+    prefill(model, tokens)
+    sync()
+    warm_s = time.perf_counter() - t0
+
+    # the scoring forward and the loss over the same prompts (next tokens)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flogits, faux = forward(model, tokens)
+    sync()
+    forward_s = time.perf_counter() - t0
+    check(tuple(flogits.shape) == (batch, prompt, cfg.vocab)
+          and bool(torch.isfinite(flogits).all()), f"{cfg.name} forward: logits")
+    del flogits
+    torch.cuda.empty_cache()
+    labels = torch.roll(tokens, -1, dims=1)
+    t0 = time.perf_counter()
+    loss, parts = lm_loss(model, tokens, labels)
+    sync()
+    loss_s = time.perf_counter() - t0
+    check(math.isfinite(float(loss)) and float(faux) > 0.0,
+          f"{cfg.name} lm_loss: {float(loss)!r}, aux {float(faux)!r}")
+    peak = torch.cuda.max_memory_allocated()
+    ts = sorted(steps)
+    p90 = ts[min(len(ts) - 1, int(0.9 * len(ts)))]
+    out = {"n_layers": cfg.n_layers, "n_params": cfg.n_params, "weights_gb": n_bytes / 1e9,
+           "prefill_s": prefill_s, "prompt_tokens_per_s": batch * prompt / prefill_s,
+           "prefill_warm_s": warm_s, "prompt_tokens_per_s_warm": batch * prompt / warm_s,
+           "decode_ms_median": 1e3 * statistics.median(ts), "decode_ms_p90": 1e3 * p90,
+           "decode_tokens_per_s": batch / statistics.median(ts),
+           "max_memory_allocated_gb": peak / 1e9,
+           "max_memory_allocated_serving_gb": peak_serve / 1e9, "k3_launches": launches,
+           "k3_simt_launches": simt, "init_s": init_s, "cache_window": W,
+           "cache_gb": 2 * cache.k.numel() * 2 / 1e9, "drops_per_prefill": sum(drops),
+           "drops_per_layer": drops, "assignments_per_layer": n_assign,
+           "forward_s": forward_s, "lm_loss_s": loss_s, "lm_loss": float(loss),
+           "nll": float(parts["nll"]), "aux": float(parts["aux"]),
+           "tokens": torch.stack(out_tokens, 1)[:, :8].tolist()}
+    log(f"{cfg.name} main path: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
+
+    # one layer's moe_ffn alone at the prefill's tokens (a random input)
+    lp = model.layers[0]
+    h = torch.randn((batch * prompt, cfg.d_model), device=DEVICE).to(lp.w_up.dtype)
+    with torch.inference_mode():
+        r = moe_route(h, lp.router, cfg.moe)
+        rows = r.slot.shape[0] * r.capacity
+        moe_ms = device_time_ms(lambda: moe_ffn(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
+                                                cfg.moe), calls=5)
+    moe_bound, moe_by = moe_ffn_bound_ms(cfg.moe, cfg.d_model, batch * prompt, rows)
+    out.update(moe_ffn_prefill_ms=moe_ms, moe_ffn_prefill_bound_ms=moe_bound,
+               moe_ffn_prefill_bound_by=moe_by)
+    log(f"{cfg.name} moe_ffn alone, one layer, {batch * prompt} random tokens (capacity "
+        f"{r.capacity}): {moe_ms!r} ms device, bound {moe_bound!r} ms ({moe_by}; "
+        f"{moe_bound / moe_ms!r} of it)")
+    del h, r
+
+    # where a prefill and a decode step spend their device time
+    pos = prompt + n_dec
+    shares = {"flash_attention": "flash_fwd_kernel",
+              "cublas_products": ("nvjet", "gemm", "cutlass", "xmma"),
+              "index_scatter_gather": ("index", "scatter", "gather")}
+    out["profile_prefill"] = trace(f"{cfg.name} prefill", 1,
+                                   lambda: prefill(model, tokens), shares)
+    out["profile_decode"] = trace(f"{cfg.name} decode step", 4, lambda: decode_step(
+        model, cache, tok, torch.full((batch,), pos, dtype=torch.int64, device=DEVICE)),
+        shares)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(seed: int) -> dict:
+    """Phase 14: 14a K3 at the MoE attention shapes, 14b one layer's
+    ``moe_ffn`` cuda against cpu, 14c olmoe-1b-7b and 14d mixtral-8x7b
+    served at full width."""
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "phase 14: TF32 is on for float32 products (the router's logits)")
+    t0 = time.perf_counter()
+    out = {"attention": moe_attention(seed)}
+    log(f"14a: {time.perf_counter() - t0!r} s")
+    t1 = time.perf_counter()
+    out["moe_ffn"] = moe_ffn_parity(seed)
+    log(f"14b: {time.perf_counter() - t1!r} s")
+    for tag, arch in zip(("14c", "14d"), MOE_LAYERS):
+        t1 = time.perf_counter()
+        out[arch] = moe_lm_full(arch, seed)
+        log(f"{tag}: {time.perf_counter() - t1!r} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -3033,9 +3564,16 @@ def main() -> int:
         f"held against the single-device engine at Grab4 width, world 4 (gloo) cuda == "
         f"cpu; {sharded['seconds']!r} s")
 
+    moe = phase_moe(LM_SEED)
+    log(f"phase 14: the MoE LMs at full width through K3 on {smi}: "
+        + ", ".join(f"{a} {moe[a]['n_layers']} layers, {moe[a]['k3_launches']} K3 launches "
+                    f"a prefill" for a in MOE_LAYERS) + f"; {moe['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
+    k3_paths = {"qwen3-14b": lm["k3_launches"],
+                **{a: moe[a]["k3_launches"] for a in MOE_LAYERS}}
     kernels = [
         {"name": "peel_round", "route": "cuda",
          "source": "src/repro_torch/csrc/peel_round.cu",
@@ -3056,7 +3594,13 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
-         "launches": lm["k3_launches"], "bound_by": "operations", **attn},
+         "launches": k3_paths["qwen3-14b"] + sum(moe[a]["k3_launches"] for a in MOE_LAYERS),
+         "launches_by_path": k3_paths, "bound_by": "operations", **attn,
+         "max_abs_err": max([attn["max_abs_err"]]
+                            + [moe["attention"][a]["max_abs_err"] for a in MOE_LAYERS]),
+         "moe_shapes": {a: {k: moe["attention"][a][k] for k in
+                            ("shape", "ms", "library_ms", "bound_ms", "max_abs_err")}
+                        for a in MOE_LAYERS}},
         {"name": "flash_attention_simt", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
@@ -3076,7 +3620,8 @@ def main() -> int:
              "attention_simt": attn_simt,
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
-             "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded}, indent=1,
+             "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe},
+            indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -2,11 +2,10 @@
 ``get_smoke_config(arch)`` -> the reduced same-family config,
 ``ARCH_FAMILY`` -> ``"lm"`` | ``"gnn"`` | ``"spade"``.
 
-Here are the dense LMs, the four GNNs and the paper's own workload,
-``spade-grab``.  The MoE archs
-(``mixtral-8x7b``, ``olmoe-1b-7b``) wait for the port of ``models/moe.py``
-(ROADMAP A.11) and ``two-tower-retrieval`` for ``models/two_tower.py``
-(ROADMAP A.10); asking for one raises ``NotImplementedError``.
+Here are the five LMs (three dense, and the MoE ``mixtral-8x7b`` and
+``olmoe-1b-7b``), the four GNNs and the paper's own workload,
+``spade-grab``.  ``two-tower-retrieval`` waits for ``models/two_tower.py``
+(ROADMAP A.10); asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ __all__ = ["ARCHS", "ARCH_FAMILY", "GNN_SHAPES", "LM_SHAPES", "SPADE_SHAPES", "G
            "get_smoke_config"]
 
 _MODULES = {
+    "mixtral-8x7b": "mixtral_8x7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "internlm2-20b": "internlm2_20b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "qwen3-14b": "qwen3_14b",
@@ -31,8 +32,6 @@ _MODULES = {
     "spade-grab": "spade_grab",
 }
 _NOT_YET = {
-    "mixtral-8x7b": "is a MoE LM; the port has no moe.py yet (ROADMAP A.11)",
-    "olmoe-1b-7b": "is a MoE LM; the port has no moe.py yet (ROADMAP A.11)",
     "two-tower-retrieval": "is a recsys model; the port has no two_tower.py yet "
                            "(ROADMAP A.10)",
 }
@@ -40,6 +39,8 @@ _NOT_YET = {
 ARCHS = tuple(_MODULES)
 
 ARCH_FAMILY = {
+    "mixtral-8x7b": "lm",
+    "olmoe-1b-7b": "lm",
     "internlm2-20b": "lm",
     "deepseek-coder-33b": "lm",
     "qwen3-14b": "lm",

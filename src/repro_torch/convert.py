@@ -8,10 +8,19 @@ Spade: the dict holds the fields of ``DeviceSpadeState`` — ``level``, ``best_g
 both engines from one state and compare them after any tick.
 
 LM: :func:`lm_params_from_numpy` takes the pytree of the JAX package's
-``init_lm_params`` (``{"embed", "layers": {..., "mlp": {...}}, "final_norm",
-"head"}``, per-layer leaves stacked ``[L, ...]``, ``x @ w`` layout) as numpy
-arrays and builds a :class:`~repro_torch.models.TransformerLM`;
-:func:`lm_params_to_numpy` gives the same pytree back.  bfloat16 leaves
+``init_lm_params`` (``{"embed", "layers": {..., "mlp": {...}} or {...,
+"moe": {...}}, "final_norm", "head"}``, per-layer leaves stacked ``[L,
+...]``, ``x @ w`` layout) as numpy arrays and builds a
+:class:`~repro_torch.models.TransformerLM`; :func:`lm_params_to_numpy`
+gives the same pytree back.  A MoE layer's ``moe`` leaves are ``router
+[D, E]`` (float32) and ``E * vs`` virtual experts ``w_gate``/``w_up [E *
+vs, D, F / vs]``, ``w_down [E * vs, F / vs, D]`` (``vs`` the config's
+``virtual_split``; virtual expert ``e * vs + v`` is expert e's v-th slice
+of F); the port holds each expert whole, ``[E, D, F]`` and ``[E, F, D]``,
+so the leaves are folded on the way in and unfolded on the way out (pure
+reshapes: the round trip gives the same bits; in bf16 the folded expert
+rounds its product once, where the reference rounds each virtual
+expert's partial and then their sum).  bfloat16 leaves
 cross as bits: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
 ``bfloat16`` dtype, which ``torch.from_numpy`` refuses, so it is viewed as
 ``uint16`` and the tensor as ``torch.bfloat16``; going back, a bf16 leaf
@@ -37,7 +46,8 @@ from repro_torch.models.gnn import GNN, flatten_params, unflatten_params
 from repro_torch.models.transformer import TransformerLM
 
 __all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
-           "lm_params_from_numpy", "lm_params_to_numpy", "gnn_params_from_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy", "fold_experts", "unfold_experts",
+           "gnn_params_from_numpy",
            "gnn_params_to_numpy"]
 
 GRAPH_FIELDS = {"src": np.int32, "dst": np.int32, "c": np.float32,
@@ -75,6 +85,30 @@ def state_to_numpy(state: DeviceSpadeState) -> dict:
 
 _LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP_LEAVES = ("w_gate", "w_up", "w_down")
+_MOE_LEAVES = ("router",) + _MLP_LEAVES
+
+
+def fold_experts(name: str, w: torch.Tensor, vs: int) -> torch.Tensor:
+    """One layer's ``moe`` leaf as the port holds it: virtual experts
+    ``[E * vs, ...]`` joined into whole experts (the router as it is)."""
+    if name in ("w_gate", "w_up"):  # [Ev, D, Fv] -> [E, D, vs * Fv]
+        Ev, D, Fv = w.shape
+        return w.reshape(Ev // vs, vs, D, Fv).permute(0, 2, 1, 3).reshape(Ev // vs, D, vs * Fv)
+    if name == "w_down":  # [Ev, Fv, D] -> [E, vs * Fv, D]
+        Ev, Fv, D = w.shape
+        return w.reshape(Ev // vs, vs * Fv, D)
+    return w
+
+
+def unfold_experts(name: str, w: torch.Tensor, vs: int) -> torch.Tensor:
+    """The inverse of :func:`fold_experts`."""
+    if name in ("w_gate", "w_up"):  # [E, D, F] -> [E * vs, D, F / vs]
+        E, D, F = w.shape
+        return w.reshape(E, D, vs, F // vs).permute(0, 2, 1, 3).reshape(E * vs, D, F // vs)
+    if name == "w_down":  # [E, F, D] -> [E * vs, F / vs, D]
+        E, F, D = w.shape
+        return w.reshape(E * vs, F // vs, D)
+    return w
 
 
 def _to_tensor(x, dtype: torch.dtype) -> torch.Tensor:
@@ -108,17 +142,29 @@ def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
             for name in _LAYER_LEAVES:
                 if hasattr(lp, name):
                     getattr(lp, name).copy_(put(layers[name][li]))
-            for name in _MLP_LEAVES:
-                getattr(lp, name).copy_(put(layers["mlp"][name][li]))
+            if cfg.moe is None:
+                for name in _MLP_LEAVES:
+                    getattr(lp, name).copy_(put(layers["mlp"][name][li]))
+                continue
+            for name in _MOE_LEAVES:
+                leaf = getattr(lp, name)
+                w = _to_tensor(layers["moe"][name][li], leaf.dtype)
+                leaf.copy_(fold_experts(name, w, cfg.moe.virtual_split).to(dev))
     return model
 
 
 def lm_params_to_numpy(model: TransformerLM) -> dict:
     """The JAX-layout pytree of ``model`` (the inverse of
     :func:`lm_params_from_numpy`); bf16 leaves as ``uint16`` bits."""
+    moe = model.cfg.moe
     stack = lambda name: np.stack([_to_numpy(getattr(lp, name)) for lp in model.layers])
     layers = {name: stack(name) for name in _LAYER_LEAVES if hasattr(model.layers[0], name)}
-    layers["mlp"] = {name: stack(name) for name in _MLP_LEAVES}
+    if moe is None:
+        layers["mlp"] = {name: stack(name) for name in _MLP_LEAVES}
+    else:
+        layers["moe"] = {name: np.stack([_to_numpy(unfold_experts(
+            name, getattr(lp, name), moe.virtual_split)) for lp in model.layers])
+            for name in _MOE_LEAVES}
     return {"embed": _to_numpy(model.embed), "layers": layers,
             "final_norm": _to_numpy(model.final_norm), "head": _to_numpy(model.head)}
 

@@ -1,5 +1,5 @@
 """Concrete GNN graph batches of the port (port of ``_graph_batch`` in
-``repro/launch/cells.py``; the rest of that module waits for ROADMAP A.11).
+``repro/launch/cells.py``; the rest of that module waits for ROADMAP A.11.4).
 
 :func:`graph_batch` draws the same arrays as the reference from the same
 seed: one ``numpy`` Generator consumed in the reference's order (``src``,

@@ -1,17 +1,22 @@
-"""Decoder-only transformer LM, serving half (port of
-``repro/models/transformer.py``): GQA attention with optional qk-norm and
-sliding window, dense SwiGLU FFN, and two entry points:
+"""Decoder-only transformer LM (port of ``repro/models/transformer.py``):
+GQA attention with optional qk-norm and sliding window, a dense SwiGLU or
+a MoE FFN (:mod:`repro_torch.models.moe`), and four entry points:
 
+* :func:`forward`      — the scoring forward (causal): logits and the
+  router's aux loss
+* :func:`lm_loss`      — next-token loss over :func:`forward`
 * :func:`prefill`      — forward over a prompt + KV-cache construction
 * :func:`decode_step`  — one token against a (rolling) KV cache
 
-Prefill attention goes through :func:`repro_torch.models.attention.flash_attention`
-(the K3 kernel on CUDA, its plain version on the CPU); decode attention is
-plain PyTorch, as it is plain jnp in the reference.  Parameters keep the
-reference's ``x @ w`` layout, one :class:`DecoderLayer` per layer in place
-of the reference's stacked ``[L, ...]`` leaves (:mod:`repro_torch.convert`
-carries them across).  ``forward``/``lm_loss`` and the MoE FFN belong to the
-training slice and are not here yet (ROADMAP A.11).
+Prefill and forward attention go through
+:func:`repro_torch.models.attention.flash_attention` (the K3 kernel on
+CUDA, its plain version on the CPU); decode attention is plain PyTorch, as
+it is plain jnp in the reference.  Parameters keep the reference's ``x @
+w`` layout, one :class:`DecoderLayer` per layer in place of the
+reference's stacked ``[L, ...]`` leaves (:mod:`repro_torch.convert`
+carries them across).  Every entry point runs under
+``torch.inference_mode()``: gradients wait for the training slice
+(ROADMAP A.11.3), which brings K3's backward.
 """
 
 from __future__ import annotations
@@ -25,9 +30,10 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import apply_rope, normal_init, rms_norm, rope_angles, swiglu
+from repro_torch.models.moe import moe_ffn
 
-__all__ = ["KVCache", "cache_window", "DecoderLayer", "TransformerLM", "prefill",
-           "decode_step"]
+__all__ = ["KVCache", "cache_window", "DecoderLayer", "TransformerLM", "forward",
+           "lm_loss", "prefill", "decode_step"]
 
 
 class KVCache(NamedTuple):
@@ -55,14 +61,18 @@ def _weight(shape, fan_in, dtype, device, generator) -> nn.Parameter:
 
 class DecoderLayer(nn.Module):
     """One layer's weights: ``attn_norm``, ``wq/wk/wv/wo``, optional
-    ``q_norm``/``k_norm``, ``mlp_norm`` and the SwiGLU ``w_gate/w_up/w_down``."""
+    ``q_norm``/``k_norm``, ``mlp_norm``, and the FFN: the SwiGLU ``w_gate
+    [D, F]``, ``w_up [D, F]``, ``w_down [F, D]``, or with ``cfg.moe`` a
+    ``router [D, E]`` in float32 (whatever ``cfg.dtype`` is, as in the
+    reference) and the experts' ``w_gate``/``w_up [E, D, F]`` and
+    ``w_down [E, F, D]``."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype, device: torch.device,
                  generator: torch.Generator | None):
         super().__init__()
         D, F = cfg.d_model, cfg.d_ff
         Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        w = lambda shape, fan_in: _weight(shape, fan_in, dtype, device, generator)
+        w = lambda shape, fan_in, dt=dtype: _weight(shape, fan_in, dt, device, generator)
         ones = lambda n: _frozen(torch.ones(n, dtype=dtype, device=device))
         self.attn_norm = ones(D)
         self.mlp_norm = ones(D)
@@ -73,9 +83,16 @@ class DecoderLayer(nn.Module):
         if cfg.qk_norm:
             self.q_norm = ones(Dh)
             self.k_norm = ones(Dh)
-        self.w_gate = w((D, F), D)
-        self.w_up = w((D, F), D)
-        self.w_down = w((F, D), F)
+        if cfg.moe is None:
+            self.w_gate = w((D, F), D)
+            self.w_up = w((D, F), D)
+            self.w_down = w((F, D), F)
+        else:
+            E, F = cfg.moe.n_experts, cfg.moe.d_ff_expert
+            self.router = w((D, E), D, torch.float32)
+            self.w_gate = w((E, D, F), D)
+            self.w_up = w((E, D, F), D)
+            self.w_down = w((E, F, D), F)
 
 
 class TransformerLM(nn.Module):
@@ -92,9 +109,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, device: str | torch.device | None = None,
                  generator: torch.Generator | None = None, init: bool = True):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP A.11)")
         dev = resolve_device(device)
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
@@ -114,14 +128,77 @@ class TransformerLM(nn.Module):
         return self.embed.device
 
 
-def _qkv(x, lp: DecoderLayer):
+def _attend(x, lp: DecoderLayer, cfg: LMConfig, cos, sin):
+    """The attention block over a whole sequence, x [B, S, D]: returns x
+    plus the attention output, and this layer's k, v [B, S, Hkv, Dh]."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     h = rms_norm(x, lp.attn_norm)
-    return h @ lp.wq, h @ lp.wk, h @ lp.wv
+    q = (h @ lp.wq).reshape(B, S, Hkv, Hq // Hkv, Dh)
+    k = (h @ lp.wk).reshape(B, S, Hkv, Dh)
+    v = (h @ lp.wv).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp.q_norm)
+        k = rms_norm(k, lp.k_norm)
+    q = apply_rope(q, cos[None, :, None, None, :], sin[None, :, None, None, :])
+    k = apply_rope(k, cos[None, :, None, :], sin[None, :, None, :])
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                        q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return x + o.reshape(B, S, Hq * Dh) @ lp.wo, k, v
 
 
-def _ffn(x, lp: DecoderLayer):
+def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x [B, S, D] or [B, D] -> (x + FFN(x), the router's aux loss, None
+    for a dense layer).  The MoE FFN routes the flat [T, D] tokens."""
     h = rms_norm(x, lp.mlp_norm)
-    return x + swiglu(h, lp.w_gate, lp.w_up, lp.w_down)
+    if cfg.moe is None:
+        return x + swiglu(h, lp.w_gate, lp.w_up, lp.w_down), None
+    y, aux = moe_ffn(h.reshape(-1, cfg.d_model), lp.router, lp.w_gate, lp.w_up,
+                     lp.w_down, cfg.moe)
+    return x + y.reshape(h.shape), aux
+
+
+def forward(model: TransformerLM, tokens: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, V] f32, aux): the causal scoring
+    forward, aux the router's load-balancing loss averaged over the layers
+    (a dense layer adds 0).
+
+    Runs under ``torch.inference_mode()``; the reference's ``remat``
+    (rematerialising each layer in the backward pass) has no meaning
+    without a backward and is left out.  Gradients wait for ROADMAP
+    A.11.3, which brings K3's backward."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    dev = model.device
+    with torch.inference_mode():
+        tokens = tokens.to(dev)
+        x = model.embed[tokens]
+        cos, sin = rope_angles(torch.arange(S, device=dev), cfg.d_head, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for lp in model.layers:
+            x, _, _ = _attend(x, lp, cfg, cos, sin)
+            x, a = _ffn(x, lp, cfg)
+            if a is not None:
+                aux = aux + a
+        x = rms_norm(x, model.final_norm)
+        logits = (x @ model.head).float()
+    return logits, aux / cfg.n_layers
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL of ``labels`` [B, S] under :func:`forward`, plus
+    ``aux_weight`` times the router's aux loss: ``(loss, {"nll", "aux"})``.
+    The value only: gradients wait for ROADMAP A.11.3."""
+    logits, aux = forward(model, tokens)
+    with torch.inference_mode():
+        labels = labels.to(logits.device, torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None])[..., 0]
+        nll = (lse - ll).mean()
+        loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def prefill(model: TransformerLM, tokens: torch.Tensor
@@ -134,8 +211,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor
     """
     cfg = model.cfg
     B, S = tokens.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    G = Hq // Hkv
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     W, _ = cache_window(cfg, S)
     dev = model.device
     with torch.inference_mode():
@@ -146,19 +222,8 @@ def prefill(model: TransformerLM, tokens: torch.Tensor
         vc = torch.zeros_like(kc)
         slots = torch.arange(S - W, S, device=dev) % W
         for li, lp in enumerate(model.layers):
-            q, k, v = _qkv(x, lp)
-            q = q.reshape(B, S, Hkv, G, Dh)
-            k = k.reshape(B, S, Hkv, Dh)
-            v = v.reshape(B, S, Hkv, Dh)
-            if cfg.qk_norm:
-                q = rms_norm(q, lp.q_norm)
-                k = rms_norm(k, lp.k_norm)
-            q = apply_rope(q, cos[None, :, None, None, :], sin[None, :, None, None, :])
-            k = apply_rope(k, cos[None, :, None, :], sin[None, :, None, :])
-            o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
-            x = x + o.reshape(B, S, Hq * Dh) @ lp.wo
-            x = _ffn(x, lp)
+            x, k, v = _attend(x, lp, cfg, cos, sin)
+            x, _ = _ffn(x, lp, cfg)
             # the last W positions go to cache slots t % W
             kc[li][:, slots] = k[:, S - W:]
             vc[li][:, slots] = v[:, S - W:]
@@ -192,10 +257,10 @@ def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
         rows = torch.arange(B, device=dev)
         slots = pos.to(torch.int64) % W
         for li, lp in enumerate(model.layers):
-            q, k, v = _qkv(x, lp)
-            q = q.reshape(B, Hkv, G, Dh)
-            k = k.reshape(B, Hkv, Dh)
-            v = v.reshape(B, Hkv, Dh)
+            h = rms_norm(x, lp.attn_norm)
+            q = (h @ lp.wq).reshape(B, Hkv, G, Dh)
+            k = (h @ lp.wk).reshape(B, Hkv, Dh)
+            v = (h @ lp.wv).reshape(B, Hkv, Dh)
             if cfg.qk_norm:
                 q = rms_norm(q, lp.q_norm)
                 k = rms_norm(k, lp.k_norm)
@@ -208,7 +273,7 @@ def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
             o = decode_attention(q, cache.k[li], cache.v[li], pos,
                                  window=cfg.sliding_window, rolling=True)
             x = x + o.reshape(B, Hq * Dh) @ lp.wo
-            x = _ffn(x, lp)
+            x, _ = _ffn(x, lp, cfg)
         x = rms_norm(x, model.final_norm)
         logits = (x @ model.head).float()
     return logits, cache

@@ -477,16 +477,20 @@ def test_tick_w0_cuda_equals_cpu(cuda, with_drops, d_bucket):
     assert torch.equal(out[0], out[1])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "internlm2-20b", "deepseek-coder-33b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "internlm2-20b", "deepseek-coder-33b",
+                                  "mixtral-8x7b", "olmoe-1b-7b"])
 def test_lm_smoke_config_cuda_matches_cpu(cuda, arch):
-    """The dense LMs' smoke configs (float32, d_head 16) run on cuda through
+    """The LMs' smoke configs (float32, d_head 16) run on cuda through
     K3's SIMT body, one launch a layer per prefill, and match the same
     weights on cpu: prefill and 3 decode steps, logits within
-    chip_smoke.py's LM_TOL (3e-2) of each row's largest |logit|."""
+    chip_smoke.py's LM_TOL (3e-2) of each row's largest |logit|.  The MoE
+    configs' routing is held to chip_smoke.py's rule (``routing_check``:
+    the same experts but on near-ties, which leave their sequence out)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import ops as k3_ops
     from repro_torch.models import TransformerLM, decode_step, prefill
 
+    cs = _chip_smoke()
     cfg = get_smoke_config(arch)
     cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     gpu = TransformerLM(cfg, device=cuda, init=False)
@@ -494,21 +498,50 @@ def test_lm_smoke_config_cuda_matches_cpu(cuda, arch):
     rng = np.random.default_rng(2)
     B, S = 2, 24
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    rec_g, rec_c, rows = [], [], set()
     k0, s0 = k3_ops.launches, k3_ops.simt_launches
-    lg, cache_g = prefill(gpu, tokens.to(cuda))
+    with cs.routing_recorded(rec_g):
+        lg, cache_g = prefill(gpu, tokens.to(cuda))
     assert k3_ops.launches == k0 and k3_ops.simt_launches == s0 + cfg.n_layers
-    lc, cache_c = prefill(cpu, tokens)
+    with cs.routing_recorded(rec_c):
+        lc, cache_c = prefill(cpu, tokens)
     for step in range(4):
-        got, want = lg.float().cpu(), lc.float()
-        assert bool(torch.isfinite(got).all())
-        scale = want.abs().amax(-1, keepdim=True)
-        assert bool(((got - want).abs() <= 3e-2 * scale).all()), f"step {step}"
+        if cfg.moe is not None:
+            rows |= cs.routing_check(f"{arch} step {step}", rec_g, rec_c, B)["rows"]
+        assert cs.rows_rel_err(lg, lc, rows) <= 3e-2, f"step {step}"
         if step == 3:
             break
         tok = torch.from_numpy(rng.integers(0, cfg.vocab, B))
         pos = torch.full((B,), S + step, dtype=torch.int64)
-        lg, cache_g = decode_step(gpu, cache_g, tok.to(cuda), pos.to(cuda))
-        lc, cache_c = decode_step(cpu, cache_c, tok, pos)
+        with cs.routing_recorded(rec_g):
+            lg, cache_g = decode_step(gpu, cache_g, tok.to(cuda), pos.to(cuda))
+        with cs.routing_recorded(rec_c):
+            lc, cache_c = decode_step(cpu, cache_c, tok, pos)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b"])
+def test_moe_ffn_cuda_same_bits_every_run(cuda, arch):
+    """One layer's ``moe_ffn`` at the config's full width in bf16, 512
+    tokens (drops included): two runs on the card give the same bits (no
+    atomic in dispatch or combine)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe_ffn
+    from repro_torch.models.layers import normal_init
+    from repro_torch.models.moe import moe_route
+
+    cfg = get_config(arch)
+    spec, D = cfg.moe, cfg.d_model
+    E, F = spec.n_experts, spec.d_ff_expert
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = [normal_init((D, E), D, torch.float32, cuda, gen)] + [
+        normal_init(shape, fan_in, torch.bfloat16, cuda, gen)
+        for shape, fan_in in (((E, D, F), D), ((E, D, F), D), ((E, F, D), F))]
+    x = torch.randn((512, D), generator=gen, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        runs = [moe_ffn(x, *w, spec) for _ in range(2)]
+        assert not bool(moe_route(x, w[0], spec).keep.all())  # drops happen
+    assert bool(torch.isfinite(runs[0][0]).all())
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
 
 
 # K3 flash_attention: bf16 on the tensor cores against its plain versions

@@ -87,8 +87,6 @@ def test_shapes_match_jax_and_recsys_raises():
         assert {k: want[k] for k in dataclasses.asdict(spec)} == dataclasses.asdict(spec)
     with pytest.raises(NotImplementedError, match="A.10"):
         tconfigs.get_config("two-tower-retrieval")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tconfigs.get_smoke_config("mixtral-8x7b")
 
 
 @pytest.mark.parametrize("shape", list(J_GNN_SHAPES))
