@@ -137,7 +137,28 @@ Phases (any failure exits non-zero):
     rolling 4096-slot cache; ``forward`` and ``lm_loss`` over the prompts),
     the cache's slots held against layer 0's keys recomputed, drops per
     prefill, and ``torch.profiler`` traces of a prefill and four decode
-    steps.
+    steps;
+15. training (``repro_torch.train``, ``repro_torch.ft``), run right after
+    phase 11 so that 15b takes its ogbn-products graph and rows: 15a, three
+    train steps on cuda and on cpu from the same weights, held to the CPU
+    tests' tolerances: the smoke LMs of qwen3-14b (2 microbatches) and
+    olmoe-1b-7b (int8 error-feedback compression, routing under rule 1),
+    K3's SIMT body two launches a layer a microbatch (forward and remat
+    recomputation), and the four GNN kinds (GCN's K4 8 launches a step);
+    15b, gcn-cora trained three steps on ogbn-products (8 K4 launches a
+    step, seconds, a trace), and K4's backward against autograd of
+    ``spmm_rows_ref`` at ``minibatch_lg``; 15c, K3's Function at the train
+    shape (B 1, S 4,096, bf16) against autograd of ``attention_ref``, then
+    qwen3-14b at its published widths cut to TRAIN_LM_LAYERS layers, three
+    steps on a 4,096-token sequence (K3 launches counted, every leaf
+    changed by step 1, ``lr`` against ``cosine_lr``; step seconds,
+    tokens/s, share of 989 TFLOP/s, peak memory), a trace of a fourth step
+    (K3, the float32 products of the attention backward, the bf16 products
+    and the rest by kernel name; the attention backward's ranges), and the
+    step's gradient and AdamW update timed apart; 15d, a
+    ``CheckpointManager`` round trip on the card (4 steps straight against
+    2, save, restore, 2; bit for bit).  Phases 2-14 run with grad mode off
+    (serving); phase 15 turns it on.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -910,7 +931,7 @@ def trace(name: str, reps: int, fn, shares: dict[str, str | tuple[str, ...]]) ->
             wall_us = 1e6 * (time.perf_counter() - t0)
         kernels = {}
         for e in prof.key_averages():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and e.key not in ANNOTATIONS:
                 us = getattr(e, "self_device_time_total", 0) or 0
                 if us > 0:
                     kernels[e.key] = (us, e.count)
@@ -2125,8 +2146,8 @@ def phase_gcn(seed: int, cpu_logits, kept: dict) -> dict:
 
     cfg = get_config(GNN_ARCH)
     out = {"launches": 0}
-    # ogb_products first, so that its graph, kept from phase 9, is gone
-    # before the other shapes' peak memory is read
+    # ogb_products first: its graph and rows are then held for phase 15b
+    # (``held_for_15b_gb`` of the other shapes' peaks)
     for shape in ("ogb_products",) + GCN_SHAPES[:-1]:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2173,10 +2194,16 @@ def phase_gcn(seed: int, cpu_logits, kept: dict) -> dict:
         if cpu_logits is not None and shape == "full_graph_sm":
             row["err_over_row_scale_vs_cpu"] = rel = row_rel_err(logits, cpu_logits)
             check(rel <= GNN_TOL, f"gcn {shape}: {rel!r} of the row scale from the cpu run")
+        if "ogb_products_rows" in kept:  # held for phase 15b, inside the peak above
+            g_k, r_k = kept["ogb_products_rows"]
+            row["held_for_15b_gb"] = sum(t.numel() * t.element_size() for t in list(g_k) + [
+                x for r in (r_k.fwd, r_k.bwd) for x in (r.row_ptr, r.col, r.val)]) / 1e9
         log(f"gcn-cora {shape} main path: " + " ".join(f"{k}={v!r}" for k, v in row.items()))
         row["profile"] = trace(f"gcn-cora {shape} forward", 3, lambda: model(g, rows),
                                {"gather_segsum": "gather_segsum_kernel"})
         out[shape] = row
+        if shape == "ogb_products":  # phase 15b trains on this graph
+            kept["ogb_products_rows"] = (g, rows)
         del g, model, rows, logits
     torch.cuda.empty_cache()
     return out
@@ -3455,6 +3482,518 @@ def phase_moe(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+
+# the CPU tests' optimizer and tolerances (tests/test_torch_train.py): three
+# steps at lr 1e-2, warmup 1; loss and grad_norm at rtol 1e-5; parameters
+# within 1 % of a step but for a few elements (Adam moves an element by about
+# lr * sign(g), which a last-bit difference flips where g is near 0, and int8
+# compression flips a quantum at a rounding tie), each within 2 lr a step
+TRAIN_ADAM = {"lr": 1e-2, "warmup_steps": 1, "grad_clip": 1.0}
+TRAIN_STEPS = 3
+TRAIN_RTOL = 1e-5
+TRAIN_STEP_TOL = 1e-2
+TRAIN_ODD = {False: 1e-3, True: 5e-3}  # share of a leaf's elements, by compression
+# 15a: the smoke LMs (microbatches, compression) and the four GNN kinds
+TRAIN_SMOKE_LMS = (("qwen3-14b", 2, False), ("olmoe-1b-7b", 1, True))
+# 15c: qwen3-14b at its published widths with its depth cut to fit one card
+# (bf16 weights and gradients, float32 m and v: 12 bytes a parameter): 12 of
+# 40 layers (5.52B parameters, 66.2 GB of state) peak at 68.4 GB on the H100,
+# within 90 % of its 80 GB; 13 layers (4.0 GB more) would pass that.  The
+# train_4k sequence at batch 1, one microbatch, remat.  lr 3e-3 from step 1
+# (warmup 1) so that step 1 moves every bf16 leaf: the weights are bf16
+# masters, as the reference keeps them, and the default warmup's first
+# update (3e-6) is below half a bf16 ulp of a norm scale of 1
+TRAIN_LM_LAYERS = 12
+TRAIN_LM_SEQ, TRAIN_LM_BATCH = 4096, 1
+TRAIN_LM_ADAM = {"lr": 3e-3, "warmup_steps": 1}
+TRAIN_ATTN_TOL = 1e-2  # normwise: bf16 inputs and bf16 gradients (2^-9 a rounding)
+ANNOTATIONS = ("flash_attention_backward",)  # record_function ranges of the port
+
+
+def train_params_check(name: str, got: dict, want: dict, lr: float, compress: bool) -> int:
+    """The CPU tests' rule on two ``{name: tensor}`` parameter sets;
+    returns the most odd elements of a leaf."""
+    worst = 0
+    for k, w in want.items():
+        d = (got[k].detach().float().cpu() - w.detach().float().cpu()).abs()
+        odd = int((d > TRAIN_STEP_TOL * lr).sum())
+        check(odd <= max(2, TRAIN_ODD[compress] * d.numel()),
+              f"{name} {k}: {odd} of {d.numel()} elements off by more than "
+              f"{TRAIN_STEP_TOL * lr!r}")
+        check(float(d.max()) <= 2 * lr * TRAIN_STEPS, f"{name} {k}: {float(d.max())!r}")
+        worst = max(worst, odd)
+    return worst
+
+
+def train_metrics_check(name: str, got: dict, want: dict) -> float:
+    worst = 0.0
+    for k in ("loss", "grad_norm", "lr"):
+        g, w = float(got[k]), float(want[k])
+        rel = abs(g - w) / max(abs(w), 1e-30)
+        check(math.isfinite(g) and rel <= TRAIN_RTOL,
+              f"{name} {k}: {g!r} on cuda, {w!r} on cpu (relative {rel!r}, beyond {TRAIN_RTOL})")
+        worst = max(worst, rel)
+    return worst
+
+
+def named_params(params) -> dict:
+    from repro_torch import pytree
+
+    return {pytree.keystr(p): x for p, x in pytree.leaves_with_path(params)}
+
+
+def train_parity(seed: int) -> dict:
+    """15a: three train steps on cuda and on cpu from the same weights: the
+    smoke LMs (float32; K3's SIMT body on cuda, two launches a layer a
+    microbatch: the forward and the remat recomputation), qwen3-14b's with 2
+    microbatches and olmoe-1b-7b's compressed, and the four GNN kinds (GCN's
+    8 K4 launches a step: 4 forward, 4 backward)."""
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models import GNN, TransformerLM, forward, gnn_loss, lm_loss
+    from repro_torch.models.gnn import GraphBatch, gcn_rows
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    adam = AdamConfig(**TRAIN_ADAM)
+    out = {"simt_launches": 0}
+    k3_ops.launches = k3_ops.simt_launches = 0
+    for arch, micro, compress in TRAIN_SMOKE_LMS:
+        cfg = get_smoke_config(arch)
+        cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+        gpu = TransformerLM(cfg, device=DEVICE, init=False)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        routing = None
+        if cfg.moe is not None:  # every token routed alike, or the gradients differ
+            rec_g, rec_c = [], []
+            with torch.no_grad(), routing_recorded(rec_g):
+                forward(gpu, tokens.to(DEVICE))
+            with torch.no_grad(), routing_recorded(rec_c):
+                forward(cpu, tokens)
+            routing = routing_check(f"{arch} train", rec_g, rec_c, 2)
+            check(not routing["rows"], f"{arch}: tokens routed differently on cuda and cpu")
+            routing["rows"] = []
+        loss = lambda m, b: lm_loss(m, b["tokens"], b["labels"])
+        step = make_train_step(loss, adam, microbatches=micro, compress=compress)
+        sg, sc = init_train_state(gpu, compress), init_train_state(cpu, compress)
+        n0 = k3_ops.simt_launches
+        worst = 0.0
+        for _ in range(TRAIN_STEPS):
+            sg, mg = step(sg, {k: v.to(DEVICE) for k, v in batch.items()})
+            sc, mc = step(sc, batch)
+            worst = max(worst, train_metrics_check(f"{arch} cuda vs cpu", mg, mc))
+        sync()
+        launches = k3_ops.simt_launches - n0
+        check(launches == 2 * cfg.n_layers * micro * TRAIN_STEPS,
+              f"{arch} train: K3's SIMT body launched {launches} times, expected "
+              f"{2 * cfg.n_layers * micro * TRAIN_STEPS}")
+        out["simt_launches"] += launches
+        odd = train_params_check(f"{arch} params", named_params(sg.params),
+                                 named_params(sc.params), adam.lr, compress)
+        out[arch] = {"microbatches": micro, "compress": compress, "metrics_rel_err": worst,
+                     "odd_elements_max": odd, "loss": float(mc["loss"]),
+                     "simt_launches": launches, "routing": routing}
+        log(f"15a {arch} (microbatches {micro}, compress {compress}): {TRAIN_STEPS} steps cuda "
+            f"vs cpu, loss / grad_norm / lr within {worst!r} relative (tolerance "
+            f"{TRAIN_RTOL}), at most {odd} odd elements a leaf; K3 SIMT launches {launches}")
+        del cpu, gpu, sg, sc
+    check(k3_ops.launches == 0, f"15a: K3's tensor-core body launched {k3_ops.launches} times")
+
+    spec = dataclasses.replace(GNN_SHAPES["full_graph_sm"], n_nodes=700, n_edges=3000, d_feat=8)
+    for arch in GNN_ARCHS:
+        cfg = get_smoke_config(arch)
+        g_cpu = graph_batch(cfg, spec, seed, device="cpu")
+        g = GraphBatch(*(t.to(DEVICE) for t in g_cpu))
+        d_edge = g.edge_feat.shape[1] or 4
+        cpu = GNN(cfg, 8, d_edge, device="cpu", generator=torch.Generator().manual_seed(seed))
+        gpu = GNN(cfg, 8, d_edge, device=DEVICE, init=False)
+        gpu.load_state_dict(cpu.state_dict())
+        rows_g, rows_c = (gcn_rows(x) if cfg.kind == "gcn" else None for x in (g, g_cpu))
+        step_g = make_train_step(lambda p, b: gnn_loss(p, b, cfg, rows_g), adam)
+        step_c = make_train_step(lambda p, b: gnn_loss(p, b, cfg, rows_c), adam)
+        sg, sc = init_train_state(gpu.params()), init_train_state(cpu.params())
+        n0 = k4_ops.launches
+        worst = 0.0
+        for _ in range(TRAIN_STEPS):
+            sg, mg = step_g(sg, g)
+            sc, mc = step_c(sc, g_cpu)
+            worst = max(worst, train_metrics_check(f"{arch} cuda vs cpu", mg, mc))
+        sync()
+        launches = k4_ops.launches - n0
+        want = 8 * TRAIN_STEPS if cfg.kind == "gcn" else 0
+        check(launches == want, f"{arch} train: K4 launched {launches} times, expected {want}")
+        odd = train_params_check(f"{arch} params", named_params(sg.params),
+                                 named_params(sc.params), adam.lr, False)
+        out[arch] = {"metrics_rel_err": worst, "odd_elements_max": odd,
+                     "loss": float(mc["loss"]), "k4_launches": launches}
+        log(f"15a {arch}: {TRAIN_STEPS} steps cuda vs cpu, metrics within {worst!r}, at most "
+            f"{odd} odd elements a leaf; K4 launches {launches}")
+        del g, g_cpu, cpu, gpu, sg, sc
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_gcn(seed: int, kept: dict) -> dict:
+    """15b: gcn-cora at its widths trained on whole ogbn-products (phase
+    11's graph and rows), three steps, K4's launches counted (8 a step);
+    then K4's backward (the Function's) against autograd of
+    ``spmm_rows_ref`` at ``minibatch_lg`` in float32, and both timed."""
+    import torch
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.kernels.gather_segsum import gather_segsum
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.kernels.gather_segsum import spmm_rows_ref
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models import GNN, gnn_loss
+    from repro_torch.models.gnn import _GcnAggregate, gcn_rows
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    cfg = get_config(GNN_ARCH)
+    g, rows = kept.pop("ogb_products_rows")
+    N = g.node_feat.shape[0]
+    model = GNN(cfg, g.node_feat.shape[1], device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    state = init_train_state(model.params())
+    step = make_train_step(lambda p, b: gnn_loss(p, b, cfg, rows), AdamConfig())
+    torch.cuda.reset_peak_memory_stats()
+    k4_ops.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, g)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+              f"gcn-cora train: loss {losses[-1]!r}, grad_norm {float(m['grad_norm'])!r}")
+    launches = k4_ops.launches
+    check(launches == 8 * TRAIN_STEPS,
+          f"gcn-cora train: K4 launched {launches} times in {TRAIN_STEPS} steps, expected "
+          f"{8 * TRAIN_STEPS}")
+    out = {"nodes": N, "edges": g.edge_src.shape[0], "step_s": times,
+           "step_s_median": statistics.median(times[1:]), "nodes_per_s": N / statistics.median(
+               times[1:]), "losses": losses, "k4_launches": launches,
+           "k4_launches_per_step": launches / TRAIN_STEPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["profile"] = trace("gcn-cora train step (ogb_products)", 1, lambda: step(state, g),
+                           {"gather_segsum": "gather_segsum_kernel"})
+    del g, rows, model, state, step
+    torch.cuda.empty_cache()
+
+    # K4's backward against autograd of the plain aggregation, minibatch_lg
+    gb = graph_batch(cfg, GNN_SHAPES["minibatch_lg"], seed, device=DEVICE)
+    r = gcn_rows(gb)
+    n = gb.node_feat.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = torch.randn((n, GCN_WIDTHS[0]), device=DEVICE, generator=gen)
+    go = torch.randn((n, GCN_WIDTHS[0]), device=DEVICE, generator=gen)
+    ha, hb = h.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    got = torch.autograd.grad(_GcnAggregate.apply(ha, r.fwd, r.bwd), ha, go)[0]
+    want = torch.autograd.grad(spmm_rows_ref(r.fwd, hb) + spmm_rows_ref(r.bwd, hb), hb, go)[0]
+    rel = row_rel_err(got, want)
+    check(rel <= GNN_TOL, f"K4 backward at minibatch_lg: {rel!r} of the row scale from "
+          f"autograd of spmm_rows_ref, beyond {GNN_TOL}")
+    bwd_ms = device_time_ms(lambda: gather_segsum(r.bwd, go, n) + gather_segsum(r.fwd, go, n))
+    out_p = spmm_rows_ref(r.fwd, hb) + spmm_rows_ref(r.bwd, hb)
+    plain_ms = device_time_ms(lambda: torch.autograd.grad(out_p, hb, go, retain_graph=True))
+    out.update(k4_backward_err_over_row_scale=rel, k4_backward_ms=bwd_ms,
+               plain_backward_ms=plain_ms)
+    log("15b gcn-cora train on ogb_products: " + " ".join(
+        f"{k}={v!r}" for k, v in out.items() if k != "profile"))
+    del gb, r, h, go, ha, hb, got, want, out_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_flops(cfg, B: int, S: int) -> float:
+    """``repro.launch.cells._lm_train_cell``'s model FLOPs of one step:
+    ``6 N B S`` plus the causal attention term."""
+    attn = 2 * 3 * cfg.n_layers * B * S * S // 2 * cfg.n_heads * cfg.d_head
+    return 6 * cfg.n_active_params * B * S + attn
+
+
+def range_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside the ``record_function``
+    ranges called ``name`` of a trace (the profiler's ``device_time_total``
+    of the range)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+
+
+def step_breakdown(prof, wall_ms: float) -> dict:
+    """Where one traced train step's device time goes: its kernels by name
+    into K3's forward (``flash_fwd_kernel``), the float32 products (the
+    plain attention backward's: ``f32f32``/``sgemm``), the other products
+    (``nvjet``/``gemm``/``cutlass``/``xmma``: bf16) and the rest
+    (elementwise, reductions, copies); the device time of the
+    ``flash_attention_backward`` ranges; the device's idle share; the top
+    kernels."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in ANNOTATIONS]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    check(busy > 0, "step trace: no device time recorded")
+    part = {"k3_forward": 0.0, "products_f32": 0.0, "products_bf16": 0.0, "rest": 0.0}
+    top: dict = {}
+    for e in kern:
+        n, ms = e.name, e.time_range.elapsed_us() / 1e3
+        key = ("k3_forward" if "flash_fwd_kernel" in n else "products_f32"
+               if "f32f32" in n or "sgemm" in n else "products_bf16"
+               if any(x in n for x in ("nvjet", "gemm", "cutlass", "xmma")) else "rest")
+        part[key] += ms
+        top[n] = (top.get(n, (0.0, 0))[0] + ms, top.get(n, (0.0, 0))[1] + 1)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            **{f"{k}_ms": v for k, v in part.items()},
+            **{f"{k}_share": v / busy for k, v in part.items()},
+            **{f"range_{n}_ms": range_ms(prof, n) for n in ANNOTATIONS},
+            "top": [(k[:90], ms, n) for k, (ms, n) in sorted(top.items(),
+                                                             key=lambda kv: -kv[1][0])[:15]]}
+
+
+def train_attention(seed: int) -> dict:
+    """K3's Function at 15c's attention shape (B 1, S 4,096, Hq 40 / Hkv 8,
+    D 128, bf16, causal): the forward (K3's tensor-core body) and dq, dk,
+    dv against autograd of ``attention_ref`` in float32, normwise; the
+    device times of K3 and of the plain backward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    cfg = get_config(LM_ARCH)
+    B, S, Hq, Hkv, D = TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, device=DEVICE, generator=gen).to(torch.bfloat16)
+    q, k, v, do = mk(B, Hq, S, D), mk(B, Hkv, S, D), mk(B, Hkv, S, D), mk(B, Hq, S, D)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = k3_ops.launches
+    o = k3_ops.FlashAttention.apply(*ins, True, None, cfg.q_block, cfg.kv_block)
+    grads = torch.autograd.grad(o, ins, do)
+    check(k3_ops.launches == n0 + 1, "15c: the Function's forward did not launch K3")
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    o_ref = attention_ref(*ref)
+    want = torch.autograd.grad(o_ref, ref, do.float())
+    out = {"forward_band_err": band_rel_err(o.detach(), o_ref.detach())}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        out[f"{name}_rel_err"] = float((g.float() - w).norm() / w.norm())
+    del ref, o_ref, want
+    for key, val in out.items():
+        check(val <= TRAIN_ATTN_TOL, f"15c attention {key}: {val!r} beyond {TRAIN_ATTN_TOL}")
+    fwd_ms = device_time_ms(lambda: k3_ops.flash_attention(q, k, v), calls=10)
+    bwd_ms = device_time_ms(lambda: flash_attention_bwd_ref(q, k, v, do, block_q=cfg.q_block),
+                            calls=3)
+    out.update(k3_forward_ms=fwd_ms, plain_backward_ms=bwd_ms,
+               plain_backward_flops=5 * 2 * B * Hq * D * sum(
+                   min(S, q0 + cfg.q_block) * min(cfg.q_block, S - q0)
+                   for q0 in range(0, S, cfg.q_block)))
+    log("15c K3 Function at " + f"B {B} S {S} Hq {Hq} Hkv {Hkv} D {D} bf16: " + " ".join(
+        f"{k}={v!r}" for k, v in out.items()) + f" (tolerance {TRAIN_ATTN_TOL})")
+    del q, k, v, do, ins, o, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_lm(seed: int, attn_bwd_ms: float, n_layers: int = TRAIN_LM_LAYERS) -> dict:
+    """15c: qwen3-14b at its published widths, ``n_layers`` deep, random
+    seeded weights, trained three steps on one 4,096-token sequence: K3's
+    launches (two a layer a step: the forward and the remat recomputation,
+    on the tensor-core body), finite loss and grad_norm, every parameter
+    leaf changed by step 1, ``lr`` equal to ``cosine_lr``'s; the step's
+    seconds, tokens/s, model-FLOP share of 989 TFLOP/s, peak memory, a
+    trace of a fourth step, and its gradient and AdamW halves timed apart
+    (events), beside ``n_layers`` times ``attn_bwd_ms``, the plain
+    attention backward timed alone at the step's shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import TransformerLM, lm_loss
+    from repro_torch.train import (AdamConfig, adamw_update, cosine_lr, init_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    B, S = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    adam = AdamConfig(**TRAIN_LM_ADAM)
+    state = init_train_state(model)
+    state_gb = sum(t.numel() * t.element_size() for t in model.parameters()) * 6 / 1e9
+    log(f"15c {cfg.name}: {n_layers} of 40 layers, {cfg.n_params} parameters; params, "
+        f"grads, m and v {state_gb!r} GB")
+    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S))).to(DEVICE)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    step = make_train_step(lambda m, b: lm_loss(m, b["tokens"], b["labels"]), adam)
+    k3_ops.launches = k3_ops.simt_launches = 0
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        check(math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"])),
+              f"15c step {i + 1}: loss {losses[-1]!r}, grad_norm {float(m['grad_norm'])!r}")
+        lr = float(cosine_lr(adam, i + 1))
+        check(float(m["lr"]) == lr, f"15c step {i + 1}: lr {float(m['lr'])!r}, cosine_lr {lr!r}")
+        if i == 0:
+            same = [n for n, p in model.named_parameters() if torch.equal(p.detach().cpu(),
+                                                                          before[n])]
+            check(not same, f"15c: step 1 left {len(same)} leaves unchanged: {same[:4]!r}")
+            del before
+    launches, simt = k3_ops.launches, k3_ops.simt_launches
+    check(launches == 2 * n_layers * TRAIN_STEPS and simt == 0,
+          f"15c: K3 launched {launches} times (SIMT {simt}), expected "
+          f"{2 * n_layers * TRAIN_STEPS} on the tensor-core body")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    flops = lm_train_flops(cfg, B, S)
+    out = {"n_layers": n_layers, "n_params": cfg.n_params, "state_gb": state_gb,
+           "step_s": times, "step_s_median_2_3": step_s, "tokens_per_s": B * S / step_s,
+           "model_tflop": flops / 1e12, "share_of_989_tflops": flops / step_s / BF16_FLOPS_PER_S,
+           "max_memory_allocated_gb": peak / 1e9,
+           "total_memory_gb": torch.cuda.get_device_properties(0).total_memory / 1e9,
+           "losses": losses, "k3_launches": launches, "k3_launches_per_step": launches /
+           TRAIN_STEPS, "k3_simt_launches": simt}
+    log("15c main path: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync()
+        wall = time.perf_counter() - t0
+    prof_out = step_breakdown(prof, 1e3 * wall)
+    out["profile"] = prof_out
+    # the step's two halves timed apart (CUDA events, two calls each): the
+    # gradient (forward, remat and backward) and the AdamW update
+    leaves = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads():
+        with torch.enable_grad():
+            loss, _ = lm_loss(model, batch["tokens"], batch["labels"])
+            return dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+    out["gradient_ms"] = cuda_time_ms(grads, reps=2, warmup=0)
+    g = grads()
+    out["adamw_ms"] = cuda_time_ms(lambda: adamw_update(state, g, adam), reps=2, warmup=0)
+    out["attention_backward_ms_x_layers"] = n_layers * attn_bwd_ms
+    log(f"15c step halves: gradient {out['gradient_ms']!r} ms, AdamW {out['adamw_ms']!r} ms, "
+        f"the plain attention backward x {n_layers} layers "
+        f"{out['attention_backward_ms_x_layers']!r} ms")
+    del g
+    log("15c traced step: " + " ".join(f"{k}={v!r}" for k, v in prof_out.items()
+                                       if k != "top"))
+    for k, ms, n in prof_out["top"]:
+        log(f"  {ms:.4f} ms  {n}x  {k}")
+    del model, state, step, batch, tokens, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume(seed: int) -> dict:
+    """15d: the qwen3-14b smoke LM (float32, dense) on the card: 4 steps
+    straight against 2 steps, a ``CheckpointManager`` save, a restore into
+    a fresh state and 2 more steps, bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.ft import CheckpointManager, latest_step, load_pytree
+    from repro_torch.models import TransformerLM, lm_loss
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    cfg = get_smoke_config(LM_ARCH)
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+
+    def fresh():
+        m = TransformerLM(cfg, device=DEVICE, init=False)
+        m.load_state_dict(cpu.state_dict())
+        return init_train_state(m)
+
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (2, 24)))
+    batch = {"tokens": tokens.to(DEVICE), "labels": torch.roll(tokens, -1, dims=1).to(DEVICE)}
+    step = make_train_step(lambda m, b: lm_loss(m, b["tokens"], b["labels"]),
+                           AdamConfig(**TRAIN_ADAM))
+    a = fresh()
+    for _ in range(4):
+        a, _ = step(a, batch)
+    directory = ROOT / "build" / "phase15_checkpoints"
+    shutil.rmtree(directory, ignore_errors=True)
+    b = fresh()
+    mgr = CheckpointManager(str(directory), keep=1, every_steps=2)
+    t0 = time.perf_counter()
+    for i in range(1, 3):
+        b, _ = step(b, batch)
+        mgr.maybe_save(b, i)
+    mgr.wait()
+    mgr.check()
+    save_s = time.perf_counter() - t0
+    check(latest_step(str(directory)) == 2, f"15d: latest step {latest_step(str(directory))}")
+    b = load_pytree(fresh(), str(directory))
+    mgr.close()
+    check(int(b.step) == 2 and b.params.device.type == "cuda", "15d: restored state")
+    for _ in range(2):
+        b, _ = step(b, batch)
+    pairs = [(f"params {n}", p, b.params.get_parameter(n)) for n, p in a.params.named_parameters()]
+    pairs += [(f"{f} {n}", x, getattr(b, f)[n]) for f in ("m", "v")
+              for n, x in getattr(a, f).items()]
+    differ = [k for k, x, y in pairs if not torch.equal(x, y)]
+    check(not differ and int(a.step) == int(b.step) == 4,
+          f"15d: resumed run differs from the straight run in {differ[:4]!r}")
+    shutil.rmtree(directory, ignore_errors=True)
+    out = {"leaves_compared": len(pairs), "steps": 4, "saved_at": 2, "save_and_wait_s": save_s}
+    log(f"15d checkpoint round trip on the card: {len(pairs)} leaves bit for bit after "
+        f"2 + restore + 2 steps against 4 straight")
+    return out
+
+
+def phase_train(seed: int, kept: dict) -> dict:
+    """Phase 15: 15a cuda against cpu, 15b gcn-cora on ogbn-products, 15c
+    qwen3-14b at full width, 15d a checkpoint round trip."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products as on the cpu
+    out = {"parity": train_parity(seed)}
+    log(f"15a: {time.perf_counter() - t0!r} s")
+    t1 = time.perf_counter()
+    out["gcn_cora"] = train_gcn(seed, kept)
+    log(f"15b: {time.perf_counter() - t1!r} s")
+    t1 = time.perf_counter()
+    out["attention"] = train_attention(seed)
+    out["qwen3_14b"] = train_lm(seed, out["attention"]["plain_backward_ms"])
+    log(f"15c: {time.perf_counter() - t1!r} s")
+    t1 = time.perf_counter()
+    out["resume"] = train_resume(seed)
+    log(f"15d: {time.perf_counter() - t1!r} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -3474,6 +4013,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+
+    torch.set_grad_enabled(False)  # serving and the engine; phase 15 turns it on
 
     load_grab_config()
 
@@ -3531,7 +4072,7 @@ def main() -> int:
         f"{time.perf_counter() - t_lm!r} s")
 
     t_gnn = time.perf_counter()
-    kept = {}  # the ogb_products graph, from phase 9 to phase 11
+    kept = {}  # the ogb_products graph, from phase 9 to phase 11, and its rows to 15b
     k4, k4_cases = phase_k4(GNN_SEED, kept)
     log("phase 9: K4 agrees with its plain versions")
     gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
@@ -3539,6 +4080,17 @@ def main() -> int:
     gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
     log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
         f"{time.perf_counter() - t_gnn!r} s")
+
+    # phase 15 runs here, so that 15b trains on phase 11's ogbn-products
+    # graph and rows, which phase 14's memory could not share the card with
+    with torch.enable_grad():
+        train = phase_train(LM_SEED, kept)
+    t15 = train["qwen3_14b"]
+    log(f"phase 15: trained on {smi}: the smoke LMs and GNN kinds cuda == cpu, gcn-cora on "
+        f"ogbn-products ({train['gcn_cora']['k4_launches_per_step']!r} K4 launches a step), "
+        f"{LM_ARCH} at {t15['n_layers']} layers ({t15['k3_launches_per_step']!r} K3 launches "
+        f"a step, {t15['step_s_median_2_3']!r} s a step), a checkpoint round trip bit for "
+        f"bit; {train['seconds']!r} s")
 
     # phase 12 launches K1, K2 and suffix_init off the main path: counted
     # apart from the main-path counts of the kernels line
@@ -3573,7 +4125,11 @@ def main() -> int:
         check(mod not in sys.modules, f"{mod} was imported")
 
     k3_paths = {"qwen3-14b": lm["k3_launches"],
-                **{a: moe[a]["k3_launches"] for a in MOE_LAYERS}}
+                **{a: moe[a]["k3_launches"] for a in MOE_LAYERS},
+                "qwen3-14b-train": train["qwen3_14b"]["k3_launches"]}
+    simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
+                  "smoke-train": train["parity"]["simt_launches"]}
+    k4_paths = {"gcn-cora": gcn["launches"], "gcn-cora-train": train["gcn_cora"]["k4_launches"]}
     kernels = [
         {"name": "peel_round", "route": "cuda",
          "source": "src/repro_torch/csrc/peel_round.cu",
@@ -3594,8 +4150,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
-         "launches": k3_paths["qwen3-14b"] + sum(moe[a]["k3_launches"] for a in MOE_LAYERS),
-         "launches_by_path": k3_paths, "bound_by": "operations", **attn,
+         "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+         "bound_by": "operations", **attn,
          "max_abs_err": max([attn["max_abs_err"]]
                             + [moe["attention"][a]["max_abs_err"] for a in MOE_LAYERS]),
          "moe_shapes": {a: {k: moe["attention"][a][k] for k in
@@ -3604,11 +4160,11 @@ def main() -> int:
         {"name": "flash_attention_simt", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
-         "launches": lm_parity["smoke_configs"]["simt_launches"], **attn_simt},
+         "launches": sum(simt_paths.values()), "launches_by_path": simt_paths, **attn_simt},
         {"name": "gather_segsum", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_segsum.cu",
          "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
-         "launches": gcn["launches"], **k4},
+         "launches": sum(k4_paths.values()), "launches_by_path": k4_paths, **k4},
     ]
     log("kernels launched on their paths: " + ", ".join(
         f"{k['name']} {k['launches']}" for k in kernels))
@@ -3620,7 +4176,8 @@ def main() -> int:
              "attention_simt": attn_simt,
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
-             "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe},
+             "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
+             "train": train},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,13 @@ cross as bits: ``np.asarray`` of a JAX bf16 array has the ``ml_dtypes``
 ``uint16`` and the tensor as ``torch.bfloat16``; going back, a bf16 leaf
 comes out as a ``uint16`` array of its bits.
 
+Training state: :func:`train_state_to_numpy` gives the port's
+:class:`~repro_torch.train.TrainState` as the reference's (``params``,
+``m``, ``v``, ``step``, ``err``; an LM's moments and residuals stacked,
+unfolded and keyed as its parameters), :func:`train_state_from_numpy`
+takes it back, bit for bit; :func:`train_state_to_reference` is the same
+map onto torch tensors (bf16 kept), which the checkpoints write.
+
 GNN: :func:`gnn_params_from_numpy` takes the tree of the JAX package's
 ``init_gnn_params`` (dicts and lists of arrays; MeshGraphNet's ``proc_*``
 and DimeNet's ``blocks`` stacked with a leading L dimension) and builds a
@@ -38,17 +45,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.configs.base import GNNConfig, LMConfig
 from repro_torch.core.incremental import DeviceSpadeState
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.structs import DeviceGraph
 from repro_torch.models.gnn import GNN, flatten_params, unflatten_params
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import TransformerLM, reference_leaves
+from repro_torch.train.optimizer import TrainState
 
 __all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
            "lm_params_from_numpy", "lm_params_to_numpy", "fold_experts", "unfold_experts",
-           "gnn_params_from_numpy",
-           "gnn_params_to_numpy"]
+           "gnn_params_from_numpy", "gnn_params_to_numpy", "tensor_from_numpy",
+           "train_state_to_reference", "train_state_to_numpy", "train_state_from_numpy"]
 
 GRAPH_FIELDS = {"src": np.int32, "dst": np.int32, "c": np.float32,
                 "edge_mask": np.bool_, "a": np.float32, "vertex_mask": np.bool_}
@@ -83,11 +92,6 @@ def state_to_numpy(state: DeviceSpadeState) -> dict:
     return out
 
 
-_LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
-_MLP_LEAVES = ("w_gate", "w_up", "w_down")
-_MOE_LEAVES = ("router",) + _MLP_LEAVES
-
-
 def fold_experts(name: str, w: torch.Tensor, vs: int) -> torch.Tensor:
     """One layer's ``moe`` leaf as the port holds it: virtual experts
     ``[E * vs, ...]`` joined into whole experts (the router as it is)."""
@@ -111,13 +115,16 @@ def unfold_experts(name: str, w: torch.Tensor, vs: int) -> torch.Tensor:
     return w
 
 
-def _to_tensor(x, dtype: torch.dtype) -> torch.Tensor:
-    x = np.ascontiguousarray(np.asarray(x))
+def tensor_from_numpy(x, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` holding a copy of the array ``x``; a bf16
+    tensor takes ``x``'s bits (an ``ml_dtypes`` bfloat16 array or its
+    ``uint16`` view)."""
+    x = np.array(x, order="C")  # a copy (0-d stays 0-d)
     if dtype == torch.bfloat16:
         if x.dtype.name not in ("bfloat16", "uint16"):
             raise TypeError(f"expected bfloat16 (or its uint16 bits), got {x.dtype}")
-        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(x.copy()).to(dtype)
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(x).to(dtype)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -127,46 +134,56 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _lm_to_reference(get, cfg: LMConfig, leaf, stack) -> dict:
+    """The reference's LM tree from ``get(port name)`` (the leaves of
+    :func:`~repro_torch.models.transformer.reference_leaves`): each tensor
+    unfolded where it is an expert leaf, then ``leaf``-converted, and a
+    layer leaf's ``stack``-ed."""
+    vs = cfg.moe.virtual_split if cfg.moe is not None else 1
+    tree: dict = {}
+    for path, names in reference_leaves(cfg):
+        xs = [get(n) for n in names]
+        if path[:2] == ("layers", "moe"):
+            xs = [unfold_experts(path[-1], x, vs) for x in xs]
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = stack([leaf(x) for x in xs]) if path[0] == "layers" else leaf(xs[0])
+    return tree
+
+
+def _lm_from_reference(tree: dict, cfg: LMConfig, put) -> None:
+    """``put(port name, reference slice)`` for every port tensor of the
+    reference's LM tree; ``put`` converts the slice (``fold`` it after)."""
+    for path, names in reference_leaves(cfg):
+        x = tree
+        for k in path:
+            x = x[k]
+        for i, n in enumerate(names):
+            put(n, x[i] if path[0] == "layers" else x, path[-1] if path[1:2] == ("moe",) else None)
+
+
 def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
                          device: str | torch.device | None = None) -> TransformerLM:
     """A :class:`TransformerLM` on ``device`` (default ``cuda``, raising
     without a GPU) holding the JAX-layout pytree ``params_np`` bit for bit."""
     model = TransformerLM(cfg, device=device, init=False)
-    dev, dtype = model.device, model.embed.dtype
-    put = lambda x: _to_tensor(x, dtype).to(dev)
+    vs = cfg.moe.virtual_split if cfg.moe is not None else 1
+
+    def put(name, x, expert):
+        leaf = model.get_parameter(name)
+        w = tensor_from_numpy(x, leaf.dtype)
+        leaf.copy_((fold_experts(expert, w, vs) if expert else w).to(leaf.device))
+
     with torch.no_grad():
-        for name in ("embed", "final_norm", "head"):
-            getattr(model, name).copy_(put(params_np[name]))
-        layers = params_np["layers"]
-        for li, lp in enumerate(model.layers):
-            for name in _LAYER_LEAVES:
-                if hasattr(lp, name):
-                    getattr(lp, name).copy_(put(layers[name][li]))
-            if cfg.moe is None:
-                for name in _MLP_LEAVES:
-                    getattr(lp, name).copy_(put(layers["mlp"][name][li]))
-                continue
-            for name in _MOE_LEAVES:
-                leaf = getattr(lp, name)
-                w = _to_tensor(layers["moe"][name][li], leaf.dtype)
-                leaf.copy_(fold_experts(name, w, cfg.moe.virtual_split).to(dev))
+        _lm_from_reference(params_np, cfg, put)
     return model
 
 
 def lm_params_to_numpy(model: TransformerLM) -> dict:
     """The JAX-layout pytree of ``model`` (the inverse of
     :func:`lm_params_from_numpy`); bf16 leaves as ``uint16`` bits."""
-    moe = model.cfg.moe
-    stack = lambda name: np.stack([_to_numpy(getattr(lp, name)) for lp in model.layers])
-    layers = {name: stack(name) for name in _LAYER_LEAVES if hasattr(model.layers[0], name)}
-    if moe is None:
-        layers["mlp"] = {name: stack(name) for name in _MLP_LEAVES}
-    else:
-        layers["moe"] = {name: np.stack([_to_numpy(unfold_experts(
-            name, getattr(lp, name), moe.virtual_split)) for lp in model.layers])
-            for name in _MOE_LEAVES}
-    return {"embed": _to_numpy(model.embed), "layers": layers,
-            "final_norm": _to_numpy(model.final_norm), "head": _to_numpy(model.head)}
+    return _lm_to_reference(model.get_parameter, model.cfg, _to_numpy, np.stack)
 
 
 def _gnn_input_dims(params_np: dict, cfg: GNNConfig) -> tuple[int, int]:
@@ -193,7 +210,7 @@ def gnn_params_from_numpy(params_np: dict, cfg: GNNConfig,
         for path, leaf in flatten_params(model.params()):
             if path not in given:
                 raise KeyError(f"gnn_params_from_numpy: {path} missing")
-            x = _to_tensor(given.pop(path), leaf.dtype)
+            x = tensor_from_numpy(given.pop(path), leaf.dtype)
             if x.shape != leaf.shape:
                 raise ValueError(f"gnn_params_from_numpy: {path} has shape "
                                  f"{tuple(x.shape)}, expected {tuple(leaf.shape)}")
@@ -207,3 +224,65 @@ def gnn_params_to_numpy(model: GNN) -> dict:
     """The reference tree of ``model`` (the inverse of
     :func:`gnn_params_from_numpy`)."""
     return unflatten_params((p, _to_numpy(t)) for p, t in flatten_params(model.params()))
+
+
+def train_state_to_reference(state: TrainState, device: str | torch.device = "cpu"
+                             ) -> TrainState:
+    """``state`` in the reference's layout as copies on ``device``
+    (``"meta"`` gives the structure alone): an LM's leaves stacked over the
+    layers and unfolded, other trees as they are."""
+    leaf = lambda t: t.detach().to(device, copy=True)
+    if isinstance(state.params, TransformerLM):
+        conv = lambda k, t: _lm_to_reference(
+            t.get_parameter if k == "params" else t.__getitem__, state.params.cfg, leaf,
+            torch.stack)
+    else:
+        conv = lambda k, t: pytree.tree_map(leaf, t)
+    trees = {"params": state.params, "m": state.m, "v": state.v, "err": state.err}
+    return TrainState(step=leaf(state.step),
+                      **{k: None if t is None else conv(k, t) for k, t in trees.items()})
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The reference's ``TrainState`` of ``state`` as numpy arrays (bf16
+    leaves as ``uint16`` bits, ``step`` a 0-d int32 array)."""
+    return pytree.tree_map(_to_numpy, train_state_to_reference(state))
+
+
+def _np_tensor(x, device: torch.device) -> torch.Tensor:
+    """A numpy leaf (bf16 as an ``ml_dtypes`` array) as a tensor on ``device``."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return tensor_from_numpy(x, torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x, order="C")).to(device)
+
+
+def train_state_from_numpy(state_np, cfg: LMConfig | GNNConfig | None = None,
+                           device: str | torch.device | None = None) -> TrainState:
+    """The port's ``TrainState`` on ``device`` (default ``cuda``, raising
+    without a GPU) from the reference's as numpy (any object with
+    ``params``, ``m``, ``v``, ``step`` and ``err``): with an LM config, a
+    :class:`TransformerLM` and dicts keyed by its parameter names; with a
+    GNN config, ``GNN.params()`` and trees like it; with none, the trees as
+    they are."""
+    dev = resolve_device(device)
+    if isinstance(cfg, LMConfig):
+        params = lm_params_from_numpy(state_np.params, cfg, dev)
+        vs = cfg.moe.virtual_split if cfg.moe is not None else 1
+
+        def conv(tree) -> dict:
+            out = {}
+
+            def put(name, x, expert):
+                w = tensor_from_numpy(x, torch.float32)
+                out[name] = (fold_experts(expert, w, vs) if expert else w).to(dev)
+
+            _lm_from_reference(tree, cfg, put)
+            return out
+    else:
+        conv = lambda tree: pytree.tree_map(lambda x: _np_tensor(x, dev), tree)
+        params = (gnn_params_from_numpy(state_np.params, cfg, dev).params()
+                  if isinstance(cfg, GNNConfig) else conv(state_np.params))
+    m, v, err = (None if t is None else conv(t) for t in (state_np.m, state_np.v, state_np.err))
+    step = torch.from_numpy(np.asarray(state_np.step, np.int32).copy()).to(dev)
+    return TrainState(params=params, m=m, v=v, step=step, err=err)

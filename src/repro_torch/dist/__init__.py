@@ -1,7 +1,9 @@
 """The dist plane on ``torch.distributed``: the edge-sharded Spade engine
-(:mod:`repro_torch.dist.graph`) and :func:`spawn`, which starts a job's
-ranks on one host."""
+(:mod:`repro_torch.dist.graph`), :func:`spawn`, which starts a job's ranks
+on one host, and the error-feedback int8 gradient compression
+(:mod:`repro_torch.dist.compression`)."""
 
+from .compression import compress_grads, dequantize_int8, ef_compress_tree, quantize_int8
 from .graph import (
     STATS,
     TIME_REDUCES,
@@ -26,6 +28,10 @@ from .graph import (
 from .spawn import spawn
 
 __all__ = [
+    "compress_grads",
+    "dequantize_int8",
+    "ef_compress_tree",
+    "quantize_int8",
     "STATS",
     "TIME_REDUCES",
     "ShardedGraph",

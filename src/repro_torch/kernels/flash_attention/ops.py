@@ -20,10 +20,11 @@ import math
 import torch
 
 from repro_torch.kernels import _launch
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "check_kernel_args", "tma_fields", "smem_bytes", "launches",
-           "simt_launches", "HEAD_DIMS", "MAX_HEAD_DIM", "TILE_Q", "TILE_K", "BOX_COLS"]
+__all__ = ["FlashAttention", "flash_attention", "check_kernel_args", "tma_fields", "smem_bytes",
+           "launches", "simt_launches", "HEAD_DIMS", "MAX_HEAD_DIM", "TILE_Q", "TILE_K",
+           "BOX_COLS"]
 
 launches = 0
 simt_launches = 0
@@ -159,3 +160,24 @@ def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1
     _launch.check(err, "flash_attention_launch")
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, causal, window, block_q, block_k)``:
+    :func:`flash_attention` with a gradient for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, block_q=512, block_k=1024):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, block_q)
+        return flash_attention(q, k, v, causal=causal, window=window, block_q=block_q,
+                               block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, block_q = ctx.args
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window,
+                                                 block_q=block_q)
+        return dq, dk, dv, None, None, None, None

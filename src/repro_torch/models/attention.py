@@ -2,9 +2,11 @@
 blocked causal / sliding-window GQA forward and the KV-cache decode.
 
 :func:`flash_attention` takes the model layout and hands strided views to
-the kernel wrapper :func:`repro_torch.kernels.flash_attention.flash_attention`:
-K3 on CUDA tensors (its tensor-core body for bf16 at head dims 64 and 128,
-its SIMT body for the rest), its plain version on CPU tensors.  Queries are
+K3's ``autograd.Function``
+(:class:`repro_torch.kernels.flash_attention.ops.FlashAttention`): K3 on
+CUDA tensors (its tensor-core body for bf16 at head dims 64 and 128, its
+SIMT body for the rest), its plain version on CPU tensors, and the plain
+blocked gradient in the backward.  Queries are
 left-aligned (query i at position i) there, as in the reference.
 :func:`decode_attention` is plain PyTorch, as it is plain jnp in the
 reference.  The reference's right-aligned ``dense_attention`` has no
@@ -31,13 +33,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_block=512,
     [B, S, Hkv, G, D].  q is read as the ``[B, Hq, S, D]`` view of
     ``[B, S, Hq, D]`` (q head ``h = kv * G + g``), k/v as ``[B, Hkv, Skv, D]``
     views: nothing is copied or repeated per group.  ``q_block``/``kv_block``
-    tile the plain CPU path only.
+    tile the plain CPU forward; ``q_block`` also tiles the backward.
     """
     B, S, Hkv, G, D = q.shape
     qh = q.reshape(B, S, Hkv * G, D).permute(0, 2, 1, 3)
-    o = fa_ops.flash_attention(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                               causal=causal, window=window,
-                               block_q=q_block, block_k=kv_block)
+    o = fa_ops.FlashAttention.apply(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                                    causal, window, q_block, kv_block)
     return o.permute(0, 2, 1, 3).reshape(B, S, Hkv, G, D)
 
 

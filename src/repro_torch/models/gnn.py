@@ -1,11 +1,14 @@
 """GNN zoo of the port (port of ``repro/models/gnn.py``): GCN, GAT,
-MeshGraphNet and DimeNet, forward (inference) only.
+MeshGraphNet and DimeNet, their forward and their loss, trainable.
 
 GCN's two aggregations per layer (``A h`` over ``src -> dst`` and ``A^T h``
 over ``dst -> src``, weights ``inv_sqrt[src] * inv_sqrt[dst]``) go through
+:class:`_GcnAggregate`, an ``autograd.Function`` over
 :func:`repro_torch.kernels.gather_segsum.gather_segsum`: the K4 kernel on
-CUDA, its plain row-level version on the CPU.  The weights depend only on
-the graph, so both directions' destination rows are built once per graph by
+CUDA, its plain row-level version on the CPU, forward and backward (the
+gradient of ``A h + A^T h`` is the same two aggregations of the incoming
+gradient, as the two directions are transposes).  The weights depend only
+on the graph, so both directions' destination rows are built once per graph by
 :func:`gcn_rows` and passed to :func:`gnn_forward` (built there when not
 given).  GAT, MeshGraphNet and DimeNet aggregate with ``segment_sum`` in
 plain PyTorch, as the reference does outside any Pallas kernel.
@@ -15,7 +18,8 @@ Parameters keep the reference's tree layout (``x @ w``; MeshGraphNet's
 :class:`GNN` holds such a tree as module parameters, and
 :mod:`repro_torch.convert` carries the reference's trees across.  The
 reference's sharding hints (``constrain``) are no-ops on one device and
-are dropped; its scans become Python loops.
+are dropped; its scans become Python loops.  GAT, MeshGraphNet and DimeNet
+take their gradients from autograd over plain ops, as the reference's do.
 """
 
 from __future__ import annotations
@@ -199,7 +203,7 @@ class GNN(nn.Module):
         self._paths = []
         for path, leaf in flatten_params(tree):
             self._paths.append(path)
-            self.register_parameter(self._name(path), nn.Parameter(leaf, requires_grad=False))
+            self.register_parameter(self._name(path), nn.Parameter(leaf))
 
     @staticmethod
     def _name(path) -> str:
@@ -250,15 +254,39 @@ def gcn_rows(g: GraphBatch) -> GCNRows:
                    self_weight=inv_sqrt * inv_sqrt)
 
 
+class _GcnAggregate(torch.autograd.Function):
+    """``_GcnAggregate.apply(x, fwd, bwd) = gather_segsum(fwd, x, n) +
+    gather_segsum(bwd, x, n)``, ``n = fwd.n_out``, where ``bwd`` holds the
+    transpose of ``fwd``'s matrix, as :func:`gcn_rows` builds them from one
+    set of symmetric edge weights (nothing else may call it: the backward
+    is right only for such a pair).  The gradient of ``A x + A^T x`` is
+    ``A^T g + A g``: the same two launches on the incoming gradient, each
+    direction's term through the other direction's rows.  The matrices
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: BlockRows, bwd: BlockRows):
+        n = fwd.n_out
+        if {fwd.n_src, bwd.n_out, bwd.n_src} != {n}:
+            raise ValueError(f"_GcnAggregate: fwd is {n} x {fwd.n_src}, bwd {bwd.n_out} "
+                             f"x {bwd.n_src}; both must be square and of one size")
+        ctx.rows = (fwd, bwd)
+        return gather_segsum(fwd, x, n) + gather_segsum(bwd, x, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        fwd, bwd = ctx.rows
+        g = g.contiguous()
+        return gather_segsum(bwd, g, fwd.n_out) + gather_segsum(fwd, g, fwd.n_out), None, None
+
+
 def _gcn_forward(p, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None):
-    N = g.node_feat.shape[0]
     rows = rows if rows is not None else gcn_rows(g)
     x = g.node_feat
     for i, (w, b) in enumerate(zip(p["w"], p["b"])):
         h = x @ w + b
         # symmetric-normalised aggregation over both directions + self loop
-        agg = gather_segsum(rows.fwd, h, N)
-        agg = agg + gather_segsum(rows.bwd, h, N)
+        agg = _GcnAggregate.apply(h, rows.fwd, rows.bwd)
         x = agg + h * rows.self_weight[:, None]
         if i < len(p["w"]) - 1:
             x = F.relu(x)
@@ -366,7 +394,8 @@ def gnn_forward(p: dict, g: GraphBatch, cfg: GNNConfig,
 
 
 def gnn_loss(p: dict, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None = None):
-    """Mean node cross-entropy over ``node_mask`` (forward value only)."""
+    """Mean node cross-entropy over ``node_mask``: ``(loss, {})``,
+    differentiable in ``p`` when grad mode is on."""
     logits = gnn_forward(p, g, cfg, rows)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, g.labels.long()[:, None], dim=-1)[:, 0]

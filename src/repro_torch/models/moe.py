@@ -33,7 +33,12 @@ arithmetic:
 
 Dispatch and combine are a scatter of token ids into each block's
 ``E * Cb`` slots (destinations unique but for one spare slot that takes
-the drops) and row gathers.  The expert products are plain batched matrix
+the drops) and row gathers.  Without grad mode (serving) ``silu``, the
+gate product and the down product run in place, to save memory; with it
+(training) their out-of-place forms give the same values.  The gathers'
+backward is an ``index_add_`` (float atomics on CUDA: a token's row is
+gathered up to K times), so on the card the gradients do not repeat their
+bits from run to run; the forward does.  The expert products are plain batched matrix
 products, as they are plain einsums outside any Pallas kernel in the
 reference.
 """
@@ -114,14 +119,17 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     src = src[:, :n_slots].view(TB, E, Cb).transpose(0, 1).reshape(-1)  # expert-major
     buf = torch.cat([x, x.new_zeros((1, D))]).index_select(0, src).view(E, TB * Cb, D)
     del src
-    h = F.silu(torch.bmm(buf, w_gate), inplace=True)
-    h.mul_(torch.bmm(buf, w_up))
-    del buf
     # y's rows are (expert, block, position), and one zero row for the drops
-    y = x.new_empty((E * TB * Cb + 1, D))
-    y[-1].zero_()
-    torch.bmm(h, w_down, out=y[:-1].view(E, TB * Cb, D))
-    del h
+    if torch.is_grad_enabled():  # the same values, out of place for autograd
+        h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+        y = torch.cat([torch.bmm(h, w_down).view(-1, D), x.new_zeros((1, D))])
+    else:
+        h = F.silu(torch.bmm(buf, w_gate), inplace=True)
+        h.mul_(torch.bmm(buf, w_up))
+        y = x.new_empty((E * TB * Cb + 1, D))
+        y[-1].zero_()
+        torch.bmm(h, w_down, out=y[:-1].view(E, TB * Cb, D))
+    del buf, h
     e, pos = r.slot // Cb, r.slot % Cb
     row = torch.where(r.keep, (e * TB + blocks[:, None]) * Cb + pos, E * TB * Cb)
     gk = (r.gates.reshape(TB, A) * r.keep).to(y.dtype)

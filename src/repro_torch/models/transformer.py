@@ -13,10 +13,15 @@ Prefill and forward attention go through
 CUDA, its plain version on the CPU); decode attention is plain PyTorch, as
 it is plain jnp in the reference.  Parameters keep the reference's ``x @
 w`` layout, one :class:`DecoderLayer` per layer in place of the
-reference's stacked ``[L, ...]`` leaves (:mod:`repro_torch.convert`
-carries them across).  Every entry point runs under
-``torch.inference_mode()``: gradients wait for the training slice
-(ROADMAP A.11.3), which brings K3's backward.
+reference's stacked ``[L, ...]`` leaves (:func:`reference_leaves` maps
+one layout to the other, :mod:`repro_torch.convert` carries them across).
+Parameters are trainable: ``forward`` and ``lm_loss`` build the autograd
+graph when grad mode is on (call them under ``torch.no_grad()`` to score
+without one), with each layer rematerialised in the backward (``forward``'s
+``remat``, the reference's ``jax.checkpoint``) and
+attention's gradient from K3's ``autograd.Function``; :mod:`repro_torch.train`
+trains through them.  ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pytree
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, flash_attention
@@ -33,7 +40,7 @@ from repro_torch.models.layers import apply_rope, normal_init, rms_norm, rope_an
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["KVCache", "cache_window", "DecoderLayer", "TransformerLM", "forward",
-           "lm_loss", "prefill", "decode_step"]
+           "lm_loss", "prefill", "decode_step", "reference_leaves", "reference_groups"]
 
 
 class KVCache(NamedTuple):
@@ -48,15 +55,11 @@ def cache_window(cfg: LMConfig, seq_len: int) -> tuple[int, bool]:
     return seq_len, False
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 def _weight(shape, fan_in, dtype, device, generator) -> nn.Parameter:
     """Drawn from ``generator``, or left uninitialised when it is None."""
     if generator is None:
-        return _frozen(torch.empty(shape, dtype=dtype, device=device))
-    return _frozen(normal_init(shape, fan_in, dtype, device, generator))
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    return nn.Parameter(normal_init(shape, fan_in, dtype, device, generator))
 
 
 class DecoderLayer(nn.Module):
@@ -73,7 +76,7 @@ class DecoderLayer(nn.Module):
         D, F = cfg.d_model, cfg.d_ff
         Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         w = lambda shape, fan_in, dt=dtype: _weight(shape, fan_in, dt, device, generator)
-        ones = lambda n: _frozen(torch.ones(n, dtype=dtype, device=device))
+        ones = lambda n: nn.Parameter(torch.ones(n, dtype=dtype, device=device))
         self.attn_norm = ones(D)
         self.mlp_norm = ones(D)
         self.wq = w((D, Hq * Dh), D)
@@ -120,12 +123,44 @@ class TransformerLM(nn.Module):
         self.embed = w((V, D), D)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, dev, gen)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _frozen(torch.ones(D, dtype=dtype, device=dev))
+        self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype, device=dev))
         self.head = w((D, V), D)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+_LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_MLP_LEAVES = ("w_gate", "w_up", "w_down")
+_MOE_LEAVES = ("router",) + _MLP_LEAVES
+
+
+def reference_leaves(cfg: LMConfig) -> list[tuple[tuple[str, ...], list[str]]]:
+    """``(reference path, port parameter names)`` of every leaf of the
+    reference's LM pytree: one name for ``embed``, ``final_norm`` and
+    ``head``; one a layer, stacked on a leading axis in the reference, for
+    the ``layers`` leaves (a MoE layer's experts folded,
+    :func:`repro_torch.convert.fold_experts`)."""
+    per_layer = lambda n: [f"layers.{i}.{n}" for i in range(cfg.n_layers)]
+    out = [(("embed",), ["embed"]), (("final_norm",), ["final_norm"]), (("head",), ["head"])]
+    out += [(("layers", n), per_layer(n)) for n in _LAYER_LEAVES
+            if cfg.qk_norm or n not in ("q_norm", "k_norm")]
+    ffn, names = ("mlp", _MLP_LEAVES) if cfg.moe is None else ("moe", _MOE_LEAVES)
+    return out + [(("layers", ffn, n), per_layer(n)) for n in names]
+
+
+def reference_groups(params) -> dict | None:
+    """For an LM module: ``{port leaf: reference leaf}``, each a
+    :func:`~repro_torch.pytree.keystr` (``['layers.3.wq']`` ->
+    ``['layers']['wq']``), the port's tensors that the reference stacks
+    into one leaf (what int8 compression takes one scale over).  None for
+    a tree keyed as the reference's already."""
+    if not isinstance(params, TransformerLM):
+        return None
+    key = lambda path: pytree.keystr(tuple(("key", k) for k in path))
+    return {key((n,)): key(path) for path, names in reference_leaves(params.cfg)
+            for n in names}
 
 
 def _attend(x, lp: DecoderLayer, cfg: LMConfig, cos, sin):
@@ -158,46 +193,54 @@ def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor
     return x + y.reshape(h.shape), aux
 
 
-def forward(model: TransformerLM, tokens: torch.Tensor
+def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] f32, aux): the causal scoring
     forward, aux the router's load-balancing loss averaged over the layers
     (a dense layer adds 0).
 
-    Runs under ``torch.inference_mode()``; the reference's ``remat``
-    (rematerialising each layer in the backward pass) has no meaning
-    without a backward and is left out.  Gradients wait for ROADMAP
-    A.11.3, which brings K3's backward."""
+    With grad mode on, the graph is built; ``remat`` then keeps only each
+    layer's input and recomputes the layer in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    The layers are deterministic, so the recomputation repeats the
+    forward's values (and a MoE layer its routing)."""
     cfg = model.cfg
     S = tokens.shape[1]
     dev = model.device
-    with torch.inference_mode():
-        tokens = tokens.to(dev)
-        x = model.embed[tokens]
-        cos, sin = rope_angles(torch.arange(S, device=dev), cfg.d_head, cfg.rope_theta)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for lp in model.layers:
-            x, _, _ = _attend(x, lp, cfg, cos, sin)
-            x, a = _ffn(x, lp, cfg)
-            if a is not None:
-                aux = aux + a
-        x = rms_norm(x, model.final_norm)
-        logits = (x @ model.head).float()
+    tokens = tokens.to(dev)
+    x = model.embed[tokens]
+    cos, sin = rope_angles(torch.arange(S, device=dev), cfg.d_head, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def layer(x, lp):
+        x, _, _ = _attend(x, lp, cfg, cos, sin)
+        x, a = _ffn(x, lp, cfg)
+        return x, (a if a is not None else torch.zeros((), device=dev))
+
+    grad = torch.is_grad_enabled()
+    for lp in model.layers:
+        if remat and grad:
+            x, a = checkpoint(layer, x, lp, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = layer(x, lp)
+        aux = aux + a
+    x = rms_norm(x, model.final_norm)
+    logits = (x @ model.head).float()
     return logits, aux / cfg.n_layers
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
             aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL of ``labels`` [B, S] under :func:`forward`, plus
-    ``aux_weight`` times the router's aux loss: ``(loss, {"nll", "aux"})``.
-    The value only: gradients wait for ROADMAP A.11.3."""
+    ``aux_weight`` times the router's aux loss: ``(loss, {"nll", "aux"})``,
+    differentiable when grad mode is on (the loss the train step takes),
+    each layer rematerialised as :func:`forward` does by default."""
     logits, aux = forward(model, tokens)
-    with torch.inference_mode():
-        labels = labels.to(logits.device, torch.int64)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[..., None])[..., 0]
-        nll = (lse - ll).mean()
-        loss = nll + aux_weight * aux
+    labels = labels.to(logits.device, torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    loss = nll + aux_weight * aux
     return loss, {"nll": nll, "aux": aux}
 
 

@@ -842,3 +842,146 @@ def test_sharded_service_on_the_card_equals_one_device(cuda, spec):
     for f in ("src", "dst", "c", "edge_mask"):
         joined = np.concatenate([r[1][f] for r in ranks])[:want[f].shape[0]]
         assert np.array_equal(joined, want[f]), f
+
+
+# ---------------------------------------------------------------------------
+# training: the Functions' backwards, a train step, the MoE gradient
+# ---------------------------------------------------------------------------
+
+
+TRAIN_FA_CASES = [
+    # (dtype, B, Hq, Hkv, S, D, window): K3's SIMT body, then its tensor-core body
+    ("float32", 2, 4, 2, 24, 16, None),
+    ("float32", 1, 10, 2, 333, 128, 100),
+    ("bfloat16", 1, 10, 2, 333, 128, None),
+    ("bfloat16", 2, 6, 3, 197, 64, 100),
+]
+
+
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,window", TRAIN_FA_CASES,
+                         ids=["simt-smoke", "simt-window", "tc-gqa", "tc-window"])
+def test_flash_attention_function_backward_cuda(cuda, dtype, B, Hq, Hkv, S, D, window):
+    """K3's Function on the card (K3 forward, the plain blocked backward)
+    against autograd of ``attention_ref`` in float32 on the same inputs:
+    float32 within 1e-4 of the largest |grad|, bf16 normwise within 1e-2
+    (bf16 gradients, 2^-9 a rounding)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    mk = lambda *s: torch.randn(s, device=cuda, generator=gen).to(dt)
+    q, k, v, do = mk(B, Hq, S, D), mk(B, Hkv, S, D), mk(B, Hkv, S, D), mk(B, Hq, S, D)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = k3_ops.launches + k3_ops.simt_launches
+    got = torch.autograd.grad(k3_ops.FlashAttention.apply(*ins, True, window, 64, 64), ins, do)
+    assert k3_ops.launches + k3_ops.simt_launches == n0 + 1
+    ref = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref, window=window), ref, do.float())
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dt
+        if dtype == "float32":
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+        else:
+            assert float((g.float() - w).norm() / w.norm()) <= 1e-2, name
+
+
+def test_gather_segsum_pair_backward_cuda(cuda):
+    """GCN's aggregation Function on the card: forward and backward are K4
+    (two launches each) and equal autograd of ``spmm_rows_ref`` bit for bit
+    on integer inputs."""
+    from repro_torch.kernels.gather_segsum import build_rows, spmm_rows_ref
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.models.gnn import _GcnAggregate
+
+    rng = np.random.default_rng(0)
+    n, m = 3000, 20000
+    src, dst = (torch.from_numpy(rng.integers(0, n, m)).to(cuda) for _ in range(2))
+    val = torch.from_numpy(rng.integers(1, 4, m).astype(np.float32)).to(cuda)
+    fwd, bwd = build_rows(src, dst, val, n, n), build_rows(dst, src, val, n, n)
+    x = torch.from_numpy(rng.integers(-3, 4, (n, 16)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.integers(-3, 4, (n, 16)).astype(np.float32)).to(cuda)
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    n0 = k4_ops.launches
+    out = _GcnAggregate.apply(xa, fwd, bwd)
+    got = torch.autograd.grad(out, xa, g)[0]
+    assert k4_ops.launches == n0 + 4
+    want_out = spmm_rows_ref(fwd, xb) + spmm_rows_ref(bwd, xb)
+    assert torch.equal(out, want_out)
+    assert torch.equal(got, torch.autograd.grad(want_out, xb, g)[0])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "gcn-cora"])
+def test_smoke_train_step_cuda_matches_cpu(cuda, arch):
+    """Three train steps of a smoke config on cuda and on cpu from the same
+    weights, held to chip_smoke.py's phase-15a rule (the CPU tests'
+    tolerances)."""
+    import dataclasses
+
+    from repro_torch.configs import GNN_SHAPES, get_smoke_config
+    from repro_torch.launch.cells import graph_batch
+    from repro_torch.models import GNN, TransformerLM, gnn_loss, lm_loss
+    from repro_torch.models.gnn import gcn_rows
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    cs = _chip_smoke()
+    cfg = get_smoke_config(arch)
+    adam = AdamConfig(**cs.TRAIN_ADAM)
+    if arch == "gcn-cora":
+        spec = dataclasses.replace(GNN_SHAPES["full_graph_sm"], n_nodes=700, n_edges=3000,
+                                   d_feat=8)
+        batches = [graph_batch(cfg, spec, seed=1, device=d) for d in (cuda, "cpu")]
+        models = [GNN(cfg, 8, device="cpu", generator=torch.Generator().manual_seed(1))]
+        models.insert(0, GNN(cfg, 8, device=cuda, init=False))
+        params = [m.params() for m in models]
+        steps = [make_train_step(lambda p, b, r=gcn_rows(b): gnn_loss(p, b, cfg, r), adam)
+                 for b in batches]
+    else:
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 24)))
+        batches = [{"t": tokens.to(d), "l": tokens.roll(-1, 1).to(d)} for d in (cuda, "cpu")]
+        models = [TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))]
+        models.insert(0, TransformerLM(cfg, device=cuda, init=False))
+        params = models
+        step = make_train_step(lambda m, b: lm_loss(m, b["t"], b["l"]), adam, microbatches=2)
+        steps = [step, step]
+    models[0].load_state_dict(models[1].state_dict())
+    states = [init_train_state(p) for p in params]
+    for _ in range(cs.TRAIN_STEPS):
+        (states[0], mg), (states[1], mc) = (steps[i](states[i], batches[i]) for i in range(2))
+        cs.train_metrics_check(arch, mg, mc)
+    cs.train_params_check(arch, cs.named_params(states[0].params),
+                          cs.named_params(states[1].params), adam.lr, False)
+
+
+def test_moe_gradient_cuda_within_stated_tolerance(cuda):
+    """olmoe-1b-7b's smoke LM: the gradient of ``lm_loss`` on the card within
+    1e-4 of each leaf's largest |g| of the cpu's (every token routed alike),
+    and of a second run on the card.  The dispatch and combine gathers'
+    backward adds with float atomics, so the card need not repeat its bits;
+    the forward does."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import TransformerLM, lm_loss
+
+    cs = _chip_smoke()
+    cfg = get_smoke_config("olmoe-1b-7b")
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    gpu = TransformerLM(cfg, device=cuda, init=False)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 32)))
+    rec_g, rec_c = [], []
+    with torch.no_grad(), cs.routing_recorded(rec_g):
+        lm_loss(gpu, tokens.to(cuda), tokens.roll(-1, 1).to(cuda))
+    with torch.no_grad(), cs.routing_recorded(rec_c):
+        lm_loss(cpu, tokens, tokens.roll(-1, 1))
+    assert not cs.routing_check("olmoe grad", rec_g, rec_c, 2)["rows"]
+
+    def grads(model, dev):
+        loss, _ = lm_loss(model, tokens.to(dev), tokens.roll(-1, 1).to(dev))
+        return dict(zip([n for n, _ in model.named_parameters()],
+                        torch.autograd.grad(loss, list(model.parameters()))))
+
+    want, first, again = grads(cpu, "cpu"), grads(gpu, cuda), grads(gpu, cuda)
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        for got in (first, again):
+            assert float((got[n].cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30), n

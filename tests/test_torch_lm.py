@@ -75,7 +75,7 @@ def _one_thread():
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, dtype=np.float32)
 
 

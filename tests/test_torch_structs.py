@@ -183,7 +183,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for n in ('repro_torch.core.reference', 'repro_torch.core.spade',\n"
         "          'repro_torch.core.metrics', 'repro_torch.serve.service',\n"
         "          'repro_torch.configs.spade_grab', 'repro_torch._warnings',\n"
-        "          'repro_torch.dist.graph', 'repro_torch.dist.spawn'):\n"
+        "          'repro_torch.dist.graph', 'repro_torch.dist.spawn',\n"
+        "          'repro_torch.dist.compression', 'repro_torch.train.optimizer',\n"
+        "          'repro_torch.train.train_step', 'repro_torch.ft.checkpoint',\n"
+        "          'repro_torch.ft.elastic', 'repro_torch.pytree'):\n"
         "    assert n in names, n\n"
         f"files = sorted(__import__('glob').glob({str(ROOT / 'examples' / 'torch_*.py')!r}))\n"
         f"files.append({str(ROOT / 'chip_smoke.py')!r})\n"
@@ -192,7 +195,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 54 and len(files) == 6, (names, files)\n"
+        "assert len(names) >= 62 and len(files) == 6, (names, files)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
