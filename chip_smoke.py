@@ -157,8 +157,27 @@ Phases (any failure exits non-zero):
     and the rest by kernel name; the attention backward's ranges), and the
     step's gradient and AdamW update timed apart; 15d, a
     ``CheckpointManager`` round trip on the card (4 steps straight against
-    2, save, restore, 2; bit for bit).  Phases 2-14 run with grad mode off
-    (serving); phase 15 turns it on.
+    2, save, restore, 2; bit for bit);
+16. the rest of ``repro``: 16a, two-tower-retrieval's full config (embed
+    256, towers 1024-512-256, 8 user and 4 item fields of 16 lookups,
+    61.44 GB of float32 tables from a seeded generator) serving
+    ``score_pairs`` at serve_p99 (512 rows) and serve_bulk (262,144 rows,
+    serve_p99's among them) and ``retrieval_scores`` over retrieval_cand's
+    1,000,448 candidates (top 100): 256 rows of each held to a float64
+    recomputation on the card, serve_bulk's repeated rows to serve_p99's,
+    the top 100 to the float64 scores, two runs the same bits; ms a call,
+    rows/s, peak memory, a trace of a serve_bulk call; the smoke config
+    cuda against cpu; 16b, the full widths trained three steps at batch
+    16,384 and a TT_TRAIN_VOCAB_DIV-th of each vocabulary (step seconds,
+    rows/s, peak memory, every leaf changed by step 1), and the smoke
+    config three steps cuda against cpu; 16c, every smoke cell of
+    ``all_cells()`` moved to cuda against the same on cpu (MoE routing
+    under rule 1; K3's and K4's launches counted), and the two Spade cells
+    at the spade-grab capacities, K1, K2 and ``suffix_init`` counted, each
+    step twice the same bits; 16d, ``repro_torch.launch.train``'s ``main``
+    on cuda, 4 steps straight against 2, a resume and 2, bit for bit.
+    Phases 2-14 and 16 run with grad mode off (serving) but where they
+    train; phase 15 turns it on.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -3994,6 +4013,510 @@ def phase_train(seed: int, kept: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: two-tower retrieval at full width, the cell matrix, the launcher
+# ---------------------------------------------------------------------------
+
+TT_ARCH = "two-tower-retrieval"
+TT_SEED = 0
+TT_SAMPLE = 256  # rows of each traffic recomputed in float64
+# a score's distance from its float64 recomputation (and bulk's from p99's,
+# and cuda's from cpu's), as a share of temp (the largest |score|): float32
+# products over fan-ins up to 2,048, no TF32 (which would be ~1e-3)
+TT_TOL = 1e-4
+TT_TOP_K = 100
+TT_TIMED = 10  # calls a traffic is timed over
+# 16b: the full config's widths, batch and vocabularies cut to one card:
+# parameters, gradients, m and v take 4 x 61.44 GB at full vocabulary; at
+# B 16,384 a step peaks 2.4 GB above them on the H100 (the forward's
+# gathers and [B, B] logits come and go before the gradients exist), so a
+# quarter of each vocabulary (rounded up to 128 rows: 61.5 GB of state,
+# 63.9 GB at the peak) is the largest unit share under 90 % of 80 GB; a
+# third would hold 81.9 GB of state alone
+TT_TRAIN_BATCH = 16_384
+TT_TRAIN_VOCAB_DIV = 4
+TT_TRAIN_STEPS = 3
+TT_TRAIN_ADAM = {"lr": 1e-3, "warmup_steps": 1, "weight_decay": 0.0}
+# 16c: the smoke cells' LM logits on cuda (K3's SIMT body, float32) against
+# cpu, as a share of each row's largest |logit|
+CELL_LM_TOL = 1e-3
+CELL_SEED = 0
+
+
+def recsys_batch(cfg, B: int, rng, device):
+    """A batch drawn as the recsys cells draw theirs (user lookups, then
+    item lookups, from ``rng``; unit weights; ``log_q`` 0) on ``device``."""
+    import torch
+
+    from repro_torch.models.two_tower import RecsysBatch
+
+    Fu, Fi, M = cfg.n_user_fields, cfg.n_item_fields, cfg.multi_hot
+    draw = lambda V, F: torch.from_numpy(rng.integers(0, V, (B, F, M)).astype(np.int32))
+    uidx, iidx = draw(cfg.user_vocab, Fu), draw(cfg.item_vocab, Fi)
+    return RecsysBatch(user_idx=uidx.to(device), user_wt=torch.ones((B, Fu, M), device=device),
+                       item_idx=iidx.to(device), item_wt=torch.ones((B, Fi, M), device=device),
+                       log_q=torch.zeros(B, device=device))
+
+
+def tower64(table, mlp, idx, wt, n_layers: int):
+    """A tower in float64 from the same table rows and weights."""
+    import torch
+
+    rows = table[idx.long()].double() * wt.double()[..., None]  # [s, F, M, D]
+    x = rows.sum(dim=2).reshape(idx.shape[0], -1)
+    for i in range(n_layers):
+        x = x @ mlp[f"w{i}"].double() + mlp[f"b{i}"].double()
+        if i < n_layers - 1:
+            x = torch.relu(x)
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-9)
+
+
+def scores64(params, batch, rows, cfg):
+    """float64 ``score_pairs`` of ``rows`` of ``batch``."""
+    L = len(cfg.tower_mlp)
+    u = tower64(params["user_table"], params["user_mlp"], batch.user_idx[rows],
+                batch.user_wt[rows], L)
+    it = tower64(params["item_table"], params["item_mlp"], batch.item_idx[rows],
+                 batch.item_wt[rows], L)
+    return (u * it).sum(dim=-1) * params["temp"].double()
+
+
+def tt_close(name: str, got, want, temp: float) -> float:
+    """``max |got - want|`` as a share of temp, checked against TT_TOL."""
+    err = float((got.double().cpu() - want.double().cpu()).abs().max()) / temp
+    check(math.isfinite(err) and err <= TT_TOL,
+          f"{name}: {err!r} of temp from the reference, beyond {TT_TOL}")
+    return err
+
+
+def timed_calls(fn, n: int = TT_TIMED) -> float:
+    """Median seconds of ``n`` calls of ``fn``, each to a synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def two_tower_serve(seed: int) -> dict:
+    """16a: two-tower-retrieval's full config on the card (61.44 GB of
+    float32 tables from a seeded generator): ``score_pairs`` at serve_p99
+    and serve_bulk (serve_p99's rows repeated inside it), and
+    ``retrieval_scores`` over retrieval_cand's 1,000,448 candidates, top
+    100; each held to a float64 recomputation on the card, twice the same
+    bits; times, rows/s, peak memory and a traced serve_bulk call."""
+    import torch
+
+    from repro_torch.configs import RECSYS_SHAPES, get_config
+    from repro_torch.models.two_tower import (RecsysBatch, init_two_tower_params,
+                                              retrieval_scores, score_pairs, user_tower)
+
+    cfg = get_config(TT_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_two_tower_params(cfg, device=DEVICE,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    sync()
+    table_gb = sum(params[k].numel() * 4 for k in ("user_table", "item_table")) / 1e9
+    log(f"16a: {TT_ARCH} at full width: tables {table_gb!r} GB drawn in "
+        f"{time.perf_counter() - t0!r} s; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9!r} GB")
+    temp = float(params["temp"])
+    rng = np.random.default_rng(seed)
+    B_p99, B_bulk = RECSYS_SHAPES["serve_p99"].batch, RECSYS_SHAPES["serve_bulk"].batch
+    p99 = recsys_batch(cfg, B_p99, rng, DEVICE)
+    bulk = recsys_batch(cfg, B_bulk, rng, DEVICE)
+    at = torch.from_numpy(np.sort(rng.choice(B_bulk, B_p99, replace=False))).to(DEVICE)
+    bulk = RecsysBatch(*(b.index_copy(0, at, p) for b, p in zip(bulk, p99)))
+    out = {"table_gb": table_gb, "temp": temp}
+    scores = {}
+    for name, batch in (("serve_p99", p99), ("serve_bulk", bulk)):
+        s1 = score_pairs(params, batch, cfg)
+        s2 = score_pairs(params, batch, cfg)
+        check(torch.equal(s1, s2), f"16a {name}: two runs differ")
+        rows = torch.from_numpy(np.sort(rng.choice(batch.log_q.shape[0], TT_SAMPLE,
+                                                   replace=False))).to(DEVICE)
+        err = tt_close(f"16a {name} vs float64", s1[rows], scores64(params, batch, rows, cfg),
+                       temp)
+        sec = timed_calls(lambda: score_pairs(params, batch, cfg))
+        B = batch.log_q.shape[0]
+        out[name] = {"batch": B, "ms": sec * 1e3, "rows_per_s": B / sec,
+                     "err_vs_float64_of_temp": err}
+        scores[name] = s1
+        log(f"16a {name}: B {B}, {sec * 1e3!r} ms a call (median of {TT_TIMED}), "
+            f"{B / sec!r} rows/s; {TT_SAMPLE} rows within {err!r} of temp of float64 "
+            f"(tolerance {TT_TOL}); two runs the same bits")
+    out["bulk_vs_p99_of_temp"] = tt_close("16a serve_bulk's repeated rows vs serve_p99",
+                                          scores["serve_bulk"][at], scores["serve_p99"], temp)
+
+    # retrieval: one query against 1,000,448 candidate embeddings
+    spec = RECSYS_SHAPES["retrieval_cand"]
+    N = -(-spec.n_candidates // 512) * 512
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    cand = torch.randn((N, cfg.tower_mlp[-1]), generator=gen, device=DEVICE)
+    q = recsys_batch(cfg, 1, rng, DEVICE)
+    v1, i1 = retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg, top_k=TT_TOP_K)
+    v2, i2 = retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg, top_k=TT_TOP_K)
+    check(torch.equal(v1, v2) and torch.equal(i1, i2), "16a retrieval: two runs differ")
+    u64 = tower64(params["user_table"], params["user_mlp"], q.user_idx, q.user_wt,
+                  len(cfg.tower_mlp))[0]
+    s64 = (cand.double() @ u64) * temp
+    top64 = torch.topk(s64, TT_TOP_K + 1)
+    err_v = tt_close("16a retrieval top-k vs float64", v1, s64[i1], temp)
+    check(bool((v1[:-1] >= v1[1:]).all()), "16a retrieval: scores not in descending order")
+    check(float(v1[-1]) >= float(top64.values[TT_TOP_K]) - TT_TOL * temp,
+          f"16a retrieval: the 100th score {float(v1[-1])!r} is below the 101st "
+          f"{float(top64.values[TT_TOP_K])!r}")
+    missed = len(set(top64.indices[:TT_TOP_K].tolist()) - set(i1.tolist()))
+    sec = timed_calls(lambda: retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg,
+                                               top_k=TT_TOP_K))
+    sec_u = timed_calls(lambda: user_tower(params, q.user_idx, q.user_wt, cfg))
+    out["retrieval_cand"] = {"candidates": N, "ms": sec * 1e3, "user_tower_ms": sec_u * 1e3,
+                             "err_vs_float64_of_temp": err_v,
+                             "float64_top100_not_returned": missed}
+    log(f"16a retrieval_cand: {N} candidates, top {TT_TOP_K} in {sec * 1e3!r} ms a call "
+        f"(the query's tower {sec_u * 1e3!r} ms), scores within {err_v!r} of temp of float64, "
+        f"{missed} of float64's top {TT_TOP_K} not returned (near-ties at the cut); two runs "
+        f"the same bits")
+    out["trace_serve_bulk"] = trace("16a serve_bulk", 1, lambda: score_pairs(params, bulk, cfg),
+                                    {"gather": "gather_kernel", "bag_sum": "reduce_kernel",
+                                     "products": ("gemm", "gemv", "cutlass"),
+                                     "elementwise": "elementwise_kernel"})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"16a: peak memory {out['peak_gb']!r} GB")
+    del params, bulk, p99, cand, scores
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_tower_smoke(seed: int) -> dict:
+    """16a and 16b on the smoke config: serving on cuda against cpu from the
+    same weights, and three train steps on each at the CPU tests'
+    tolerances."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.two_tower import (init_two_tower_params, retrieval_scores,
+                                              score_pairs, two_tower_loss)
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    cfg = get_smoke_config(TT_ARCH)
+    cpu = init_two_tower_params(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+    move = lambda tree: {k: move(v) if isinstance(v, dict) else v.to(DEVICE, copy=True)
+                         for k, v in tree.items()}
+    gpu = move(cpu)
+    batch = recsys_batch(cfg, 64, np.random.default_rng(seed), "cpu")
+    bg = type(batch)(*(x.to(DEVICE) for x in batch))
+    temp = float(cpu["temp"])
+    cand = torch.randn((512, cfg.tower_mlp[-1]), generator=torch.Generator().manual_seed(seed))
+    out = {"score": tt_close("16a smoke score_pairs cuda vs cpu", score_pairs(gpu, bg, cfg),
+                             score_pairs(cpu, batch, cfg), temp)}
+    vg, ig = retrieval_scores(gpu, bg.user_idx[:1], bg.user_wt[:1], cand.to(DEVICE), cfg, 10)
+    vc, ic = retrieval_scores(cpu, batch.user_idx[:1], batch.user_wt[:1], cand, cfg, 10)
+    out["retrieval"] = tt_close("16a smoke retrieval cuda vs cpu", vg, vc, temp)
+    check(torch.equal(ig.cpu(), ic), "16a smoke retrieval: top-10 indices differ")
+    adam = AdamConfig(**TRAIN_ADAM, weight_decay=0.0)
+    step = make_train_step(lambda p, b: two_tower_loss(p, b, cfg), adam)
+    sg, sc = init_train_state(gpu), init_train_state(cpu)
+    worst = 0.0
+    with torch.enable_grad():
+        for _ in range(TRAIN_STEPS):
+            sg, mg = step(sg, bg)
+            sc, mc = step(sc, batch)
+            worst = max(worst, train_metrics_check("16b smoke cuda vs cpu", mg, mc))
+    odd = train_params_check("16b smoke params", named_params(sg.params),
+                             named_params(sc.params), adam.lr, False)
+    out.update(train_metrics_rel_err=worst, train_odd_elements_max=odd)
+    log(f"16a/16b smoke {TT_ARCH} cuda vs cpu: scores within {out['score']!r} of temp, "
+        f"top-10 equal; {TRAIN_STEPS} train steps, metrics within {worst!r} relative, at most "
+        f"{odd} odd elements a leaf")
+    return out
+
+
+def two_tower_train(seed: int) -> dict:
+    """16b: the full config's widths at TT_TRAIN_BATCH rows and a
+    TT_TRAIN_VOCAB_DIV-th of each vocabulary, TT_TRAIN_STEPS steps: step
+    seconds, rows/s, peak memory, and every leaf changed by step 1."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.two_tower import init_two_tower_params, two_tower_loss
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    full = get_config(TT_ARCH)
+    cut = lambda V: -(-V // TT_TRAIN_VOCAB_DIV // 128) * 128
+    cfg = dataclasses.replace(full, user_vocab=cut(full.user_vocab),
+                              item_vocab=cut(full.item_vocab))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_two_tower_params(cfg, device=DEVICE,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    state = init_train_state(params)
+    batch = recsys_batch(cfg, TT_TRAIN_BATCH, np.random.default_rng(seed), DEVICE)
+    step = make_train_step(lambda p, b: two_tower_loss(p, b, cfg), AdamConfig(**TT_TRAIN_ADAM))
+    state_gb = 4 * sum(p.numel() * 4 for p in named_params(params).values()) / 1e9
+
+    def sig():  # a leaf's float64 sum and sum of squares, a chunk of 2^25 elements at a time
+        out = {}
+        for k, x in named_params(state.params).items():
+            s1 = s2 = 0.0
+            for c in x.detach().reshape(-1).split(1 << 25):
+                c = c.double()
+                s1, s2 = s1 + c.sum(), s2 + c.square().sum()
+            out[k] = (float(s1), float(s2))
+        return out
+
+    before = sig()
+    torch.cuda.reset_peak_memory_stats()  # the steps' peak, with the state held
+    secs, losses = [], []
+    with torch.enable_grad():
+        for i in range(TT_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                after = sig()
+                same = [k for k in before if before[k] == after[k]]
+                check(not same, f"16b: leaves unchanged by step 1: {same!r}")
+    check(all(math.isfinite(x) for x in losses), f"16b: losses {losses!r}")
+    med = statistics.median(secs[1:])
+    out = {"user_vocab": cfg.user_vocab, "item_vocab": cfg.item_vocab,
+           "batch": TT_TRAIN_BATCH, "state_gb": state_gb, "step_s": secs,
+           "step_s_median_2_3": med, "rows_per_s": TT_TRAIN_BATCH / med, "losses": losses,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "leaves_changed_by_step_1": len(before)}
+    log(f"16b: {TT_ARCH} widths, vocabularies {cfg.user_vocab} / {cfg.item_vocab} (a "
+        f"{TT_TRAIN_VOCAB_DIV}th), batch {TT_TRAIN_BATCH}: state {state_gb!r} GB, steps "
+        f"{secs!r} s, {out['rows_per_s']!r} rows/s (median of steps 2-3), losses {losses!r}, "
+        f"peak {out['peak_gb']!r} GB; all {len(before)} leaves changed by step 1")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_rows_close(name: str, got, want, rows_out=()) -> float:
+    rel = rows_rel_err(got, want, rows_out)
+    check(rel <= CELL_LM_TOL, f"{name}: {rel!r} of the row scale, beyond {CELL_LM_TOL}")
+    return rel
+
+
+def cell_params_check(name: str, got: dict, want: dict, lr: float) -> int:
+    """A train step's parameters, cuda against cpu: within 1 % of a step
+    plus 2 ulps of the parameter, but for at most 2 elements of a leaf or
+    0.1 % of them, each within ``2 lr``; returns the most odd elements."""
+    import torch
+
+    worst = 0
+    for k, w in want.items():
+        w = w.detach().float().cpu()
+        d = (got[k].detach().float().cpu() - w).abs()
+        ulp = torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()
+        odd = int((d > TRAIN_STEP_TOL * lr + 2 * ulp).sum())
+        check(odd <= max(2, TRAIN_ODD[False] * d.numel()),
+              f"{name} {k}: {odd} of {d.numel()} elements off")
+        check(float(d.max()) <= 2 * lr, f"{name} {k}: {float(d.max())!r}")
+        worst = max(worst, odd)
+    return worst
+
+
+def cell_parity(arch: str, shape: str, seed: int) -> dict:
+    """One smoke cell (``build_cell(..., concrete=True, smoke=True)``) on cpu
+    and the same cell moved to cuda (``Cell.to``): the step on each, the
+    outputs compared (a train step at the CPU tests' rule, LM logits within
+    CELL_LM_TOL of the row scale, scores within TT_TOL of temp, the Spade
+    cells bit for bit), the MoE routing held to rule 1.  Returns what was
+    compared and the cuda run's K3 and K4 launches."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import build_cell
+
+    cpu = build_cell(arch, shape, concrete=True, smoke=True, seed=seed, device="cpu")
+    gpu = cpu.to(DEVICE)
+    cfg = get_smoke_config(arch)
+    name = f"16c {arch} {shape}"
+    moe = getattr(cfg, "moe", None) is not None
+    rec_g, rec_c = [], []
+    k3, k4 = k3_ops.simt_launches + k3_ops.launches, k4_ops.launches
+    with torch.set_grad_enabled(cpu.step_name == "train_step"):
+        with routing_recorded(rec_g):
+            g = gpu.fn(*gpu.args)
+        sync()
+        k3, k4 = k3_ops.simt_launches + k3_ops.launches - k3, k4_ops.launches - k4
+        with routing_recorded(rec_c):
+            c = cpu.fn(*cpu.args)
+    out = {"step": cpu.step_name, "k3_launches": k3, "k4_launches": k4}
+    rows = set()
+    if moe:
+        n_rows = (cpu.args[1]["tokens"] if cpu.step_name == "train_step" else cpu.args[-2]
+                  if cpu.step_name == "decode_step" else cpu.args[1]).shape[0]
+        r = routing_check(name, rec_g, rec_c, n_rows)
+        rows = r["rows"]
+        out["routing"] = {k: (sorted(v) if k == "rows" else v) for k, v in r.items()}
+    if cpu.step_name == "train_step":
+        check(not rows, f"{name}: tokens routed differently on cuda and cpu")
+        (sg, mg), (sc, mc) = g, c
+        out["metrics_rel_err"] = train_metrics_check(name, mg, mc)
+        out["odd_elements_max"] = cell_params_check(name, named_params(sg.params),
+                                                    named_params(sc.params), float(mc["lr"]))
+    elif cpu.step_name in ("prefill", "decode_step"):
+        out["logits_rel_err"] = lm_rows_close(name, g[0], c[0], rows)
+        keep = [b for b in range(c[0].shape[0]) if b not in rows]
+        out["cache_rel_err"] = 0.0
+        for k in ("k", "v"):  # [L, B, W, Hkv, Dh]; unwritten slots hold 0 on both
+            gk, ck = (getattr(x[1], k)[:, keep].float().cpu() for x in (g, c))
+            rel = float((gk - ck).abs().max()) / max(float(ck.abs().max()), 1e-30)
+            check(rel <= CELL_LM_TOL, f"{name} cache {k}: {rel!r} of its scale, beyond "
+                  f"{CELL_LM_TOL}")
+            out["cache_rel_err"] = max(out["cache_rel_err"], rel)
+    elif cpu.step_name == "score_pairs":
+        out["err_of_temp"] = tt_close(name, g, c, float(cpu.args[0]["temp"]))
+    elif cpu.step_name == "retrieval":
+        out["err_of_temp"] = tt_close(name, g.values, c.values, float(cpu.args[0]["temp"]))
+        check(torch.equal(g.indices.cpu(), c.indices), f"{name}: top-k indices differ")
+    elif cpu.step_name == "bulk_peel":
+        for f in ("level", "best_level", "best_g", "n_rounds", "delta"):
+            check(torch.equal(getattr(g, f).cpu(), getattr(c, f)), f"{name}: {f} differs")
+    else:
+        for f in ("level", "best_g", "community", "edge_count", "w0"):
+            check(torch.equal(getattr(g, f).cpu(), getattr(c, f)), f"{name}: {f} differs")
+        for f in ("src", "dst", "c", "edge_mask"):
+            check(torch.equal(getattr(g.graph, f).cpu(), getattr(c.graph, f)),
+                  f"{name}: graph {f} differs")
+    return out
+
+
+def spade_cells_full(seed: int) -> dict:
+    """16c's Spade cells at full width (the spade-grab capacities rounded
+    up to 512): each step with K1's, K2's and ``suffix_init``'s counters set
+    to 0 just before and read just after, then the same step again, which
+    must give the same bits."""
+    import torch
+
+    from repro_torch.launch.cells import build_cell
+
+    out = {}
+    for shape in ("grab4_static", "grab4_stream"):
+        t0 = time.perf_counter()
+        cell = build_cell("spade-grab", shape, concrete=True, seed=seed, device=DEVICE)
+        sync()
+        build_s = time.perf_counter() - t0
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        first = cell.fn(*cell.args)
+        sync()
+        step_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        second = cell.fn(*cell.args)
+        fields = (("level", "best_level", "best_g", "n_rounds", "delta")
+                  if shape == "grab4_static"
+                  else ("level", "best_g", "community", "edge_count", "w0"))
+        for f in fields:
+            check(torch.equal(getattr(first, f), getattr(second, f)),
+                  f"16c spade-grab {shape}: {f} differs between two runs")
+        if shape == "grab4_stream":
+            for f in ("src", "dst", "c", "edge_mask"):
+                check(torch.equal(getattr(first.graph, f), getattr(second.graph, f)),
+                      f"16c spade-grab {shape}: graph {f} differs between two runs")
+        check(all(counts[k] > 0 for k in ("peel_round", "frontier_spmv", "suffix_init")),
+              f"16c spade-grab {shape}: a kernel never launched: {counts!r}")
+        g = cell.args[0] if shape == "grab4_static" else cell.args[0].graph
+        out[shape] = {"n_capacity": g.n_capacity, "e_capacity": g.e_capacity,
+                      "edges": int(g.edge_mask.sum()), "best_g": float(first.best_g),
+                      "launches": {k: counts[k] for k in
+                                   ("peel_round", "frontier_spmv", "suffix_init")},
+                      "build_s": build_s, "step_s": step_s}
+        log(f"16c spade-grab {shape} at full width ({g.n_capacity} vertices, "
+            f"{g.e_capacity} edge slots): {cell.step_name} in {step_s!r} s, best_g "
+            f"{float(first.best_g)!r}, launches {out[shape]['launches']!r}; a second run "
+            f"the same bits")
+        del cell, first, second, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_matrix(seed: int) -> dict:
+    """16c: every cell of ``all_cells()`` at smoke size, cuda against cpu
+    (the four long_500k skips counted), then the Spade cells at full width."""
+    from repro_torch.configs import Skip, all_cells
+
+    out = {"smoke": {}, "skips": 0, "k3_launches": 0, "k4_launches": 0}
+    for arch, shape, spec in all_cells():
+        if isinstance(spec, Skip):
+            out["skips"] += 1
+            continue
+        r = cell_parity(arch, shape, seed)
+        out["smoke"][f"{arch}/{shape}"] = r
+        out["k3_launches"] += r["k3_launches"]
+        out["k4_launches"] += r["k4_launches"]
+    log(f"16c: {len(out['smoke'])} smoke cells cuda == cpu within their tolerances, "
+        f"{out['skips']} skips; K3 launches {out['k3_launches']}, K4 {out['k4_launches']}; "
+        "LM logits within " + repr(max((r.get("logits_rel_err", 0.0)
+                                        for r in out["smoke"].values()))) +
+        f" of the row scale (tolerance {CELL_LM_TOL})")
+    out["spade_full"] = spade_cells_full(seed)
+    return out
+
+
+def launcher_resume(seed: int) -> dict:
+    """16d: ``repro_torch.launch.train``'s ``main`` on cuda for the smoke
+    qwen3-14b, checkpoints under ``build/``: 4 steps straight against 2, a
+    fresh start that resumes, and 2 more; the final states the same bits."""
+    import shutil
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.convert import train_state_to_reference
+    from repro_torch.launch import train
+
+    base = ROOT / "build" / "phase16_launcher"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--arch", LM_ARCH, "--smoke", "--device", DEVICE, "--ckpt-every", "2",
+              "--seed", str(seed)]
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        a = train.main(common + ["--steps", "4", "--ckpt-dir", str(base / "straight")])
+        train.main(common + ["--steps", "2", "--ckpt-dir", str(base / "resumed")])
+        b = train.main(common + ["--steps", "2", "--ckpt-dir", str(base / "resumed")])
+    leaves = lambda s: dict(pytree.leaves_with_path(train_state_to_reference(s)))
+    la, lb = leaves(a), leaves(b)
+    differ = [pytree.keystr(k) for k in la if not torch.equal(la[k], lb[k])]
+    check(not differ and int(a.step) == int(b.step) == 4,
+          f"16d: the resumed run differs from the straight run in {differ[:4]!r}")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {"leaves_compared": len(la), "seconds": time.perf_counter() - t0}
+    log(f"16d: the launcher on {DEVICE}: 4 steps straight and 2 + resume + 2, {len(la)} "
+        f"leaves bit for bit")
+    return out
+
+
+def phase_cells(seed: int) -> dict:
+    """Phase 16: 16a two-tower serving at full width, 16b two-tower
+    training, 16c the cell matrix, 16d the launcher."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products as on the cpu
+    torch.cuda.empty_cache()
+    log(f"phase 16: {torch.cuda.memory_allocated() / 1e9!r} GB allocated at the start")
+    out = {"serve": two_tower_serve(seed)}
+    out["smoke"] = two_tower_smoke(seed)
+    out["train"] = two_tower_train(seed)
+    t1 = time.perf_counter()
+    out["cells"] = cells_matrix(CELL_SEED)
+    log(f"16c: {time.perf_counter() - t1!r} s")
+    out["launcher"] = launcher_resume(seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -4121,6 +4644,18 @@ def main() -> int:
         + ", ".join(f"{a} {moe[a]['n_layers']} layers, {moe[a]['k3_launches']} K3 launches "
                     f"a prefill" for a in MOE_LAYERS) + f"; {moe['seconds']!r} s")
 
+    kept.clear()  # phase 16 puts 61.44 GB of tables on the card
+    cells = phase_cells(LM_SEED)
+    serve16, train16 = cells["serve"], cells["train"]
+    log(f"phase 16 on {smi}: {TT_ARCH} served at full width ("
+        f"{serve16['table_gb']!r} GB of tables; serve_p99 {serve16['serve_p99']['ms']!r} ms, "
+        f"serve_bulk {serve16['serve_bulk']['rows_per_s']!r} rows/s, retrieval_cand "
+        f"{serve16['retrieval_cand']['ms']!r} ms) and trained at a "
+        f"{TT_TRAIN_VOCAB_DIV}th of its vocabularies ({train16['step_s_median_2_3']!r} s a "
+        f"step of {TT_TRAIN_BATCH} rows); {len(cells['cells']['smoke'])} smoke cells cuda == "
+        f"cpu, the Spade cells at full width, the launcher's resume bit for bit; "
+        f"{cells['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -4130,21 +4665,30 @@ def main() -> int:
     simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
                   "smoke-train": train["parity"]["simt_launches"]}
     k4_paths = {"gcn-cora": gcn["launches"], "gcn-cora-train": train["gcn_cora"]["k4_launches"]}
+    simt_paths["cells"] = cells["cells"]["k3_launches"]  # the smoke LM cells: float32
+    k4_paths["cells"] = cells["cells"]["k4_launches"]
+    spade_cells = cells["cells"]["spade_full"]
+    spade_paths = {k: {"grab4_engines": grab["launches"][k],
+                       "spade_cells": sum(c["launches"][k] for c in spade_cells.values())}
+                   for k in ("peel_round", "frontier_spmv", "suffix_init")}
     kernels = [
         {"name": "peel_round", "route": "cuda",
          "source": "src/repro_torch/csrc/peel_round.cu",
          "replaces": "src/repro/kernels/peel_round/kernel.py:76",
-         "launches": grab["launches"]["peel_round"], "bound_by": "bytes",
+         "launches": sum(spade_paths["peel_round"].values()),
+         "launches_by_path": spade_paths["peel_round"], "bound_by": "bytes",
          "library_ms": None, **rec["peel_round"]},
         {"name": "frontier_spmv", "route": "cuda",
          "source": "src/repro_torch/csrc/frontier_spmv.cu",
          "replaces": "src/repro/core/peel.py:201",
-         "launches": grab["launches"]["frontier_spmv"], "bound_by": "bytes",
+         "launches": sum(spade_paths["frontier_spmv"].values()),
+         "launches_by_path": spade_paths["frontier_spmv"], "bound_by": "bytes",
          "library_ms": None, **rec["frontier_spmv"]},
         {"name": "suffix_init", "route": "cuda",
          "source": "src/repro_torch/csrc/frontier_spmv.cu",
          "replaces": "src/repro/core/peel.py:324",
-         "launches": grab["launches"]["suffix_init"], "bound_by": "bytes",
+         "launches": sum(spade_paths["suffix_init"].values()),
+         "launches_by_path": spade_paths["suffix_init"], "bound_by": "bytes",
          "library_ms": None, **tick["suffix_init"],
          **{f"f64_mode_{k}": v for k, v in rec["suffix_init_f64"].items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -4177,7 +4721,7 @@ def main() -> int:
              "lm_parity": lm_parity,
              "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
-             "train": train},
+             "train": train, "cells": cells},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

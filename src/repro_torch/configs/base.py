@@ -1,9 +1,9 @@
-"""Config dataclasses of the LM, GNN and Spade families and their shape specs.
+"""Config dataclasses of every architecture family and their shape specs.
 
-A copy of the LM, GNN and Spade parts of ``repro/configs/base.py``
-(``MoESpec``, ``LMConfig``, ``GNNConfig``, ``SpadeConfig``, ``ShapeSpec``,
-``LM_SHAPES``, ``GNN_SHAPES``, ``SPADE_SHAPES``), kept free of ``jax`` and
-of ``repro``.  Configs are shapes only: no
+A copy of ``repro/configs/base.py`` (``MoESpec``, ``LMConfig``,
+``GNNConfig``, ``RecsysConfig``, ``SpadeConfig``, ``ShapeSpec``,
+``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``, ``SPADE_SHAPES``), kept
+free of ``jax`` and of ``repro``.  Configs are shapes only: no
 weights are read from anywhere.
 """
 
@@ -12,8 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Literal
 
-__all__ = ["MoESpec", "LMConfig", "GNNConfig", "SpadeConfig", "ShapeSpec", "LM_SHAPES",
-           "GNN_SHAPES", "SPADE_SHAPES"]
+__all__ = ["MoESpec", "LMConfig", "GNNConfig", "RecsysConfig", "SpadeConfig", "ShapeSpec",
+           "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "SPADE_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -92,6 +92,20 @@ class GNNConfig:
 
 
 @dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    embed_dim: int = 256
+    tower_mlp: tuple[int, ...] = (1024, 512, 256)
+    n_user_fields: int = 8
+    n_item_fields: int = 4
+    user_vocab: int = 50_000_000
+    item_vocab: int = 10_000_000
+    multi_hot: int = 16  # lookups per bag (user history etc.)
+    interaction: str = "dot"
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class SpadeConfig:
     """The paper's own workload: evolving-graph peeling at Grab scale."""
 
@@ -107,7 +121,7 @@ class SpadeConfig:
 class ShapeSpec:
     name: str
     kind: Literal["train", "prefill", "decode", "graph_full", "graph_mini", "graph_batch",
-                  "spade_stream", "spade_static"]
+                  "recsys_train", "recsys_serve", "retrieval", "spade_stream", "spade_static"]
     # LM
     seq_len: int = 0
     global_batch: int = 0
@@ -118,6 +132,9 @@ class ShapeSpec:
     batch_nodes: int = 0
     fanout: tuple[int, ...] = ()
     n_graphs: int = 0
+    # recsys
+    batch: int = 0
+    n_candidates: int = 0
 
 
 LM_SHAPES = {
@@ -145,6 +162,15 @@ GNN_SHAPES = {
     ),
     "molecule": ShapeSpec(
         "molecule", "graph_batch", n_nodes=30, n_edges=64, n_graphs=128, d_feat=32
+    ),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "recsys_train", batch=65536),
+    "serve_p99": ShapeSpec("serve_p99", "recsys_serve", batch=512),
+    "serve_bulk": ShapeSpec("serve_bulk", "recsys_serve", batch=262144),
+    "retrieval_cand": ShapeSpec(
+        "retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000
     ),
 }
 

@@ -38,6 +38,11 @@ GNN: :func:`gnn_params_from_numpy` takes the tree of the JAX package's
 and DimeNet's ``blocks`` stacked with a leading L dimension) and builds a
 :class:`~repro_torch.models.gnn.GNN`; :func:`gnn_params_to_numpy` gives the
 same tree back.
+
+Two-tower: :func:`two_tower_params_from_numpy` takes the tree of the JAX
+package's ``init_two_tower_params`` (``user_table``, ``item_table``,
+``user_mlp``, ``item_mlp``, ``temp``) and gives the port's tree of
+tensors, keyed the same; :func:`two_tower_params_to_numpy` gives it back.
 """
 
 from __future__ import annotations
@@ -46,17 +51,20 @@ import numpy as np
 import torch
 
 from repro_torch import pytree
-from repro_torch.configs.base import GNNConfig, LMConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.core.incremental import DeviceSpadeState
 from repro_torch.device import resolve_device
 from repro_torch.graphstore.structs import DeviceGraph
 from repro_torch.models.gnn import GNN, flatten_params, unflatten_params
 from repro_torch.models.transformer import TransformerLM, reference_leaves
+from repro_torch.models.two_tower import init_two_tower_params
 from repro_torch.train.optimizer import TrainState
 
 __all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
-           "lm_params_from_numpy", "lm_params_to_numpy", "fold_experts", "unfold_experts",
-           "gnn_params_from_numpy", "gnn_params_to_numpy", "tensor_from_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy", "lm_params_to_reference",
+           "fold_experts", "unfold_experts",
+           "gnn_params_from_numpy", "gnn_params_to_numpy", "two_tower_params_from_numpy",
+           "two_tower_params_to_numpy", "tensor_from_numpy",
            "train_state_to_reference", "train_state_to_numpy", "train_state_from_numpy"]
 
 GRAPH_FIELDS = {"src": np.int32, "dst": np.int32, "c": np.float32,
@@ -180,6 +188,14 @@ def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
     return model
 
 
+def lm_params_to_reference(model: TransformerLM, device: str | torch.device = "cpu") -> dict:
+    """The reference's LM tree of ``model`` as copies on ``device``
+    (``"meta"`` gives the structure alone): layers stacked, experts
+    unfolded."""
+    return _lm_to_reference(model.get_parameter, model.cfg,
+                            lambda t: t.detach().to(device, copy=True), torch.stack)
+
+
 def lm_params_to_numpy(model: TransformerLM) -> dict:
     """The JAX-layout pytree of ``model`` (the inverse of
     :func:`lm_params_from_numpy`); bf16 leaves as ``uint16`` bits."""
@@ -226,6 +242,34 @@ def gnn_params_to_numpy(model: GNN) -> dict:
     return unflatten_params((p, _to_numpy(t)) for p, t in flatten_params(model.params()))
 
 
+def two_tower_params_from_numpy(params_np: dict, cfg: RecsysConfig,
+                                device: str | torch.device | None = None) -> dict:
+    """The port's two-tower tree on ``device`` (default ``cuda``, raising
+    without a GPU) holding the reference tree ``params_np`` bit for bit;
+    raises unless its leaves and shapes are ``cfg``'s."""
+    dev = resolve_device(device)
+    like = init_two_tower_params(cfg, device="meta", init=False)
+    paths = [p for p, _ in pytree.leaves_with_path(like)]
+    given = [p for p, _ in pytree.leaves_with_path(params_np)]
+    if given != paths:
+        raise KeyError(f"two_tower_params_from_numpy: leaves {given}, expected {paths}")
+
+    def put(x, leaf):
+        t = tensor_from_numpy(x, leaf.dtype)
+        if t.shape != leaf.shape:
+            raise ValueError(f"two_tower_params_from_numpy: a leaf of shape "
+                             f"{tuple(t.shape)}, expected {tuple(leaf.shape)}")
+        return t.to(dev)
+
+    return pytree.tree_map(put, params_np, like)
+
+
+def two_tower_params_to_numpy(params: dict) -> dict:
+    """The reference tree of the port's two-tower ``params`` (the inverse
+    of :func:`two_tower_params_from_numpy`)."""
+    return pytree.tree_map(_to_numpy, params)
+
+
 def train_state_to_reference(state: TrainState, device: str | torch.device = "cpu"
                              ) -> TrainState:
     """``state`` in the reference's layout as copies on ``device``
@@ -257,14 +301,15 @@ def _np_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, order="C")).to(device)
 
 
-def train_state_from_numpy(state_np, cfg: LMConfig | GNNConfig | None = None,
+def train_state_from_numpy(state_np, cfg: LMConfig | GNNConfig | RecsysConfig | None = None,
                            device: str | torch.device | None = None) -> TrainState:
     """The port's ``TrainState`` on ``device`` (default ``cuda``, raising
     without a GPU) from the reference's as numpy (any object with
     ``params``, ``m``, ``v``, ``step`` and ``err``): with an LM config, a
     :class:`TransformerLM` and dicts keyed by its parameter names; with a
-    GNN config, ``GNN.params()`` and trees like it; with none, the trees as
-    they are."""
+    GNN config, ``GNN.params()`` and trees like it; with a recsys config,
+    the two-tower tree (checked by :func:`two_tower_params_from_numpy`)
+    and trees like it; with none, the trees as they are."""
     dev = resolve_device(device)
     if isinstance(cfg, LMConfig):
         params = lm_params_from_numpy(state_np.params, cfg, dev)
@@ -281,8 +326,12 @@ def train_state_from_numpy(state_np, cfg: LMConfig | GNNConfig | None = None,
             return out
     else:
         conv = lambda tree: pytree.tree_map(lambda x: _np_tensor(x, dev), tree)
-        params = (gnn_params_from_numpy(state_np.params, cfg, dev).params()
-                  if isinstance(cfg, GNNConfig) else conv(state_np.params))
+        if isinstance(cfg, GNNConfig):
+            params = gnn_params_from_numpy(state_np.params, cfg, dev).params()
+        elif isinstance(cfg, RecsysConfig):
+            params = two_tower_params_from_numpy(state_np.params, cfg, dev)
+        else:
+            params = conv(state_np.params)
     m, v, err = (None if t is None else conv(t) for t in (state_np.m, state_np.v, state_np.err))
     step = torch.from_numpy(np.asarray(state_np.step, np.int32).copy()).to(dev)
     return TrainState(params=params, m=m, v=v, step=step, err=err)

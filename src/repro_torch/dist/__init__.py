@@ -1,7 +1,8 @@
 """The dist plane on ``torch.distributed``: the edge-sharded Spade engine
 (:mod:`repro_torch.dist.graph`), :func:`spawn`, which starts a job's ranks
-on one host, and the error-feedback int8 gradient compression
-(:mod:`repro_torch.dist.compression`)."""
+on one host, the error-feedback int8 gradient compression
+(:mod:`repro_torch.dist.compression`) and the logical-axis sharding layer
+on ``DeviceMesh`` (:mod:`repro_torch.dist.sharding`)."""
 
 from .compression import compress_grads, dequantize_int8, ef_compress_tree, quantize_int8
 from .graph import (
@@ -25,6 +26,7 @@ from .graph import (
     sharded_slide_and_maintain_predictive,
     sharded_workset_sizes,
 )
+from .sharding import AxisEnv, axis_env, constrain, tree_shardings, use_axis_env
 from .spawn import spawn
 
 __all__ = [
@@ -52,4 +54,9 @@ __all__ = [
     "sharded_slide_and_maintain_predictive",
     "sharded_workset_sizes",
     "spawn",
+    "AxisEnv",
+    "axis_env",
+    "constrain",
+    "tree_shardings",
+    "use_axis_env",
 ]

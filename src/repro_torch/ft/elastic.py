@@ -6,9 +6,10 @@ largest ``(data, model)`` mesh that keeps the ``model`` axis whole (a
 tensor-parallel group does not survive losing a member) and divides the
 global batch over the data axis, shrinking it until the batch divides.
 The mesh here is a record, :class:`MeshPlan`: the array of device indices
-and the axis names, as ``jax.sharding.Mesh`` holds them; it builds no
-process group (``torch.distributed``'s ``DeviceMesh`` form waits for the
-port of the sharding layer, ROADMAP A.11.4).
+(ranks) and the axis names, as ``jax.sharding.Mesh`` holds them; its
+:meth:`MeshPlan.device_mesh` is the ``torch.distributed`` ``DeviceMesh``
+over those ranks, which the sharding layer
+(:mod:`repro_torch.dist.sharding`) places tensors on.
 
 *Straggler detection*: :class:`StepWatchdog` flags a step slower than
 ``factor`` times the median of the steps before it; the driver restores
@@ -21,6 +22,8 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["MeshPlan", "best_mesh_for", "StepWatchdog", "ElasticPlan", "replan"]
 
@@ -36,12 +39,19 @@ class MeshPlan:
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def device_mesh(self, device_type: str = "cuda") -> DeviceMesh:
+        """The ``DeviceMesh`` of these ranks (the ranks left out by a
+        re-plan are not in it), in an initialised process group that holds
+        them."""
+        return DeviceMesh(device_type, torch.as_tensor(self.devices),
+                          mesh_dim_names=self.axis_names)
+
 
 def best_mesh_for(n_devices: int, model_axis: int, axis_names=("data", "model"),
                   devices=None) -> MeshPlan:
     """Largest (data, model) mesh with the TP axis preserved, over the
     first devices of ``devices`` (indices ``0 .. n_devices - 1`` when
-    None)."""
+    None); ``.device_mesh()`` of the result is its ``DeviceMesh``."""
     if n_devices < model_axis:
         raise ValueError(
             f"cannot preserve model axis {model_axis} with {n_devices} devices"

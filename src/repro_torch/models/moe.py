@@ -69,6 +69,14 @@ class Routing(NamedTuple):
     capacity: int         # Cb
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(ids, minlength=n)`` for ids in ``[0, n)``, as an integer
+    ``index_add_`` (exact on every device), which a meta tensor (the dry
+    run's trace) also runs."""
+    ones = torch.ones_like(ids, dtype=torch.int64)
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(0, ids, ones)
+
+
 def moe_route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec) -> Routing:
     """Route flat tokens ``x [T, D]`` through ``router [D, E]``."""
     T = x.shape[0]
@@ -90,7 +98,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec) -> Routing:
     order = torch.argsort(key, stable=True)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(key.numel(), device=x.device)
-    counts = torch.bincount(key, minlength=TB * E)
+    counts = _counts(key, TB * E)
     pos = (rank - (torch.cumsum(counts, 0) - counts)[key]).view(TB, tp * K)
     keep = pos < Cb
     slot = torch.where(keep, assign * Cb + pos, E * Cb)
@@ -144,6 +152,6 @@ def router_aux_loss(logits: torch.Tensor, topi: torch.Tensor, n_experts: int
     """Switch-style load-balancing loss: E * <frac_tokens, frac_probs>."""
     probs = torch.softmax(logits.float(), dim=-1)
     frac_probs = probs.mean(dim=0)
-    counts = torch.bincount(topi.reshape(-1), minlength=n_experts).float()
+    counts = _counts(topi.reshape(-1), n_experts).float()
     frac_tokens = counts / counts.sum().clamp_min(1.0)
     return n_experts * (frac_probs * frac_tokens).sum()

@@ -985,3 +985,55 @@ def test_moe_gradient_cuda_within_stated_tolerance(cuda):
         scale = float(w.abs().max())
         for got in (first, again):
             assert float((got[n].cpu() - w).abs().max()) <= 1e-4 * max(scale, 1e-30), n
+
+
+def test_two_tower_smoke_cuda_matches_cpu(cuda):
+    """chip_smoke.py's 16a/16b smoke check: the smoke two-tower's scores and
+    top-k on cuda against cpu from the same weights (within TT_TOL of
+    temp, the indices equal), and three train steps at the CPU tests'
+    tolerances."""
+    _chip_smoke().two_tower_smoke(0)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_two_tower_chunks_match_whole_batch_cuda(cuda, rows, monkeypatch):
+    """The towers over chunks of ``rows`` batch rows (BAG_BYTES cut to
+    their gathers) against the whole batch on the card: atol 1e-6 on the
+    unit-norm outputs (a chunk's products may take another cuBLAS kernel),
+    no TF32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import two_tower as tt
+
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("two-tower-retrieval")
+    params = tt.init_two_tower_params(cfg, device=cuda)
+    batch = cs.recsys_batch(cfg, 64, np.random.default_rng(rows), cuda)
+    with torch.no_grad():
+        for tower, idx, wt in ((tt.user_tower, batch.user_idx, batch.user_wt),
+                               (tt.item_tower, batch.item_idx, batch.item_wt)):
+            want = tower(params, idx, wt, cfg)
+            monkeypatch.setattr(tt, "BAG_BYTES", rows * idx.shape[1] * idx.shape[2] * 4
+                                * cfg.embed_dim)
+            torch.testing.assert_close(tower(params, idx, wt, cfg), want, rtol=1e-6, atol=1e-6)
+            monkeypatch.undo()
+
+
+def _cells():
+    from repro_torch.configs import Skip, all_cells
+
+    return [(a, s) for a, s, spec in all_cells() if not isinstance(spec, Skip)]
+
+
+@pytest.mark.parametrize("arch,shape", _cells(), ids=[f"{a}-{s}" for a, s in _cells()])
+def test_smoke_cell_cuda_matches_cpu(cuda, arch, shape):
+    """chip_smoke.py's 16c on one smoke cell: the cell moved to the card
+    (``Cell.to``) against the same cell on cpu (``cell_parity``'s rules)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _chip_smoke().cell_parity(arch, shape, 0)
+
+
+def test_launcher_resume_cuda(cuda):
+    """chip_smoke.py's 16d: ``repro_torch.launch.train`` on cuda, 4 steps
+    straight against 2 + resume + 2, bit for bit."""
+    assert _chip_smoke().launcher_resume(0)["leaves_compared"] > 0

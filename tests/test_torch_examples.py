@@ -23,6 +23,8 @@ RUNS = {
                                    "tick 2:"),
     "torch_custom_semantics_service": (SMALL + ["--device", "cpu", "--batch", "64"],
                                        "host oracle under TDW"),
+    "torch_fraud_aware_recsys": (SMALL + ["--device", "cpu", "--steps", "3"],
+                                 "retrieval training on clean stream (cpu)"),
 }
 
 
@@ -45,9 +47,24 @@ def test_example_twin_runs_on_cpu(name, capsys, monkeypatch):
     assert expect in out, out
 
 
+def test_train_lm_twin_runs_and_resumes_on_cpu(tmp_path, capsys, monkeypatch):
+    torch.set_num_threads(1)
+    for _ in range(2):
+        monkeypatch.setattr(sys, "argv", ["torch_train_lm.py", "--steps", "2", "--device", "cpu",
+                                          "--ckpt-dir", str(tmp_path)])
+        runpy.run_path(str(EXAMPLES / "torch_train_lm.py"), run_name="__main__")
+    out = capsys.readouterr().out
+    assert "step 2 loss=" in out and "resumed from step 2" in out and "step 4 loss=" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["torch_train_lm.py", "--ckpt-dir", str(tmp_path / "c")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runpy.run_path(str(EXAMPLES / "torch_train_lm.py"), run_name="__main__")
+
+
 @pytest.mark.parametrize("name", ["torch_sliding_window_service",
                                   "torch_multi_pod_fraud_scan",
-                                  "torch_custom_semantics_service"])
+                                  "torch_custom_semantics_service",
+                                  "torch_fraud_aware_recsys"])
 def test_example_device_part_needs_a_device_without_gpu(name, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: cuda is the working default")

@@ -81,12 +81,14 @@ def test_configs_match_jax(arch):
 
 
 def test_shapes_match_jax_and_recsys_raises():
+    """Once the recsys arch raised NotImplementedError; now it resolves to
+    the reference's config."""
     assert tconfigs.GNN_SHAPES.keys() == J_GNN_SHAPES.keys()
-    for name, spec in tconfigs.GNN_SHAPES.items():  # the reference adds recsys fields
-        want = dataclasses.asdict(J_GNN_SHAPES[name])
-        assert {k: want[k] for k in dataclasses.asdict(spec)} == dataclasses.asdict(spec)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tconfigs.get_config("two-tower-retrieval")
+    for name, spec in tconfigs.GNN_SHAPES.items():
+        assert dataclasses.asdict(J_GNN_SHAPES[name]) == dataclasses.asdict(spec)
+    assert (dataclasses.asdict(tconfigs.get_config("two-tower-retrieval"))
+            == dataclasses.asdict(j_get_config("two-tower-retrieval")))
+    assert tconfigs.ARCH_FAMILY["two-tower-retrieval"] == "recsys"
 
 
 @pytest.mark.parametrize("shape", list(J_GNN_SHAPES))

@@ -186,7 +186,12 @@ def test_port_imports_neither_jax_nor_repro():
         "          'repro_torch.dist.graph', 'repro_torch.dist.spawn',\n"
         "          'repro_torch.dist.compression', 'repro_torch.train.optimizer',\n"
         "          'repro_torch.train.train_step', 'repro_torch.ft.checkpoint',\n"
-        "          'repro_torch.ft.elastic', 'repro_torch.pytree'):\n"
+        "          'repro_torch.ft.elastic', 'repro_torch.pytree',\n"
+        "          'repro_torch.models.two_tower', 'repro_torch.graphstore.sampler',\n"
+        "          'repro_torch.dist.sharding', 'repro_torch.launch.mesh',\n"
+        "          'repro_torch.launch.cells', 'repro_torch.launch.dryrun',\n"
+        "          'repro_torch.launch.train', 'repro_torch.core.device_metrics',\n"
+        "          'repro_torch.serve.device_service', 'repro_torch.data'):\n"
         "    assert n in names, n\n"
         f"files = sorted(__import__('glob').glob({str(ROOT / 'examples' / 'torch_*.py')!r}))\n"
         f"files.append({str(ROOT / 'chip_smoke.py')!r})\n"
@@ -195,7 +200,7 @@ def test_port_imports_neither_jax_nor_repro():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 62 and len(files) == 6, (names, files)\n"
+        "assert len(names) >= 72 and len(files) == 8, (names, files)\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
