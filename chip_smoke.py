@@ -177,7 +177,24 @@ Phases (any failure exits non-zero):
     step twice the same bits; 16d, ``repro_torch.launch.train``'s ``main``
     on cuda, 4 steps straight against 2, a resume and 2, bit for bit.
     Phases 2-14 and 16 run with grad mode off (serving) but where they
-    train; phase 15 turns it on.
+    train; phase 15 turns it on;
+17. (run last; phase 8 keeps its outputs on the host for it) the dense
+    LM serving path sharded on a ``DeviceMesh``: 17c first, then 17a, one
+    ``nccl`` rank on a (data 1, model 1) mesh: phase 8's model, drawn
+    again from its seed, through ``shard_cell`` (every parameter a DTensor
+    whose one shard is the whole tensor), serving phase 8's traffic (2 x
+    8,192-token prefill, 32 decode steps fed phase 8's greedy tokens): the
+    prefill's logits and cache and every decode step's logits phase 8's
+    bits, K3 40 launches a prefill; 17b, that model freed, two ``gloo``
+    ranks on the one card on a (data 1, model 2) mesh, each
+    drawing the model from phase 8's seed in turn behind a barrier and
+    keeping its shards: the same traffic, sequence-sharded attention (K3
+    on each rank's 4,096 query rows, at ``q_offset`` 0 and 4,096), the
+    logits within LM_TOL of phase 8's row scale and the greedy tokens equal
+    on every decided row, each rank's collectives a step equal to the dry
+    run's prediction for the mesh (gloo's gathers issued as all-to-alls);
+    17c, K3 with a non-zero ``q_offset`` against its plain version and bit
+    for bit against the same rows of K3 over the whole sequence.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -288,6 +305,13 @@ GNN_TOL = 1e-4
 # without device events (seen once on the H100, phase 11 at full_graph_sm):
 # it is taken again, up to this many times in all, before a phase fails
 PROFILE_ATTEMPTS = 5
+# kernels a trace may lose and still be read (device_times), or a quarter
+# of the kernels it kept where that is more: the profiler loses a fixed
+# number of kernels from a trace on the H100, whatever its length, one to
+# five early in a run (K4 at ogb_products: 46 of 50, 96 of 100, ..., 396
+# of 400) and 20 to 28 from phase 14 on (K3 at olmoe-1b-7b: 22 of 50, 72
+# of 100, ..., 772 of 800; the MoE FFN's 26 of 10 calls' 600, of 80's 4,800)
+DROPPED_MAX = 8
 
 
 def log(*args) -> None:
@@ -339,15 +363,22 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_time_ms(fn, calls: int = 50, restore=None) -> float:
-    """Device time: ``torch.profiler`` over ``calls`` back-to-back calls of
-    ``fn`` (after one untraced call), the device kernels (and copies) that
-    each call launches summed; the median over the calls in ms, or the mean
-    when the calls do not all launch the same number of kernels.
+def device_times(fn, calls: int = 50, restore=None) -> tuple[float, float]:
+    """(device ms, span ms) of one call of ``fn``: ``torch.profiler`` over
+    ``calls`` back-to-back calls (after one untraced call), the device
+    kernels (and copies) that each call launches summed, the median over
+    the calls; and CUDA events around the same calls, their span over the
+    calls, a second clock that the kernels' sum cannot exceed.
     ``restore``, when given, runs before every call and its copies are left
-    out.  A trace that records no device time is taken again, after a
+    out of the device time.  The profiler drops a few kernels from a trace
+    (a fixed number on the H100, whatever the number of calls): a trace
+    short by up to DROPPED_MAX kernels of a whole number a call, or by up
+    to a quarter of the kernels it kept, is read kernel by kernel, each
+    kernel's median time times the times a call launches it.  A trace that
+    records no device time, or is short by more, is taken again, after a
     pause, over twice the calls; after PROFILE_ATTEMPTS such traces the
     run fails: no other clock stands in for the device's."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     def one():
@@ -359,24 +390,57 @@ def device_time_ms(fn, calls: int = 50, restore=None) -> float:
     sync()
     n = calls
     for attempt in range(PROFILE_ATTEMPTS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0.record()
             for _ in range(n):
                 one()
+            t1.record()
             sync()
+        span_us = 1e3 * t0.elapsed_time(t1)
         evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
                       and not (restore is not None and "Memcpy" in e.name)),
                      key=lambda e: e.time_range.start)
-        us = [e.time_range.elapsed_us() for e in evs]
-        if sum(us) > 0:
-            break
-        log(f"device_time_ms: trace {attempt + 1} ({n} calls) recorded no device time")
+        us, fault = read_trace(evs, n, span_us)
+        if fault is None:
+            return us / 1e3, span_us / n / 1e3
+        log(f"device_time_ms: trace {attempt + 1} ({n} calls) {fault}")
         time.sleep(0.2)
         n *= 2
-    check(sum(us) > 0, "device_time_ms: no device time recorded")
+    check(False, f"device_time_ms: {fault}")
+
+
+def read_trace(evs, n: int, span_us: float) -> tuple[float, str | None]:
+    """(us a call, None) from the device events ``evs`` of ``n`` calls
+    traced in ``span_us``, or (0, what is wrong with the trace).  A read
+    per kernel is logged beside the span a call, which bounds the mean
+    and not the median: under back-to-back launches the card's clock
+    falls from its boost, so the first calls run faster than the rest
+    (K3's median over 50 calls 3 % above the span a call on the H100)."""
+    us = [e.time_range.elapsed_us() for e in evs]
+    if sum(us) <= 0:
+        return 0.0, "recorded no device time"
     per, rest = divmod(len(us), n)
-    if rest:
-        return sum(us) / n / 1e3
-    return statistics.median(sum(us[i * per:(i + 1) * per]) for i in range(n)) / 1e3
+    if not rest:
+        return statistics.median(sum(us[i * per:(i + 1) * per]) for i in range(n)), None
+    names: dict[str, list[float]] = {}
+    for e, t in zip(evs, us):
+        names.setdefault(e.name, []).append(t)
+    a_call = {name: -(-len(ts) // n) for name, ts in names.items()}
+    missing = sum(k * n - len(names[name]) for name, k in a_call.items())
+    if missing > max(DROPPED_MAX, len(us) // 4):
+        return 0.0, f"is short of {missing} kernels of {n} whole calls (" + ", ".join(
+            f"{name[:60]} {len(names[name])} of {k * n}" for name, k in a_call.items()) + ")"
+    read = sum(statistics.median(names[name]) * k for name, k in a_call.items())
+    log(f"device_time_ms: {len(us)} device events for {n} calls, {missing} dropped, read "
+        f"per kernel ({read!r} us a call beside a span of {span_us / n!r} us)")
+    return read, None
+
+
+def device_time_ms(fn, calls: int = 50, restore=None) -> float:
+    """The device ms of :func:`device_times`."""
+    return device_times(fn, calls, restore)[0]
 
 
 def timed(fn, calls: int = 50, reps: int = 20) -> tuple[float, float]:
@@ -1459,7 +1523,8 @@ def phase_attention(seed: int) -> tuple[dict, dict]:
             f"{ATTN_NORM_TOL} per {ATTN_BAND}-row band)")
         if (S, window) == ATTN_CASES[0]:
             norm["controls"] = attn_controls(q, k, v, got, G)
-            ms, call = timed(lambda: flash_attention(q, k, v), reps=10)
+            ms, span = device_times(lambda: flash_attention(q, k, v))
+            call = cuda_time_ms(lambda: flash_attention(q, k, v), reps=10)
             plain = device_time_ms(lambda: flash_attention_ref(q, k, v), calls=3)
             plain_call = cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=3, warmup=1)
             lib, lib_call = timed(lambda: F.scaled_dot_product_attention(
@@ -1467,9 +1532,10 @@ def phase_attention(seed: int) -> tuple[dict, dict]:
             bound = k3_bound_ms(B, Hq, Hkv, S, D, window)
             tflops = 4 * B * Hq * D * attn_pairs(S, window) / ms / 1e9
             rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, call_ms=call,
-                       plain_call_ms=plain_call, library_call_ms=lib_call)
+                       plain_call_ms=plain_call, library_call_ms=lib_call, span_ms=span)
             norm.update(tflops=tflops, k3_over_sdpa=ms / lib)
-            log(f"{tag}: kernel {ms!r} ms device ({call!r} ms call; {tflops!r} TFLOP/s, "
+            log(f"{tag}: kernel {ms!r} ms device ({span!r} ms a call back to back by CUDA "
+                f"events, {call!r} ms call; {tflops!r} TFLOP/s, "
                 f"{ms / lib!r}x sdpa, {bound / ms!r} of the bound), plain {plain!r} ms "
                 f"device ({plain_call!r} ms call), sdpa {lib!r} ms device ({lib_call!r} ms "
                 f"call), bound {bound!r} ms (operations)")
@@ -1815,7 +1881,11 @@ def lm_smoke_parity(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_lm_full(seed: int) -> dict:
+def phase_lm_full(seed: int) -> tuple[dict, dict]:
+    """Phase 8; also returns what phase 17 holds its sharded runs to, on
+    the host: the prompts, the prefill's logits and cache (taken before
+    decode writes the cache), the tokens each decode step was fed and its
+    logits."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1845,6 +1915,8 @@ def phase_lm_full(seed: int) -> dict:
     sync()
     prefill_s = time.perf_counter() - t0
     check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: non-finite logits")
+    ref = {"tokens": tokens.cpu(), "prefill_logits": logits.cpu(),
+           "cache": (cache.k.cpu(), cache.v.cpu()), "fed": [], "decode_logits": []}
     steps, out_tokens = [], []
     tok = logits.argmax(-1)
     for i in range(n_dec):
@@ -1856,6 +1928,8 @@ def phase_lm_full(seed: int) -> dict:
         steps.append(time.perf_counter() - t0)
         check(bool(torch.isfinite(logits).all()),
               f"{cfg.name} decode step {i}: non-finite logits")
+        ref["fed"].append(tok.cpu())
+        ref["decode_logits"].append(logits.cpu())
         tok = logits.argmax(-1)
     launches = k3_ops.launches
     check(launches == cfg.n_layers,
@@ -1904,7 +1978,7 @@ def phase_lm_full(seed: int) -> dict:
         model, cache, tok, torch.full((batch,), pos, dtype=torch.int64, device=DEVICE)), k3)
     del model, cache, logits
     torch.cuda.empty_cache()
-    return out
+    return out, ref
 
 
 # ---------------------------------------------------------------------------
@@ -3814,9 +3888,11 @@ def train_attention(seed: int) -> dict:
     for key, val in out.items():
         check(val <= TRAIN_ATTN_TOL, f"15c attention {key}: {val!r} beyond {TRAIN_ATTN_TOL}")
     fwd_ms = device_time_ms(lambda: k3_ops.flash_attention(q, k, v), calls=10)
+    sdpa_ms = device_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), calls=10)
     bwd_ms = device_time_ms(lambda: flash_attention_bwd_ref(q, k, v, do, block_q=cfg.q_block),
                             calls=3)
-    out.update(k3_forward_ms=fwd_ms, plain_backward_ms=bwd_ms,
+    out.update(k3_forward_ms=fwd_ms, sdpa_forward_ms=sdpa_ms, plain_backward_ms=bwd_ms,
                plain_backward_flops=5 * 2 * B * Hq * D * sum(
                    min(S, q0 + cfg.q_block) * min(cfg.q_block, S - q0)
                    for q0 in range(0, S, cfg.q_block)))
@@ -4517,6 +4593,358 @@ def phase_cells(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dense LM serving path sharded on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# 17b holds the logits of two ranks (model 2) to phase 8's at LM_TOL, its
+# ceiling, relative to the row's largest |logit|: each row-parallel
+# product's two partial sums are rounded to bf16 before they are added, two
+# roundings more than one device's, in each of 80 products over 40 layers;
+# measured 0.0194-0.0265 on the H100 over the prefill and 32 decode steps
+TP_TIMEOUT = 600  # seconds for 17b's spawn
+# 17c: (S, q_offset, window)
+TP_OFFSETS = ((8192, 4096, None), (8192, 4000, None), (4096, 2048, 1024))
+
+
+def tp_prefill_cell(model, tokens, smoke: bool = False):
+    """The qwen3-14b prefill cell (its logical axes) holding ``model`` and
+    ``tokens``: phase 8's traffic through ``shard_cell`` (``smoke``: the
+    smoke config's cell, for a rehearsal on the CPU)."""
+    from repro_torch.launch.cells import build_cell
+
+    cell = build_cell(LM_ARCH, "prefill_32k", smoke=smoke)
+    return dataclasses.replace(cell, args=(model, tokens))
+
+
+def tp_gather(x):
+    """A sharded result made whole on the host (the gloo ranks' all-gather
+    goes through ``sharding.redistribute``)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import sharding
+
+    whole = sharding.redistribute(x, [Replicate()] * x.device_mesh.ndim)
+    return whole.to_local().to("cpu", copy=True)
+
+
+def tp_serve(env, cell, fed, prompt: int, keep_cache: bool = False) -> dict:
+    """Phase 8's traffic through a sharded cell on ``env``'s mesh: the
+    prefill, then a decode step on each fed token (phase 8's greedy
+    tokens), K3's counters set to 0 just before and read just after; the
+    collectives of the prefill and of the first decode step on this rank
+    (``LocalCost``, whose Python work a op is inside those two steps'
+    seconds), seconds, the logits on the host and, with ``keep_cache``,
+    host copies of this rank's prefill cache shards."""
+    import torch
+
+    from repro_torch.dist.sharding import LocalCost, place, use_axis_env
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import decode_step
+
+    model = cell.args[0]
+    out = {"decode": [], "decode_s": []}
+    with use_axis_env(env):
+        fed = [place(t.to(DEVICE), "batch") for t in fed]
+        pos = [place(torch.full((t.shape[0],), prompt + i, dtype=torch.int64, device=DEVICE),
+                     "batch") for i, t in enumerate(fed)]
+        k3_ops.launches = k3_ops.simt_launches = 0
+        sync()
+        t0 = time.perf_counter()
+        with LocalCost() as cost:
+            logits, cache = cell.fn(*cell.args)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill"] = tp_gather(logits)
+        if keep_cache:
+            out["cache"] = tuple(t.to_local().to("cpu", copy=True) for t in cache)
+        out["prefill_cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+        for i in range(len(fed)):
+            t0 = time.perf_counter()
+            with LocalCost() if i == 0 else contextlib.nullcontext() as cost:
+                logits, cache = decode_step(model, cache, fed[i], pos[i])
+            sync()
+            out["decode_s"].append(time.perf_counter() - t0)
+            out["decode"].append(tp_gather(logits))
+            if i == 0:
+                out["decode_cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+    out["k3_launches"], out["k3_simt_launches"] = k3_ops.launches, k3_ops.simt_launches
+    return out
+
+
+def tp_world1(ref: dict, model) -> dict:
+    """17a: one ``nccl`` rank on a (data 1, model 1) mesh.  ``model``
+    (phase 8's, drawn again from its seed; sharded in place: every shard
+    is the whole tensor, nothing is copied) through ``shard_cell``;
+    prefill's logits and cache, and every decode step's logits, phase 8's
+    bits."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import shard_cell
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    # nccl on the card (a cpu rehearsal takes gloo)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
+        cell = shard_cell(tp_prefill_cell(model, ref["tokens"].to(DEVICE),
+                                          ref.get("smoke", False)), env)
+        got = tp_serve(env, cell, ref["fed"], int(ref["tokens"].shape[1]), keep_cache=True)
+        check(torch.equal(got["prefill"], ref["prefill_logits"]),
+              "17a: the prefill's logits differ from phase 8's")
+        for name, t, want in zip(("k", "v"), got.pop("cache"), ref["cache"]):
+            check(torch.equal(t, want), f"17a: the cache's {name} differs from phase 8's "
+                  f"prefill cache")
+        for i, (a, b) in enumerate(zip(got.pop("decode"), ref["decode_logits"])):
+            check(torch.equal(a, b), f"17a: decode step {i}'s logits differ from phase 8's")
+        got.pop("prefill")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = model.cfg
+    # (a rehearsal on the CPU launches no kernel)
+    check(DEVICE != "cuda" or (got["k3_launches"] == cfg.n_layers
+                               and got["k3_simt_launches"] == 0),
+          f"17a: K3 launched {got['k3_launches']} (SIMT {got['k3_simt_launches']}) times, "
+          f"expected {cfg.n_layers} per prefill on the tensor-core body")
+    got["decode_ms_median"] = 1e3 * statistics.median(got.pop("decode_s"))
+    log("17a world 1 (nccl, data 1 x model 1): prefill logits and cache and all "
+        f"{len(ref['fed'])} decode steps' logits equal phase 8's bit for bit; "
+        + " ".join(f"{k}={v!r}" for k, v in got.items()))
+    return got
+
+
+def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool) -> dict:
+    """A rank of 17b: qwen3-14b drawn whole from phase 8's seed, one rank
+    after the other behind a barrier (two whole copies never coexist),
+    sharded by ``shard_cell`` (each rank keeps its shards), then phase 8's
+    traffic (prompts and fed tokens read from ``path``).  ``smoke``: the
+    smoke config on ``device``, for a rehearsal on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import shard_cell
+    from repro_torch.models import TransformerLM
+
+    global DEVICE
+    DEVICE = device
+    torch.set_grad_enabled(False)
+    env = AxisEnv(mesh)
+    with np.load(path) as z:
+        tokens = torch.from_numpy(z["tokens"]).to(DEVICE)
+        fed = [torch.from_numpy(t) for t in z["fed"]]
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            cfg = (get_smoke_config if smoke else get_config)(LM_ARCH)
+            model = TransformerLM(cfg, device=DEVICE,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(seed))
+            cell = shard_cell(tp_prefill_cell(model, tokens, smoke), env)
+            del model
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    draw_s = time.perf_counter() - t0
+    weights = sum(p.to_local().numel() * p.element_size() for p in cell.args[0].parameters())
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = tp_serve(env, cell, fed, int(tokens.shape[1]))
+    out.update(draw_s=draw_s, weights_gb=weights / 1e9,
+               serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+               prefill=out["prefill"].numpy(), decode=np.stack([d.numpy() for d in out["decode"]]))
+    return out
+
+
+def tp_predicted(batch: int, prompt: int, smoke: bool = False) -> dict:
+    """The dry run's prediction for 17b's mesh (data 1, model 2): the
+    collectives of one rank's prefill of phase 8's prompts and of one
+    decode step on their cache, traced on meta under a two-rank fake
+    process group and extrapolated to the full depth, as
+    ``repro_torch.launch.dryrun`` does for its cells."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import sharded_cost
+    from repro_torch.models import KVCache
+
+    meta = torch.device("meta")
+    cfg = get_config(LM_ARCH) if not smoke else get_smoke_config(LM_ARCH)
+
+    def prefill_cell(n):
+        cell = build_cell(LM_ARCH, "prefill_32k", smoke=smoke, override_layers=n)
+        return dataclasses.replace(cell, args=(cell.args[0], torch.empty(
+            (batch, prompt), dtype=torch.int64, device=meta)))
+
+    def decode_cell(n):
+        cell = build_cell(LM_ARCH, "decode_32k", smoke=smoke, override_layers=n)
+        kv = lambda: torch.empty((n, batch, prompt, cfg.n_kv_heads, cfg.d_head),
+                                 dtype=getattr(torch, cfg.dtype), device=meta)
+        vec = lambda: torch.empty((batch,), dtype=torch.int64, device=meta)
+        return dataclasses.replace(cell, args=(cell.args[0], KVCache(kv(), kv()), vec(), vec()))
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0, 1]], mesh_dim_names=("data", "model")))
+        return {step: sharded_cost(make, env, cfg.n_layers)
+                for step, make in (("prefill", prefill_cell), ("decode", decode_cell))}
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_world2(ref: dict, seed: int) -> dict:
+    """17b: two ``gloo`` ranks on the one card on a (data 1, model 2) mesh,
+    phase 8's weights (each rank's shards of the seeded draw) and traffic,
+    held to phase 8's logits: within LM_TOL of the row's largest |logit|
+    and the greedy tokens equal on every row whose top-2 margin that
+    cannot close; each rank's collectives a step beside the dry run's
+    prediction for this mesh.  gloo has no all-gather on CUDA tensors:
+    the port gathers by an all-to-all of the same bytes there, so the
+    ranks count as all-to-all what the prediction (the card's NCCL, the
+    dry run's fake group) counts as all-gather."""
+    from repro_torch.dist import spawn
+
+    path = ROOT / "build" / "phase17" / "traffic.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, tokens=ref["tokens"].numpy(),
+             fed=np.stack([t.numpy() for t in ref["fed"]]))
+    t0 = time.perf_counter()
+    smoke = ref.get("smoke", False)
+    ranks = spawn(tp_rank, 2, backend="gloo", device=DEVICE,
+                  args=(str(path), seed, DEVICE, smoke), timeout=TP_TIMEOUT,
+                  mesh_shape={"data": 1, "model": 2})
+    spawn_s = time.perf_counter() - t0
+    path.unlink()
+    import torch
+
+    pairs = [(r, name, torch.from_numpy(a), want) for r, got in enumerate(ranks)
+             for name, a, want in [("prefill", got["prefill"], ref["prefill_logits"])] + [
+                 (f"decode step {i}", got["decode"][i], w)
+                 for i, w in enumerate(ref["decode_logits"])]]
+    errs = {}
+    for r, name, a, want in pairs:
+        scale = want.float().abs().amax(dim=-1, keepdim=True)
+        errs[(r, name)] = float(((a - want.float()).abs() / scale).max())
+    worst = max(errs.values())
+    log(f"17b: largest |logit - phase 8's| over the row's largest |logit|, rank 0: "
+        + ", ".join(f"{n} {e!r}" for (r, n), e in errs.items() if r == 0)
+        + f"; worst over both ranks {worst!r}")
+    log("17b ranks: " + " ".join(
+        f"rank {r}: draw_s={g['draw_s']!r} weights_gb={g['weights_gb']!r} "
+        f"serve_peak_gb={g['serve_peak_gb']!r} prefill_s={g['prefill_s']!r} "
+        f"decode_ms_median={1e3 * statistics.median(g['decode_s'])!r};"
+        for r, g in enumerate(ranks)) + f" spawn_s={spawn_s!r}")
+    decided = tied = 0
+    for r, name, a, want in pairs:
+        d, t = greedy_check(f"17b rank {r} {name}", a, want)
+        decided, tied = decided + d, tied + t
+    pred = tp_predicted(*ref["tokens"].shape, smoke=smoke)
+    counts = {}
+    for step in ("prefill", "decode"):
+        p = dict(pred[step]["collectives"])
+        if DEVICE == "cuda":  # gloo's gathers on the card, as all-to-alls
+            p["all-to-all"] += p.pop("all-gather")
+            p["all-gather"] = 0
+        for r, got in enumerate(ranks):
+            c = got[f"{step}_cost"]["bytes"]
+            check(c == p, f"17b rank {r} {step}: collectives {c!r} against the dry run's {p!r}")
+        counts[step] = {"rank0": ranks[0][f"{step}_cost"], "predicted": {
+            "bytes": p, "calls": pred[step]["collective_calls"]}}
+        log(f"17b {step}: collectives per rank per step {ranks[0][f'{step}_cost']!r}; the dry "
+            f"run's prediction for (data 1, model 2): bytes {p!r}, calls "
+            f"{pred[step]['collective_calls']!r}")
+    for r, got in enumerate(ranks):
+        check(DEVICE != "cuda" or (got["k3_launches"] == ref["model_layers"]
+                                   and got["k3_simt_launches"] == 0),
+              f"17b rank {r}: K3 launched {got['k3_launches']} times "
+              f"(SIMT {got['k3_simt_launches']}), expected {ref['model_layers']} a prefill")
+    out = {"spawn_s": spawn_s, "logit_rel_err_max": worst, "tolerance": LM_TOL,
+           "rows_decided": decided, "rows_tied": tied, "collectives": counts,
+           "ranks": [{k: got[k] for k in ("draw_s", "weights_gb", "serve_peak_gb", "prefill_s",
+                                          "k3_launches")}
+                     | {"decode_ms_median": 1e3 * statistics.median(got["decode_s"])}
+                     for got in ranks]}
+    log(f"17b world 2 (gloo, data 1 x model 2, one card): logits within {worst!r} of the row "
+        f"scale of phase 8's (tolerance {LM_TOL}), greedy tokens equal on {decided} decided "
+        f"rows ({tied} near-ties); " + " ".join(f"{k}={v!r}" for k, v in out.items()
+                                                if k != "collectives"))
+    return out
+
+
+def k3_offset_checks(seed: int) -> dict:
+    """17c: K3 with a non-zero ``q_offset`` (the rows of a sequence shard
+    at qwen3-14b's attention shape, bf16) against its plain version with
+    the same offset (the phase-6 checks) and against the same rows of K3
+    over the whole sequence (bit for bit).  A correctness check: the
+    launches are not timed."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    B, Hq, Hkv, D = ATTN_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    for S, off, window in TP_OFFSETS:
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=DEVICE,
+                               dtype=torch.float32).to(torch.bfloat16).permute(0, 2, 1, 3)
+                   for h in (Hq, Hkv, Hkv))
+        part = q[:, :, off:]
+        got = flash_attention(part, k, v, window=window, q_offset=off)
+        whole = flash_attention(q, k, v, window=window)
+        sync()
+        tag = f"K3 S={S} q_offset={off} window={window}"
+        err, rel = attn_check(f"{tag} vs flash_attention_ref", got, flash_attention_ref(
+            part, k, v, window=window, q_offset=off))
+        same = bool(torch.equal(got, whole[:, :, off:]))
+        check(same, f"{tag}: rows differ from K3 over the whole sequence")
+        out[tag] = {"max_abs_err": err, "band_rel_err": rel, "same_bits_as_whole": same}
+        log(f"17c {tag}: " + " ".join(f"{k}={v!r}" for k, v in out[tag].items()))
+        del q, k, v, part, got, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tensor_parallel(ref: dict, seed: int) -> dict:
+    """Phase 17, run last: 17c, then 17a on phase 8's model drawn again
+    from its seed, freed before 17b's ranks draw theirs.  Last, so that
+    the spawned ranks and the sharded runs precede no other phase's
+    timing."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # what earlier phases left reserved, for 17b's ranks too
+    out = {"k3_offsets": k3_offset_checks(seed)}
+    cfg = get_config(LM_ARCH)
+    model = TransformerLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    out["world1"] = tp_world1(ref, model)
+    ref["model_layers"] = cfg.n_layers
+    del model
+    torch.cuda.empty_cache()
+    out["world2"] = tp_world2(ref, seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -4590,7 +5018,7 @@ def main() -> int:
     log("phase 6: K3's two bodies agree with their plain versions")
     lm_parity = phase_lm_parity(LM_SEED)
     log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
-    lm = phase_lm_full(LM_SEED)
+    lm, lm_ref = phase_lm_full(LM_SEED)  # phase 17 holds its sharded runs to lm_ref
     log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
         f"{time.perf_counter() - t_lm!r} s")
 
@@ -4656,10 +5084,19 @@ def main() -> int:
         f"cpu, the Spade cells at full width, the launcher's resume bit for bit; "
         f"{cells['seconds']!r} s")
 
+    tp = phase_tensor_parallel(lm_ref, LM_SEED)
+    del lm_ref
+    log(f"phase 17: qwen3-14b sharded on a DeviceMesh on {smi}: world 1 (nccl) phase 8's "
+        f"bits, world 2 (gloo, one card) within {tp['world2']['logit_rel_err_max']!r} of the "
+        f"row scale, K3 with q_offset equal to its whole-sequence rows; "
+        f"{tp['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
     k3_paths = {"qwen3-14b": lm["k3_launches"],
+                "qwen3-14b-sharded-world1": tp["world1"]["k3_launches"],
+                "qwen3-14b-sharded-world2": sum(r["k3_launches"] for r in tp["world2"]["ranks"]),
                 **{a: moe[a]["k3_launches"] for a in MOE_LAYERS},
                 "qwen3-14b-train": train["qwen3_14b"]["k3_launches"]}
     simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
@@ -4700,7 +5137,8 @@ def main() -> int:
                             + [moe["attention"][a]["max_abs_err"] for a in MOE_LAYERS]),
          "moe_shapes": {a: {k: moe["attention"][a][k] for k in
                             ("shape", "ms", "library_ms", "bound_ms", "max_abs_err")}
-                        for a in MOE_LAYERS}},
+                        for a in MOE_LAYERS},
+         "q_offset_checks": tp["k3_offsets"]},
         {"name": "flash_attention_simt", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
@@ -4719,7 +5157,8 @@ def main() -> int:
             {"card": smi, "kernels": kernels, "grab4": grab, "attention": attn_norm,
              "attention_simt": attn_simt,
              "lm_parity": lm_parity,
-             "qwen3_14b": lm, "gather_segsum": k4_cases, "gnn_parity": gnn_parity,
+             "qwen3_14b": lm, "tensor_parallel": tp, "gather_segsum": k4_cases,
+             "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
              "train": train, "cells": cells},
             indent=1,

@@ -5,12 +5,15 @@
 // (flash_attention_fwd, pallas_call at line 116).  Same contract: blocked
 // online softmax in f32, scores scaled by 1/sqrt(D), masked scores at -1e30,
 // queries left-aligned (query i at position i), kv head = q head / G, output
-// acc / max(l, 1e-30) in the inputs' dtype.  The Pallas kernel takes any
-// float dtype and head dim (it casts its tiles to f32); so does K3: the
-// tensor-core body below takes bf16 at D 64 and 128 (the models' serving
-// widths), and the SIMT body at the end of the file takes float32, float16
-// and bf16 at any D up to 256 (the smoke configs' float32 at D 16 among
-// them).
+// acc / max(l, 1e-30) in the inputs' dtype.  One extension: `q_off` puts
+// query i at position i + q_off (0 is the Pallas kernel's contract), so a
+// rank that holds one shard of a sequence-sharded q attends over the whole
+// k and v with the causal and window masks of its rows' true positions.
+// The Pallas kernel takes any float dtype and head dim (it casts its tiles
+// to f32); so does K3: the tensor-core body below takes bf16 at D 64 and
+// 128 (the models' serving widths), and the SIMT body at the end of the
+// file takes float32, float16 and bf16 at any D up to 256 (the smoke
+// configs' float32 at D 16 among them).
 //
 // Bound on the H100: operations.  A launch does 4*B*Hq*D*(unmasked (q, k)
 // pairs) flops, about 2*B*Hq*D*S^2 when causal: 1.375 TFLOP at B = 2,
@@ -93,6 +96,7 @@ struct Params {
   __nv_bfloat16* o;
   int64_t o_sb, o_sh, o_ss;  // out's strides in elements: batch, head, sequence
   int G, Sq, Skv, causal, window;  // window <= 0: none
+  int q_off;  // position of query row 0 (a sequence shard's offset)
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
@@ -290,10 +294,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kvh = h / p.G;
 
   // live kv tiles [t_lo, t_hi) for the CTA's rows: keys < Skv, <= its last
-  // query when causal, > its first query - window when windowed
+  // query's position when causal, > its first query's position - window
+  // when windowed (row i sits at position i + q_off)
+  const int pos0 = q0 + p.q_off;
   int k_hi = p.Skv;
-  if (p.causal) k_hi = min(k_hi, q0 + kBM);
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  if (p.causal) k_hi = min(k_hi, pos0 + kBM);
+  const int k_lo = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
   const int t_lo = k_lo / kBN;
   const int t_hi = k_hi > k_lo ? (k_hi + kBN - 1) / kBN : t_lo;
 
@@ -342,6 +348,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lq = lane >> 2, lk = (lane & 3) * 2;  // accumulator row / column pair
     const int wr0 = q0 + wg * 64;                   // the warpgroup's first query
     const int row_a = wr0 + warp * 16 + lq;         // this thread's rows: row_a, row_a + 8
+    const int wp0 = wr0 + p.q_off;                  // their positions: + q_off
     const float c = p.scale_log2;
 
     float o[D / 2];
@@ -385,14 +392,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // P, m and l move on, corr is the factor O must take
     auto softmax = [&](float (&sc)[kBN / 2], int k0, float (&corr)[2]) {
       // masks, only where the tile straddles a limit of this warpgroup's rows
-      const bool need_mask = (k0 + kBN > p.Skv) || (p.causal && k0 + kBN - 1 > wr0) ||
-                             (p.window > 0 && k0 <= wr0 + 63 - p.window);
+      const bool need_mask = (k0 + kBN > p.Skv) || (p.causal && k0 + kBN - 1 > wp0) ||
+                             (p.window > 0 && k0 <= wp0 + 63 - p.window);
       if (need_mask) {
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qp = row_a + (e >> 1) * 8;
+            const int qp = row_a + p.q_off + (e >> 1) * 8;
             const int kp = k0 + j * 8 + lk + (e & 1);
             bool ok = kp < p.Skv;
             if (p.causal) ok = ok && kp <= qp;
@@ -623,6 +630,7 @@ struct SimtParams {
   void* o;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int G, Hkv, Sq, Skv, D, causal, window, async_copy;
+  int q_off;  // position of query row 0 (a sequence shard's offset)
   float scale;
 };
 
@@ -714,10 +722,10 @@ __global__ void __launch_bounds__(kSimtThreads, SimtCfg<DP>::kMinBlocks)
   const T* k = (const T*)p.k + b * p.k_sb + (h / p.G) * p.k_sh;
   const T* v = (const T*)p.v + b * p.v_sb + (h / p.G) * p.v_sh;
   const bool async_copy = p.async_copy;
-  // the keys any row of the tile can see
+  // the keys any row of the tile can see (row i sits at position i + q_off)
   int k_end = p.Skv;
-  if (p.causal) k_end = min(k_end, min(q0 + kSimtRows, p.Sq));
-  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  if (p.causal) k_end = min(k_end, min(q0 + kSimtRows, p.Sq) + p.q_off);
+  const int k_begin = p.window > 0 ? max(0, q0 + p.q_off - p.window + 1) : 0;
 
   // groups in order: Q, K_0, V_0, then K_{j+1} and V_{j+1} in tile j
   load_tile<T, DP, true>(qs, q, p.q_ss, q0, p.Sq, p.D, async_copy);
@@ -771,14 +779,14 @@ __global__ void __launch_bounds__(kSimtThreads, SimtCfg<DP>::kMinBlocks)
     const int nk = min(kSimtKeys, k_end - k0);  // keys of the tile inside [k_begin, k_end)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * rg + i;
+      const int qpos = q0 + 4 * rg + i + p.q_off;
       float mt = m[i];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + cg + 16 * j;
         bool ok = true;
-        if (p.causal) ok = ok && key <= row;
-        if (p.window > 0) ok = ok && key > row - p.window;
+        if (p.causal) ok = ok && key <= qpos;
+        if (p.window > 0) ok = ok && key > qpos - p.window;
         s[i][j] = ok ? s[i][j] * p.scale : kSimtNeg;
         if (cg + 16 * j < nk) mt = fmaxf(mt, s[i][j]);
       }
@@ -881,15 +889,17 @@ extern "C" int flash_attention_smem_bytes(int D) {
 }
 
 // q: [B, Hq, Sq, D], k/v: [B, Hkv, Skv, D], o: [B, Hq, Sq, D], bf16 with a
-// unit last stride.  `maps` holds 9 values for each of q, k and v: dims
-// (D, S, H, B), byte strides of S, H and B, and the box (64, 128).  out's
-// strides are in elements.  Returns a cudaError_t (0 = ok), or
-// kEncodeError + the CUresult of a tensor map that would not encode.
+// unit last stride; query i at position i + q_off (q_off >= 0).  `maps`
+// holds 9 values for each of q, k and v: dims (D, S, H, B), byte strides
+// of S, H and B, and the box (64, 128).  out's strides are in elements.
+// Returns a cudaError_t (0 = ok), or kEncodeError + the CUresult of a
+// tensor map that would not encode.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const uint64_t* maps, int B, int Hq, int Hkv, int Sq,
                                       int Skv, int D, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-                                      int causal, int window, float scale_log2, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+                                      int causal, int window, int q_off, float scale_log2,
+                                      void* stream) {
+  if ((D != 64 && D != 128) || q_off < 0) return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, maps, kBM);
   if (!err) err = encode(&tk, k, maps + 9, kBN);
@@ -905,6 +915,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.Skv = Skv;
   p.causal = causal;
   p.window = window;
+  p.q_off = q_off;
   p.scale_log2 = scale_log2;
   if (D == 128) return launch<128>(tq, tk, tv, p, B, Hq, (cudaStream_t)stream);
   return launch<64>(tq, tk, tv, p, B, Hq, (cudaStream_t)stream);
@@ -913,13 +924,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // The SIMT body.  q: [B, Hq, Sq, D], k/v: [B, Hkv, Skv, D], o: [B, Hq, Sq, D]
 // with a unit last stride; `strides` holds the batch, head and sequence
 // strides in elements of q, k, v and o (12 values).  dtype: 0 float32,
-// 1 bf16, 2 float16.  1 <= D <= 256.  Returns a cudaError_t (0 = ok).
+// 1 bf16, 2 float16.  1 <= D <= 256; query i at position i + q_off.
+// Returns a cudaError_t (0 = ok).
 extern "C" int flash_attention_simt_launch(const void* q, const void* k, const void* v,
                                            void* o, const int64_t* strides, int B, int Hq,
                                            int Hkv, int Sq, int Skv, int D, int dtype,
-                                           int causal, int window, float scale,
+                                           int causal, int window, int q_off, float scale,
                                            void* stream) {
-  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv || q_off < 0) return (int)cudaErrorInvalidValue;
   SimtParams p;
   p.q = q, p.k = k, p.v = v, p.o = o;
   p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
@@ -927,7 +939,7 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
   p.G = Hq / Hkv, p.Hkv = Hkv, p.Sq = Sq, p.Skv = Skv, p.D = D;
-  p.causal = causal, p.window = window, p.scale = scale;
+  p.causal = causal, p.window = window, p.q_off = q_off, p.scale = scale;
   // cp.async takes float32 rows whose every 16-byte chunk is aligned
   bool aligned = dtype == 0 && D % 4 == 0;
   aligned = aligned && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&

@@ -17,21 +17,34 @@ rest.  A tensor dim split over several mesh dims (``"rows" -> ("data",
 list its mesh dims in the mesh's order.  :func:`constrain` also drops a
 constraint whose dim does not divide by its shard count, so smoke-scale
 shapes run under a production-shaped mesh.
+
+Where GSPMD partitions a jitted program, the port runs it eagerly on
+DTensors: :func:`place` and :func:`shard_tree` put arguments on the mesh,
+:func:`constrain` redistributes at the reference's points, and the
+models add one where DTensor does not infer a layout (the row-parallel
+products' partial sums).  Each redistribution is a named call, and
+:class:`LocalCost` counts what one rank runs: the FLOPs of its local ops
+and the bytes of every collective, under the reference's five names.  An
+op without a DTensor sharding rule raises; nothing here gathers quietly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from contextlib import contextmanager
 from typing import Any, Iterator, Mapping, Sequence
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate, Shard,
+                                      distribute_tensor)
+from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = [
     "DEFAULT_RULES",
+    "MODEL_AXIS",
     "AxisEnv",
     "use_axis_env",
     "axis_env",
@@ -39,6 +52,16 @@ __all__ = [
     "tree_shardings",
     "logical_leaves",
     "local_shape",
+    "place",
+    "shard_tree",
+    "shard_span",
+    "replicate_as",
+    "redistribute",
+    "all_reduce",
+    "settle",
+    "zeros",
+    "COLLECTIVES",
+    "LocalCost",
 ]
 
 # logical axis -> mesh dims that may carry it, in order; dims absent from
@@ -54,6 +77,8 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "rows": ("data", "model"),  # embedding-table rows
     "data": ("data",),  # escape hatch: name the mesh axis directly
 }
+
+MODEL_AXIS = 16  # 'model' mesh dim size in the production meshes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +199,174 @@ def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
         )
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(env.mesh, env.placements(*logical, shape=tuple(x.shape)))
+    return redistribute(x, env.placements(*logical, shape=tuple(x.shape)))
+
+
+def _gloo_on_cuda(x: DTensor, mesh_dim: int) -> bool:
+    import torch.distributed as dist
+
+    return (x.device_mesh.device_type == "cuda"
+            and dist.get_backend(x.device_mesh.get_group(mesh_dim)) == "gloo")
+
+
+def _gather_by_all_to_all(x: DTensor, mesh_dim: int) -> DTensor:
+    """``x`` made whole along the tensor dim that mesh dim ``mesh_dim``
+    shards, by one ``all_to_all_single`` whose every chunk is this rank's
+    shard: each rank sends its shard to every rank, as an all-gather does,
+    and the same bytes arrive."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    d = x.placements[mesh_dim].dim
+    k = mesh.size(mesh_dim)
+    if x.shape[d] % k:
+        raise ValueError(f"gather: dim {d} of {tuple(x.shape)} does not divide by {k}")
+    out_pl = list(x.placements)
+    out_pl[mesh_dim] = Replicate()
+
+    def local(xl):
+        src = torch.cat([xl.movedim(d, 0)] * k).contiguous()
+        got = funcol.all_to_all_single(src, None, None, (mesh, mesh_dim))
+        return funcol.wait_tensor(got).movedim(0, d)
+
+    return local_map(local, out_placements=out_pl, in_placements=(x.placements,),
+                     device_mesh=mesh)(x)
+
+
+def all_reduce(t: torch.Tensor, op: str, groups: Sequence[tuple[DeviceMesh, int]]
+               ) -> torch.Tensor:
+    """A plain (rank-local) tensor all-reduced with ``op`` ("sum", "max")
+    over each ``(mesh, mesh dim)`` group in turn, for the explicit
+    collectives inside a ``local_map``; no group: ``t`` itself."""
+    import torch.distributed._functional_collectives as funcol
+
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
+    """``x.redistribute(x.device_mesh, placements)``: the port's one way to
+    move a DTensor between layouts, so that every change is named.  One
+    exception to DTensor's own collectives: gloo has no all-gather on CUDA
+    tensors (torch 2.11 faults in it), so on a gloo group of CUDA ranks a
+    mesh dim that goes from a shard to whole is gathered by an
+    all-to-all that moves the same bytes (and is counted as one)."""
+    placements = tuple(placements)
+    for i in reversed(range(len(placements))):
+        a, b = x.placements[i], placements[i]
+        if isinstance(a, Shard) and isinstance(b, Replicate) and _gloo_on_cuda(x, i):
+            x = _gather_by_all_to_all(x, i)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _env() -> AxisEnv:
+    env = axis_env()
+    if env is None or env.mesh is None:
+        raise ValueError("no active AxisEnv with a mesh (wrap the call in use_axis_env)")
+    return env
+
+
+def place(x: torch.Tensor, *logical: str | None, local: bool = False,
+          shape: Sequence[int] | None = None) -> DTensor:
+    """``x`` as a DTensor on the active env's mesh, its dims named
+    ``logical``.  By default ``x`` is the whole tensor, which every rank
+    holds, and each rank keeps its shard (``distribute_tensor`` with no
+    source rank: a local slice, no collective, copied where it would keep
+    the whole tensor's storage alive; on ``meta`` too); with
+    ``local=True`` ``x`` is this rank's shard of a tensor of global
+    ``shape`` (``DTensor.from_local``).  A dim that does not divide by its
+    shard count is replicated (:func:`constrain`'s rule)."""
+    env = _env()
+    if not local:
+        pl = env.placements(*logical, shape=tuple(x.shape))
+        d = distribute_tensor(x.detach(), env.mesh, pl, src_data_rank=None)
+        loc = d.to_local()
+        if loc.is_meta or loc.untyped_storage().nbytes() <= loc.numel() * loc.element_size():
+            return d
+        # a shard that views the whole tensor would keep the whole alive
+        return DTensor.from_local(loc.clone(), env.mesh, pl, run_check=False, shape=d.shape,
+                                  stride=d.stride())
+    if shape is None:
+        raise ValueError("place(local=True) needs the global shape")
+    shape = tuple(int(n) for n in shape)
+    pl = env.placements(*logical, shape=shape)
+    return DTensor.from_local(x, env.mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def shard_tree(values: Any, logical_tree: Any) -> Any:
+    """``values`` with every tensor at a logical leaf of ``logical_tree``
+    placed by :func:`place` (the containers, and whatever is not a tensor
+    at a leaf or has no leaf, kept as they are): ``logical_leaves``'
+    pairing, rebuilt."""
+    if _is_logical_leaf(logical_tree):
+        return place(values, *logical_tree) if isinstance(values, torch.Tensor) else values
+    kids = _children(logical_tree)
+    vals = _children(values)
+    if kids is None or vals is None:
+        return values
+    logical = dict(kids)
+    return _rebuild(values, {k: shard_tree(v, logical[k]) if k in logical else v
+                             for k, v in vals})
+
+
+def shard_span(x: torch.Tensor, dim: int) -> tuple[int, int]:
+    """``(first index, length)`` of this rank's part of ``x``'s dim ``dim``:
+    ``(0, size)`` for a plain tensor or an unsharded dim.  DTensor splits a
+    dim mesh dim by mesh dim, in mesh order, into ``torch.chunk``'s
+    pieces (``ceil(n / k)`` long, the last ones shorter or empty)."""
+    if not isinstance(x, DTensor):
+        return 0, x.shape[dim]
+    return _span(x.shape[dim], dim % x.dim(), x.placements, x.device_mesh)
+
+
+def _span(n: int, dim: int, placements: Sequence[Placement], mesh: DeviceMesh
+          ) -> tuple[int, int]:
+    start, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            c = -(-size // mesh.size(i))
+            lo = min(c * coord[i], size)
+            start, size = start + lo, min(c, size - lo)
+    return start, size
+
+
+def replicate_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a plain tensor every rank holds whole (a RoPE table, an
+    index range), as a replicated DTensor on ``like``'s mesh when ``like``
+    is a DTensor; ``t`` itself otherwise.  No collective."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial sums (a row-parallel product's, a reduction over
+    a sharded dim) all-reduced: each ``Partial`` placement redistributed
+    to ``Replicate``, the rest kept.  Anything else passes through."""
+    if not isinstance(x, DTensor) or not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    pl = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return redistribute(x, pl)
+
+
+def zeros(shape: Sequence[int], *logical: str | None, dtype: torch.dtype,
+          device: torch.device | str) -> DTensor:
+    """A DTensor of zeros of global ``shape`` on the active env's mesh,
+    placed by ``logical`` (:func:`constrain`'s rule), each rank allocating
+    only its shard on ``device`` (``meta`` in the dry run)."""
+    env = _env()
+    shape = tuple(int(n) for n in shape)
+    pl = env.placements(*logical, shape=shape)
+    local = [_span(n, d, pl, env.mesh)[1] for d, n in enumerate(shape)]
+    return place(torch.zeros(local, dtype=dtype, device=device), *logical, local=True,
+                 shape=shape)
 
 
 def _is_logical_leaf(node: Any) -> bool:
@@ -248,3 +440,153 @@ def logical_leaves(values: Any, logical_tree: Any, path: tuple = ()
             raise KeyError(f"logical_leaves: {path + (k,)} has no value")
         out += logical_leaves(vals[k], c, path + (k,))
     return out
+
+
+# ---------------------------------------------------------------------------
+# what one rank runs: local FLOPs and collective bytes
+# ---------------------------------------------------------------------------
+
+#: the reference's names of the collectives (``repro.launch.dryrun``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+_KIND = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+    "c10d.allreduce_": "all-reduce",
+    "c10d.allgather_": "all-gather",
+    "c10d._allgather_base_": "all-gather",
+    "c10d.reduce_scatter_": "reduce-scatter",
+    "c10d._reduce_scatter_base_": "reduce-scatter",
+    "c10d.alltoall_": "all-to-all",
+    "c10d.alltoall_base_": "all-to-all",
+}
+
+
+def _nbytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_nbytes(o) for o in out)
+    return 0
+
+
+def _in_sharding_propagation() -> bool:
+    """Whether DTensor's sharding propagation is on the call stack: it
+    evaluates ops on global shapes (on fake tensors, or on meta tensors
+    through its decompositions) to find the output's layout."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_globals.get("__name__", "").startswith(_PROPAGATION):
+            return True
+        f = f.f_back
+    return False
+
+
+_PROPAGATION = ("torch.distributed.tensor._sharding_prop",
+                "torch.distributed.tensor._decompositions")
+
+
+def _matmul_flops(a, b, *_, out_val=None, **__) -> int:
+    return 2 * out_val.numel() * a.shape[-1]
+
+
+def _einsum_flops(equation, operands, *_, out_val=None, **__) -> int:
+    """Two operands: 2 x the product of every index's size (a multiply
+    and an add per term of the contraction); else 0."""
+    if len(operands) != 2:
+        return 0
+    sizes = {}
+    for spec, t in zip(equation.split("->")[0].split(","), operands):
+        sizes.update(zip(spec.strip(), t.shape))
+    return 2 * math.prod(sizes.values())
+
+
+def _flop_formula(func):
+    """``torch.utils.flop_counter``'s formula for ``func``, or this
+    module's for the composite ops that inference mode hands a mode
+    whole (``matmul``, ``einsum``)."""
+    from torch.utils.flop_counter import flop_registry
+
+    packet = func._overloadpacket
+    if packet in flop_registry:
+        return flop_registry[packet]
+    return {torch.ops.aten.matmul: _matmul_flops,
+            torch.ops.aten.einsum: _einsum_flops}.get(packet)
+
+
+class _Collectives(TorchDispatchMode):
+    """Adds the collectives DTensor issues inside one op to ``cost``."""
+
+    def __init__(self, cost: LocalCost):
+        super().__init__()
+        self.cost = cost
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        self.cost._collective(func, out)
+        return out
+
+
+class LocalCost(TorchDispatchMode):
+    """What this rank runs inside the ``with`` block: ``flops``, the FLOPs
+    of its local ops (``torch.utils.flop_counter``'s formulas, and this
+    module's for ``matmul`` and ``einsum``), and
+    ``collectives``, the bytes of every collective's output on this rank by
+    kind, as the reference counts the per-shard output shapes of its
+    partitioned HLO; ``calls`` counts them.
+
+    A DTensor op is handed on to DTensor (the mode returns
+    ``NotImplemented``), which redistributes and runs the local op; its
+    collectives come back here on plain tensors.  A DTensor op with a
+    FLOP formula is run here instead, and counted as its global FLOPs over
+    the ranks that split it: the mesh dims on which its output is a shard
+    or a partial sum (each of those ranks does that share; on the others
+    the work is repeated).  That is the local op's count on even shards,
+    and it does not depend on whether the local op reaches a Python mode
+    (in torch 2.13 DTensor runs it from C++).  Plain ops (the bodies of
+    ``local_map``) are counted as they run, except those DTensor's
+    sharding propagation evaluates on global shapes to find a layout."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.collectives = {c: 0 for c in COLLECTIVES}
+        self.calls = {c: 0 for c in COLLECTIVES}
+
+    def _collective(self, func, out) -> bool:
+        kind = _KIND.get(func._overloadpacket._qualified_op_name.replace("::", "."))
+        if kind is not None:
+            self.collectives[kind] += _nbytes(out)
+            self.calls[kind] += 1
+        return kind is not None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        kwargs = kwargs or {}
+        formula = _flop_formula(func)
+        if any(issubclass(t, DTensor) for t in types):
+            if formula is None:
+                return NotImplemented
+            with _Collectives(self):
+                out = func(*args, **kwargs)
+            split = math.prod(out.device_mesh.size(i) for i, p in enumerate(out.placements)
+                              if isinstance(p, (Shard, Partial)))
+            self.flops += int(formula(*args, **kwargs, out_val=out)) // split
+            return out
+        out = func(*args, **kwargs)
+        if any(isinstance(a, FakeTensor) for a in args) or isinstance(out, FakeTensor):
+            return out
+        if not self._collective(func, out) and formula is not None and (
+                not _in_sharding_propagation()):
+            self.flops += int(formula(*args, **kwargs, out_val=out))
+        return out

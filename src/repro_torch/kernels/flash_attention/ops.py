@@ -36,10 +36,9 @@ TILE_K = 128  # keys per kv tile (kBN)
 BOX_COLS = 64  # head-dim columns per TMA box: 128 bytes, the swizzle span
 _ENCODE_ERROR = 10000  # the launcher's code for a tensor map that will not encode
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_uint64)] + [ctypes.c_int] * 6
-             + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                       ctypes.c_void_p])
+             + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 _SIMT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)]
-                  + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def tma_fields(t: torch.Tensor, rows: int) -> tuple[int, ...]:
@@ -76,11 +75,12 @@ def tensor_core_body(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] in HEAD_DIMS
 
 
-def check_kernel_args(q, k, v, window=None) -> None:
+def check_kernel_args(q, k, v, window=None, q_offset=0) -> None:
     """Raise unless K3 covers these arguments: q/k/v of one dtype (float32,
     float16 or bf16) on one device, ``q [B, Hq, Sq, D]`` and
     ``k/v [B, Hkv, Skv, D]`` with ``1 <= D <=`` :data:`MAX_HEAD_DIM` and
-    ``Hq % Hkv == 0``, a unit last stride, and ``window`` None or >= 1.
+    ``Hq % Hkv == 0``, a unit last stride, ``window`` None or >= 1 and
+    ``0 <= q_offset < 2**31 - Sq``.
     For the tensor-core body (:func:`tensor_core_body`) the other strides
     must be multiples of 8 elements and the data 16-byte aligned (what its
     TMA tensor maps take)."""
@@ -113,10 +113,16 @@ def check_kernel_args(q, k, v, window=None) -> None:
         raise ValueError(f"flash_attention: {Hq} q heads over {k.shape[1]} kv heads")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if not 0 <= q_offset < 2 ** 31 - Sq:
+        raise ValueError(f"flash_attention: q_offset {q_offset} not in [0, 2**31 - {Sq})")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1024):
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
+def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1024,
+                    q_offset=0):
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D], query
+    row i at position ``i + q_offset`` for the causal and window masks (the
+    rows of one shard of a sequence-sharded q; 0: the reference's
+    left-aligned queries).
 
     Any strides with a unit last stride; on CUDA the output has q's
     strides (``empty_like``), so a permuted view of the model layout
@@ -126,10 +132,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1
     global launches, simt_launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   block_q=block_q, block_k=block_k)
+                                   block_q=block_q, block_k=block_k, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    check_kernel_args(q, k, v, window)
+    check_kernel_args(q, k, v, window, q_offset)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -140,7 +146,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1
         fn = _launch.bind("flash_attention", "flash_attention_simt_launch", _SIMT_ARGTYPES)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
                  B, Hq, Hkv, Sq, Skv, D, _SIMT_DTYPES[q.dtype], int(bool(causal)),
-                 0 if window is None else int(window), 1.0 / D ** 0.5,
+                 0 if window is None else int(window), int(q_offset), 1.0 / D ** 0.5,
                  _launch.stream_ptr(q.device))
         _launch.check(err, "flash_attention_simt_launch")
         simt_launches += 1
@@ -152,7 +158,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1
     fn = _launch.bind("flash_attention", "flash_attention_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), maps,
              B, Hq, Hkv, Sq, Skv, D, out.stride(0), out.stride(1), out.stride(2),
-             int(bool(causal)), 0 if window is None else int(window),
+             int(bool(causal)), 0 if window is None else int(window), int(q_offset),
              math.log2(math.e) / math.sqrt(D), _launch.stream_ptr(q.device))
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f"flash_attention_launch: cuTensorMapEncodeTiled failed "
@@ -163,23 +169,25 @@ def flash_attention(q, k, v, *, causal=True, window=None, block_q=512, block_k=1
 
 
 class FlashAttention(torch.autograd.Function):
-    """``FlashAttention.apply(q, k, v, causal, window, block_q, block_k)``:
-    :func:`flash_attention` with a gradient for q, k and v."""
+    """``FlashAttention.apply(q, k, v, causal, window, block_q, block_k,
+    q_offset)``: :func:`flash_attention` with a gradient for q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, window=None, block_q=512, block_k=1024):
+    def forward(ctx, q, k, v, causal=True, window=None, block_q=512, block_k=1024,
+                q_offset=0):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, block_q)
+        ctx.args = (causal, window, block_q, q_offset)
         # a meta tensor (the dry run's trace) holds no data to launch K3
         # on: it takes the plain version, for shapes and operation counts
         fwd = flash_attention_ref if q.device.type == "meta" else flash_attention
-        return fwd(q, k, v, causal=causal, window=window, block_q=block_q, block_k=block_k)
+        return fwd(q, k, v, causal=causal, window=window, block_q=block_q, block_k=block_k,
+                   q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        causal, window, block_q = ctx.args
+        causal, window, block_q, q_offset = ctx.args
         with torch.profiler.record_function("flash_attention_backward"):
             dq, dk, dv = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window,
-                                                 block_q=block_q)
-        return dq, dk, dv, None, None, None, None
+                                                 block_q=block_q, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None

@@ -4,7 +4,10 @@ yardsticks the CUDA kernel (K3) is held against on the card.
 
 Layout ``[B, H, S, D]`` (any strides), as ``repro/kernels/flash_attention``.
 Queries are left-aligned (query i sits at position i), masked scores are
--1e30, and the kv head of q head ``h`` is ``h // G``.
+-1e30, and the kv head of q head ``h`` is ``h // G``.  ``q_offset`` (0 by
+default, the reference's contract) puts query i at position ``i +
+q_offset``: the rows of one shard of a sequence-sharded q over the whole
+k and v.
 
 * :func:`attention_ref` is dense (the S x S scores in float32), a copy of
   ``repro/kernels/flash_attention/ref.py``.
@@ -44,7 +47,7 @@ def _ok(q_pos, k_pos, causal, window, kv_len=None):
     return ok
 
 
-def attention_ref(q, k, v, *, causal=True, window=None):
+def attention_ref(q, k, v, *, causal=True, window=None, q_offset=0):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D]."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -52,7 +55,8 @@ def attention_ref(q, k, v, *, causal=True, window=None):
     qf = q.reshape(B, Hkv, G, Sq, D).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / (D ** 0.5)
     dev = q.device
-    ok = _ok(torch.arange(Sq, device=dev), torch.arange(Skv, device=dev), causal, window)
+    ok = _ok(torch.arange(Sq, device=dev) + q_offset, torch.arange(Skv, device=dev), causal,
+             window)
     s = torch.where(ok, s, torch.tensor(_NEG, dtype=torch.float32, device=dev))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
@@ -60,7 +64,7 @@ def attention_ref(q, k, v, *, causal=True, window=None):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, block_q=512,
-                        block_k=1024):
+                        block_k=1024, q_offset=0):
     """Blocked online-softmax attention in float32.
 
     q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D] (contiguous,
@@ -77,16 +81,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, block_q=512,
     qg = q.reshape(B, Hkv, G, Sq, D)
     for q0 in range(0, Sq, bq):
         q1 = min(q0 + bq, Sq)
-        q_pos = torch.arange(q0, q1, device=dev)
+        p0, p1 = q0 + q_offset, q1 + q_offset  # the block's positions
+        q_pos = torch.arange(p0, p1, device=dev)
         qi = qg[:, :, :, q0:q1].float()
         m = torch.full((B, Hkv, G, q1 - q0), _NEG, dtype=torch.float32, device=dev)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, Hkv, G, q1 - q0, D), dtype=torch.float32, device=dev)
         for k0 in range(0, Skv, bk):
             k1 = min(k0 + bk, Skv)
-            if causal and k0 > q1 - 1:
+            if causal and k0 > p1 - 1:
                 break
-            if window is not None and k1 - 1 <= q0 - window:
+            if window is not None and k1 - 1 <= p0 - window:
                 continue
             ki = k[:, :, k0:k1].float()
             vi = v[:, :, k0:k1].float()
@@ -104,7 +109,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, block_q=512,
     return out
 
 
-def flash_attention_bwd_ref(q, k, v, do, *, causal=True, window=None, block_q=512):
+def flash_attention_bwd_ref(q, k, v, do, *, causal=True, window=None, block_q=512,
+                            q_offset=0):
     """The gradient of the attention at q: [B, Hq, Sq, D], k/v: [B, Hkv,
     Skv, D] with respect to each of them, given ``do`` (the output's
     gradient, q's shape): ``(dq, dk, dv)`` in the inputs' dtypes.
@@ -130,15 +136,16 @@ def flash_attention_bwd_ref(q, k, v, do, *, causal=True, window=None, block_q=51
     neg = torch.tensor(_NEG, dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, block_q):
         q1 = min(q0 + block_q, Sq)
-        k0 = max(0, q0 - window + 1) if window is not None else 0
-        k1 = min(Skv, q1) if causal else Skv
+        p0, p1 = q0 + q_offset, q1 + q_offset  # the block's positions
+        k0 = max(0, p0 - window + 1) if window is not None else 0
+        k1 = min(Skv, p1) if causal else Skv
         if k1 <= k0:
             continue
         qi = qg[:, :, :, q0:q1].float()
         doi = dog[:, :, :, q0:q1].float()
         ki, vi = kf[:, :, k0:k1], vf[:, :, k0:k1]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qi, ki) * scale
-        ok = _ok(torch.arange(q0, q1, device=dev), torch.arange(k0, k1, device=dev),
+        ok = _ok(torch.arange(p0, p1, device=dev), torch.arange(k0, k1, device=dev),
                  causal, window)
         p = torch.softmax(torch.where(ok, s, neg), dim=-1)
         del s

@@ -15,7 +15,10 @@ swaps in the reference's through :mod:`repro_torch.convert`).  The
 logical axes (``in_logical``) are the reference's, over the reference's
 layout of the arguments (an LM's layers stacked and its experts
 unfolded): :func:`reference_args` gives that layout, which the sharding
-layer places (:mod:`repro_torch.dist.sharding`).  ``model_flops`` are the
+layer places (:mod:`repro_torch.dist.sharding`).  :func:`shard_cell` puts
+a dense LM serving cell's own arguments on a mesh as DTensors by the same
+names, the port's per-layer parameters taking their stacked leaf's names
+less the layer dim.  ``model_flops`` are the
 reference's formulas.  The reference donates a train step's state; the
 port's train step updates it in place, to the same effect.
 """
@@ -39,19 +42,19 @@ from repro_torch.convert import lm_params_to_reference, train_state_to_reference
 from repro_torch.core.incremental import DeviceSpadeState, init_state, insert_and_maintain
 from repro_torch.core.peel import bulk_peel
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import MODEL_AXIS, AxisEnv, place, shard_tree, use_axis_env
 from repro_torch.graphstore.structs import DeviceGraph, device_graph_from_coo
 from repro_torch.models.gnn import GNN, GraphBatch, gnn_loss, make_triplets
 from repro_torch.models.transformer import (KVCache, TransformerLM, cache_window,
-                                            decode_step, lm_loss, prefill)
+                                            decode_step, lm_loss, prefill, reference_leaves)
 from repro_torch.models.two_tower import (RecsysBatch, init_two_tower_params,
                                           retrieval_scores, score_pairs, two_tower_loss)
 from repro_torch.train.optimizer import AdamConfig, TrainState, init_train_state
 from repro_torch.train.train_step import make_train_step
 
-__all__ = ["Cell", "MODEL_AXIS", "build_cell", "graph_batch", "reference_args",
-           "lm_param_logical", "gnn_param_logical", "recsys_param_logical"]
+__all__ = ["Cell", "MODEL_AXIS", "build_cell", "graph_batch", "reference_args", "shard_cell",
+           "sharded_reason", "lm_param_logical", "gnn_param_logical", "recsys_param_logical"]
 
-MODEL_AXIS = 16  # 'model' mesh dim size in the production meshes
 
 _META = torch.device("meta")
 
@@ -111,6 +114,58 @@ def reference_args(cell: Cell) -> tuple:
         return _move(x, _META)
 
     return tuple(ref(a) for a in cell.args)
+
+
+def sharded_reason(cell: Cell) -> str | None:
+    """None when :func:`shard_cell` runs ``cell`` sharded (a dense LM's
+    ``prefill`` or ``decode_step``), else why not: the ROADMAP item of
+    the sharded slice that brings it."""
+    if cell.family == "lm":
+        model = cell.args[0].params if cell.step_name == "train_step" else cell.args[0]
+        if model.cfg.moe is not None:
+            return "the MoE LMs on 'expert' are a later sharded slice (ROADMAP D.2)"
+        if cell.step_name == "train_step":
+            return "the dense train step with FSDP is a later sharded slice (ROADMAP D.1)"
+        return None
+    return {"gnn": "the GNNs on 'vertex'/'edges' are a later sharded slice (ROADMAP D.3)",
+            "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)",
+            "spade": "the Spade cells are a later sharded slice (ROADMAP D.5, C.11)"
+            }[cell.family]
+
+
+def _shard_lm(model: TransformerLM, logical: dict) -> TransformerLM:
+    """``model`` with each parameter replaced, in place, by its DTensor on
+    the active env's mesh: the reference leaf's logical names, less the
+    leading layer dim of a stacked ``layers`` leaf."""
+    for path, names in reference_leaves(model.cfg):
+        node = logical
+        for key in path:
+            node = node[key]
+        names_of = tuple(node[1:]) if path[0] == "layers" else tuple(node)
+        for name in names:
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            p = getattr(mod, leaf)
+            setattr(mod, leaf, nn.Parameter(place(p, *names_of), requires_grad=False))
+    return model
+
+
+def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
+    """The cell with its arguments as DTensors on ``env``'s mesh, each
+    placed by ``cell.in_logical`` (:func:`~repro_torch.dist.sharding.place`:
+    every rank holds the whole argument and keeps its shard, with no
+    collective; on ``meta`` for the dry run).  An LM module is sharded in
+    place (its parameters become DTensors) and comes back in the cell, so
+    a model is never copied whole.  Run the step under
+    ``use_axis_env(env)``.  Dense LM serving cells only: another cell
+    raises with :func:`sharded_reason`."""
+    reason = sharded_reason(cell)
+    if reason is not None:
+        raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")
+    with use_axis_env(env):
+        args = tuple(_shard_lm(a, lg) if isinstance(a, TransformerLM) else shard_tree(a, lg)
+                     for a, lg in zip(cell.args, cell.in_logical))
+    return dataclasses.replace(cell, args=args)
 
 
 def _tensor(shape, dtype, dev, draw=None) -> torch.Tensor:

@@ -7,9 +7,11 @@
         --out build/dryrun
 
 For each mesh the process joins torch's fake process group (one process
-plays every rank: 256 for ``single``, 512 for ``multi``) and builds the
-production ``DeviceMesh``.  Each cell is built on ``meta``
-(``build_cell(concrete=False)``) and reports:
+plays every rank: 256 for ``single``, 512 for ``multi``; it is the mesh's
+last rank) and builds the production ``DeviceMesh`` (device type
+``cuda``, the card's, whose DTensor moves a shard between dims by an
+all-to-all).  Each cell is built on ``meta`` (``build_cell(concrete=
+False)``) and reports:
 
 * **per-device argument bytes**, exact: each leaf of the cell's
   arguments (in the reference's layout, :func:`~repro_torch.launch.cells.
@@ -20,19 +22,29 @@ production ``DeviceMesh``.  Each cell is built on ``meta``
   config's blocks, which is what a meta tensor runs).  A meta tensor runs
   its ops in Python, so an LM cell is traced at 1 and 2 layers and its
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
-  so that is the full depth's count.  ``flops_per_chip`` is that over the
-  mesh's ranks (an even split);
+  so that is the full depth's count;
+* for the dense LM serving cells (``prefill``, ``decode_step``), the step
+  **run sharded**: the cell's arguments as meta DTensors on the mesh
+  (:func:`~repro_torch.launch.cells.shard_cell`), traced at 1 and 2
+  layers under :class:`~repro_torch.dist.sharding.LocalCost` and
+  extrapolated as above.  ``flops_per_chip`` is the traced rank's local
+  FLOPs (the last rank: under sequence-sharded causal attention, the
+  heaviest share), ``collectives`` the bytes of its collectives' outputs
+  by the reference's five names (``collective_calls`` their number),
+  ``collective_bytes_per_chip`` their sum, ``t_collective_s`` that at
+  450 GB/s of NVLink a direction, and ``dominant`` the largest of the
+  three times.  Every other cell's ``flops_per_chip`` is the one-device
+  count over the ranks (an even split), and its ``collective_bytes`` is
+  null with the ROADMAP item of the sharded slice that brings it;
 * **roofline times** on one NVIDIA H100 SXM (published dense peaks):
   ``flops_per_chip`` at 989 TFLOP/s bf16, the argument bytes at 3.35 TB/s
   of HBM3 (each argument read once: a floor on the traffic), and which
-  of the two is larger.
+  is larger.
 
-Not reported: **collective bytes**.  The reference parses them from XLA's
-partitioned HLO, which has no PyTorch counterpart (``collective_bytes``
-is null, with the reason).  A cell whose step reads values on the host
-(the Spade peels' kernels and round counts, GCN's destination rows, MoE
-routing counts) cannot run on ``meta``: it reports its argument bytes and
-a ``meta_run`` reason, and counts as no failure.
+A cell whose step reads values on the host (the Spade peels' kernels and
+round counts, GCN's destination rows, MoE routing counts) cannot run on
+``meta``: it reports its argument bytes and a ``meta_run`` reason, and
+counts as no failure.
 """
 
 from __future__ import annotations
@@ -49,33 +61,32 @@ import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_FAMILY, ARCHS, Skip, arch_shapes, get_config
-from repro_torch.dist.sharding import AxisEnv, local_shape, logical_leaves, use_axis_env
-from repro_torch.launch.cells import Cell, build_cell, reference_args
+from repro_torch.dist.sharding import (COLLECTIVES, AxisEnv, LocalCost, local_shape,
+                                      logical_leaves, use_axis_env)
+from repro_torch.launch.cells import (Cell, build_cell, reference_args, shard_cell,
+                                      sharded_reason)
 from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD, make_production_mesh
 
 __all__ = ["CARD", "PEAK_FLOPS", "HBM_BW", "LINK_BW", "cell_flops", "argument_bytes",
-           "run_cell", "main"]
+           "sharded_cost", "run_cell", "main"]
 
 # one NVIDIA H100 SXM: published dense peaks (NVIDIA's data sheet, 700 W)
 CARD = "NVIDIA H100 SXM (published peaks)"
 PEAK_FLOPS = 989e12  # bf16 dense
 HBM_BW = 3.35e12  # HBM3
-LINK_BW = 450e9  # NVLink, each direction (no collective bytes to put over it)
-
-NO_COLLECTIVES = ("the reference parses collective bytes from XLA's partitioned HLO, "
-                  "which has no PyTorch counterpart")
+LINK_BW = 450e9  # NVLink, each direction
 
 
 def _fake_world(n: int) -> None:
-    """Join torch's fake process group as rank 0 of ``n`` (leaving any
-    group of another size first)."""
+    """Join torch's fake process group as the last rank of ``n`` (leaving
+    any group of another size first)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         if dist.get_world_size() == n:
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=n - 1, world_size=n)
 
 
 def argument_bytes(cell: Cell, env: AxisEnv) -> tuple[int, int]:
@@ -105,6 +116,27 @@ def cell_flops(arch: str, shape: str, roofline: bool = False) -> tuple[float, st
     return f1 + (L - 1) * (f2 - f1), f"traced at 1 and 2 layers, extrapolated to {L}"
 
 
+def sharded_cost(make_cell, env: AxisEnv, n_layers: int) -> dict:
+    """One step of a dense LM serving cell run sharded on ``env``'s mesh:
+    this rank's FLOPs and collective bytes and calls by kind, traced on
+    ``make_cell(1)`` and ``make_cell(2)`` (the cell at 1 and 2 layers,
+    normally on meta) and extrapolated to ``n_layers``."""
+    def trace(n: int) -> LocalCost:
+        cell = shard_cell(make_cell(n), env)
+        with torch.no_grad(), use_axis_env(env), LocalCost() as cost:
+            cell.fn(*cell.args)
+        return cost
+
+    c1, c2 = trace(1), trace(2)
+    ext = lambda a, b: a + (n_layers - 1) * (b - a)
+    coll = {k: ext(c1.collectives[k], c2.collectives[k]) for k in COLLECTIVES}
+    return {"flops_per_chip": float(ext(c1.flops, c2.flops)), "collectives": coll,
+            "collective_calls": {k: ext(c1.calls[k], c2.calls[k]) for k in COLLECTIVES},
+            "collective_bytes_per_chip": sum(coll.values()),
+            "sharded_counted": f"local FLOPs and collectives of the sharded step, traced at "
+                               f"1 and 2 layers, extrapolated to {n_layers}"}
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
              roofline: bool = False) -> dict:
     """One (arch, shape, mesh) cell; ``flops`` caches each cell's meta
@@ -117,11 +149,12 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
     multi = mesh_kind == "multi"
     try:
         _fake_world(math.prod(MULTI_POD if multi else SINGLE_POD))
-        env = AxisEnv(mesh=make_production_mesh(multi_pod=multi, device_type="cpu"))
+        env = AxisEnv(mesh=make_production_mesh(multi_pod=multi, device_type="cuda"))
         with use_axis_env(env):
             cell = build_cell(arch, shape, roofline=roofline)
             arg_bytes, total_bytes = argument_bytes(cell, env)
         n_chips = env.mesh.size()
+        reason = sharded_reason(cell)
         result = {
             "arch": arch, "shape": shape, "mesh": mesh_kind, "status": "OK",
             "variant": "roofline" if roofline else "production", "n_chips": n_chips,
@@ -129,8 +162,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
                                          "link_bytes": LINK_BW},
             "step_name": cell.step_name, "model_flops": cell.model_flops,
             "argument_bytes": arg_bytes, "argument_bytes_global": total_bytes,
-            "collective_bytes_per_chip": None, "collectives": None,
-            "collective_bytes_reason": NO_COLLECTIVES, "t_collective_s": None,
+            "collective_bytes_per_chip": None, "collectives": None, "t_collective_s": None,
         }
         t_memory = arg_bytes / HBM_BW
         key = (arch, shape, roofline)
@@ -148,17 +180,31 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
             flops[key] = fl
         result.update(fl)
         result["t_memory_s"] = t_memory
+        times = {"memory": t_memory}
+        if reason is not None:
+            result["collective_bytes_reason"] = reason
+        else:
+            t1 = time.time()
+            result.update(sharded_cost(
+                lambda n: build_cell(arch, shape, roofline=roofline, override_layers=n), env,
+                get_config(arch).n_layers))
+            result["sharded_trace_s"] = round(time.time() - t1, 1)
+            result["t_collective_s"] = result["collective_bytes_per_chip"] / LINK_BW
+            times["collective"] = result["t_collective_s"]
         if "flops" in fl:
-            per_chip = fl["flops"] / n_chips
-            t_compute = per_chip / PEAK_FLOPS
+            per_chip = result.setdefault("flops_per_chip", fl["flops"] / n_chips)
+            times["compute"] = per_chip / PEAK_FLOPS
             result.update(
-                flops_per_chip=per_chip, t_compute_s=t_compute,
-                useful_flops_ratio=cell.model_flops / fl["flops"] if fl["flops"] else 0.0,
-                dominant="compute" if t_compute >= t_memory else "memory")
+                t_compute_s=times["compute"],
+                useful_flops_ratio=cell.model_flops / fl["flops"] if fl["flops"] else 0.0)
+        if len(times) > 1:
+            result["dominant"] = max(times, key=times.get)
         result["wall_s"] = round(time.time() - t0, 1)
-        times = (f"compute={result['t_compute_s']:.3e}s " if "flops" in fl
-                 else f"meta_run: {fl['meta_run'][:80]} ")
-        print(f"[{arch} x {shape} x {mesh_kind}] OK {times}memory={t_memory:.3e}s "
+        said = (f"compute={result['t_compute_s']:.3e}s " if "flops" in fl
+                else f"meta_run: {fl['meta_run'][:80]} ")
+        if reason is None:
+            said += f"collective={result['t_collective_s']:.3e}s "
+        print(f"[{arch} x {shape} x {mesh_kind}] OK {said}memory={t_memory:.3e}s "
               f"args/dev={arg_bytes} ({result['wall_s']}s)", flush=True)
         return result
     except Exception as e:

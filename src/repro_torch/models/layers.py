@@ -6,6 +6,14 @@ The f32 internals are those of the reference: ``rms_norm`` and
 has no counterpart (the model loops over its layers in Python), and the
 reference's ``Initializer`` becomes :func:`normal_init` on an explicit
 ``torch.Generator``.
+
+Each also runs on DTensors (:mod:`repro_torch.dist.sharding`), the last
+dim sharded or not: ``rms_norm`` all-reduces its sum of squares over a
+sharded hidden dim, ``apply_rope`` gathers a sharded head dim by a named
+redistribute (its halves pair across shards) and puts it back, and
+``swiglu`` all-reduces its gate and up products' partial sums (a
+sharded input dim) before the activation.  On plain tensors nothing
+changes.
 """
 
 from __future__ import annotations
@@ -14,14 +22,26 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.dist.sharding import redistribute, replicate_as, settle
 
 __all__ = ["rms_norm", "rope_angles", "apply_rope", "swiglu", "normal_init"]
+
+
+def _last_dim_sharded(x: torch.Tensor) -> bool:
+    return isinstance(x, DTensor) and any(
+        isinstance(p, Shard) and p.dim % x.dim() == x.dim() - 1 for p in x.placements)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
-    var = (x * x).mean(dim=-1, keepdim=True)
+    if _last_dim_sharded(x):
+        # each shard sums its part of the squares; one all-reduce adds them
+        var = settle((x * x).sum(dim=-1, keepdim=True)) / x.shape[-1]
+    else:
+        var = (x * x).mean(dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
 
 
@@ -32,13 +52,20 @@ def rope_angles(positions: torch.Tensor, d_head: int, theta: float
     ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
     freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
                      -ar / half)
-    ang = positions.float()[..., None] * freq
+    ang = positions.float()[..., None] * replicate_as(freq, positions)
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate pairs (split-half convention).  x: [..., S, H, D]; cos/sin
     broadcastable to [..., S, 1, D/2]."""
+    if _last_dim_sharded(x):
+        # the halves pair across shards: gather the head dim, rotate, and
+        # keep this rank's part again (a local slice)
+        whole = [Replicate() if isinstance(p, Shard) and p.dim % x.dim() == x.dim() - 1
+                 else p for p in x.placements]
+        return redistribute(apply_rope(redistribute(x, whole), cos, sin), x.placements)
+    cos, sin = replicate_as(cos, x), replicate_as(sin, x)
     half = x.shape[-1] // 2
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
@@ -47,7 +74,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = F.silu(settle(x @ w_gate)) * settle(x @ w_up)
     return h @ w_down
 
 

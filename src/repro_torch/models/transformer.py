@@ -22,6 +22,21 @@ without one), with each layer rematerialised in the backward (``forward``'s
 attention's gradient from K3's ``autograd.Function``; :mod:`repro_torch.train`
 trains through them.  ``prefill`` and ``decode_step`` run under
 ``torch.inference_mode()``.
+
+The models are mesh-agnostic, as the reference's are: they call
+:func:`~repro_torch.dist.sharding.constrain` at the reference's points
+(``x`` after the embedding and the blocks, the logits, the
+sequence-sharded serving attention's q, k and v), which is a no-op on
+plain tensors.  With its weights and inputs as DTensors
+(:func:`repro_torch.launch.cells.shard_cell`) under ``use_axis_env``,
+``prefill``, ``decode_step``, ``forward`` and ``lm_loss`` (without a
+gradient) run sharded.  Where GSPMD infers a layout the port names it:
+the row-parallel products' partial sums are all-reduced by a
+``constrain`` on the product, q's column shards become whole heads or
+sequence blocks by a ``constrain`` before the reshape, decode's q, k and
+v are gathered whole, the KV cache's writes go to the rank that owns the
+slot, and ``lm_loss`` takes its log-sum-exp over vocabulary shards with
+one all-reduce of the max and one of the sums.
 """
 
 from __future__ import annotations
@@ -29,12 +44,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import axis_env, constrain, shard_span
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import apply_rope, normal_init, rms_norm, rope_angles, swiglu
 from repro_torch.models.moe import moe_ffn
@@ -128,7 +148,14 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        """Where the weights live (a DTensor's: its shard's device)."""
+        e = self.embed
+        return e.to_local().device if isinstance(e, DTensor) else e.device
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """An input on the model's device (a DTensor input is placed already)."""
+    return t if isinstance(t, DTensor) else t.to(dev)
 
 
 _LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
@@ -163,23 +190,67 @@ def reference_groups(params) -> dict | None:
             for n in names}
 
 
-def _attend(x, lp: DecoderLayer, cfg: LMConfig, cos, sin):
+def seq_sharded(cfg: LMConfig) -> bool:
+    """Whether a prefill shards its attention over the sequence: the
+    reference's rule, only where the q heads do not divide the production
+    mesh's model dim (MODEL_AXIS), qwen3-14b's 40 and deepseek-coder-33b's
+    56; the others keep the head-sharded layout.  The rule reads the
+    production mesh, not the live one, so that a config takes one layout
+    on every mesh; how a head-sharded q is split on the live mesh is
+    :func:`_sharded_qkv`'s (whole heads where they divide its model dim)."""
+    return cfg.n_heads % sharding.MODEL_AXIS != 0
+
+
+def _sharded_qkv(q, k, v, cfg: LMConfig, seq: bool):
+    """DTensor q, k, v [B, S, H * Dh] (their columns sharded on the model
+    dim by the products) in the attention's layout: ``seq``: each as a
+    block of the sequence (q [B, S, Hkv, G, Dh]); else q [B, S, Hq, Dh] with
+    its column shards carried into whole heads where the heads divide (a
+    whole q otherwise) and k, v whole.  Each change of layout is a
+    ``constrain`` before the reshape, which then keeps its shards."""
+    B, S, _ = q.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if seq:
+        q, k, v = (constrain(t, "batch", "seq", None) for t in (q, k, v))
+        return q.reshape(B, S, Hkv, Hq // Hkv, Dh), k.reshape(B, S, Hkv, Dh), v.reshape(
+            B, S, Hkv, Dh)
+    env = axis_env()
+    if env is None or Hq % env.axis_size("model"):
+        q = constrain(q, "batch", None, None)
+    k, v = (constrain(t, "batch", None, None) for t in (k, v))
+    return q.reshape(B, S, Hq, Dh), k.reshape(B, S, Hkv, Dh), v.reshape(B, S, Hkv, Dh)
+
+
+def _attend(x, lp: DecoderLayer, cfg: LMConfig, cos, sin, seq: bool = False):
     """The attention block over a whole sequence, x [B, S, D]: returns x
-    plus the attention output, and this layer's k, v [B, S, Hkv, Dh]."""
+    plus the attention output, and this layer's k, v [B, S, Hkv, Dh].
+    ``seq``: the serving prefill's sequence-sharded attention (a no-op on
+    plain tensors)."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     h = rms_norm(x, lp.attn_norm)
-    q = (h @ lp.wq).reshape(B, S, Hkv, Hq // Hkv, Dh)
-    k = (h @ lp.wk).reshape(B, S, Hkv, Dh)
-    v = (h @ lp.wv).reshape(B, S, Hkv, Dh)
+    q, k, v = h @ lp.wq, h @ lp.wk, h @ lp.wv
+    if isinstance(q, DTensor):
+        q, k, v = _sharded_qkv(q, k, v, cfg, seq)
+    else:
+        q = q.reshape(B, S, Hkv, Hq // Hkv, Dh)
+        k = k.reshape(B, S, Hkv, Dh)
+        v = v.reshape(B, S, Hkv, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, lp.q_norm)
         k = rms_norm(k, lp.k_norm)
-    q = apply_rope(q, cos[None, :, None, None, :], sin[None, :, None, None, :])
+    qs = (None, slice(None)) + (None,) * (q.dim() - 3)
+    q = apply_rope(q, cos[qs], sin[qs])
     k = apply_rope(k, cos[None, :, None, :], sin[None, :, None, :])
+    if seq:
+        q = constrain(q, "batch", "seq", None, None, None)
+        k = constrain(k, "batch", "seq", None, None)
+        v = constrain(v, "batch", "seq", None, None)
     o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                         q_block=cfg.q_block, kv_block=cfg.kv_block)
-    return x + o.reshape(B, S, Hq * Dh) @ lp.wo, k, v
+    # wo's rows are the heads: o's heads shards, the product's partial sums
+    o = constrain(o.reshape(B, S, Hq * Dh), "batch", None, "model")
+    return x + constrain(o @ lp.wo, "batch", None, None), k, v
 
 
 def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -187,7 +258,10 @@ def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor
     for a dense layer).  The MoE FFN routes the flat [T, D] tokens."""
     h = rms_norm(x, lp.mlp_norm)
     if cfg.moe is None:
-        return x + swiglu(h, lp.w_gate, lp.w_up, lp.w_down), None
+        # w_down's rows are sharded: its product's partial sums all-reduced
+        y = constrain(swiglu(h, lp.w_gate, lp.w_up, lp.w_down), "batch",
+                      *(None,) * (x.dim() - 1))
+        return x + y, None
     y, aux = moe_ffn(h.reshape(-1, cfg.d_model), lp.router, lp.w_gate, lp.w_up,
                      lp.w_down, cfg.moe)
     return x + y.reshape(h.shape), aux
@@ -207,14 +281,16 @@ def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
     cfg = model.cfg
     S = tokens.shape[1]
     dev = model.device
-    tokens = tokens.to(dev)
-    x = model.embed[tokens]
+    tokens = _on(tokens, dev)
+    x = constrain(F.embedding(tokens, model.embed), "batch", None, None)
     cos, sin = rope_angles(torch.arange(S, device=dev), cfg.d_head, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def layer(x, lp):
         x, _, _ = _attend(x, lp, cfg, cos, sin)
+        x = constrain(x, "batch", None, None)
         x, a = _ffn(x, lp, cfg)
+        x = constrain(x, "batch", None, None)
         return x, (a if a is not None else torch.zeros((), device=dev))
 
     grad = torch.is_grad_enabled()
@@ -225,8 +301,45 @@ def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
             x, a = layer(x, lp)
         aux = aux + a
     x = rms_norm(x, model.final_norm)
-    logits = (x @ model.head).float()
+    logits = constrain((x @ model.head).float(), "batch", None, "model")
     return logits, aux / cfg.n_layers
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` over the last dim, [B, S]
+    float32.  On DTensor logits whose vocabulary is split over ranks, each
+    rank takes its shard: one all-reduce of the max, then one of the sum of
+    ``exp(logit - max)`` beside the label's logit (which one shard holds,
+    the others adding 0); ``torch.logsumexp``'s formula, its sum split by
+    rank."""
+    if not isinstance(logits, DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - logits.gather(-1, labels[..., None])[..., 0]
+    mesh = logits.device_mesh
+    vocab = [(mesh, i) for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == 2 and mesh.size(i) > 1]
+    for p in logits.placements:
+        if isinstance(p, Shard) and p.dim not in (0, 2):
+            raise ValueError(f"lm_loss: logits placements {logits.placements}: only the "
+                             f"batch and the vocabulary may be sharded")
+    out_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in logits.placements]
+    labels = sharding.redistribute(labels, out_pl)
+    v0, n = shard_span(logits, 2)
+
+    def local(lg, lb):
+        if not vocab:
+            return _token_nll(lg, lb)
+        m = sharding.all_reduce(lg.amax(dim=-1), "max", vocab)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        s = (lg - m[..., None]).exp().sum(dim=-1)
+        own = (lb >= v0) & (lb < v0 + n)
+        ll = lg.gather(-1, (lb - v0).clamp(0, n - 1)[..., None])[..., 0]
+        both = sharding.all_reduce(torch.stack([s, torch.where(own, ll, 0.0)]), "sum", vocab)
+        return both[0].log() + m - both[1]
+
+    return local_map(local, out_placements=list(out_pl), in_placements=(logits.placements, out_pl),
+                     device_mesh=mesh)(logits, labels)
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
@@ -234,14 +347,48 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
     """Mean next-token NLL of ``labels`` [B, S] under :func:`forward`, plus
     ``aux_weight`` times the router's aux loss: ``(loss, {"nll", "aux"})``,
     differentiable when grad mode is on (the loss the train step takes),
-    each layer rematerialised as :func:`forward` does by default."""
+    each layer rematerialised as :func:`forward` does by default.  On
+    DTensors (no gradient) the mean is all-reduced over the batch shards:
+    every rank holds the loss."""
     logits, aux = forward(model, tokens)
-    labels = labels.to(logits.device, torch.int64)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None])[..., 0]
-    nll = (lse - ll).mean()
+    labels = _on(labels, logits.device).to(torch.int64)
+    nll = sharding.settle(_token_nll(logits, labels).mean())
     loss = nll + aux_weight * aux
     return loss, {"nll": nll, "aux": aux}
+
+
+def _cache_zeros(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    """The [L, B, W, Hkv, Dh] cache: on ``like``'s mesh, placed as the
+    prefill cell's output (batch, and the slots on the model dim), when
+    ``like`` is a DTensor."""
+    if isinstance(like, DTensor):
+        return sharding.zeros(shape, None, "batch", "model", None, None, dtype=dtype,
+                              device=like.to_local().device)
+    return torch.zeros(shape, dtype=dtype, device=like.device)
+
+
+def _fill_cache(cache_layer: DTensor, k: torch.Tensor, S: int) -> None:
+    """Prefill's write of one layer's keys (or values) k [B, S, Hkv, Dh]
+    into its cache slots [B, W, Hkv, Dh], position t at slot t % W, each
+    rank writing the slots it owns.  Where k's sequence is sharded as the
+    slots are (W = S), those are its own rows; otherwise k is made whole
+    along the sequence first (a named redistribute)."""
+    W = cache_layer.shape[1]
+    slot_pl = [isinstance(p, Shard) and p.dim == 1 for p in cache_layer.placements]
+    seq_pl = [isinstance(p, Shard) and p.dim == 1 for p in k.placements]
+    if not (W == S and slot_pl == seq_pl):
+        k = sharding.redistribute(k, [Replicate() if isinstance(p, Shard) and p.dim == 1
+                                      else p for p in k.placements])
+    batch = lambda t: [isinstance(p, Shard) and p.dim == 0 for p in t.placements]
+    if batch(k) != batch(cache_layer):
+        raise ValueError(f"prefill: keys {k.placements} and cache {cache_layer.placements} "
+                         f"split the batch differently")
+    w0, n = shard_span(cache_layer, 1)
+    s0 = shard_span(k, 1)[0]
+    kl, cl = k.to_local(), cache_layer.to_local()
+    # the position each of this rank's slots holds after the prefill
+    pos = S - W + torch.remainder(torch.arange(w0, w0 + n, device=kl.device) - (S - W), W)
+    cl.copy_(kl.index_select(1, pos - s0))
 
 
 def prefill(model: TransformerLM, tokens: torch.Tensor
@@ -258,21 +405,60 @@ def prefill(model: TransformerLM, tokens: torch.Tensor
     W, _ = cache_window(cfg, S)
     dev = model.device
     with torch.inference_mode():
-        tokens = tokens.to(dev)
-        x = model.embed[tokens]
+        tokens = _on(tokens, dev)
+        x = constrain(F.embedding(tokens, model.embed), "batch", None, None)
         cos, sin = rope_angles(torch.arange(S, device=dev), Dh, cfg.rope_theta)
-        kc = torch.zeros((cfg.n_layers, B, W, Hkv, Dh), dtype=x.dtype, device=dev)
-        vc = torch.zeros_like(kc)
+        kc = _cache_zeros((cfg.n_layers, B, W, Hkv, Dh), x.dtype, x)
+        vc = _cache_zeros((cfg.n_layers, B, W, Hkv, Dh), x.dtype, x)
         slots = torch.arange(S - W, S, device=dev) % W
         for li, lp in enumerate(model.layers):
-            x, k, v = _attend(x, lp, cfg, cos, sin)
+            x, k, v = _attend(x, lp, cfg, cos, sin, seq=seq_sharded(cfg))
             x, _ = _ffn(x, lp, cfg)
+            x = constrain(x, "batch", None, None)
             # the last W positions go to cache slots t % W
-            kc[li][:, slots] = k[:, S - W:]
-            vc[li][:, slots] = v[:, S - W:]
+            if isinstance(kc, DTensor):
+                _fill_cache(_layer(kc, li), k, S)
+                _fill_cache(_layer(vc, li), v, S)
+            else:
+                kc[li][:, slots] = k[:, S - W:]
+                vc[li][:, slots] = v[:, S - W:]
         x = rms_norm(x[:, -1], model.final_norm)
         logits = (x @ model.head).float()
     return logits, KVCache(k=kc, v=vc)
+
+
+def _layer(cache: torch.Tensor, li: int) -> torch.Tensor:
+    """Layer ``li`` of a [L, B, W, Hkv, Dh] cache, a view: on a DTensor,
+    the view of its shard wrapped at the same placements less the layer
+    dim (so the cache need not have been made under inference mode)."""
+    if not isinstance(cache, DTensor):
+        return cache[li]
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in cache.placements]
+    if any(isinstance(p, Shard) and p.dim < 0 for p in pl):
+        raise ValueError(f"KV cache placements {cache.placements}: the layer dim is sharded")
+    return DTensor.from_local(cache.to_local()[li], cache.device_mesh, pl, run_check=False,
+                              shape=cache.shape[1:], stride=cache.stride()[1:])
+
+
+def _write_slot(cache_layer: torch.Tensor, slots: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache_layer[b, slots[b]] = new[b]`` for every row b, in place:
+    cache_layer [B, W, Hkv, Dh], slots [B], new [B, Hkv, Dh].  On DTensors
+    each rank writes the rows of its batch shard whose slot it owns (new
+    whole on every rank of a slot shard); no collective."""
+    if not isinstance(cache_layer, DTensor):
+        cache_layer[torch.arange(new.shape[0], device=new.device), slots] = new
+        return
+    w0, n = shard_span(cache_layer, 1)
+    cl, sl, nl = cache_layer.to_local(), slots.to_local() - w0, new.to_local()
+    if cl.shape[0] != nl.shape[0] or sl.shape[0] != nl.shape[0]:
+        raise ValueError(f"decode_step: cache {cache_layer.placements}, slots "
+                         f"{slots.placements} and keys {new.placements} split the batch "
+                         f"differently")
+    own = (sl >= 0) & (sl < n)
+    rows = torch.arange(nl.shape[0], device=nl.device)
+    at = sl.clamp(0, max(n - 1, 0))
+    # rows whose slot another rank owns write back what they read
+    cl[rows, at] = torch.where(own[:, None, None], nl, cl[rows, at])
 
 
 def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
@@ -292,30 +478,32 @@ def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
     G = Hq // Hkv
     dev = model.device
     with torch.inference_mode():
-        token = token.to(dev)
-        pos = pos.to(dev)
-        x = model.embed[token]
+        token = _on(token, dev)
+        pos = _on(pos, dev)
+        x = constrain(F.embedding(token, model.embed), "batch", None)
         cos, sin = rope_angles(pos, Dh, cfg.rope_theta)
         W = cache.k.shape[2]
-        rows = torch.arange(B, device=dev)
         slots = pos.to(torch.int64) % W
         for li, lp in enumerate(model.layers):
             h = rms_norm(x, lp.attn_norm)
-            q = (h @ lp.wq).reshape(B, Hkv, G, Dh)
-            k = (h @ lp.wk).reshape(B, Hkv, Dh)
-            v = (h @ lp.wv).reshape(B, Hkv, Dh)
+            # flash-decode takes every head on every rank of a slot shard
+            q, k, v = (constrain(h @ w, "batch", None) for w in (lp.wq, lp.wk, lp.wv))
+            q = q.reshape(B, Hkv, G, Dh)
+            k = k.reshape(B, Hkv, Dh)
+            v = v.reshape(B, Hkv, Dh)
             if cfg.qk_norm:
                 q = rms_norm(q, lp.q_norm)
                 k = rms_norm(k, lp.k_norm)
             q = apply_rope(q, cos[:, None, None, :], sin[:, None, None, :])
             k = apply_rope(k, cos[:, None, :], sin[:, None, :])
-            cache.k[li][rows, slots] = k
-            cache.v[li][rows, slots] = v
+            kl, vl = _layer(cache.k, li), _layer(cache.v, li)
+            _write_slot(kl, slots, k)
+            _write_slot(vl, slots, v)
             # position t lives at slot t % W, so rolling=True is exact for
             # full caches too (W == S_max)
-            o = decode_attention(q, cache.k[li], cache.v[li], pos,
-                                 window=cfg.sliding_window, rolling=True)
-            x = x + o.reshape(B, Hq * Dh) @ lp.wo
+            o = decode_attention(q, kl, vl, pos, window=cfg.sliding_window, rolling=True)
+            o = constrain(o.reshape(B, Hq * Dh), "batch", "model")
+            x = x + constrain(o @ lp.wo, "batch", None)
             x, _ = _ffn(x, lp, cfg)
         x = rms_norm(x, model.final_norm)
         logits = (x @ model.head).float()

@@ -11,11 +11,14 @@ that other test files of an xdist worker share; the dry run itself runs
 in subprocesses.
 
 Everything is compared exactly: mesh-dim names, shard counts, per-leaf
-shard shapes of every cell on both production meshes.
+shard shapes of every cell on both production meshes.  The sharded dry
+run's counter (``sharding.LocalCost``) is held to a hand-counted case,
+and the dense LM serving cells' sharded traces to the one-device count.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -195,7 +198,8 @@ def test_dryrun_subprocess_one_cell(tmp_path):
                            "--mesh", "multi")
     assert "0 failures" in text
     assert res["status"] == "OK" and res["n_chips"] == 512 and res["mesh"] == "multi"
-    assert res["collective_bytes_per_chip"] is None and "HLO" in res["collective_bytes_reason"]
+    assert res["collective_bytes_per_chip"] is None
+    assert "ROADMAP D.3" in res["collective_bytes_reason"]
     assert res["flops"] > 0 and res["flops_per_chip"] == res["flops"] / 512
     assert res["argument_bytes"] < res["argument_bytes_global"]
     assert res["dominant"] in ("compute", "memory") and "meta_run" not in res
@@ -210,3 +214,87 @@ def test_dryrun_spade_cells_report_meta_run(tmp_path):
     static, stream = results  # sorted by file name: grab4_static, grab4_stream
     assert static["step_name"] == "bulk_peel" and stream["step_name"] == "insert_and_maintain"
     assert stream["argument_bytes"] > static["argument_bytes"]  # the state beside the graph
+
+
+def test_local_cost_hand_countable(meshes):
+    """``LocalCost`` on the single-pod mesh (data 16, model 16), meta
+    DTensors: a column-parallel product needs no collective, gathering its
+    columns is one all-gather of the rank's rows, whole; the row-parallel
+    product's partial sums one all-reduce of its output; FLOPs are the
+    shards' products.  Rows over all 256 ranks (pure data parallelism):
+    per-device FLOPs x ranks = the one-device count."""
+    from repro_torch.dist.sharding import COLLECTIVES, LocalCost, place
+
+    env, _ = meshes["single"]
+    B, D, F = 64, 256, 512
+    rows = B // 16
+    with tsharding.use_axis_env(env):
+        x = place(torch.empty(B, D, device="meta"), "batch", None)
+        w1 = place(torch.empty(D, F, device="meta"), None, "model")
+        w2 = place(torch.empty(F, D, device="meta"), "model", None)
+        with LocalCost() as c:
+            h = x @ w1
+            tsharding.constrain(h, "batch", None)
+            tsharding.constrain(h @ w2, "batch", None)
+        want = dict.fromkeys(COLLECTIVES, 0)
+        assert c.collectives == want | {"all-gather": rows * F * 4, "all-reduce": rows * D * 4}
+        assert c.calls == want | {"all-gather": 1, "all-reduce": 1}
+        assert c.flops == 2 * rows * D * (F // 16) * 2
+        xr = place(torch.empty(512, D, device="meta"), "rows", None)
+        w = place(torch.empty(D, F, device="meta"), None, None)
+        with LocalCost() as c:
+            xr @ w
+    assert c.flops * 256 == 2 * 512 * D * F and not any(c.collectives.values())
+
+
+@pytest.mark.parametrize("module", tsharding._PROPAGATION)
+def test_local_cost_propagation_modules_exist(module):
+    """``LocalCost`` leaves out the plain ops that DTensor's sharding
+    propagation evaluates on global shapes by finding these modules on the
+    call stack: a torch that renamed one would count those ops silently."""
+    assert importlib.import_module(module).__name__ == module
+
+
+@pytest.mark.parametrize("heads", [4, 16], ids=["seq", "heads"])
+def test_dryrun_sharded_smoke_prefill(meshes, heads):
+    """qwen3-14b's smoke prefill cell sharded on a fake (data 2, model 2)
+    mesh (the production meshes' device type, ``cuda``, whose DTensor moves
+    a shard between dims by an all-to-all): collectives under ``repro``'s
+    five names, the sequence-sharded layout (its 4 q heads) with
+    all-to-alls, the head-sharded one (16 q heads) without, and per-device
+    FLOPs x 4 at least the one-device count."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import COLLECTIVES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import TransformerLM
+
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    env = tsharding.AxisEnv(mesh)
+
+    def make(n):
+        cell = tcells.build_cell("qwen3-14b", "prefill_32k", smoke=True, override_layers=n)
+        cfg = dataclasses.replace(cell.args[0].cfg, n_heads=heads)
+        return dataclasses.replace(cell, args=(TransformerLM(cfg, "meta", init=False),
+                                               cell.args[1]))
+
+    res = dryrun.sharded_cost(make, env, 2)
+    coll = res["collectives"]
+    assert tuple(coll) == COLLECTIVES and res["collective_bytes_per_chip"] == sum(coll.values())
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert (coll["all-to-all"] > 0) == (heads == 4)
+    one_device = dryrun._traced_flops(make(2))
+    assert res["flops_per_chip"] * 4 >= one_device > res["flops_per_chip"]
+
+
+def test_dryrun_subprocess_dense_lm_cell(tmp_path):
+    text, (res,) = _dryrun(tmp_path, "--arch", "qwen3-14b", "--shape", "decode_32k",
+                           "--mesh", "single")
+    assert "0 failures" in text and res["status"] == "OK" and res["n_chips"] == 256
+    assert "collective_bytes_reason" not in res and res["collective_bytes_per_chip"] > 0
+    assert res["collective_bytes_per_chip"] == sum(res["collectives"].values())
+    assert res["t_collective_s"] == res["collective_bytes_per_chip"] / 450e9
+    assert res["flops_per_chip"] > 0 and "sharded" in res["sharded_counted"]
+    assert res["dominant"] in ("compute", "memory", "collective")
