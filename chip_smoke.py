@@ -194,7 +194,21 @@ Phases (any failure exits non-zero):
     on every decided row, each rank's collectives a step equal to the dry
     run's prediction for the mesh (gloo's gathers issued as all-to-alls);
     17c, K3 with a non-zero ``q_offset`` against its plain version and bit
-    for bit against the same rows of K3 over the whole sequence.
+    for bit against the same rows of K3 over the whole sequence;
+18. (run last, after 17; 15c keeps its step 1 on the host for it) the
+    dense LM train step sharded on a ``DeviceMesh`` with FSDP: 18k, K3's
+    ``FlashAttention`` Function under ``local_map`` with the q heads
+    sharded on two ``gloo`` ranks on the card, dq, dk and dv against plain
+    autograd; 18a, one ``nccl`` rank on a (data 1, model 1) mesh: 15c's
+    step (its seeded weights drawn again, its batch) through
+    ``shard_cell``, its loss, grad_norm and every updated parameter, ``m``
+    and ``v`` leaf (digests of their bits) 15c's step 1's, K3 two launches
+    a layer; 18b, two ``gloo`` ranks on the one card on (data 2, model 1),
+    FSDP proper: qwen3-14b at FSDP_LAYERS layers, B 2 (a 4,096-token row a
+    rank), FSDP_STEPS steps against the unsharded port's on the same
+    weights and batch (run first, kept on the host), each rank's state
+    half the unsharded one, its peak memory, and its collectives in a
+    step equal to the dry run's prediction for the mesh.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -3955,6 +3969,9 @@ def train_lm(seed: int, attn_bwd_ms: float, n_layers: int = TRAIN_LM_LAYERS) -> 
                                                                           before[n])]
             check(not same, f"15c: step 1 left {len(same)} leaves unchanged: {same[:4]!r}")
             del before
+            # what phase 18a's sharded step at this depth must repeat bit for bit
+            step1 = {"n_layers": n_layers, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "digest": train_digests(state)}
     launches, simt = k3_ops.launches, k3_ops.simt_launches
     check(launches == 2 * n_layers * TRAIN_STEPS and simt == 0,
           f"15c: K3 launched {launches} times (SIMT {simt}), expected "
@@ -3970,6 +3987,7 @@ def train_lm(seed: int, attn_bwd_ms: float, n_layers: int = TRAIN_LM_LAYERS) -> 
            "losses": losses, "k3_launches": launches, "k3_launches_per_step": launches /
            TRAIN_STEPS, "k3_simt_launches": simt}
     log("15c main path: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    out["step1"] = step1
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -4945,6 +4963,646 @@ def phase_tensor_parallel(ref: dict, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dense LM train step sharded on a DeviceMesh with FSDP
+# ---------------------------------------------------------------------------
+
+# 18a: 15c's step (qwen3-14b at TRAIN_LM_LAYERS, B 1 x 4,096 tokens,
+# TRAIN_LM_ADAM) through shard_cell on one nccl rank, 15c's bits.  18b: two
+# gloo ranks on the one card on (data 2, model 1), FSDP proper: the state
+# (bf16 weights, float32 m and v) halved, each layer's weights gathered for
+# its use and its gradients reduce-scattered, at FSDP_LAYERS of 40 layers,
+# B 2 (one 4,096-token row a rank), FSDP_STEPS steps, against the unsharded
+# port's steps on the same weights and batch.
+# FSDP_LAYERS is the largest depth whose two ranks peak under 90 % of the
+# card's 80 GB together: 8 layers peak at 35.61 GB a rank, 71.22 GB in all
+# (6: 32.22 GB a rank; 9 would take about 74.6 GB)
+FSDP_LAYERS = 8
+FSDP_STEPS = 2
+FSDP_BATCH = 2
+FSDP_TIMEOUT = 900  # seconds for 18b's spawn
+FSDP_MEM_GB = 0.9 * 80  # both ranks' peaks together
+# 18b's tolerances against the unsharded steps, set from the H100 runs at
+# 6 and 8 layers (PERF.md): the ranks' bf16 gradient partials are rounded
+# before the reduce-scatter adds them.  The loss moved by at most 1.9e-5
+# relative, grad_norm by 4.8e-4 (step 2's, on the updated weights).  A
+# parameter's elements lie within FSDP_ULPS of its ulps (or 1 % of a step,
+# TRAIN_STEP_TOL, the float32 rehearsal's rule) of the reference's but for
+# at most 4.06 % of a leaf's (w_down, wk, wq: Adam's second step divides m
+# by sqrt(v), and where a leaf's two gradients nearly cancel the rounding
+# moves the update).  fsdp_controls (--fsdp-controls) reads the rules on a
+# wrong gradient and on the rounding's cause (PERF.md)
+FSDP_LOSS_RTOL = 1e-4
+FSDP_NORM_RTOL = 2e-3
+FSDP_ULPS = 1
+FSDP_ODD = 0.06
+# fsdp_controls' alterations of 18b's sharded steps (rs_control), at
+# FSDP_CONTROL_LAYERS: the unsharded step on two microbatches keeps a
+# float32 gradient sum, which at 8 layers ran out of the card's memory
+FSDP_CONTROLS = ("none", "drop", "f32")
+FSDP_CONTROL_LAYERS = 4
+# 18k: K3's Function under local_map, heads sharded on two gloo ranks
+FSDP_K3_SHAPE = (1, 1024, 8, 2, 128)  # B, S, Hq, Hkv, D (bf16)
+FSDP_BATCH_LOGICAL = {"tokens": ("batch", None), "labels": ("batch", None)}
+DIGEST_CHUNK = 1 << 24
+
+
+def bits_digest(t) -> tuple[int, int]:
+    """A checksum of a tensor's bits, on its device: the sum of its
+    elements' bit patterns as integers, and their sum weighted by the
+    position modulo a prime (so that a moved or changed bit shows)."""
+    import torch
+
+    v = t.detach().contiguous().view(-1)
+    v = v.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()])
+    s1 = torch.zeros((), dtype=torch.int64, device=v.device)
+    s2 = torch.zeros_like(s1)
+    for i in range(0, v.numel(), DIGEST_CHUNK):
+        c = v[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=v.device) % 65521 + 1
+        s1 += c.sum()
+        s2 += (c * w).sum()
+    return int(s1), int(s2)
+
+
+def train_digests(state) -> dict:
+    """``bits_digest`` of every parameter, ``m`` and ``v`` leaf of an LM
+    train state (a DTensor's local shard)."""
+    from repro_torch.dist.sharding import local
+
+    out = {f"params.{n}": bits_digest(local(p)) for n, p in state.params.named_parameters()}
+    for tree in ("m", "v"):
+        out.update({f"{tree}.{n}": bits_digest(local(t)) for n, t in getattr(state, tree).items()})
+    return out
+
+
+def fsdp_cfg(n_layers: int, smoke: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(LM_ARCH)
+    return cfg if smoke else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def fsdp_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """15c's batch: seeded tokens, the labels their roll by one."""
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)))
+    return {"tokens": tokens.to(DEVICE), "labels": torch.roll(tokens, -1, dims=1).to(DEVICE)}
+
+
+def fsdp_step(microbatches: int = 1):
+    """The train cells' step function at 15c's optimizer, each
+    microbatch placed on ``batch`` when the state is sharded."""
+    from repro_torch.models import lm_loss
+    from repro_torch.train import AdamConfig, make_train_step
+
+    return make_train_step(lambda m, b: lm_loss(m, b["tokens"], b["labels"]),
+                           AdamConfig(**TRAIN_LM_ADAM), microbatches=microbatches,
+                           batch_logical=FSDP_BATCH_LOGICAL)
+
+
+def fsdp_state(cfg, seed: int, env=None):
+    """The seeded weights drawn whole on the card and their train state; on
+    ``env``'s mesh through ``shard_cell`` (the qwen3-14b train cell's
+    logical axes), the module sharded before ``m`` and ``v`` are made, so
+    that each rank allocates only its shards of them."""
+    import torch
+
+    from repro_torch.launch.cells import build_cell, shard_cell
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import TrainState, init_train_state
+
+    model = TransformerLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    if env is None:
+        return init_train_state(model)
+    cell = build_cell(LM_ARCH, "train_4k", override_layers=cfg.n_layers)
+    bare = TrainState(params=model, m=None, v=None, step=None)
+    cell = shard_cell(dataclasses.replace(cell, args=(bare, None), fn=None), env)
+    return init_train_state(cell.args[0].params)
+
+
+def fsdp_train(state, batch: dict, steps: int, env=None, cost_step: int | None = None,
+               digest_step: int | None = None, microbatches: int = 1) -> tuple[dict, object]:
+    """``steps`` train steps of ``state`` (sharded on ``env``'s mesh when
+    given) of ``microbatches`` microbatches, K3's counters set to 0 just before and read just after: each
+    step's loss, grad_norm, lr and seconds; the collectives of step
+    ``cost_step`` (``LocalCost``); the digests after step
+    ``digest_step``; the state's bytes on this rank and the peak memory
+    of the steps.  Returns the record and the state."""
+    import torch
+
+    from repro_torch.dist.sharding import LocalCost, local, use_axis_env
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    leaves = list(state.params.parameters()) + list(state.m.values()) + list(state.v.values())
+    nbytes = lambda ts: sum(local(t).numel() * local(t).element_size() for t in ts)
+    step = fsdp_step(microbatches)
+    out = {"n_layers": state.params.cfg.n_layers, "metrics": [], "step_s": [],
+           "state_gb": nbytes(leaves) / 1e9,  # on this rank
+           "whole_gb": nbytes(t for t in leaves if local(t).numel() == t.numel()) / 1e9}
+    k3_ops.launches = k3_ops.simt_launches = 0
+    with torch.enable_grad(), use_axis_env(env) if env is not None else contextlib.nullcontext():
+        for i in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            with LocalCost() if i == cost_step else contextlib.nullcontext() as cost:
+                state, m = step(state, batch)
+            sync()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["metrics"].append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+            if i == cost_step:
+                out["cost"] = {"bytes": dict(cost.collectives), "calls": dict(cost.calls)}
+            if i == digest_step:
+                out["digest"] = train_digests(state)
+    out["k3_launches"], out["k3_simt_launches"] = k3_ops.launches, k3_ops.simt_launches
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    return out, state
+
+
+def fsdp_world1(step1: dict | None, seed: int, smoke: bool = False) -> dict:
+    """18a: one ``nccl`` rank on a (data 1, model 1) mesh: 15c's train step
+    (the seeded weights drawn again, 15c's batch) through ``shard_cell``,
+    its loss, grad_norm and every updated parameter, ``m`` and ``v`` leaf
+    (their digests) 15c's step 1 bit for bit.  ``step1`` None: the
+    unsharded step is run here first at 18a's depth (a rehearsal)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv
+
+    n_layers = step1["n_layers"] if step1 is not None else TRAIN_LM_LAYERS
+    cfg = fsdp_cfg(n_layers, smoke)
+    B, S = (TRAIN_LM_BATCH, TRAIN_LM_SEQ) if not smoke else (1, 64)
+    batch = fsdp_batch(cfg, B, S, seed)
+    if step1 is None:
+        plain, state = fsdp_train(fsdp_state(cfg, seed), batch, 1, digest_step=0)
+        step1 = {"n_layers": n_layers, "digest": plain["digest"], **plain["metrics"][0]}
+        del state
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
+        got, state = fsdp_train(fsdp_state(cfg, seed, env), batch, 1, env, cost_step=0,
+                                digest_step=0)
+        del state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = got["metrics"][0]
+    for k in ("loss", "grad_norm"):
+        check(m[k] == step1[k], f"18a: {k} {m[k]!r}, 15c's step 1 {step1[k]!r}")
+    differ = [k for k, d in step1["digest"].items() if got["digest"][k] != d]
+    check(set(got["digest"]) == set(step1["digest"]) and not differ,
+          f"18a: {len(differ)} leaves differ from 15c's step 1: {differ[:4]!r}")
+    check(not any(got["cost"]["bytes"].values()), f"18a: one rank ran collectives "
+          f"{got['cost']['bytes']!r}")
+    check(DEVICE != "cuda" or (got["k3_launches"] == 2 * n_layers
+                               and got["k3_simt_launches"] == 0),
+          f"18a: K3 launched {got['k3_launches']} times (SIMT {got['k3_simt_launches']}), "
+          f"expected {2 * n_layers} on the tensor-core body")
+    out = {k: got[k] for k in ("n_layers", "metrics", "step_s", "state_gb", "peak_gb",
+                               "k3_launches")} | {"leaves_equal": len(step1["digest"])}
+    log("18a world 1 (nccl, data 1 x model 1): 15c's step 1 bit for bit (loss, grad_norm "
+        f"and {len(step1['digest'])} parameter, m and v leaves); "
+        + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    return out
+
+
+def fsdp_draw(cfg, seed: int, env):
+    """The seeded state on ``env``'s mesh (:func:`fsdp_state`), drawn by
+    the ranks one after the other behind a barrier (two whole copies
+    never coexist)."""
+    import torch
+    import torch.distributed as dist
+
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            state = fsdp_state(cfg, seed, env)
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return state
+
+
+def fsdp_shards(state) -> dict:
+    """The rank's parameter shards on the host (bf16 as int16 bits), each
+    with where it lies in its leaf."""
+    import torch
+
+    from repro_torch.dist.sharding import shard_span
+
+    shards = {}
+    for n, p in state.params.named_parameters():
+        spans = [shard_span(p, d) for d in range(p.dim())]
+        loc = p.to_local().detach().cpu()
+        shards[n] = (loc.view(torch.int16).numpy() if loc.dtype == torch.bfloat16
+                     else loc.numpy(), spans)
+    return shards
+
+
+def fsdp_rank_setup(device: str, smoke: bool, n_layers: int, path: str):
+    """A spawned rank's config and batch (read from ``path``)."""
+    import torch
+
+    global DEVICE
+    DEVICE = device
+    torch.set_grad_enabled(False)
+    with np.load(path) as z:
+        batch = {k: torch.from_numpy(z[k]).to(DEVICE) for k in ("tokens", "labels")}
+    return fsdp_cfg(n_layers, smoke), batch
+
+
+def fsdp_rank(mesh, path: str, seed: int, device: str, smoke: bool, n_layers: int) -> dict:
+    """A rank of 18b (and first 18k's, on a (data 1, model 2) mesh of the
+    same ranks): the seeded model drawn whole and sharded by
+    ``shard_cell`` (:func:`fsdp_draw`); FSDP_STEPS steps on the batch read
+    from ``path``; the rank's updated parameter shards on the host."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv
+
+    cfg, batch = fsdp_rank_setup(device, smoke, n_layers, path)
+    # 18k first, on the same ranks as (data 1, model 2): heads sharded
+    k3 = fsdp_k3_rank(DeviceMesh(DEVICE, [list(range(dist.get_world_size()))],
+                                 mesh_dim_names=("data", "model")), DEVICE)
+    env = AxisEnv(mesh)
+    t0 = time.perf_counter()
+    state = fsdp_draw(cfg, seed, env)
+    draw_s = time.perf_counter() - t0
+    got, state = fsdp_train(state, batch, FSDP_STEPS, env, cost_step=0)
+    got["draw_s"], got["k3"], got["shards"] = draw_s, k3, fsdp_shards(state)
+    return got
+
+
+def fsdp_predicted(n_layers: int, batch: int, seq: int, smoke: bool = False) -> dict:
+    """The dry run's prediction for 18b's mesh (data 2, model 1): one
+    rank's collectives in one train step of ``batch`` x ``seq`` tokens,
+    traced on meta under a two-rank fake process group at 1 and 2 layers
+    and extrapolated to ``n_layers``, as ``repro_torch.launch.dryrun``
+    does for the train cells."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import sharded_cost
+
+    meta = torch.device("meta")
+
+    def make(n):
+        cell = build_cell(LM_ARCH, "train_4k", smoke=smoke, override_layers=n)
+        tokens = torch.empty((batch, seq), dtype=torch.int64, device=meta)
+        return dataclasses.replace(cell, fn=fsdp_step(), args=(
+            cell.args[0], {"tokens": tokens, "labels": tokens}))
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0], [1]], mesh_dim_names=("data", "model")))
+        return sharded_cost(make, env, n_layers)
+    finally:
+        dist.destroy_process_group()
+
+
+def ulp_errs(got, want, floor: float) -> tuple[float, float, float]:
+    """Of a leaf's elements: the share farther from the reference's value
+    than FSDP_ULPS of its ulps and than ``floor``, the largest distance in
+    those ulps, and the largest absolute distance (float32 on the card)."""
+    import torch
+
+    bits = {torch.bfloat16: 8, torch.float32: 24}[want.dtype]
+    d = (got.float() - want.float()).abs()
+    ulp = torch.ldexp(torch.ones_like(d), torch.frexp(want.float()).exponent - bits)
+    ulps = d / ulp.clamp(min=2.0 ** -126)
+    odd = (ulps > FSDP_ULPS) & (d > floor)
+    return float(odd.float().mean()), float(ulps.max()), float(d.max())
+
+
+def fsdp_leaves(want: dict, shards: list) -> dict:
+    """:func:`ulp_errs` of each parameter against ``want`` (the unsharded
+    run's, on the host), the leaf put together from the ranks' ``shards``
+    (:func:`fsdp_shards`)."""
+    import torch
+
+    per_leaf = {}
+    for n, w in want.items():
+        w = w.to(DEVICE)
+        got = torch.empty_like(w)
+        for rank in shards:
+            arr, spans = rank[n]
+            sl = tuple(slice(a, a + k) for a, k in spans)
+            t = torch.from_numpy(arr)
+            got[sl] = (t.view(torch.bfloat16) if w.dtype == torch.bfloat16 else t).to(DEVICE)
+        per_leaf[n] = ulp_errs(got, w, TRAIN_STEP_TOL * TRAIN_LM_ADAM["lr"])
+        del w, got
+    return per_leaf
+
+
+def fsdp_world2(seed: int, smoke: bool = False) -> dict:
+    """18b: two ``gloo`` ranks on the one card on a (data 2, model 1) mesh,
+    FSDP: the unsharded port's FSDP_STEPS steps first (kept on the host,
+    then freed), then each rank's steps on its row of the batch.  Held to
+    the unsharded steps: loss and grad_norm at FSDP_LOSS_RTOL and
+    FSDP_NORM_RTOL, every updated parameter within FSDP_ULPS ulps (or 1 %
+    of a step) but for FSDP_ODD of a leaf's elements; the state halved;
+    each rank's collectives in step 1 equal to the dry run's prediction
+    (gloo's gathers on the card as all-to-alls)."""
+    import torch
+
+    from repro_torch.dist import spawn
+
+    n_layers = FSDP_LAYERS
+    cfg = fsdp_cfg(n_layers, smoke)
+    B, S = FSDP_BATCH, (TRAIN_LM_SEQ if not smoke else 64)
+    batch = fsdp_batch(cfg, B, S, seed + 1)
+    t0 = time.perf_counter()
+    plain, state = fsdp_train(fsdp_state(cfg, seed), batch, FSDP_STEPS)
+    want = {n: p.detach().to("cpu", copy=True) for n, p in state.params.named_parameters()}
+    del state
+    plain_s = time.perf_counter() - t0
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    path = ROOT / "build" / "phase18" / "batch.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: v.cpu().numpy() for k, v in batch.items()})
+    t0 = time.perf_counter()
+    ranks = spawn(fsdp_rank, 2, backend="gloo", device=DEVICE,
+                  args=(str(path), seed, DEVICE, smoke, n_layers), timeout=FSDP_TIMEOUT,
+                  mesh_shape={"data": 2, "model": 1})
+    spawn_s = time.perf_counter() - t0
+    path.unlink()
+    k3 = fsdp_k3_check([got.pop("k3") for got in ranks])
+    log(f"18b metrics: " + "; ".join(f"rank {r}: {g['metrics']!r}" for r, g in enumerate(ranks))
+        + f"; unsharded {plain['metrics']!r}")
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r, got in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got["metrics"], plain["metrics"], strict=True)):
+            check(g["lr"] == w["lr"], f"18b rank {r} step {i + 1}: lr {g['lr']!r}, {w['lr']!r}")
+            for k, tol in (("loss", FSDP_LOSS_RTOL), ("grad_norm", FSDP_NORM_RTOL)):
+                rel = abs(g[k] - w[k]) / abs(w[k])
+                worst[k] = max(worst[k], rel)
+                check(math.isfinite(g[k]) and rel <= tol,
+                      f"18b rank {r} step {i + 1} {k}: {g[k]!r} against {w[k]!r} unsharded "
+                      f"(relative {rel!r}, beyond {tol})")
+    log(f"18b ranks' steps: " + "; ".join(
+        f"rank {r}: {g['metrics']!r}, {g['step_s']!r} s, draw {g['draw_s']!r} s, peak "
+        f"{g['peak_gb']!r} GB" for r, g in enumerate(ranks))
+        + f"; unsharded {plain['metrics']!r}, {plain['step_s']!r} s; spawn {spawn_s!r} s")
+    per_leaf = fsdp_leaves(want, [g["shards"] for g in ranks])
+    leaf = {"odd_share_max": max(e[0] for e in per_leaf.values()),
+            "ulps_max": max(e[1] for e in per_leaf.values()),
+            "abs_max": max(e[2] for e in per_leaf.values())}
+    log("18b parameters, the leaves with the most elements beyond tolerance (share, largest "
+        "distance in ulps, largest distance): " + ", ".join(
+            f"{n} {e!r}" for n, e in sorted(per_leaf.items(), key=lambda kv: -kv[1][0])[:8]))
+    for n, (odd, _, dmax) in per_leaf.items():
+        check(odd <= FSDP_ODD, f"18b {n}: {odd!r} of its elements beyond {FSDP_ULPS} ulps "
+              f"and 1 % of a step (tolerance {FSDP_ODD}); largest distance {dmax!r}")
+    for r, got in enumerate(ranks):
+        got.pop("shards")
+        # halved: each rank holds half of every leaf but the replicated norms
+        half = (plain["state_gb"] + got["whole_gb"]) / 2
+        check(abs(got["state_gb"] - half) <= 1e-9,
+              f"18b rank {r}: state {got['state_gb']!r} GB ({got['whole_gb']!r} GB of it "
+              f"whole), the unsharded {plain['state_gb']!r} GB")
+        check(DEVICE != "cuda" or (got["k3_launches"] == 2 * n_layers * FSDP_STEPS
+                                   and got["k3_simt_launches"] == 0),
+              f"18b rank {r}: K3 launched {got['k3_launches']} times (SIMT "
+              f"{got['k3_simt_launches']}), expected {2 * n_layers * FSDP_STEPS}")
+    if DEVICE == "cuda":
+        peak = sum(g["peak_gb"] for g in ranks)
+        check(peak <= FSDP_MEM_GB, f"18b: the ranks' peaks {peak!r} GB, over {FSDP_MEM_GB} GB")
+    pred = fsdp_predicted(cfg.n_layers, B, S, smoke)
+    p = dict(pred["collectives"])
+    calls = dict(pred["collective_calls"])
+    if DEVICE == "cuda":  # gloo's gathers on the card, as all-to-alls
+        for d in (p, calls):
+            d["all-to-all"] += d.pop("all-gather")
+            d["all-gather"] = 0
+    for r, got in enumerate(ranks):
+        check(got["cost"]["bytes"] == p, f"18b rank {r}: collectives {got['cost']['bytes']!r} "
+              f"in step 1, the dry run's {p!r}")
+    out = {"k3": k3, "n_layers": n_layers, "batch": B, "seq": S, "steps": FSDP_STEPS,
+           "plain": {k: plain[k] for k in ("metrics", "step_s", "state_gb", "peak_gb")},
+           "plain_s": plain_s, "spawn_s": spawn_s, "metrics_rel_err": worst, "leaves": leaf,
+           "collectives": {"rank0": ranks[0]["cost"], "predicted": {"bytes": p, "calls": calls}},
+           "ranks": [{k: g[k] for k in ("metrics", "step_s", "state_gb", "whole_gb", "peak_gb", "draw_s",
+                                        "k3_launches")} for g in ranks]}
+    log(f"18b world 2 (gloo, data 2 x model 1, one card), qwen3-14b at {n_layers} layers, "
+        f"B {B} x {S}: loss and grad_norm within {worst!r} relative of the unsharded steps "
+        f"(tolerances {FSDP_LOSS_RTOL}, {FSDP_NORM_RTOL}); parameters: {leaf!r} (at most "
+        f"{FSDP_ODD} of a leaf beyond {FSDP_ULPS} ulps)")
+    log(f"18b state and memory: unsharded {plain['state_gb']!r} GB of state, "
+        f"{plain['peak_gb']!r} GB peak; " + "; ".join(
+            f"rank {r}: {g['state_gb']!r} GB of state, {g['peak_gb']!r} GB peak, steps "
+            f"{g['step_s']!r} s, draw {g['draw_s']!r} s" for r, g in enumerate(ranks))
+        + f"; unsharded steps {plain['step_s']!r} s; spawn {spawn_s!r} s")
+    log(f"18b collectives a rank in step 1: bytes {ranks[0]['cost']['bytes']!r}, calls "
+        f"{ranks[0]['cost']['calls']!r}; the dry run's prediction for (data 2, model 1): bytes "
+        f"{p!r}, calls {calls!r}")
+    return out
+
+
+def rs_control(name: str, rank: int):
+    """A context that alters this rank's reduce-scatters (in 18b the
+    gradients' only ones) for a control of 18b's leaf rule: ``"drop"``,
+    rank 1 sends zeros, so that every gradient holds rank 0's partial
+    alone (its half of the batch); ``"f32"``, a bf16 reduce-scatter runs
+    in float32 and its sum is rounded to bf16 once; ``"none"`` alters
+    nothing."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    if name == "none":
+        return contextlib.nullcontext()
+    c10d = torch.ops._c10d_functional
+
+    class Control(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.overloadpacket is c10d.reduce_scatter_tensor:
+                x = args[0]
+                if name == "drop" and rank == 1:
+                    args = (torch.zeros_like(x), *args[1:])
+                elif name == "f32" and x.dtype == torch.bfloat16:
+                    out = c10d.wait_tensor(func(x.float(), *args[1:], **kwargs))
+                    return out.to(torch.bfloat16)
+            return func(*args, **kwargs)
+
+    return Control()
+
+
+def fsdp_control_rank(mesh, path: str, seed: int, device: str, smoke: bool,
+                      n_layers: int, name: str) -> dict:
+    """A rank of :func:`fsdp_controls`: 18b's state and FSDP_STEPS steps
+    under control ``name`` (:func:`rs_control`): the metrics and the
+    updated shards."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import AxisEnv
+
+    cfg, batch = fsdp_rank_setup(device, smoke, n_layers, path)
+    env = AxisEnv(mesh)
+    state = fsdp_draw(cfg, seed, env)
+    with rs_control(name, dist.get_rank()):
+        got, state = fsdp_train(state, batch, FSDP_STEPS, env)
+    return {"metrics": got["metrics"], "step_s": got["step_s"], "shards": fsdp_shards(state)}
+
+
+def fsdp_controls(seed: int, smoke: bool = False) -> dict:
+    """Controls of 18b's rules (``--fsdp-controls``, a run of its own, not
+    part of the run with no arguments), at FSDP_CONTROL_LAYERS layers and
+    18b's batch and weights.  For each comparison: the largest share of a leaf's elements
+    beyond FSDP_ULPS ulps and 1 % of a step (18b holds it to FSDP_ODD),
+    the leaf, and the loss's and grad_norm's largest relative errors:
+
+    - ``none``, ``drop``, ``f32``: the sharded steps as 18b runs them, with
+      rank 1's gradient partials zeroed before the reduce-scatter (a
+      wrong gradient, which the rules must refuse), and with the
+      reduce-scatter in float32 (:func:`rs_control`), each against the
+      unsharded steps;
+    - ``micro2``: the unsharded steps on the batch as two microbatches of
+      one row (each row's gradient rounded to bf16 before a float32 sum,
+      as the ranks' partials are rounded before their sum), against the
+      unsharded steps; ``none_vs_micro2``: the sharded steps against it."""
+    import torch
+
+    from repro_torch.dist import spawn
+
+    n_layers = FSDP_CONTROL_LAYERS
+    cfg = fsdp_cfg(n_layers, smoke)
+    B, S = FSDP_BATCH, (TRAIN_LM_SEQ if not smoke else 64)
+    batch = fsdp_batch(cfg, B, S, seed + 1)
+    t0 = time.perf_counter()
+    metrics, want = {}, {}
+    for name, micro in (("plain", 1), ("micro2", 2)):
+        got, state = fsdp_train(fsdp_state(cfg, seed), batch, FSDP_STEPS, microbatches=micro)
+        metrics[name] = got["metrics"]
+        want[name] = {n: p.detach().to("cpu", copy=True)
+                      for n, p in state.params.named_parameters()}
+        del state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out = {"n_layers": n_layers, "batch": B, "seq": S, "steps": FSDP_STEPS}
+
+    def compare(name: str, ref: str, shards: list, got: list) -> None:
+        per_leaf = fsdp_leaves(want[ref], shards)
+        worst = max(per_leaf, key=lambda n: per_leaf[n][0])
+        rel = {k: max(abs(g[k] - x[k]) / abs(x[k]) for g, x in zip(got, metrics[ref], strict=True))
+               for k in ("loss", "grad_norm")}
+        out[name] = {"odd_share_max": per_leaf[worst][0], "leaf": worst, "rel": rel,
+                     "passes": (per_leaf[worst][0] <= FSDP_ODD and rel["loss"] <= FSDP_LOSS_RTOL
+                                and rel["grad_norm"] <= FSDP_NORM_RTOL), "metrics": got}
+        log(f"18b control {name}: largest share of a leaf beyond {FSDP_ULPS} ulps and 1 % of "
+            f"a step {per_leaf[worst][0]!r} ({worst}; tolerance {FSDP_ODD}), loss and "
+            f"grad_norm relative errors {rel!r}, within 18b's rules: {out[name]['passes']}")
+        if DEVICE == "cuda":  # free for the ranks
+            torch.cuda.empty_cache()
+
+    compare("micro2", "plain", [{n: (t.view(torch.int16).numpy() if t.dtype == torch.bfloat16
+                                     else t.numpy(), [(0, k) for k in t.shape])
+                                 for n, t in want["micro2"].items()}], metrics["micro2"])
+    path = ROOT / "build" / "phase18" / "batch.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: v.cpu().numpy() for k, v in batch.items()})
+    for name in FSDP_CONTROLS:  # one spawn each: one control's shards on the host at a time
+        ranks = spawn(fsdp_control_rank, 2, backend="gloo", device=DEVICE,
+                      args=(str(path), seed, DEVICE, smoke, n_layers, name),
+                      timeout=FSDP_TIMEOUT, mesh_shape={"data": 2, "model": 1})
+        shards = [r.pop("shards") for r in ranks]
+        compare(name, "plain", shards, ranks[0]["metrics"])
+        if name == "none":
+            compare("none_vs_micro2", "micro2", shards, ranks[0]["metrics"])
+        out[name]["step_s"] = ranks[0]["step_s"]
+        del ranks, shards
+    path.unlink()
+    out["plain_metrics"] = metrics["plain"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_k3_rank(mesh, device: str) -> dict:
+    """A rank of 18k: K3's Function under ``local_map``, q [B, S, Hq, D]
+    bf16 with its heads sharded on ``model``, k and v whole; dq, dk, dv
+    gathered (a named redistribute) and held normwise against autograd of
+    ``attention_ref`` in float32 on the same inputs."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist.sharding import AxisEnv, place, redistribute, use_axis_env
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models.attention import flash_attention
+
+    B, S, Hq, Hkv, D = FSDP_K3_SHAPE
+    dt = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    mk = lambda *s: torch.randn(s, device=device, generator=gen).to(dt)
+    q, k, v, do = mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D), mk(B, S, Hq, D)
+    k3_ops.launches = 0
+    with torch.enable_grad(), use_axis_env(AxisEnv(mesh)):
+        qs = place(q, "batch", None, "model", None).requires_grad_(True)
+        ks, vs = (place(t, "batch", None, None, None).requires_grad_(True) for t in (k, v))
+        o = flash_attention(qs, ks, vs)
+        got = torch.autograd.grad(o, (qs, ks, vs), place(do, "batch", None, "model", None))
+        placements = [str(t.placements) for t in got]
+        got = [redistribute(t, [Replicate()] * mesh.ndim).to_local() for t in got]
+    with torch.enable_grad():
+        ref = [t.float().permute(0, 2, 1, 3).clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(*ref), ref, do.float().permute(0, 2, 1, 3))
+    errs = {n: float((g.float().permute(0, 2, 1, 3) - w).norm() / w.norm())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    return {"errs": errs, "placements": placements, "k3_launches": k3_ops.launches}
+
+
+def fsdp_k3_check(ranks: list[dict]) -> dict:
+    """18k, run by 18b's ranks before they train: K3's Function under
+    ``local_map`` with the q heads sharded on two gloo ranks on the card
+    (data 1, model 2): dq, dk and dv within TRAIN_ATTN_TOL (normwise) of
+    plain autograd; one K3 launch a rank (off the main path)."""
+    for r, got in enumerate(ranks):
+        check(got["placements"][0] == "(Replicate(), Shard(dim=2))",
+              f"18k rank {r}: dq placed {got['placements'][0]}")
+        worst = max(got["errs"].values())
+        check(worst <= TRAIN_ATTN_TOL, f"18k rank {r}: {got['errs']!r} beyond {TRAIN_ATTN_TOL}")
+        check(DEVICE != "cuda" or got["k3_launches"] == 1,
+              f"18k rank {r}: K3 launched {got['k3_launches']} times")
+    out = {"shape": FSDP_K3_SHAPE, "ranks": ranks, "tolerance": TRAIN_ATTN_TOL}
+    log(f"18k K3's Function under local_map, heads sharded on two gloo ranks (B, S, Hq, Hkv, D "
+        f"= {FSDP_K3_SHAPE}): " + "; ".join(f"rank {r}: {g['errs']!r} {g['placements']!r}"
+                                            for r, g in enumerate(ranks))
+        + f" (tolerance {TRAIN_ATTN_TOL}, normwise)")
+    return out
+
+
+def phase_fsdp(step1: dict, seed: int) -> dict:
+    """Phase 18, run last: 18a on 15c's step, then 18b (whose ranks run
+    18k first)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"world1": fsdp_world1(step1, seed)}
+    torch.cuda.empty_cache()
+    out["world2"] = fsdp_world2(seed)
+    out["k3"] = out["world2"].pop("k3")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -4954,6 +5612,9 @@ def main() -> int:
     ap.add_argument("--profile-ticks", type=int, default=8,
                     help="fused Grab4 ticks traced with torch.profiler in "
                          "phase 5 (0 skips it)")
+    ap.add_argument("--fsdp-controls", action="store_true",
+                    help="run only the controls of phase 18b's rules (fsdp_controls) and "
+                         "print them as JSON; no smoke result")
     args = ap.parse_args()
 
     import torch
@@ -4978,6 +5639,12 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
+    if args.fsdp_controls:
+        with torch.enable_grad():
+            controls = fsdp_controls(LM_SEED)
+        print(smi)
+        print(json.dumps(controls))
+        return 0
     log(f"phase 1: built {sorted(libs)} in {build_s!r} s; per source (nvcc in parallel): "
         + ", ".join(f"{k} {v!r} s" for k, v in sorted(_build.BUILD_SECONDS.items())))
     for stem, text in sorted(_build.BUILD_LOG.items()):
@@ -5091,6 +5758,18 @@ def main() -> int:
         f"row scale, K3 with q_offset equal to its whole-sequence rows; "
         f"{tp['seconds']!r} s")
 
+    # phase 18 runs last, after 17: its ranks and sharded steps precede no
+    # other phase's timing
+    with torch.enable_grad():
+        fsdp = phase_fsdp(train["qwen3_14b"].pop("step1"), LM_SEED)
+    w2 = fsdp["world2"]
+    log(f"phase 18: qwen3-14b trained with FSDP on a DeviceMesh on {smi}: world 1 (nccl) "
+        f"15c's step 1 bit for bit at {fsdp['world1']['n_layers']} layers, world 2 (gloo, one "
+        f"card, data 2) at {w2['n_layers']} layers within {w2['metrics_rel_err']!r} of the "
+        f"unsharded steps, state {w2['ranks'][0]['state_gb']!r} GB a rank against "
+        f"{w2['plain']['state_gb']!r} GB, collectives equal to the dry run's; K3's Function "
+        f"under local_map with heads sharded within its tolerance; {fsdp['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -5098,7 +5777,9 @@ def main() -> int:
                 "qwen3-14b-sharded-world1": tp["world1"]["k3_launches"],
                 "qwen3-14b-sharded-world2": sum(r["k3_launches"] for r in tp["world2"]["ranks"]),
                 **{a: moe[a]["k3_launches"] for a in MOE_LAYERS},
-                "qwen3-14b-train": train["qwen3_14b"]["k3_launches"]}
+                "qwen3-14b-train": train["qwen3_14b"]["k3_launches"],
+                "qwen3-14b-fsdp-world1": fsdp["world1"]["k3_launches"],
+                "qwen3-14b-fsdp-world2": sum(r["k3_launches"] for r in w2["ranks"])}
     simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
                   "smoke-train": train["parity"]["simt_launches"]}
     k4_paths = {"gcn-cora": gcn["launches"], "gcn-cora-train": train["gcn_cora"]["k4_launches"]}
@@ -5138,7 +5819,8 @@ def main() -> int:
          "moe_shapes": {a: {k: moe["attention"][a][k] for k in
                             ("shape", "ms", "library_ms", "bound_ms", "max_abs_err")}
                         for a in MOE_LAYERS},
-         "q_offset_checks": tp["k3_offsets"]},
+         "q_offset_checks": tp["k3_offsets"],
+         "local_map_gradient_checks": fsdp["k3"]},
         {"name": "flash_attention_simt", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
@@ -5160,7 +5842,7 @@ def main() -> int:
              "qwen3_14b": lm, "tensor_parallel": tp, "gather_segsum": k4_cases,
              "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
-             "train": train, "cells": cells},
+             "train": train, "cells": cells, "fsdp": fsdp},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

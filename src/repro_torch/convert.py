@@ -62,7 +62,7 @@ from repro_torch.train.optimizer import TrainState
 
 __all__ = ["GRAPH_FIELDS", "STATE_FIELDS", "state_from_numpy", "state_to_numpy",
            "lm_params_from_numpy", "lm_params_to_numpy", "lm_params_to_reference",
-           "fold_experts", "unfold_experts",
+           "lm_from_reference", "fold_experts", "unfold_experts",
            "gnn_params_from_numpy", "gnn_params_to_numpy", "two_tower_params_from_numpy",
            "two_tower_params_to_numpy", "tensor_from_numpy",
            "train_state_to_reference", "train_state_to_numpy", "train_state_from_numpy"]
@@ -160,7 +160,7 @@ def _lm_to_reference(get, cfg: LMConfig, leaf, stack) -> dict:
     return tree
 
 
-def _lm_from_reference(tree: dict, cfg: LMConfig, put) -> None:
+def lm_from_reference(tree: dict, cfg: LMConfig, put) -> None:
     """``put(port name, reference slice)`` for every port tensor of the
     reference's LM tree; ``put`` converts the slice (``fold`` it after)."""
     for path, names in reference_leaves(cfg):
@@ -184,7 +184,7 @@ def lm_params_from_numpy(params_np: dict, cfg: LMConfig,
         leaf.copy_((fold_experts(expert, w, vs) if expert else w).to(leaf.device))
 
     with torch.no_grad():
-        _lm_from_reference(params_np, cfg, put)
+        lm_from_reference(params_np, cfg, put)
     return model
 
 
@@ -270,16 +270,18 @@ def two_tower_params_to_numpy(params: dict) -> dict:
     return pytree.tree_map(_to_numpy, params)
 
 
-def train_state_to_reference(state: TrainState, device: str | torch.device = "cpu"
-                             ) -> TrainState:
+def train_state_to_reference(state: TrainState, device: str | torch.device = "cpu",
+                             leaf=None, stack=torch.stack) -> TrainState:
     """``state`` in the reference's layout as copies on ``device``
     (``"meta"`` gives the structure alone): an LM's leaves stacked over the
-    layers and unfolded, other trees as they are."""
-    leaf = lambda t: t.detach().to(device, copy=True)
+    layers and unfolded, other trees as they are.  ``leaf`` (default the
+    copy) converts each tensor and ``stack`` a layer leaf's list of them."""
+    if leaf is None:
+        leaf = lambda t: t.detach().to(device, copy=True)
     if isinstance(state.params, TransformerLM):
         conv = lambda k, t: _lm_to_reference(
             t.get_parameter if k == "params" else t.__getitem__, state.params.cfg, leaf,
-            torch.stack)
+            stack)
     else:
         conv = lambda k, t: pytree.tree_map(leaf, t)
     trees = {"params": state.params, "m": state.m, "v": state.v, "err": state.err}
@@ -322,7 +324,7 @@ def train_state_from_numpy(state_np, cfg: LMConfig | GNNConfig | RecsysConfig | 
                 w = tensor_from_numpy(x, torch.float32)
                 out[name] = (fold_experts(expert, w, vs) if expert else w).to(dev)
 
-            _lm_from_reference(tree, cfg, put)
+            lm_from_reference(tree, cfg, put)
             return out
     else:
         conv = lambda tree: pytree.tree_map(lambda x: _np_tensor(x, dev), tree)

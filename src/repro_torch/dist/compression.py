@@ -22,8 +22,10 @@ tensors of one group one scale, the largest ``|x|`` over all of them.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import pytree
+from repro_torch.dist.sharding import local, mesh_group, split_dims
 
 __all__ = ["quantize_int8", "dequantize_int8", "compress_grads", "ef_compress_tree"]
 
@@ -57,6 +59,37 @@ def compress_grads(g: torch.Tensor, err: torch.Tensor) -> tuple[torch.Tensor, to
     return _compress(g, err)
 
 
+def _peaks_over_ranks(peak: dict, leaves: list) -> dict:
+    """Each group's ``max|x|`` over its shards on every rank: one
+    all-reduce (max) of the groups' local peaks over the mesh dims that
+    shard some leaf (a max is exact in any order,
+    and a copy counted twice changes nothing).  No such dim: ``peak``."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = next((x.device_mesh for x in leaves if isinstance(x, DTensor)), None)
+    dims = sorted({i for x in leaves for i in split_dims(x)})
+    if not dims:
+        return peak
+    keys = list(peak)
+    local = torch.stack([peak[k] for k in keys])
+    whole = funcol.wait_tensor(funcol.all_reduce(local, "max", mesh_group(mesh, dims)))
+    return dict(zip(keys, whole.unbind()))
+
+
+def _sharded(fn, g: torch.Tensor, e: torch.Tensor, scale: torch.Tensor):
+    """``fn(g, e, scale)`` on this rank's shards of DTensor ``g`` and
+    ``e`` (placed alike), its outputs in their placements; plain tensors
+    as they are."""
+    if not isinstance(g, DTensor):
+        return fn(g, e, scale)
+    if not isinstance(e, DTensor) or tuple(e.placements) != tuple(g.placements):
+        raise ValueError(f"ef_compress_tree: a residual is not placed as its gradient "
+                         f"({g.placements})")
+    wrap = lambda t: DTensor.from_local(t, g.device_mesh, g.placements, run_check=False,
+                                        shape=g.shape, stride=g.stride())
+    return tuple(wrap(t) for t in fn(g.to_local(), e.to_local(), scale))
+
+
 def ef_compress_tree(grads, err=None, groups: dict | None = None):
     """EF compression over a gradient tree: ``(deq_tree, err_tree)``.
 
@@ -64,19 +97,24 @@ def ef_compress_tree(grads, err=None, groups: dict | None = None):
     ``groups`` maps a leaf's :func:`~repro_torch.pytree.keystr` path to the
     reference leaf it belongs to; leaves of one group share one scale.
     Leaves it does not name (or all, when None) are groups of their own.
+    DTensor leaves (a sharded step's gradients, placed as their
+    parameters): ``err`` placed alike, each rank compressing its shards
+    with its group's scale, the peak all-reduced (max) over the shards.
     """
     items = pytree.leaves_with_path(grads)
     if err is None:
-        errs = [torch.zeros(g.shape, dtype=torch.float32, device=g.device) for _, g in items]
+        errs = [torch.zeros_like(g, dtype=torch.float32, memory_format=torch.contiguous_format)
+                for _, g in items]
     else:
         errs = pytree.leaves(pytree.tree_map(lambda _, e: e, grads, err))
     keys = [pytree.keystr(p) for p, _ in items]
     group = [(groups or {}).get(k, k) for k in keys]
     peak: dict = {}
     for gk, (_, g), e in zip(group, items, errs):
-        m = (g.float() + e.float()).abs().max()
+        m = (local(g).float() + local(e).float()).abs().max()
         peak[gk] = m if gk not in peak else torch.maximum(peak[gk], m)
-    out = {k: _compress(g, e, peak[gk] / 127.0)
+    peak = _peaks_over_ranks(peak, [g for _, g in items])
+    out = {k: _sharded(_compress, g, e, peak[gk] / 127.0)
            for k, gk, (_, g), e in zip(keys, group, items, errs)}
     it_deq = iter(out[k][0] for k in keys)
     it_err = iter(out[k][1] for k in keys)

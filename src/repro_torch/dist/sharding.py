@@ -57,9 +57,15 @@ __all__ = [
     "shard_span",
     "replicate_as",
     "redistribute",
+    "unshard",
     "all_reduce",
     "settle",
     "zeros",
+    "local",
+    "split_dims",
+    "local_slices",
+    "mesh_group",
+    "barrier",
     "COLLECTIVES",
     "LocalCost",
 ]
@@ -132,7 +138,9 @@ class AxisEnv:
         """One placement a mesh dim for a tensor whose dims are named
         ``logical`` (``()`` for a scalar: replicated).  With ``shape``, a
         dim that does not divide by its shard count is replicated
-        (:func:`constrain`'s rule)."""
+        (:func:`constrain`'s rule).  A mesh dim of one rank is
+        ``Replicate()`` whatever it carries: its one shard is the whole
+        tensor, and a DTensor reshapes a replicated dim freely."""
         if self.mesh is None:
             raise ValueError("AxisEnv has no mesh; cannot place a tensor")
         names = list(self.mesh_shape)
@@ -146,6 +154,8 @@ class AxisEnv:
                 raise ValueError(f"logical axis {name!r} resolves to {axes}, not in the "
                                  f"mesh's order {tuple(names)}")
             for i in order:
+                if self.mesh.size(i) == 1:
+                    continue  # one rank holds it all: whole, as DTensor keeps it
                 if isinstance(out[i], Shard):
                     raise ValueError(f"mesh dim {names[i]!r} carries two tensor dims "
                                      f"({out[i].dim} and {d}) of {logical}")
@@ -209,38 +219,64 @@ def _gloo_on_cuda(x: DTensor, mesh_dim: int) -> bool:
             and dist.get_backend(x.device_mesh.get_group(mesh_dim)) == "gloo")
 
 
+class _GatherByAllToAll(torch.autograd.Function):
+    """The all-to-all gather of :func:`_gather_by_all_to_all` with a
+    gradient: the gathered tensor's gradient (a partial sum over the mesh
+    dim, or whole on every rank) put back into ``x``'s placements by
+    :func:`redistribute`, a reduce-scatter of the same bytes or a local
+    slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh_dim):
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor.experimental import local_map
+
+        ctx.placements = tuple(x.placements)
+        mesh = x.device_mesh
+        d = x.placements[mesh_dim].dim
+        k = mesh.size(mesh_dim)
+        if x.shape[d] % k:
+            raise ValueError(f"gather: dim {d} of {tuple(x.shape)} does not divide by {k}")
+        out_pl = list(x.placements)
+        out_pl[mesh_dim] = Replicate()
+
+        def local(xl):
+            src = torch.cat([xl.movedim(d, 0)] * k).contiguous()
+            got = funcol.all_to_all_single(src, None, None, (mesh, mesh_dim))
+            # contiguous, as DTensor's all-gather leaves it (K3 reads a unit last stride)
+            return funcol.wait_tensor(got).movedim(0, d).contiguous()
+
+        return local_map(local, out_placements=out_pl, in_placements=(x.placements,),
+                         device_mesh=mesh)(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return redistribute(grad, ctx.placements), None
+
+
 def _gather_by_all_to_all(x: DTensor, mesh_dim: int) -> DTensor:
     """``x`` made whole along the tensor dim that mesh dim ``mesh_dim``
     shards, by one ``all_to_all_single`` whose every chunk is this rank's
     shard: each rank sends its shard to every rank, as an all-gather does,
-    and the same bytes arrive."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = x.device_mesh
-    d = x.placements[mesh_dim].dim
-    k = mesh.size(mesh_dim)
-    if x.shape[d] % k:
-        raise ValueError(f"gather: dim {d} of {tuple(x.shape)} does not divide by {k}")
-    out_pl = list(x.placements)
-    out_pl[mesh_dim] = Replicate()
-
-    def local(xl):
-        src = torch.cat([xl.movedim(d, 0)] * k).contiguous()
-        got = funcol.all_to_all_single(src, None, None, (mesh, mesh_dim))
-        return funcol.wait_tensor(got).movedim(0, d)
-
-    return local_map(local, out_placements=out_pl, in_placements=(x.placements,),
-                     device_mesh=mesh)(x)
+    and the same bytes arrive.  Differentiable: the backward is the
+    reduce-scatter (or, from a whole gradient, the local slice) that
+    DTensor's all-gather has."""
+    return _GatherByAllToAll.apply(x, mesh_dim)
 
 
 def all_reduce(t: torch.Tensor, op: str, groups: Sequence[tuple[DeviceMesh, int]]
                ) -> torch.Tensor:
     """A plain (rank-local) tensor all-reduced with ``op`` ("sum", "max")
     over each ``(mesh, mesh dim)`` group in turn, for the explicit
-    collectives inside a ``local_map``; no group: ``t`` itself."""
+    collectives inside a ``local_map``; no group: ``t`` itself.  It has no
+    backward: a tensor that autograd would differentiate through it
+    raises (detach it, or reduce inside an ``autograd.Function``'s forward
+    that states its own backward)."""
     import torch.distributed._functional_collectives as funcol
 
+    if groups and t.requires_grad and torch.is_grad_enabled():
+        raise ValueError("sharding.all_reduce has no backward: detach its input or call it "
+                         "from an autograd.Function's forward")
     for g in groups:
         t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
     return t
@@ -252,7 +288,10 @@ def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
     exception to DTensor's own collectives: gloo has no all-gather on CUDA
     tensors (torch 2.11 faults in it), so on a gloo group of CUDA ranks a
     mesh dim that goes from a shard to whole is gathered by an
-    all-to-all that moves the same bytes (and is counted as one)."""
+    all-to-all that moves the same bytes (and is counted as one).  A
+    DTensor's redistribute is differentiable: its backward moves the
+    gradient back into ``x``'s placements (an all-gather's is a
+    reduce-scatter; an all-reduce's keeps the whole gradient)."""
     placements = tuple(placements)
     for i in reversed(range(len(placements))):
         a, b = x.placements[i], placements[i]
@@ -261,6 +300,22 @@ def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
+
+
+def unshard(x: torch.Tensor, logical: str) -> torch.Tensor:
+    """``x`` made whole along the mesh dims that ``logical`` resolves to
+    on the active env (FSDP's gather of a weight over ``"fsdp"``), its
+    other placements kept: one named :func:`redistribute` (an all-gather,
+    whose backward reduce-scatters the gradient into ``x``'s placements).
+    A plain tensor, a DTensor no such dim shards, or no env: ``x``."""
+    env = axis_env()
+    if not isinstance(x, DTensor) or env is None or env.mesh is None:
+        return x
+    names = list(env.mesh_shape)
+    axes = {names.index(a) for a in env._axes(logical)}
+    pl = [Replicate() if i in axes and isinstance(p, Shard) else p
+          for i, p in enumerate(x.placements)]
+    return redistribute(x, pl)
 
 
 def _env() -> AxisEnv:
@@ -367,6 +422,51 @@ def zeros(shape: Sequence[int], *logical: str | None, dtype: torch.dtype,
     local = [_span(n, d, pl, env.mesh)[1] for d, n in enumerate(shape)]
     return place(torch.zeros(local, dtype=dtype, device=device), *logical, local=True,
                  shape=shape)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (the same storage), or ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def split_dims(t: torch.Tensor) -> tuple[int, ...]:
+    """The mesh dims that shard a DTensor (none for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard))
+
+
+def local_slices(shape: Sequence[int], *logical: str | None) -> tuple[slice, ...]:
+    """This rank's part of a tensor of global ``shape`` placed by
+    ``logical`` on the active env's mesh (:func:`constrain`'s rule), one
+    slice a dim: what :func:`place` keeps of the whole tensor, for a
+    reader that loads only that part."""
+    env = _env()
+    shape = tuple(int(n) for n in shape)
+    pl = env.placements(*logical, shape=shape)
+    return tuple(slice(a, a + n) for a, n in (_span(s, d, pl, env.mesh)
+                                               for d, s in enumerate(shape)))
+
+
+def mesh_group(mesh: DeviceMesh, dims: Sequence[int]):
+    """The ranks of ``mesh`` along ``dims`` as one group for a functional
+    collective: ``(mesh, dim)`` for one dim, the dims' flattened mesh
+    (which ``DeviceMesh`` caches by name) for several."""
+    dims = sorted(dims)
+    if len(dims) == 1:
+        return (mesh, dims[0])
+    return mesh[tuple(mesh.mesh_dim_names[i] for i in dims)]._flatten()
+
+
+def barrier(mesh: DeviceMesh) -> None:
+    """Wait until every rank of ``mesh`` arrives: one all-reduce of a
+    one-element tensor over them all."""
+    import torch.distributed._functional_collectives as funcol
+
+    dev = "cpu" if mesh.device_type == "cpu" else torch.device(
+        mesh.device_type, torch.cuda.current_device())
+    funcol.wait_tensor(funcol.all_reduce(torch.zeros(1, device=dev), "sum",
+                                         mesh_group(mesh, range(mesh.ndim))))
 
 
 def _is_logical_leaf(node: Any) -> bool:

@@ -34,9 +34,15 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import pytree
-from repro_torch.convert import tensor_from_numpy, train_state_from_numpy, train_state_to_reference
+from repro_torch.convert import (lm_from_reference, tensor_from_numpy, train_state_from_numpy,
+                                 train_state_to_reference)
+from repro_torch.dist.sharding import (AxisEnv, barrier, local_slices, place, redistribute,
+                                      use_axis_env)
+from repro_torch.models.transformer import TransformerLM, port_logical
 from repro_torch.train.optimizer import TrainState
 
 __all__ = ["CheckpointManager", "save_pytree", "load_pytree", "latest_step"]
@@ -46,53 +52,118 @@ def _lm_state(tree) -> bool:
     return isinstance(tree, TrainState) and isinstance(tree.params, nn.Module)
 
 
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    """An empty meta tensor of ``t``'s (global) shape and dtype."""
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
 def _reference(tree, device: str = "cpu"):
-    """``tree`` in the layout written to disk: copies on ``device``."""
+    """``tree`` in the layout written to disk: copies on ``device``
+    (``"meta"``: the global shapes alone, of plain or DTensor leaves)."""
     if _lm_state(tree):
+        if torch.device(device).type == "meta":
+            return train_state_to_reference(tree, leaf=_meta)
         return train_state_to_reference(tree, device)
     return pytree.tree_map(
         lambda x: x.detach().to(device, copy=True) if isinstance(x, torch.Tensor)
         else np.array(x), tree)
 
 
-def _host(x) -> tuple[np.ndarray, str]:
-    """A leaf as the array written to disk, and its manifest dtype."""
+def _spec(x) -> tuple[str, list[int]]:
+    """A leaf's manifest dtype and its global shape, from its metadata."""
+    if isinstance(x, _Stacked):
+        dt, shape = _spec(x.xs[0])
+        return dt, [len(x.xs), *shape]
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch."), list(x.shape)
+    arr = np.asarray(x)
+    return str(arr.dtype), list(arr.shape)
+
+
+def _host(x) -> np.ndarray:
+    """A leaf as the array written to disk (bf16 as two-byte void data)."""
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view("V2"), "bfloat16"
-        return t.numpy(), str(t.dtype).removeprefix("torch.")
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":
-        return arr.view(np.uint16).view("V2"), "bfloat16"
-    return arr, str(arr.dtype)
+        return arr.view(np.uint16).view("V2")
+    return arr
+
+
+class _Stacked:
+    """A reference leaf that stacks the port's per-layer tensors ``xs``,
+    not built until it is written."""
+
+    def __init__(self, xs: list):
+        self.xs = xs
+
+
+def _mesh_of(tree) -> DeviceMesh | None:
+    """The mesh of a state's DTensor leaves, or None for a plain state."""
+    leaves = pytree.leaves(tree)
+    return next((x.device_mesh for x in leaves if isinstance(x, DTensor)), None)
+
+
+def _whole(x, host: bool):
+    """A leaf whole, on the host when ``host`` (else None, after taking
+    part): a DTensor gathered (a named redistribute, collective: every
+    rank of its mesh calls it), a stacked layer leaf built one layer at a
+    time."""
+    if isinstance(x, _Stacked):
+        xs = [_whole(t, host) for t in x.xs]
+        return torch.stack(xs) if host else None
+    if isinstance(x, DTensor):
+        x = redistribute(x.detach(), [Replicate()] * x.device_mesh.ndim).to_local()
+    if not host:
+        return None
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
 
 def save_pytree(tree: Any, directory: str, step: int) -> str:
-    """Synchronous atomic save. Returns the committed directory."""
-    os.makedirs(directory, exist_ok=True)
+    """Synchronous atomic save, one leaf at a time. Returns the committed
+    directory.
+
+    A sharded state (an LM state whose leaves are DTensors) is written in
+    the same format: every rank of its mesh takes part in gathering each
+    leaf, the mesh's first rank writes it and commits, and the ranks
+    leave together."""
+    mesh = _mesh_of(tree.params if _lm_state(tree) else tree)
+    writer = mesh is None or not any(mesh.get_coordinate())
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    items = pytree.leaves_with_path(_reference(tree) if _lm_state(tree) else tree)
-    host = [_host(x) for _, x in items]
-    manifest = {
-        "step": step,
-        "n_leaves": len(items),
-        "paths": [pytree.keystr(p) for p, _ in items],
-        "dtypes": [dt for _, dt in host],
-        "shapes": [list(a.shape) for a, _ in host],
-        "time": time.time(),
-    }
-    for i, (arr, _) in enumerate(host):
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic commit
+    if writer:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    ref = train_state_to_reference(tree, leaf=lambda t: t, stack=_Stacked) \
+        if _lm_state(tree) else tree
+    items = pytree.leaves_with_path(ref)
+    for i, (_, x) in enumerate(items):
+        whole = _whole(x, writer)
+        if writer:
+            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), _host(whole))
+        del whole
+    if writer:
+        specs = [_spec(x) for _, x in items]
+        manifest = {
+            "step": step,
+            "n_leaves": len(items),
+            "paths": [pytree.keystr(p) for p, _ in items],
+            "dtypes": [dt for dt, _ in specs],
+            "shapes": [shape for _, shape in specs],
+            "time": time.time(),
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+    if mesh is not None:
+        barrier(mesh)
     return final
 
 
@@ -109,33 +180,52 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def load_pytree(like: Any, directory: str, step: int | None = None,
-                device: str | torch.device | None = None) -> Any:
-    """Restore checkpoint ``step`` (the latest when None) into the
-    structure of ``like``, as new tensors on ``device`` or, when None, on
-    each leaf's device in ``like`` (an LM module's device for its state).
-    Raises unless the checkpoint's paths and shapes are ``like``'s."""
-    step = latest_step(directory) if step is None else step
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint in {directory}")
-    d = os.path.join(directory, f"step_{step:08d}")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
-    ref = _reference(like, "meta") if _lm_state(like) else like
+def _read(d: str, manifest: dict, ref, mmap: bool = False) -> list[np.ndarray]:
+    """The checkpoint's arrays in ``ref``'s leaf order (memory-mapped with
+    ``mmap``), bf16 leaves as their ``uint16`` bits; raises unless its
+    paths and shapes are ``ref``'s."""
     items = pytree.leaves_with_path(ref)
     if [pytree.keystr(p) for p, _ in items] != manifest["paths"]:
         raise ValueError(f"load_pytree: {d} holds another tree structure "
                          f"({manifest['n_leaves']} leaves, {len(items)} expected)")
     arrays = []
     for i, ((path, x), dt) in enumerate(zip(items, manifest["dtypes"])):
-        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
+        arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"), mmap_mode="r" if mmap else None)
         if dt == "bfloat16":  # two-byte void data: the bf16 bits
             arr = arr.view(np.uint16)
         if tuple(arr.shape) != tuple(np.shape(x)):
             raise ValueError(f"load_pytree: {pytree.keystr(path)} has shape {arr.shape}, "
                              f"expected {tuple(np.shape(x))}")
         arrays.append(arr)
-    it = iter(arrays)
+    return arrays
+
+
+def load_pytree(like: Any, directory: str, step: int | None = None,
+                device: str | torch.device | None = None, env: AxisEnv | None = None,
+                logical: Any = None) -> Any:
+    """Restore checkpoint ``step`` (the latest when None) into the
+    structure of ``like``, as new tensors on ``device`` or, when None, on
+    each leaf's device in ``like`` (an LM module's device for its state).
+    Raises unless the checkpoint's paths and shapes are ``like``'s.
+
+    With ``env`` and ``logical`` (the reference's ``shardings=``: the
+    elastic restart onto another mesh, such as ``ft.replan``'s
+    ``MeshPlan.device_mesh()``), an LM ``TrainState`` is restored as
+    DTensors on ``env``'s mesh, placed by ``logical``, the logical tree of
+    the reference's layout (a train cell's ``in_logical[0]``): each rank
+    reads only its shard of each leaf (a memory-mapped ``.npy``), on
+    ``device`` (default: the mesh's device type).  ``like`` gives only the
+    structure (a state on ``meta`` will do); ``step`` comes back plain."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    if env is not None:
+        return _load_sharded(like, d, manifest, device, env, logical)
+    ref = _reference(like, "meta") if _lm_state(like) else like
+    it = iter(_read(d, manifest, ref))
     if _lm_state(like):
         loaded = pytree.tree_map(lambda _: next(it), ref)
         dev = device if device is not None else like.params.device
@@ -148,6 +238,50 @@ def load_pytree(like: Any, directory: str, step: int | None = None,
         return tensor_from_numpy(arr, x.dtype).to(x.device if device is None else device)
 
     return pytree.tree_map(put, like)
+
+
+def _load_sharded(like, d: str, manifest: dict, device, env: AxisEnv, logical):
+    """:func:`load_pytree`'s restore onto ``env``'s mesh."""
+    if not _lm_state(like):
+        raise NotImplementedError("load_pytree(env=...): a sharded restore takes an LM "
+                                  "TrainState (the dense train cells' state)")
+    if logical is None:
+        raise ValueError("load_pytree(env=...) needs the state's logical tree (logical=)")
+    cfg = like.params.cfg
+    meta = _reference(like, "meta")
+    it = iter(_read(d, manifest, meta, mmap=True))
+    loaded = pytree.tree_map(lambda _: next(it), meta)
+    dev = torch.device(device if device is not None else env.mesh.device_type)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    with use_axis_env(env):
+        def part(tree, names: dict, dtype_of) -> dict:
+            out = {}
+
+            def put(name, x, expert):
+                if expert:
+                    raise NotImplementedError("load_pytree(env=...): MoE states are ROADMAP D.2")
+                sl = local_slices(x.shape, *names[name])
+                t = tensor_from_numpy(np.ascontiguousarray(x[sl]), dtype_of(name)).to(dev)
+                out[name] = place(t, *names[name], local=True, shape=x.shape)
+
+            lm_from_reference(tree, cfg, put)
+            return out
+
+        model = TransformerLM(cfg, device="meta", init=False)
+        dtypes = {n: p.dtype for n, p in model.named_parameters()}
+        params = part(loaded.params, port_logical(cfg, logical.params), dtypes.__getitem__)
+        for name, t in params.items():
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner) if owner else model, leaf,
+                    nn.Parameter(t, requires_grad=True))
+        f32 = lambda _: torch.float32
+        trees = {k: None if getattr(loaded, k) is None else
+                 part(getattr(loaded, k), port_logical(cfg, getattr(logical, k) or logical.m),
+                      f32) for k in ("m", "v", "err")}
+    step = torch.from_numpy(np.array(loaded.step, np.int32)).to(dev)
+    return TrainState(params=model, step=step, **trees)
 
 
 class CheckpointManager:
@@ -171,6 +305,9 @@ class CheckpointManager:
     def maybe_save(self, tree: Any, step: int, force: bool = False) -> bool:
         if not force and (step % self.every_steps != 0):
             return False
+        if _mesh_of(tree.params if _lm_state(tree) else tree) is not None:
+            raise NotImplementedError("CheckpointManager: a sharded state is saved by "
+                                      "save_pytree, which every rank calls")
         self._q.put((_reference(tree), step))
         return True
 

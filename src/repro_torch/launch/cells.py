@@ -16,9 +16,9 @@ logical axes (``in_logical``) are the reference's, over the reference's
 layout of the arguments (an LM's layers stacked and its experts
 unfolded): :func:`reference_args` gives that layout, which the sharding
 layer places (:mod:`repro_torch.dist.sharding`).  :func:`shard_cell` puts
-a dense LM serving cell's own arguments on a mesh as DTensors by the same
-names, the port's per-layer parameters taking their stacked leaf's names
-less the layer dim.  ``model_flops`` are the
+a dense LM cell's own arguments (a serving cell's, or a train cell's state
+in the FSDP layout) on a mesh as DTensors by the same names, the port's
+per-layer parameters taking their stacked leaf's names less the layer dim.  ``model_flops`` are the
 reference's formulas.  The reference donates a train step's state; the
 port's train step updates it in place, to the same effect.
 """
@@ -46,7 +46,7 @@ from repro_torch.dist.sharding import MODEL_AXIS, AxisEnv, place, shard_tree, us
 from repro_torch.graphstore.structs import DeviceGraph, device_graph_from_coo
 from repro_torch.models.gnn import GNN, GraphBatch, gnn_loss, make_triplets
 from repro_torch.models.transformer import (KVCache, TransformerLM, cache_window,
-                                            decode_step, lm_loss, prefill, reference_leaves)
+                                            decode_step, lm_loss, port_logical, prefill)
 from repro_torch.models.two_tower import (RecsysBatch, init_two_tower_params,
                                           retrieval_scores, score_pairs, two_tower_loss)
 from repro_torch.train.optimizer import AdamConfig, TrainState, init_train_state
@@ -118,14 +118,12 @@ def reference_args(cell: Cell) -> tuple:
 
 def sharded_reason(cell: Cell) -> str | None:
     """None when :func:`shard_cell` runs ``cell`` sharded (a dense LM's
-    ``prefill`` or ``decode_step``), else why not: the ROADMAP item of
-    the sharded slice that brings it."""
+    ``prefill``, ``decode_step`` or ``train_step``), else why not: the
+    ROADMAP item of the sharded slice that brings it."""
     if cell.family == "lm":
         model = cell.args[0].params if cell.step_name == "train_step" else cell.args[0]
         if model.cfg.moe is not None:
             return "the MoE LMs on 'expert' are a later sharded slice (ROADMAP D.2)"
-        if cell.step_name == "train_step":
-            return "the dense train step with FSDP is a later sharded slice (ROADMAP D.1)"
         return None
     return {"gnn": "the GNNs on 'vertex'/'edges' are a later sharded slice (ROADMAP D.3)",
             "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)",
@@ -133,21 +131,29 @@ def sharded_reason(cell: Cell) -> str | None:
             }[cell.family]
 
 
-def _shard_lm(model: TransformerLM, logical: dict) -> TransformerLM:
+def _shard_lm(model: TransformerLM, logical: dict, trainable: bool = False) -> TransformerLM:
     """``model`` with each parameter replaced, in place, by its DTensor on
-    the active env's mesh: the reference leaf's logical names, less the
-    leading layer dim of a stacked ``layers`` leaf."""
-    for path, names in reference_leaves(model.cfg):
-        node = logical
-        for key in path:
-            node = node[key]
-        names_of = tuple(node[1:]) if path[0] == "layers" else tuple(node)
-        for name in names:
-            owner, _, leaf = name.rpartition(".")
-            mod = model.get_submodule(owner) if owner else model
-            p = getattr(mod, leaf)
-            setattr(mod, leaf, nn.Parameter(place(p, *names_of), requires_grad=False))
+    the active env's mesh, placed by
+    :func:`~repro_torch.models.transformer.port_logical`; ``trainable``
+    sets ``requires_grad``."""
+    for name, names_of in port_logical(model.cfg, logical).items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        p = getattr(mod, leaf)
+        setattr(mod, leaf, nn.Parameter(place(p, *names_of), requires_grad=trainable))
     return model
+
+
+def _shard_state(state: TrainState, logical: TrainState) -> TrainState:
+    """A dense LM's train state on the active env's mesh: its module
+    sharded in place (trainable), ``m``, ``v`` and ``err`` (dicts keyed by
+    the parameter names) placed as the parameters, ``step`` kept plain
+    (every rank holds it)."""
+    params = _shard_lm(state.params, logical.params, trainable=True)
+    names = port_logical(params.cfg, logical.m)
+    tree = lambda t: None if t is None else {k: place(x, *names[k]) for k, x in t.items()}
+    return TrainState(params=params, m=tree(state.m), v=tree(state.v), step=state.step,
+                      err=tree(state.err))
 
 
 def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
@@ -156,15 +162,22 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     every rank holds the whole argument and keeps its shard, with no
     collective; on ``meta`` for the dry run).  An LM module is sharded in
     place (its parameters become DTensors) and comes back in the cell, so
-    a model is never copied whole.  Run the step under
-    ``use_axis_env(env)``.  Dense LM serving cells only: another cell
-    raises with :func:`sharded_reason`."""
+    a model is never copied whole.  A dense LM train cell's state is
+    sharded as the reference's FSDP layout names it (the module in place
+    and trainable, ``m`` and ``v`` as the parameters, ``step`` plain); its
+    token batch stays whole on every rank, and the step places each
+    microbatch (``make_train_step``'s ``batch_logical``).  Run the step
+    under ``use_axis_env(env)``.  Dense LM cells only: another cell raises
+    with :func:`sharded_reason`."""
     reason = sharded_reason(cell)
     if reason is not None:
         raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")
     with use_axis_env(env):
-        args = tuple(_shard_lm(a, lg) if isinstance(a, TransformerLM) else shard_tree(a, lg)
-                     for a, lg in zip(cell.args, cell.in_logical))
+        if cell.step_name == "train_step":
+            args = (_shard_state(cell.args[0], cell.in_logical[0]),) + cell.args[1:]
+        else:
+            args = tuple(_shard_lm(a, lg) if isinstance(a, TransformerLM)
+                         else shard_tree(a, lg) for a, lg in zip(cell.args, cell.in_logical))
     return dataclasses.replace(cell, args=args)
 
 
@@ -270,12 +283,13 @@ def _lm_train_cell(arch, cfg: LMConfig, spec: ShapeSpec, rng, dev,
     # microbatched gradient accumulation: 8x smaller live activations; the
     # roofline variant takes one microbatch (the same total FLOPs)
     micro = 1 if roofline else (8 if B >= 64 else 1)
-    step = make_train_step(loss, adam, microbatches=micro)
+    batch_logical = {"tokens": ("batch", None), "labels": ("batch", None)}
+    step = make_train_step(loss, adam, microbatches=micro, batch_logical=batch_logical)
     state = init_train_state(_lm(cfg, dev))
     tokens = _tokens(rng, cfg.vocab, (B, S), dev)
     batch = {"tokens": tokens, "labels": tokens}
     pl = lm_param_logical(cfg, fsdp=True)
-    in_logical = (_state_logical(pl), {"tokens": ("batch", None), "labels": ("batch", None)})
+    in_logical = (_state_logical(pl), batch_logical)
     # 6ND (dense) / 6*N_active*D (MoE) + causal attention term
     n_act = cfg.n_active_params
     attn_flops = 2 * 3 * cfg.n_layers * B * S * S // 2 * cfg.n_heads * cfg.d_head

@@ -117,13 +117,16 @@ def cell_flops(arch: str, shape: str, roofline: bool = False) -> tuple[float, st
 
 
 def sharded_cost(make_cell, env: AxisEnv, n_layers: int) -> dict:
-    """One step of a dense LM serving cell run sharded on ``env``'s mesh:
+    """One step of a dense LM cell run sharded on ``env``'s mesh (a train
+    step with its gradient: the forward, the rematerialised layers and the
+    backward, the gathers' reduce-scatters and AdamW's norm):
     this rank's FLOPs and collective bytes and calls by kind, traced on
     ``make_cell(1)`` and ``make_cell(2)`` (the cell at 1 and 2 layers,
     normally on meta) and extrapolated to ``n_layers``."""
     def trace(n: int) -> LocalCost:
         cell = shard_cell(make_cell(n), env)
-        with torch.no_grad(), use_axis_env(env), LocalCost() as cost:
+        grad = torch.enable_grad() if cell.step_name == "train_step" else torch.no_grad()
+        with grad, use_axis_env(env), LocalCost() as cost:
             cell.fn(*cell.args)
         return cost
 

@@ -27,7 +27,7 @@ float32.  A layout these do not take raises.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.dist.sharding import all_reduce, redistribute, shard_span
@@ -81,7 +81,11 @@ def _sharded_flash_attention(q, k, v, causal, window, q_block, kv_block):
     as ``q_offset``) and, in the ``[B, S, Hq, D]`` layout, its heads (dim
     2: each rank takes the kv heads its q heads read).  k and v keep q's
     batch sharding and are gathered along everything else by one named
-    redistribute each (an all-gather where they were sharded)."""
+    redistribute each (an all-gather where they were sharded).  With a
+    gradient (K3's Function, its plain backward), dq keeps q's placements
+    and dk, dv are partial sums over the mesh dims that split q's heads or
+    sequence (each rank's share, zero on the kv heads it does not read),
+    which the backward of their gather reduce-scatters."""
     mesh = q.device_mesh
     for p in q.placements:
         if not (isinstance(p, Replicate) or (isinstance(p, Shard) and (
@@ -97,13 +101,20 @@ def _sharded_flash_attention(q, k, v, causal, window, q_block, kv_block):
     h0, n = shard_span(q, 2) if q.dim() == 4 else (0, 0)
     G = q.shape[2] // k.shape[2] if q.dim() == 4 else 0
 
+    # a rank that holds some of q's heads or rows reads k and v whole, and
+    # its dk and dv are its share of their sums: partial over those dims
+    kv_grad = [Partial() if isinstance(p, Shard) and p.dim in (1, 2) else k_p
+               for p, k_p in zip(q.placements, kv_pl)]
+
     def local(ql, kl, vl):
         if G:
             kl, vl = _local_kv_heads(kl, vl, h0, n, G)
         return _attention(ql, kl, vl, causal, window, q_block, kv_block, q_offset)
 
     return local_map(local, out_placements=list(q.placements),
-                     in_placements=(q.placements, kv_pl, kv_pl), device_mesh=mesh)(q, k, v)
+                     in_placements=(q.placements, kv_pl, kv_pl),
+                     in_grad_placements=(q.placements, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None, rolling=False):

@@ -41,12 +41,13 @@ one all-reduce of the max and one of the sums.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -60,7 +61,8 @@ from repro_torch.models.layers import apply_rope, normal_init, rms_norm, rope_an
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["KVCache", "cache_window", "DecoderLayer", "TransformerLM", "forward",
-           "lm_loss", "prefill", "decode_step", "reference_leaves", "reference_groups"]
+           "lm_loss", "prefill", "decode_step", "reference_leaves", "port_logical",
+           "reference_groups"]
 
 
 class KVCache(NamedTuple):
@@ -177,6 +179,20 @@ def reference_leaves(cfg: LMConfig) -> list[tuple[tuple[str, ...], list[str]]]:
     return out + [(("layers", ffn, n), per_layer(n)) for n in names]
 
 
+def port_logical(cfg: LMConfig, logical: dict) -> dict:
+    """``{port parameter name: logical names}`` from the reference's LM
+    logical tree (``launch.cells.lm_param_logical``): a ``layers`` leaf's names less
+    its leading layer dim for each layer's tensor."""
+    out = {}
+    for path, names in reference_leaves(cfg):
+        node = logical
+        for key in path:
+            node = node[key]
+        for name in names:
+            out[name] = tuple(node[1:]) if path[0] == "layers" else tuple(node)
+    return out
+
+
 def reference_groups(params) -> dict | None:
     """For an LM module: ``{port leaf: reference leaf}``, each a
     :func:`~repro_torch.pytree.keystr` (``['layers.3.wq']`` ->
@@ -267,6 +283,58 @@ def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor
     return x + y.reshape(h.shape), aux
 
 
+def _embed(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, embed)``.  On a DTensor table each rank looks
+    up its rows: with the vocabulary (dim 0) split over ranks, a token
+    another rank owns reads 0 and the output is a partial sum over those
+    ranks (one of them non-zero: exact), which the caller's ``constrain``
+    all-reduces; the table's gradient is each rank's rows, partial over
+    the mesh dims that split the tokens (the batch), with no collective
+    and no whole-table temporary."""
+    if not isinstance(embed, DTensor):
+        return F.embedding(tokens, embed)
+    mesh = embed.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 and mesh.size(i) > 1
+             for i, p in enumerate(embed.placements)]
+    v0, n = shard_span(embed, 0)
+    tok_pl = list(tokens.placements)
+    out_pl, grad_pl = [], []
+    for i, (w, t) in enumerate(zip(embed.placements, tok_pl)):
+        if isinstance(w, Shard) and isinstance(t, Shard):
+            raise ValueError(f"embedding: table {embed.placements} and tokens {tok_pl} are "
+                             f"both split on mesh dim {i}")
+        if isinstance(w, Shard):
+            out_pl.append(Shard(tokens.dim()) if w.dim == 1 else Partial() if vocab[i]
+                          else Replicate())
+        else:
+            out_pl.append(t)
+        grad_pl.append(w if isinstance(w, Shard) else Partial() if isinstance(t, Shard)
+                       else Replicate())
+
+    def local(w, tok):
+        if not any(vocab):
+            return F.embedding(tok, w)
+        own = (tok >= v0) & (tok < v0 + n)
+        rows = F.embedding((tok - v0).clamp(0, max(n - 1, 0)), w)
+        return torch.where(own[..., None], rows, 0.0)
+
+    return local_map(local, out_placements=out_pl, in_placements=(embed.placements, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh)(embed, tokens)
+
+
+def _fsdp_layer(lp: DecoderLayer):
+    """The layer's weights for one use: under an env, each DTensor weight
+    gathered along the ``fsdp`` mesh dims (its ``model`` shards kept), one
+    named redistribute each, whose backward reduce-scatters its gradient;
+    ``lp`` itself otherwise.  Called inside the rematerialised layer, the
+    gathered copies live as long as the layer and are gathered again by
+    the recomputation in the backward, as FSDP does."""
+    env = axis_env()
+    if env is None or not isinstance(lp.wq, DTensor):
+        return lp
+    return SimpleNamespace(**{n: sharding.unshard(p, "fsdp") for n, p in lp.named_parameters()})
+
+
 def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] f32, aux): the causal scoring
@@ -282,11 +350,13 @@ def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
     S = tokens.shape[1]
     dev = model.device
     tokens = _on(tokens, dev)
-    x = constrain(F.embedding(tokens, model.embed), "batch", None, None)
+    embed = sharding.unshard(model.embed, "fsdp")
+    x = constrain(_embed(tokens, embed), "batch", None, None)
     cos, sin = rope_angles(torch.arange(S, device=dev), cfg.d_head, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def layer(x, lp):
+        lp = _fsdp_layer(lp)
         x, _, _ = _attend(x, lp, cfg, cos, sin)
         x = constrain(x, "batch", None, None)
         x, a = _ffn(x, lp, cfg)
@@ -301,17 +371,46 @@ def forward(model: TransformerLM, tokens: torch.Tensor, remat: bool = True
             x, a = layer(x, lp)
         aux = aux + a
     x = rms_norm(x, model.final_norm)
-    logits = constrain((x @ model.head).float(), "batch", None, "model")
+    logits = constrain((x @ sharding.unshard(model.head, "fsdp")).float(), "batch", None,
+                       "model")
     return logits, aux / cfg.n_layers
+
+
+class _VocabShardNll(torch.autograd.Function):
+    """One rank's ``logsumexp(logits) - logits[label]`` over its vocabulary
+    shard ``[v0, v0 + n)`` of the logits ``lg`` [B, S, n] (float32), the
+    vocabulary split over the ``groups``: one all-reduce of the max, then
+    one of the sum of ``exp(logit - max)`` beside the label's logit (which
+    one shard holds, the others adding 0); ``torch.logsumexp``'s formula,
+    its sum split by rank.  Backward, with no collective: each rank's
+    shard of ``softmax - onehot(label)``, times the upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, lg, lb, v0: int, n: int, groups):
+        m = sharding.all_reduce(lg.amax(dim=-1), "max", groups)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        s = (lg - m[..., None]).exp().sum(dim=-1)
+        own = (lb >= v0) & (lb < v0 + n)
+        at = (lb - v0).clamp(0, n - 1)[..., None]
+        ll = lg.gather(-1, at)[..., 0]
+        both = sharding.all_reduce(torch.stack([s, torch.where(own, ll, 0.0)]), "sum", groups)
+        lse = both[0].log() + m
+        ctx.save_for_backward(lg, lse, own, at)
+        return lse - both[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, own, at = ctx.saved_tensors
+        d = (lg - lse[..., None]).exp_()
+        d.scatter_add_(-1, at, -own[..., None].to(d.dtype))
+        return d.mul_(g[..., None]), None, None, None, None
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``logsumexp(logits) - logits[label]`` over the last dim, [B, S]
-    float32.  On DTensor logits whose vocabulary is split over ranks, each
-    rank takes its shard: one all-reduce of the max, then one of the sum of
-    ``exp(logit - max)`` beside the label's logit (which one shard holds,
-    the others adding 0); ``torch.logsumexp``'s formula, its sum split by
-    rank."""
+    float32, differentiable.  On DTensor logits whose vocabulary is split
+    over ranks, each rank takes its shard (:class:`_VocabShardNll`); the
+    logits' gradient keeps their placements."""
     if not isinstance(logits, DTensor):
         lse = torch.logsumexp(logits, dim=-1)
         return lse - logits.gather(-1, labels[..., None])[..., 0]
@@ -330,16 +429,11 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     def local(lg, lb):
         if not vocab:
             return _token_nll(lg, lb)
-        m = sharding.all_reduce(lg.amax(dim=-1), "max", vocab)
-        m = m.masked_fill(m.abs() == float("inf"), 0.0)
-        s = (lg - m[..., None]).exp().sum(dim=-1)
-        own = (lb >= v0) & (lb < v0 + n)
-        ll = lg.gather(-1, (lb - v0).clamp(0, n - 1)[..., None])[..., 0]
-        both = sharding.all_reduce(torch.stack([s, torch.where(own, ll, 0.0)]), "sum", vocab)
-        return both[0].log() + m - both[1]
+        return _VocabShardNll.apply(lg, lb, v0, n, vocab)
 
     return local_map(local, out_placements=list(out_pl), in_placements=(logits.placements, out_pl),
-                     device_mesh=mesh)(logits, labels)
+                     in_grad_placements=(logits.placements, out_pl), device_mesh=mesh)(logits,
+                                                                                    labels)
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
@@ -348,8 +442,9 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor,
     ``aux_weight`` times the router's aux loss: ``(loss, {"nll", "aux"})``,
     differentiable when grad mode is on (the loss the train step takes),
     each layer rematerialised as :func:`forward` does by default.  On
-    DTensors (no gradient) the mean is all-reduced over the batch shards:
-    every rank holds the loss."""
+    DTensors the mean is all-reduced over the batch shards (every rank
+    holds the loss), and its gradient is the global mean's: each rank's
+    tokens weigh ``1 / (B S)``."""
     logits, aux = forward(model, tokens)
     labels = _on(labels, logits.device).to(torch.int64)
     nll = sharding.settle(_token_nll(logits, labels).mean())

@@ -28,8 +28,10 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import pytree
+from repro_torch.dist import sharding
 
 __all__ = ["AdamConfig", "TrainState", "init_train_state", "adamw_update", "global_norm",
            "cosine_lr", "CHUNK"]
@@ -59,9 +61,12 @@ class TrainState:
 
 
 def init_train_state(params: Any, with_error_feedback: bool = False) -> TrainState:
-    """Zero float32 moments (and residuals) beside ``params``, step 0."""
+    """Zero float32 moments (and residuals) beside ``params``, step 0: a
+    DTensor parameter's in its placements (each rank allocating its
+    shard).  ``step`` is a plain tensor, which every rank holds."""
     first = pytree.leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p.detach(), dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
     return TrainState(
         params=params,
         m=pytree.tree_map(zeros, params),
@@ -78,10 +83,30 @@ def _chunks(t: torch.Tensor):
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """``sqrt(sum of squares)`` of every leaf, in float32."""
+    """``sqrt(sum of squares)`` of every leaf, in float32.
+
+    On DTensor leaves each rank sums the squares of its shards, then one
+    all-reduce over the mesh dims that shard some leaf adds the ranks'
+    sums; a leaf whole along one of those dims is counted by the ranks at
+    coordinate 0 along it only, so once.  Plain leaves, or no mesh dim
+    splitting any: the unsharded sum, in the same order."""
+    import torch.distributed._functional_collectives as funcol
+
+    xs = pytree.leaves(tree)
+    dims = sorted({i for x in xs for i in sharding.split_dims(x)})
+    mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)), None)
+    coord = mesh.get_coordinate() if dims else None
     total = 0
-    for x in pytree.leaves(tree):
-        total = total + sum(torch.sum(torch.square(c.float())) for c in _chunks(x.detach()))
+    for x in xs:
+        if any(coord[i] for i in dims if i not in sharding.split_dims(x)):
+            continue  # another rank counts this leaf's copy
+        total = total + sum(torch.sum(torch.square(c.float()))
+                            for c in _chunks(sharding.local(x.detach())))
+    if dims:
+        if not isinstance(total, torch.Tensor):
+            total = torch.zeros((), dtype=torch.float32, device=sharding.local(xs[0]).device)
+        total = funcol.wait_tensor(funcol.all_reduce(total, "sum",
+                                                     sharding.mesh_group(mesh, dims)))
     return torch.sqrt(total)
 
 
@@ -113,7 +138,10 @@ def adamw_update(state: TrainState, grads: Any, cfg: AdamConfig
                  ) -> tuple[TrainState, dict]:
     """One AdamW step, in place: ``(state, {"grad_norm", "lr"})``.
     ``grads`` has ``state.params``' structure (a module's as the dict of
-    its parameter names)."""
+    its parameter names).  DTensor leaves: the gradient, ``m`` and ``v``
+    placed as their parameter, each rank updating its shards (the same
+    chunks, in the same order of roundings), with the clip's norm summed
+    over the ranks (:func:`global_norm`); ``step`` plain."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     state.step.add_(1)
@@ -125,8 +153,14 @@ def adamw_update(state: TrainState, grads: Any, cfg: AdamConfig
     for name, tree in (("grads", grads), ("m", state.m), ("v", state.v)):
         if [p for p, _ in pytree.leaves_with_path(tree)] != paths:
             raise ValueError(f"adamw_update: {name} does not match the params' structure")
-    for p, g, m, v in zip(pytree.leaves(state.params), pytree.leaves(grads),
-                          pytree.leaves(state.m), pytree.leaves(state.v)):
+    for path, p, g, m, v in zip(paths, pytree.leaves(state.params), pytree.leaves(grads),
+                                pytree.leaves(state.m), pytree.leaves(state.v)):
+        if isinstance(p, DTensor):
+            for name, t in (("grads", g), ("m", m), ("v", v)):
+                if not isinstance(t, DTensor) or tuple(t.placements) != tuple(p.placements):
+                    raise ValueError(f"adamw_update: {name} {pytree.keystr(path)} is not "
+                                     f"placed as its parameter ({p.placements})")
+        p, g, m, v = (sharding.local(t) for t in (p, g, m, v))
         g = g.contiguous()
         for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m), _chunks(v)):
             _update(pc, gc, mc, vc, scale, lr, bc1, bc2, cfg)

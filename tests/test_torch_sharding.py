@@ -298,3 +298,65 @@ def test_dryrun_subprocess_dense_lm_cell(tmp_path):
     assert res["t_collective_s"] == res["collective_bytes_per_chip"] / 450e9
     assert res["flops_per_chip"] > 0 and "sharded" in res["sharded_counted"]
     assert res["dominant"] in ("compute", "memory", "collective")
+
+
+def test_local_cost_fsdp_hand_countable(meshes):
+    """FSDP on a fake (data 2) mesh, meta DTensors: one linear layer's
+    weight sharded on ``data``, gathered whole inside a rematerialised
+    function, its input sharded on the batch.  The forward and the
+    recomputation each all-gather the whole weight, the backward
+    reduce-scatters its gradient into the rank's rows (the shard's bytes),
+    and the loss's mean over the batch shards is one all-reduce of a
+    float32; the gradient keeps the weight's placements."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.dist.sharding import COLLECTIVES, LocalCost, place, settle, unshard
+
+    mesh = DeviceMesh("cuda", torch.arange(2), mesh_dim_names=("data",))
+    B, D, F = 8, 64, 96
+    with tsharding.use_axis_env(tsharding.AxisEnv(mesh)), torch.enable_grad():
+        x = place(torch.empty(B, D, device="meta"), "batch", None)
+        w = place(torch.empty(D, F, device="meta"), "fsdp", None).requires_grad_(True)
+        with LocalCost() as c:
+            y = checkpoint(lambda t: t @ unshard(w, "fsdp"), x, use_reentrant=False)
+            (g,) = torch.autograd.grad(settle(y.mean()), (w,))
+    want = dict.fromkeys(COLLECTIVES, 0)
+    assert c.collectives == want | {"all-gather": 2 * D * F * 4,
+                                    "reduce-scatter": D // 2 * F * 4, "all-reduce": 4}
+    assert c.calls == want | {"all-gather": 2, "reduce-scatter": 1, "all-reduce": 1}
+    assert tuple(g.placements) == tuple(w.placements) and g.to_local().shape == (D // 2, F)
+
+
+def test_dryrun_sharded_smoke_train(meshes):
+    """qwen3-14b's smoke train cell sharded on a fake (data 2, model 2)
+    mesh with FSDP: its traced step has all-gathers (the weights, a layer
+    at a time, and the forward's layouts), reduce-scatters (the weights'
+    gradients) and all-reduces (the row-parallel products, the replicated
+    leaves' gradients, AdamW's norm), under ``repro``'s five names, and
+    per-device FLOPs x 4 at least the one-device count."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import COLLECTIVES
+    from repro_torch.launch import dryrun
+
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    env = tsharding.AxisEnv(mesh)
+    make = lambda n: tcells.build_cell("qwen3-14b", "train_4k", smoke=True, override_layers=n)
+    assert tcells.sharded_reason(make(1)) is None
+    res = dryrun.sharded_cost(make, env, 2)
+    coll = res["collectives"]
+    assert tuple(coll) == COLLECTIVES and res["collective_bytes_per_chip"] == sum(coll.values())
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0 and coll["all-reduce"] > 0
+    one_device = dryrun._traced_flops(make(2))
+    assert res["flops_per_chip"] * 4 >= one_device > res["flops_per_chip"]
+
+
+@pytest.mark.parametrize("arch,shape,item", [
+    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "decode_32k", "D.2"),
+    ("gat-cora", "molecule", "D.3"), ("two-tower-retrieval", "train_batch", "D.4"),
+    ("spade-grab", "grab4_static", "D.5")])
+def test_unsharded_cells_name_their_slice(arch, shape, item):
+    """The cells no sharded slice runs yet keep a null collective entry in
+    the dry run, whose reason names their ROADMAP D item."""
+    assert f"ROADMAP {item}" in tcells.sharded_reason(tcells.build_cell(arch, shape))
