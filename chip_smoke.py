@@ -208,7 +208,28 @@ Phases (any failure exits non-zero):
     rank), FSDP_STEPS steps against the unsharded port's on the same
     weights and batch (run first, kept on the host), each rank's state
     half the unsharded one, its peak memory, and its collectives in a
-    step equal to the dry run's prediction for the mesh.
+    step equal to the dry run's prediction for the mesh;
+19. (run last, after 18; 14c keeps its olmoe-1b-7b outputs on the host for
+    it) the MoE LM serving path sharded on a ``DeviceMesh``: 19a, one
+    ``nccl`` rank on (data 1, model 1): 14c's model drawn again from its
+    seed through ``shard_cell``, 14c's prompts, its first MOE_TP_DECODE
+    greedy tokens fed, ``forward`` and ``lm_loss``: 14c's bits (the
+    logits, digests of ``forward``'s logits and aux and of the loss), K3
+    16 launches a prefill, its routing recorded; 19b, four ``gloo`` ranks
+    on the one card on (data 2, model 2), each drawing the model in turn
+    and keeping its shards (experts and attention halved on ``model``):
+    the same traffic, token blocks routed on each data shard (decode's
+    one block gathered), every logits row within MOE_TP_TOL of 14c's row
+    scale and rows routed alike as 19a within MOE_TP_ALIKE_TOL, greedy
+    tokens equal on decided rows, the routing counted against 19a's, the
+    loss and aux within MOE_TP_LOSS_RTOL, one layer's ``moe_ffn`` at 14b's
+    inputs sharded against unsharded, each rank's collectives a prefill
+    and a decode step equal to the dry run's, and a control (each rank's
+    expert shards swapped with its partner's) that the logits check must
+    reject; 19c, mixtral-8x7b at MIXTRAL_TP_LAYERS layers on two ``gloo``
+    ranks on (data 1, model 2), its experts unfolded into 16 virtual
+    experts, 8 a rank, the prefill and MOE_TP_DECODE decode steps held to
+    the same model run unsharded just before, the same control.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -1644,8 +1665,9 @@ def phase_attention_simt(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def greedy_check(name, got, want) -> tuple[int, int]:
-    """Logits [B, V]: ``|got - want| <= LM_TOL * max|want row|``, and the
+def greedy_check(name, got, want, tol: float = LM_TOL) -> tuple[int, int]:
+    """Logits [B, V]: ``|got - want| <= tol * max|want row|`` (``tol``
+    LM_TOL unless given), and the
     greedy tokens equal on every row whose top-2 margin in ``want`` exceeds
     twice the row's largest error (no closer row can change its argmax;
     closer rows are near-ties and are counted, not failed).
@@ -1657,8 +1679,8 @@ def greedy_check(name, got, want) -> tuple[int, int]:
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
     scale = want.abs().amax(dim=-1, keepdim=True)
     err = (got - want).abs()
-    check(bool((err <= LM_TOL * scale).all()),
-          f"{name}: max abs err {float(err.max())!r} beyond {LM_TOL} of the row scale "
+    check(bool((err <= tol * scale).all()),
+          f"{name}: max abs err {float(err.max())!r} beyond {tol} of the row scale "
           f"{scale.squeeze(-1).tolist()!r}")
     top2 = want.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 2 * err.amax(dim=-1)
@@ -1723,23 +1745,24 @@ def phase_lm_parity(seed: int) -> dict:
 
 @contextlib.contextmanager
 def routing_recorded(rec: list):
-    """Inside, every MoE FFN call of the port's transformer first appends
-    the :class:`~repro_torch.models.moe.Routing` of its input to ``rec``
-    (routed once more, for the record: keep it out of timed runs)."""
-    from repro_torch.models import transformer as ttf
-    from repro_torch.models.moe import moe_route
+    """Inside, every MoE FFN call of the port appends to ``rec`` the
+    :class:`~repro_torch.models.moe.Routing` it computes (``moe_route``
+    wrapped: no second routing); on a mesh, its DTensors hold this rank's
+    tokens and blocks (:func:`host_routing`)."""
+    from repro_torch.models import moe
 
-    ffn = ttf.moe_ffn
+    route = moe.moe_route
 
-    def recorded(x, router, w_gate, w_up, w_down, spec):
-        rec.append(moe_route(x, router, spec))
-        return ffn(x, router, w_gate, w_up, w_down, spec)
+    def recorded(x, router, spec):
+        r = route(x, router, spec)
+        rec.append(r)
+        return r
 
-    ttf.moe_ffn = recorded
+    moe.moe_route = recorded
     try:
         yield rec
     finally:
-        ttf.moe_ffn = ffn
+        moe.moe_route = route
 
 
 def near_ties(logits, K: int):
@@ -3311,6 +3334,25 @@ def moe_attention(seed: int) -> dict:
     return out
 
 
+def moe_ffn_inputs(cfg, seed: int):
+    """14b's seeded draws for one layer of ``cfg`` on DEVICE: tokens ``x
+    [MOE_FFN_TOKENS, D]`` and ``[router, w_gate, w_up, w_down]`` (the
+    router float32, the rest in ``cfg.dtype``)."""
+    import torch
+
+    from repro_torch.models.layers import normal_init
+
+    spec, D, T = cfg.moe, cfg.d_model, MOE_FFN_TOKENS
+    E, F = spec.n_experts, spec.d_ff_expert
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    w = [normal_init((D, E), D, torch.float32, DEVICE, gen),
+         normal_init((E, D, F), D, dt, DEVICE, gen),
+         normal_init((E, D, F), D, dt, DEVICE, gen),
+         normal_init((E, F, D), F, dt, DEVICE, gen)]
+    return torch.randn((T, D), generator=gen, device=DEVICE).to(dt), w
+
+
 def moe_ffn_parity(seed: int) -> dict:
     """14b: one layer's ``moe_ffn`` at each MoE config's width (D, E, K, F,
     capacity factor) on MOE_FFN_TOKENS tokens, cuda bf16 against cpu
@@ -3322,7 +3364,6 @@ def moe_ffn_parity(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models import moe_ffn
-    from repro_torch.models.layers import normal_init
     from repro_torch.models.moe import moe_route
 
     out = {}
@@ -3330,13 +3371,7 @@ def moe_ffn_parity(seed: int) -> dict:
         cfg = get_config(arch)
         spec, D, T = cfg.moe, cfg.d_model, MOE_FFN_TOKENS
         E, K, F = spec.n_experts, spec.top_k, spec.d_ff_expert
-        gen = torch.Generator(device=DEVICE).manual_seed(seed)
-        bf16 = torch.bfloat16
-        w = [normal_init((D, E), D, torch.float32, DEVICE, gen),
-             normal_init((E, D, F), D, bf16, DEVICE, gen),
-             normal_init((E, D, F), D, bf16, DEVICE, gen),
-             normal_init((E, F, D), F, bf16, DEVICE, gen)]
-        x = torch.randn((T, D), generator=gen, device=DEVICE).to(bf16)
+        x, w = moe_ffn_inputs(cfg, seed)
         with torch.inference_mode():
             got, aux = moe_ffn(x, *w, spec)
             again, aux2 = moe_ffn(x, *w, spec)
@@ -3412,7 +3447,11 @@ def moe_lm_full(arch: str, seed: int) -> dict:
     ``forward`` and ``lm_loss`` over the prompts; the cache's slots checked
     against layer 0's keys recomputed (after the prefill, and the last
     decode step's); drops per prefill from one more, recorded, prefill;
-    ``torch.profiler`` traces of a prefill and four decode steps."""
+    ``torch.profiler`` traces of a prefill and four decode steps.  Of
+    MOE_TP_ARCH it keeps on the host, under ``tp_ref``, what phase 19 holds
+    its sharded runs to: the prompts and labels, the prefill's logits, the
+    first MOE_TP_DECODE decode steps' tokens and logits, and digests of the
+    bits of ``forward``'s logits and aux and of ``lm_loss``'s value."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3452,6 +3491,9 @@ def moe_lm_full(arch: str, seed: int) -> dict:
     check(bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: non-finite logits")
     check(tuple(cache.k.shape) == (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.d_head),
           f"{cfg.name}: cache {tuple(cache.k.shape)}")
+    # what phase 19 holds its sharded runs of this model to, on the host
+    tp_ref = {"tokens": tokens.cpu(), "prefill_logits": logits.to("cpu", copy=True), "fed": [],
+            "decode_logits": []} if arch == MOE_TP_ARCH else None
     with torch.inference_mode():
         pos = torch.arange(prompt - W, prompt, device=DEVICE)
         want = layer0_keys(model, tokens, torch.arange(prompt, device=DEVICE))[:, prompt - W:]
@@ -3475,6 +3517,9 @@ def moe_lm_full(arch: str, seed: int) -> dict:
         steps.append(time.perf_counter() - t0)
         check(bool(torch.isfinite(logits).all()),
               f"{cfg.name} decode step {i}: non-finite logits")
+        if tp_ref is not None and i < MOE_TP_DECODE:
+            tp_ref["fed"].append(tok.cpu())
+            tp_ref["decode_logits"].append(logits.to("cpu", copy=True))
         tok = logits.argmax(-1)
     check(k3_ops.launches == launches, f"{cfg.name}: decode launched K3")
     last = prompt + n_dec - 1
@@ -3509,6 +3554,9 @@ def moe_lm_full(arch: str, seed: int) -> dict:
     forward_s = time.perf_counter() - t0
     check(tuple(flogits.shape) == (batch, prompt, cfg.vocab)
           and bool(torch.isfinite(flogits).all()), f"{cfg.name} forward: logits")
+    if tp_ref is not None:
+        tp_ref["forward_digest"] = bits_digest(flogits)
+        tp_ref["aux_digest"] = bits_digest(faux)
     del flogits
     torch.cuda.empty_cache()
     labels = torch.roll(tokens, -1, dims=1)
@@ -3518,6 +3566,9 @@ def moe_lm_full(arch: str, seed: int) -> dict:
     loss_s = time.perf_counter() - t0
     check(math.isfinite(float(loss)) and float(faux) > 0.0,
           f"{cfg.name} lm_loss: {float(loss)!r}, aux {float(faux)!r}")
+    if tp_ref is not None:
+        tp_ref.update(labels=labels.cpu(), loss_digest=bits_digest(loss), loss=float(loss),
+                    aux=float(faux), n_layers=cfg.n_layers)
     peak = torch.cuda.max_memory_allocated()
     ts = sorted(steps)
     p90 = ts[min(len(ts) - 1, int(0.9 * len(ts)))]
@@ -3564,6 +3615,8 @@ def moe_lm_full(arch: str, seed: int) -> dict:
         shares)
     del model, cache, logits
     torch.cuda.empty_cache()
+    if tp_ref is not None:
+        out["tp_ref"] = tp_ref
     return out
 
 
@@ -4625,13 +4678,14 @@ TP_TIMEOUT = 600  # seconds for 17b's spawn
 TP_OFFSETS = ((8192, 4096, None), (8192, 4000, None), (4096, 2048, 1024))
 
 
-def tp_prefill_cell(model, tokens, smoke: bool = False):
-    """The qwen3-14b prefill cell (its logical axes) holding ``model`` and
-    ``tokens``: phase 8's traffic through ``shard_cell`` (``smoke``: the
-    smoke config's cell, for a rehearsal on the CPU)."""
+def prefill_cell(arch: str, model, tokens, smoke: bool = False):
+    """``arch``'s prefill cell (its logical axes) holding ``model`` and
+    ``tokens``: the traffic of a sharded serving phase through
+    ``shard_cell`` (``smoke``: the smoke config's cell, for a rehearsal on
+    the CPU)."""
     from repro_torch.launch.cells import build_cell
 
-    cell = build_cell(LM_ARCH, "prefill_32k", smoke=smoke)
+    cell = build_cell(arch, "prefill_32k", smoke=smoke)
     return dataclasses.replace(cell, args=(model, tokens))
 
 
@@ -4713,8 +4767,8 @@ def tp_world1(ref: dict, model) -> dict:
                             store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
     try:
         env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
-        cell = shard_cell(tp_prefill_cell(model, ref["tokens"].to(DEVICE),
-                                          ref.get("smoke", False)), env)
+        cell = shard_cell(prefill_cell(LM_ARCH, model, ref["tokens"].to(DEVICE),
+                                       ref.get("smoke", False)), env)
         got = tp_serve(env, cell, ref["fed"], int(ref["tokens"].shape[1]), keep_cache=True)
         check(torch.equal(got["prefill"], ref["prefill_logits"]),
               "17a: the prefill's logits differ from phase 8's")
@@ -4768,7 +4822,7 @@ def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool) -> dict:
             cfg = (get_smoke_config if smoke else get_config)(LM_ARCH)
             model = TransformerLM(cfg, device=DEVICE,
                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
-            cell = shard_cell(tp_prefill_cell(model, tokens, smoke), env)
+            cell = shard_cell(prefill_cell(LM_ARCH, model, tokens, smoke), env)
             del model
             if DEVICE == "cuda":
                 torch.cuda.empty_cache()
@@ -4785,11 +4839,14 @@ def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool) -> dict:
     return out
 
 
-def tp_predicted(batch: int, prompt: int, smoke: bool = False) -> dict:
-    """The dry run's prediction for 17b's mesh (data 1, model 2): the
-    collectives of one rank's prefill of phase 8's prompts and of one
-    decode step on their cache, traced on meta under a two-rank fake
-    process group and extrapolated to the full depth, as
+def sharded_predicted(arch: str, mesh_shape: dict, n_layers: int | None, batch: int,
+                      prompt: int, smoke: bool = False) -> dict:
+    """The dry run's prediction for a mesh of ``mesh_shape``: the
+    collectives of one rank's prefill of ``batch`` prompts of ``prompt``
+    tokens and of one decode step on their cache (its batch split as the
+    prefill leaves it, the tokens and positions on ``batch``), traced on
+    meta under a fake process group of the mesh's ranks and extrapolated
+    to ``n_layers`` (the config's depth when None), as
     ``repro_torch.launch.dryrun`` does for its cells."""
     import torch
     import torch.distributed as dist
@@ -4800,28 +4857,35 @@ def tp_predicted(batch: int, prompt: int, smoke: bool = False) -> dict:
     from repro_torch.dist.sharding import AxisEnv
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.dryrun import sharded_cost
-    from repro_torch.models import KVCache
+    from repro_torch.models import KVCache, cache_window
 
     meta = torch.device("meta")
-    cfg = get_config(LM_ARCH) if not smoke else get_smoke_config(LM_ARCH)
+    cfg = get_config(arch) if not smoke else get_smoke_config(arch)
+    n_layers = n_layers or cfg.n_layers
+    W, _ = cache_window(cfg, prompt)
 
-    def prefill_cell(n):
-        cell = build_cell(LM_ARCH, "prefill_32k", smoke=smoke, override_layers=n)
+    def prefill_at(n):
+        cell = build_cell(arch, "prefill_32k", smoke=smoke, override_layers=n)
         return dataclasses.replace(cell, args=(cell.args[0], torch.empty(
             (batch, prompt), dtype=torch.int64, device=meta)))
 
-    def decode_cell(n):
-        cell = build_cell(LM_ARCH, "decode_32k", smoke=smoke, override_layers=n)
-        kv = lambda: torch.empty((n, batch, prompt, cfg.n_kv_heads, cfg.d_head),
+    def decode_at(n):
+        cell = build_cell(arch, "decode_32k", smoke=smoke, override_layers=n)
+        kv = lambda: torch.empty((n, batch, W, cfg.n_kv_heads, cfg.d_head),
                                  dtype=getattr(torch, cfg.dtype), device=meta)
         vec = lambda: torch.empty((batch,), dtype=torch.int64, device=meta)
-        return dataclasses.replace(cell, args=(cell.args[0], KVCache(kv(), kv()), vec(), vec()))
+        cl = (None, "batch", "model", None, None)
+        return dataclasses.replace(
+            cell, args=(cell.args[0], KVCache(kv(), kv()), vec(), vec()),
+            in_logical=(cell.in_logical[0], KVCache(cl, cl), ("batch",), ("batch",)))
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    world = math.prod(mesh_shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
-        env = AxisEnv(DeviceMesh(DEVICE, [[0, 1]], mesh_dim_names=("data", "model")))
-        return {step: sharded_cost(make, env, cfg.n_layers)
-                for step, make in (("prefill", prefill_cell), ("decode", decode_cell))}
+        env = AxisEnv(DeviceMesh(DEVICE, torch.arange(world).reshape(
+            tuple(mesh_shape.values())), mesh_dim_names=tuple(mesh_shape)))
+        return {step: sharded_cost(make, env, n_layers)
+                for step, make in (("prefill", prefill_at), ("decode", decode_at))}
     finally:
         dist.destroy_process_group()
 
@@ -4872,21 +4936,8 @@ def tp_world2(ref: dict, seed: int) -> dict:
     for r, name, a, want in pairs:
         d, t = greedy_check(f"17b rank {r} {name}", a, want)
         decided, tied = decided + d, tied + t
-    pred = tp_predicted(*ref["tokens"].shape, smoke=smoke)
-    counts = {}
-    for step in ("prefill", "decode"):
-        p = dict(pred[step]["collectives"])
-        if DEVICE == "cuda":  # gloo's gathers on the card, as all-to-alls
-            p["all-to-all"] += p.pop("all-gather")
-            p["all-gather"] = 0
-        for r, got in enumerate(ranks):
-            c = got[f"{step}_cost"]["bytes"]
-            check(c == p, f"17b rank {r} {step}: collectives {c!r} against the dry run's {p!r}")
-        counts[step] = {"rank0": ranks[0][f"{step}_cost"], "predicted": {
-            "bytes": p, "calls": pred[step]["collective_calls"]}}
-        log(f"17b {step}: collectives per rank per step {ranks[0][f'{step}_cost']!r}; the dry "
-            f"run's prediction for (data 1, model 2): bytes {p!r}, calls "
-            f"{pred[step]['collective_calls']!r}")
+    counts = collectives_check("17b", ranks, sharded_predicted(
+        LM_ARCH, {"data": 1, "model": 2}, None, *ref["tokens"].shape, smoke=smoke))
     for r, got in enumerate(ranks):
         check(DEVICE != "cuda" or (got["k3_launches"] == ref["model_layers"]
                                    and got["k3_simt_launches"] == 0),
@@ -5603,6 +5654,560 @@ def phase_fsdp(step1: dict, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the MoE LM serving path sharded on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# 19a and 19b serve olmoe-1b-7b at full depth (14c's seeded weights), 14c's
+# prompts with its first MOE_TP_DECODE greedy tokens fed, then forward and
+# lm_loss over the prompts; 19c serves mixtral-8x7b cut to MIXTRAL_TP_LAYERS
+# of its 32 layers (23.7 GB: all 32, 93.4 GB, need four cards) on two ranks,
+# held to the same model run unsharded just before.
+MOE_TP_ARCH = "olmoe-1b-7b"
+MOE_TP_DECODE = 8
+MOE_TP_MESH = {"data": 2, "model": 2}
+MIXTRAL_TP_ARCH = "mixtral-8x7b"
+MIXTRAL_TP_LAYERS = 8
+MIXTRAL_TP_MESH = {"data": 1, "model": 2}
+MOE_TP_TIMEOUT = 600  # seconds for each of 19b's and 19c's spawns
+# 19b and 19c hold every logits row (prefill and decode) to the unsharded
+# run within MOE_TP_TOL[arch] of the row's largest |logit|, a row whose token
+# was routed alike (the same experts, the same kept) in every layer within
+# MOE_TP_ALIKE_TOL, lm_loss and the aux loss within MOE_TP_LOSS_RTOL.  The
+# ranks round each row-parallel product's partial sums (mixtral's too:
+# each virtual expert's half of w_down) to bf16 before adding them, so the
+# hidden states differ by bf16 ulps, which move near-tie tokens to other
+# experts and, through the capacity positions, drop others; a rerouted
+# token's own logits move by its gate times the difference of two
+# experts' outputs.  Measured on an H100 80GB HBM3 at 700 W: every row
+# within 0.0476 (olmoe) and 0.2597 (mixtral, a rerouted decode token;
+# its other rows within 0.0752); the swapped-shard controls 0.4041 and
+# 0.7707, which the tolerances must and do reject; the loss and the aux
+# loss within 3.4e-6 and 6.9e-5
+MOE_TP_TOL = {"olmoe-1b-7b": 0.15, "mixtral-8x7b": 0.5}
+MOE_TP_ALIKE_TOL = 0.06
+MOE_TP_LOSS_RTOL = 1e-3
+
+
+def moe_tp_cfg(arch: str, n_layers: int | None, smoke: bool):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def moe_tp_model(cfg, seed: int):
+    """``cfg``'s seeded weights on DEVICE (14c's draw for its config)."""
+    import torch
+
+    from repro_torch.models import TransformerLM
+
+    return TransformerLM(cfg, device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def host_routing(r) -> dict:
+    """A recorded routing on the host: this rank's part of ``topi`` and
+    ``keep``, the global index of its first token and block, and its
+    near-ties (:func:`near_ties`)."""
+    from repro_torch.dist.sharding import local, shard_span
+
+    return {"t0": shard_span(r.topi, 0)[0], "b0": shard_span(r.slot, 0)[0],
+            "topi": local(r.topi).cpu(), "keep": local(r.keep).cpu(),
+            "ties": near_ties(local(r.logits), r.topi.shape[1]).cpu()}
+
+
+def moe_serve(env, cell, ref: dict, rec: list) -> dict:
+    """Phase 19's traffic through a sharded MoE prefill cell on ``env``'s
+    mesh: the prefill (K3's counters set to 0 just before and read just
+    after; its collectives on this rank by ``LocalCost``), a decode step on
+    each of ``ref``'s fed tokens (the first one's collectives), then,
+    where ``ref`` has labels, ``forward`` and ``lm_loss`` over the prompts;
+    the routing of the decode steps and ``forward`` appended to
+    ``rec`` (:func:`host_routing`).
+    Logits on the host; seconds; digests of the bits of ``forward``'s
+    logits (this rank's shard) and of the aux and the loss."""
+    import torch
+
+    from repro_torch.dist.sharding import LocalCost, local, place, use_axis_env
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.models import decode_step, forward, lm_loss
+
+    model, tokens = cell.args
+    prompt = tokens.shape[1]
+    scoring = "labels" in ref
+    out = {"decode": [], "decode_s": []}
+    with use_axis_env(env):
+        fed = [place(t.to(DEVICE), "batch") for t in ref["fed"]]
+        pos = [place(torch.full((t.shape[0],), prompt + i, dtype=torch.int64, device=DEVICE),
+                     "batch") for i, t in enumerate(ref["fed"])]
+        k3_ops.launches = k3_ops.simt_launches = 0
+        sync()
+        t0 = time.perf_counter()
+        with LocalCost() as cost:
+            logits, cache = cell.fn(*cell.args)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["k3_launches"], out["k3_simt_launches"] = k3_ops.launches, k3_ops.simt_launches
+        out["prefill"] = tp_gather(logits)
+        out["prefill_cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+        routes = []
+        with routing_recorded(routes):
+            for i in range(len(fed)):
+                t0 = time.perf_counter()
+                with LocalCost() if i == 0 else contextlib.nullcontext() as cost:
+                    logits, cache = decode_step(model, cache, fed[i], pos[i])
+                sync()
+                out["decode_s"].append(time.perf_counter() - t0)
+                out["decode"].append(tp_gather(logits))
+                if i == 0:
+                    out["decode_cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+            del cache, logits
+            if scoring:
+                t0 = time.perf_counter()
+                flogits, faux = forward(model, tokens)
+                sync()
+                out["forward_s"] = time.perf_counter() - t0
+                out["forward_digest"] = bits_digest(local(flogits))
+                out["aux_digest"], out["aux"] = bits_digest(local(faux)), float(local(faux))
+                del flogits
+        rec.extend(host_routing(r) for r in routes)
+        del routes
+        if not scoring:
+            return out
+        labels = place(ref["labels"].to(DEVICE), "batch", None)
+        t0 = time.perf_counter()
+        loss, _ = lm_loss(model, tokens, labels)
+        sync()
+        out["lm_loss_s"] = time.perf_counter() - t0
+        out["loss_digest"], out["loss"] = bits_digest(local(loss)), float(local(loss))
+    return out
+
+
+def moe_tp_world1(ref: dict, seed: int) -> dict:
+    """19a: one ``nccl`` rank on a (data 1, model 1) mesh.  olmoe-1b-7b at
+    14c's depth drawn again from its seed, through ``shard_cell`` (every
+    parameter a DTensor whose one shard is the whole tensor), 14c's
+    prompts, its fed tokens, ``forward`` and ``lm_loss``: the prefill's
+    and every decode step's logits 14c's bits, and the digests of
+    ``forward``'s logits and aux and of ``lm_loss``'s value 14c's.  Its
+    routing (decode steps and ``forward``, recorded) is what 19b's is
+    counted against."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import shard_cell
+
+    smoke = ref.get("smoke", False)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
+        model = moe_tp_model(moe_tp_cfg(MOE_TP_ARCH, ref["n_layers"], smoke), seed)
+        cell = shard_cell(prefill_cell(MOE_TP_ARCH, model, ref["tokens"].to(DEVICE), smoke),
+                          env)
+        del model
+        rec = []
+        got = moe_serve(env, cell, ref, rec)
+        del cell
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(torch.equal(got.pop("prefill"), ref["prefill_logits"]),
+          "19a: the prefill's logits differ from 14c's")
+    for i, (a, b) in enumerate(zip(got.pop("decode"), ref["decode_logits"])):
+        check(torch.equal(a, b), f"19a: decode step {i}'s logits differ from 14c's")
+    for key in ("forward_digest", "aux_digest", "loss_digest"):
+        check(got[key] == ref[key], f"19a: {key} {got[key]!r} differs from 14c's {ref[key]!r}")
+    check(DEVICE != "cuda" or (got["k3_launches"] == ref["n_layers"]
+                               and got["k3_simt_launches"] == 0),
+          f"19a: K3 launched {got['k3_launches']} (SIMT {got['k3_simt_launches']}) times, "
+          f"expected {ref['n_layers']} per prefill on the tensor-core body")
+    got["routing"] = rec
+    got["decode_ms_median"] = 1e3 * statistics.median(got.pop("decode_s"))
+    log("19a world 1 (nccl, data 1 x model 1): the prefill's and all "
+        f"{len(ref['fed'])} decode steps' logits and the digests of forward's logits and aux "
+        "and of lm_loss equal 14c's bit for bit; " + " ".join(
+            f"{k}={v!r}" for k, v in got.items() if k != "routing"))
+    return got
+
+
+def partner_expert_shards(model, mesh) -> list[dict]:
+    """On the host, the expert weights that shard_cell will give this
+    rank's partner on the ``model`` dim (two ranks: the other one), in the
+    sharded layout (unfolded where the config splits its experts): what
+    the swapped-shard control loads in place of this rank's own."""
+    from repro_torch.convert import unfold_experts
+
+    i = mesh.mesh_dim_names.index("model")
+    check(mesh.size(i) == 2, f"the swapped-shard control pairs two model ranks, not "
+          f"{mesh.size(i)}")
+    partner = 1 - mesh.get_coordinate()[i]
+    vs = model.cfg.moe.virtual_split
+    out = []
+    for lp in model.layers:
+        shards = {}
+        for name in ("w_gate", "w_up", "w_down"):
+            w = getattr(lp, name).detach()
+            w = unfold_experts(name, w, vs) if vs > 1 else w
+            shards[name] = w.chunk(2, dim=0)[partner].to("cpu", copy=True)
+            del w
+        out.append(shards)
+    return out
+
+
+def moe_ffn_sharded(env, seed: int, smoke: bool) -> dict:
+    """19b: one layer's ``moe_ffn`` at olmoe-1b-7b's width on 14b's inputs
+    (MOE_FFN_TOKENS tokens) sharded on ``env``'s mesh (the tokens on
+    ``batch``, the experts on ``expert``) against the same call unsharded
+    on this rank: the routing of this rank's blocks against the
+    unsharded one's, the output normwise over the tokens routed alike, the
+    aux loss."""
+    from repro_torch.dist.sharding import local, place, use_axis_env
+    from repro_torch.launch.cells import lm_param_logical
+    from repro_torch.models import moe_ffn
+    from repro_torch.models.moe import moe_route
+
+    cfg = moe_tp_cfg(MOE_TP_ARCH, None, smoke)
+    spec, T = cfg.moe, MOE_FFN_TOKENS
+    x, w = moe_ffn_inputs(cfg, seed)
+    want, aux_w = moe_ffn(x, *w, spec)
+    r = moe_route(x, w[0], spec)
+    names = lm_param_logical(cfg, fsdp=False)["layers"]["moe"]
+    rec = []
+    with use_axis_env(env):
+        xs = place(x, "batch", None)
+        ws = [place(t, *names[n][1:]) for t, n in zip(w, ("router", "w_gate", "w_up", "w_down"))]
+        with routing_recorded(rec):
+            got, aux_g = moe_ffn(xs, *ws, spec)
+        got = tp_gather(got)
+    g = host_routing(rec[0])
+    n_tok, n_blk = g["topi"].shape[0], g["keep"].shape[0]
+    topi_w = r.topi[g["t0"]:g["t0"] + n_tok].cpu()
+    keep_w = r.keep[g["b0"]:g["b0"] + n_blk].cpu()
+    alike = ((g["topi"] == topi_w).all(dim=-1)
+             & (g["keep"] == keep_w).reshape(n_tok, spec.top_k).all(dim=-1))
+    rows = slice(g["t0"], g["t0"] + n_tok)
+    diff = got[rows].float()[alike] - want.cpu()[rows].float()[alike]
+    rel = float(diff.norm() / want.cpu()[rows].float()[alike].norm())
+    return {"tokens": n_tok, "routed_alike": int(alike.sum()),
+            "routing_equal": bool(alike.all()), "normwise_err": rel,
+            "max_abs_err": float(diff.abs().max()),
+            "aux_rel_err": abs(float(local(aux_g)) - float(aux_w)) / abs(float(aux_w))}
+
+
+def moe_tp_rank(mesh, path: str, arch: str, n_layers: int | None, seed: int, device: str,
+                smoke: bool) -> dict:
+    """A rank of 19b or 19c: ``arch`` drawn whole from the seed (at
+    ``n_layers``), one rank after the other behind a barrier (one whole
+    copy at a time), sharded by ``shard_cell`` (each rank keeps its
+    shards; its partner's expert shards kept on the host), then
+    :func:`moe_serve` on the traffic in ``path``; for olmoe-1b-7b
+    :func:`moe_ffn_sharded`; last, the swapped-shard control: this rank's
+    expert shards replaced by its partner's, the prefill again.
+    ``smoke``: the smoke config on ``device``, for a rehearsal on the
+    CPU."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import AxisEnv, use_axis_env
+    from repro_torch.launch.cells import shard_cell
+
+    global DEVICE
+    DEVICE = device
+    torch.set_grad_enabled(False)
+    cuda = DEVICE == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    env = AxisEnv(mesh)
+    with open(path, "rb") as f:
+        ref = pickle.load(f)
+    cfg = moe_tp_cfg(arch, n_layers, smoke)
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            model = moe_tp_model(cfg, seed)
+            partner = partner_expert_shards(model, mesh)
+            cell = shard_cell(prefill_cell(arch, model, ref["tokens"].to(DEVICE), smoke),
+                              env)
+            del model
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    draw_s = time.perf_counter() - t0
+    weights = sum(p.to_local().numel() * p.element_size() for p in cell.args[0].parameters())
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rec = []
+    out = moe_serve(env, cell, ref, rec)
+    out.update(draw_s=draw_s, weights_gb=weights / 1e9, routing=rec,
+               serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+    if arch == MOE_TP_ARCH:
+        out["ffn512"] = moe_ffn_sharded(env, seed, smoke)
+    for lp, shards in zip(cell.args[0].layers, partner):
+        for name, t in shards.items():
+            getattr(lp, name).to_local().copy_(t)
+    del partner
+    with use_axis_env(env):
+        logits, _ = cell.fn(*cell.args)
+        out["control_prefill"] = tp_gather(logits)
+    return out
+
+
+def routing_rows(ref_rec: list, got_rec: list, n_layers: int, K: int) -> dict:
+    """Rule 1 counts of a rank's recorded routing against the reference's
+    (the same calls, ``n_layers`` a step), by the set of a token's experts
+    (their order only orders its gates' sum): tokens routed to other
+    experts, how many of them are near-ties of the reference's logits,
+    assignments kept by one and dropped by the other among the tokens
+    routed alike, and, per step, the global indices of the tokens routed
+    differently (experts or drops) in some layer."""
+    check(len(ref_rec) == len(got_rec), f"{len(got_rec)} MoE calls recorded, the "
+          f"reference {len(ref_rec)}")
+
+    def by_expert(topi, keep):
+        order = topi.argsort(dim=-1)
+        return topi.gather(-1, order), keep.reshape(topi.shape).gather(-1, order)
+
+    out = {"rerouted": 0, "rerouted_near_ties": 0, "near_ties": 0, "keep_differs": 0,
+           "tokens": 0, "steps": []}
+    for c, (w, g) in enumerate(zip(ref_rec, got_rec)):
+        if c % n_layers == 0:
+            out["steps"].append(set())
+        n_tok, n_blk = g["topi"].shape[0], g["keep"].shape[0]
+        ties = w["ties"][g["t0"]:g["t0"] + n_tok]
+        e_w, k_w = by_expert(w["topi"][g["t0"]:g["t0"] + n_tok],
+                             w["keep"][g["b0"]:g["b0"] + n_blk])
+        e_g, k_g = by_expert(g["topi"], g["keep"])
+        differ = (e_g != e_w).any(dim=-1)
+        kdiff = (k_g != k_w).any(dim=-1) & ~differ
+        out["rerouted"] += int(differ.sum())
+        out["rerouted_near_ties"] += int((differ & ties).sum())
+        out["near_ties"] += int(ties.sum())
+        out["keep_differs"] += int(((k_g != k_w) & ~differ[:, None]).sum())
+        out["tokens"] += n_tok
+        out["steps"][-1] |= {g["t0"] + int(t) for t in (differ | kdiff).nonzero().flatten()}
+    return out
+
+
+def moe_tp_check(tag: str, ref: dict, ranks: list, n_layers: int, K: int, tol: float
+                 ) -> dict:
+    """The logits checks of 19b and 19c on every rank's host copies:
+    every row within ``tol`` of the row scale of ``ref``'s, the greedy
+    tokens equal on every row whose top-2 margin that error cannot close;
+    a row whose token was routed alike in every layer (against ``ref``'s
+    recorded routing: the decode steps' tokens, and, where ``forward``
+    was recorded, each prompt's last token for the prefill's rows) within
+    MOE_TP_ALIKE_TOL; the swapped-shard control beyond ``tol`` on some
+    row; the loss and aux loss, where run, within MOE_TP_LOSS_RTOL.
+    Returns the errors and counts."""
+    B = ref["prefill_logits"].shape[0]
+    S = ref["tokens"].shape[1]
+    n_dec = len(ref["decode_logits"])
+    names = ["prefill"] + [f"decode step {i}" for i in range(n_dec)]
+    wants = [ref["prefill_logits"]] + list(ref["decode_logits"])
+    rel = lambda a, want: ((a.float() - want.float()).abs().amax(-1)
+                           / want.float().abs().amax(-1))
+    out = {"rel_err": {}, "alike_rel_err": 0.0, "rows_alike": 0, "rows": 0, "decided": 0,
+           "tied": 0, "routing": []}
+    for r, got in enumerate(ranks):
+        bad_rows = None
+        if "routing" in ref:
+            rt = routing_rows(ref["routing"], got["routing"], n_layers, K)
+            out["routing"].append({k: v for k, v in rt.items() if k != "steps"})
+            steps = rt["steps"]  # the decode steps', then forward's if run
+            # a decode step's row b is its token b; the prefill's row b the
+            # last token of prompt b, which forward routes at b * S + S - 1
+            # (with no forward, the prefill's rows count as rerouted)
+            bad_rows = [{b for b in range(B) if len(steps) == n_dec
+                         or b * S + S - 1 in steps[n_dec]}] + [
+                {b for b in range(B) if b in steps[i]} for i in range(n_dec)]
+        for j, (name, a, want) in enumerate(zip(names, [got["prefill"]] + got["decode"],
+                                                 wants)):
+            e = rel(a, want)
+            out["rel_err"][f"rank {r} {name}"] = float(e.max())
+            d, t = greedy_check(f"{tag} rank {r} {name}", a, want, tol)
+            out["decided"] += d
+            out["tied"] += t
+            out["rows"] += B
+            if bad_rows is not None:
+                alike = [b for b in range(B) if b not in bad_rows[j]]
+                out["rows_alike"] += len(alike)
+                if alike:
+                    worst = float(e[alike].max())
+                    out["alike_rel_err"] = max(out["alike_rel_err"], worst)
+                    check(worst <= MOE_TP_ALIKE_TOL, f"{tag} rank {r} {name}: rows routed "
+                          f"alike {alike} off by {worst!r} of the row scale (tolerance "
+                          f"{MOE_TP_ALIKE_TOL})")
+        ctrl = float(rel(got["control_prefill"], ref["prefill_logits"]).max())
+        out.setdefault("control_rel_err", []).append(ctrl)
+        check(ctrl > tol, f"{tag} rank {r}: the swapped-shard control's prefill is "
+              f"within {ctrl!r} of the row scale, inside the tolerance {tol}")
+        for key in ("loss", "aux"):
+            if key in ref and key in got:
+                e = abs(got[key] - ref[key]) / abs(ref[key])
+                out[f"{key}_rel_err"] = max(out.get(f"{key}_rel_err", 0.0), e)
+                check(e <= MOE_TP_LOSS_RTOL, f"{tag} rank {r}: {key} {got[key]!r} against "
+                      f"{ref[key]!r} (rtol {MOE_TP_LOSS_RTOL})")
+    out["logit_rel_err_max"] = max(out["rel_err"].values())
+    return out
+
+
+def collectives_check(tag: str, ranks: list, pred: dict) -> dict:
+    """Each rank's collectives in a prefill and a decode step against the
+    dry run's prediction for its mesh (:func:`sharded_predicted`); on the
+    card gloo's gathers are all-to-alls (the prediction's all-gathers)."""
+    counts = {}
+    for step in ("prefill", "decode"):
+        p = dict(pred[step]["collectives"])
+        if DEVICE == "cuda":
+            p["all-to-all"] += p.pop("all-gather")
+            p["all-gather"] = 0
+        for r, got in enumerate(ranks):
+            c = got[f"{step}_cost"]["bytes"]
+            check(c == p, f"{tag} rank {r} {step}: collectives {c!r} against the dry run's "
+                  f"{p!r}")
+        counts[step] = {"rank0": ranks[0][f"{step}_cost"],
+                        "predicted": {"bytes": p, "calls": pred[step]["collective_calls"]}}
+        log(f"{tag} {step}: collectives per rank {ranks[0][f'{step}_cost']!r}; the dry run's "
+            f"prediction: bytes {p!r}, calls {pred[step]['collective_calls']!r}")
+    return counts
+
+
+def moe_tp_spawn(tag: str, ref: dict, seed: int, arch: str, n_layers: int | None,
+                 mesh_shape: dict) -> dict:
+    """19b / 19c: ``gloo`` ranks on the one card on a ``mesh_shape`` mesh,
+    each with its shards of ``arch``'s seeded draw, serving ``ref``'s
+    traffic (:func:`moe_tp_rank`), held to ``ref`` (its outputs and
+    recorded routing) by :func:`moe_tp_check` at ``MOE_TP_TOL[arch]``,
+    their collectives to the dry run's prediction, K3 one tensor-core
+    launch a layer a prefill on every rank."""
+    import pickle
+
+    from repro_torch.dist import spawn
+
+    smoke = ref.get("smoke", False)
+    cfg = moe_tp_cfg(arch, n_layers, smoke)
+    path = ROOT / "build" / "phase19" / "traffic.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(pickle.dumps({k: ref[k] for k in ("tokens", "fed", "labels") if k in ref}))
+    B, S = ref["tokens"].shape
+    pred = sharded_predicted(arch, mesh_shape, n_layers, B, S, smoke)
+    t0 = time.perf_counter()
+    ranks = spawn(moe_tp_rank, math.prod(mesh_shape.values()), backend="gloo", device=DEVICE,
+                  args=(str(path), arch, n_layers, seed, DEVICE, smoke),
+                  timeout=MOE_TP_TIMEOUT, mesh_shape=mesh_shape)
+    spawn_s = time.perf_counter() - t0
+    path.unlink()
+    res = moe_tp_check(tag, ref, ranks, cfg.n_layers, cfg.moe.top_k, MOE_TP_TOL[arch])
+    res["collectives"] = collectives_check(tag, ranks, pred)
+    for r, got in enumerate(ranks):
+        check(DEVICE != "cuda" or (got["k3_launches"] == cfg.n_layers
+                                   and got["k3_simt_launches"] == 0),
+              f"{tag} rank {r}: K3 launched {got['k3_launches']} times (SIMT "
+              f"{got['k3_simt_launches']}), expected {cfg.n_layers} a prefill")
+        if "ffn512" in got:
+            f = got["ffn512"]
+            check(f["normwise_err"] <= MOE_FFN_TOL and f["aux_rel_err"] <= LOSS_RTOL,
+                  f"{tag} rank {r}: moe_ffn at {MOE_FFN_TOKENS} tokens sharded against "
+                  f"unsharded: {f!r} (tolerances {MOE_FFN_TOL}, {LOSS_RTOL})")
+    keys = ("draw_s", "weights_gb", "serve_peak_gb", "prefill_s", "forward_s", "lm_loss_s",
+            "k3_launches", "ffn512")
+    res["ranks"] = [{k: got[k] for k in keys if k in got}
+                    | {"decode_ms_median": 1e3 * statistics.median(got["decode_s"])}
+                    for got in ranks]
+    res.update(spawn_s=spawn_s, mesh=dict(mesh_shape), n_layers=cfg.n_layers,
+               tolerance=MOE_TP_TOL[arch], alike_tolerance=MOE_TP_ALIKE_TOL)
+    log(f"{tag} ranks: " + " ".join(f"rank {r}: " + " ".join(
+        f"{k}={v!r}" for k, v in g.items()) + ";" for r, g in enumerate(res["ranks"])))
+    log(f"{tag} ({mesh_shape}, gloo, one card, {cfg.n_layers} layers): logits within "
+        f"{res['logit_rel_err_max']!r} of the row scale (tolerance {MOE_TP_TOL[arch]}); rows "
+        f"routed alike {res['rows_alike']} of {res['rows']} within "
+        f"{res['alike_rel_err']!r} ({MOE_TP_ALIKE_TOL}); greedy tokens equal on "
+        f"{res['decided']} decided rows ({res['tied']} near-ties); swapped-shard control "
+        f"{res['control_rel_err']!r}; routing against the reference's "
+        f"{res['routing']!r}; "
+        + " ".join(f"{k}={res[k]!r}" for k in ("loss_rel_err", "aux_rel_err", "spawn_s")
+                   if k in res))
+    return res
+
+
+def mixtral_tp_ref(seed: int, smoke: bool = False, prompt: int = LM_PROMPT,
+                   n_dec: int = MOE_TP_DECODE) -> dict:
+    """19c's reference: mixtral-8x7b at MIXTRAL_TP_LAYERS layers (the
+    smoke config when ``smoke``) unsharded on DEVICE, phase 8's prompts
+    (``LM_BATCH`` x ``prompt``), the prefill and ``n_dec`` greedy decode
+    steps (their routing recorded); the model freed, its logits, fed
+    tokens and routing kept on the host."""
+    import torch
+
+    from repro_torch.models import decode_step, prefill
+
+    cfg = moe_tp_cfg(MIXTRAL_TP_ARCH, None if smoke else MIXTRAL_TP_LAYERS, smoke)
+    model = moe_tp_model(cfg, seed)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (LM_BATCH, prompt))).to(DEVICE)
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, tokens)
+    sync()
+    ref = {"tokens": tokens.cpu(), "prefill_logits": logits.to("cpu", copy=True), "fed": [],
+           "decode_logits": [], "smoke": smoke, "prefill_s": time.perf_counter() - t0,
+           "routing": []}
+    with routing_recorded(ref["routing"]):
+        for i in range(n_dec):
+            tok = logits.argmax(-1)
+            ref["fed"].append(tok.cpu())
+            logits, cache = decode_step(model, cache, tok, torch.full(
+                (LM_BATCH,), prompt + i, dtype=torch.int64, device=DEVICE))
+            ref["decode_logits"].append(logits.to("cpu", copy=True))
+    ref["routing"] = [host_routing(r) for r in ref["routing"]]
+    ref["weights_gb"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    del model, cache, logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def phase_moe_tp(ref: dict, seed: int) -> dict:
+    """Phase 19, run last: 19a on one ``nccl`` rank, 19b on four ``gloo``
+    ranks on (data 2, model 2), held to 14c's run (``ref``, kept on the
+    host) and to 19a's routing; 19c, mixtral-8x7b at MIXTRAL_TP_LAYERS
+    layers on two ``gloo`` ranks on (data 1, model 2), held to the same
+    model unsharded."""
+    import torch
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out = {"world1": moe_tp_world1(ref, seed)}
+    # 19b's routing is counted against 19a's
+    out["world4"] = moe_tp_spawn("19b", dict(ref, routing=out["world1"].pop("routing")), seed,
+                                 MOE_TP_ARCH, ref["n_layers"], MOE_TP_MESH)
+    t1 = time.perf_counter()
+    mref = mixtral_tp_ref(seed, smoke=ref.get("smoke", False),
+                          prompt=int(ref["tokens"].shape[1]), n_dec=len(ref["fed"]))
+    out["mixtral_unsharded"] = {k: mref[k] for k in ("prefill_s", "weights_gb")}
+    out["world2_mixtral"] = moe_tp_spawn(
+        "19c", mref, seed, MIXTRAL_TP_ARCH, None if mref["smoke"] else MIXTRAL_TP_LAYERS,
+        MIXTRAL_TP_MESH)
+    out["mixtral_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"19: {out['seconds']!r} s (19c {out['mixtral_s']!r} s)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -5735,6 +6340,7 @@ def main() -> int:
         f"cpu; {sharded['seconds']!r} s")
 
     moe = phase_moe(LM_SEED)
+    moe_ref = moe[MOE_TP_ARCH].pop("tp_ref")  # phase 19 holds its sharded runs to it
     log(f"phase 14: the MoE LMs at full width through K3 on {smi}: "
         + ", ".join(f"{a} {moe[a]['n_layers']} layers, {moe[a]['k3_launches']} K3 launches "
                     f"a prefill" for a in MOE_LAYERS) + f"; {moe['seconds']!r} s")
@@ -5770,6 +6376,17 @@ def main() -> int:
         f"{w2['plain']['state_gb']!r} GB, collectives equal to the dry run's; K3's Function "
         f"under local_map with heads sharded within its tolerance; {fsdp['seconds']!r} s")
 
+    # phase 19 runs last, after 18: its ranks precede no other phase's timing
+    moe_tp = phase_moe_tp(moe_ref, LM_SEED)
+    del moe_ref
+    w4, wm = moe_tp["world4"], moe_tp["world2_mixtral"]
+    log(f"phase 19: the MoE LMs sharded on a DeviceMesh on {smi}: {MOE_TP_ARCH} world 1 "
+        f"(nccl) 14c's bits, world 4 (gloo, one card, data 2 x model 2) within "
+        f"{w4['logit_rel_err_max']!r} of the row scale, collectives equal to the dry run's; "
+        f"{MIXTRAL_TP_ARCH} at {wm['n_layers']} layers on world 2 (model 2) within "
+        f"{wm['logit_rel_err_max']!r}; the swapped-shard controls rejected; "
+        f"{moe_tp['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -5779,7 +6396,10 @@ def main() -> int:
                 **{a: moe[a]["k3_launches"] for a in MOE_LAYERS},
                 "qwen3-14b-train": train["qwen3_14b"]["k3_launches"],
                 "qwen3-14b-fsdp-world1": fsdp["world1"]["k3_launches"],
-                "qwen3-14b-fsdp-world2": sum(r["k3_launches"] for r in w2["ranks"])}
+                "qwen3-14b-fsdp-world2": sum(r["k3_launches"] for r in w2["ranks"]),
+                "olmoe-1b-7b-sharded-world1": moe_tp["world1"]["k3_launches"],
+                "olmoe-1b-7b-sharded-world4": sum(r["k3_launches"] for r in w4["ranks"]),
+                "mixtral-8x7b-sharded-world2": sum(r["k3_launches"] for r in wm["ranks"])}
     simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
                   "smoke-train": train["parity"]["simt_launches"]}
     k4_paths = {"gcn-cora": gcn["launches"], "gcn-cora-train": train["gcn_cora"]["k4_launches"]}
@@ -5842,7 +6462,7 @@ def main() -> int:
              "qwen3_14b": lm, "tensor_parallel": tp, "gather_segsum": k4_cases,
              "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
-             "train": train, "cells": cells, "fsdp": fsdp},
+             "train": train, "cells": cells, "fsdp": fsdp, "moe_tp": moe_tp},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

@@ -16,11 +16,13 @@ logical axes (``in_logical``) are the reference's, over the reference's
 layout of the arguments (an LM's layers stacked and its experts
 unfolded): :func:`reference_args` gives that layout, which the sharding
 layer places (:mod:`repro_torch.dist.sharding`).  :func:`shard_cell` puts
-a dense LM cell's own arguments (a serving cell's, or a train cell's state
-in the FSDP layout) on a mesh as DTensors by the same names, the port's
-per-layer parameters taking their stacked leaf's names less the layer dim.  ``model_flops`` are the
-reference's formulas.  The reference donates a train step's state; the
-port's train step updates it in place, to the same effect.
+an LM serving cell's own arguments (dense or MoE), or a dense train
+cell's state in the FSDP layout, on a mesh as DTensors by the same names,
+the port's per-layer parameters taking their stacked leaf's names less
+the layer dim (a MoE layer's virtual experts unfolded, as the reference
+holds them).  ``model_flops`` are the reference's formulas.  The reference
+donates a train step's state; the port's train step updates it in place,
+to the same effect.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from torch import nn
 from repro_torch import pytree
 from repro_torch.configs import ARCH_FAMILY, Skip, arch_shapes, get_config, get_smoke_config
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig, ShapeSpec, SpadeConfig
-from repro_torch.convert import lm_params_to_reference, train_state_to_reference
+from repro_torch.convert import (lm_params_to_reference, train_state_to_reference,
+                                 unfold_experts)
 from repro_torch.core.incremental import DeviceSpadeState, init_state, insert_and_maintain
 from repro_torch.core.peel import bulk_peel
 from repro_torch.device import resolve_device
@@ -117,13 +120,13 @@ def reference_args(cell: Cell) -> tuple:
 
 
 def sharded_reason(cell: Cell) -> str | None:
-    """None when :func:`shard_cell` runs ``cell`` sharded (a dense LM's
-    ``prefill``, ``decode_step`` or ``train_step``), else why not: the
-    ROADMAP item of the sharded slice that brings it."""
+    """None when :func:`shard_cell` runs ``cell`` sharded (an LM's
+    ``prefill`` or ``decode_step``, a dense LM's ``train_step``), else why
+    not: the ROADMAP item of the sharded slice that brings it."""
     if cell.family == "lm":
         model = cell.args[0].params if cell.step_name == "train_step" else cell.args[0]
-        if model.cfg.moe is not None:
-            return "the MoE LMs on 'expert' are a later sharded slice (ROADMAP D.2)"
+        if model.cfg.moe is not None and cell.step_name == "train_step":
+            return "the MoE train step on a mesh is a later sharded slice (ROADMAP D.2b)"
         return None
     return {"gnn": "the GNNs on 'vertex'/'edges' are a later sharded slice (ROADMAP D.3)",
             "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)",
@@ -135,11 +138,19 @@ def _shard_lm(model: TransformerLM, logical: dict, trainable: bool = False) -> T
     """``model`` with each parameter replaced, in place, by its DTensor on
     the active env's mesh, placed by
     :func:`~repro_torch.models.transformer.port_logical`; ``trainable``
-    sets ``requires_grad``."""
+    sets ``requires_grad``.  A MoE layer's experts with a ``virtual_split``
+    are placed in the reference's layout, unfolded into ``[E vs, ...]``
+    (:func:`~repro_torch.convert.unfold_experts`), which the logical names
+    shard over ``expert``: where the experts are fewer than the ranks, a
+    rank holds part of one."""
+    moe = model.cfg.moe
+    vs = moe.virtual_split if moe is not None else 1
     for name, names_of in port_logical(model.cfg, logical).items():
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
         p = getattr(mod, leaf)
+        if vs > 1 and leaf in ("w_gate", "w_up", "w_down"):
+            p = unfold_experts(leaf, p.detach(), vs)
         setattr(mod, leaf, nn.Parameter(place(p, *names_of), requires_grad=trainable))
     return model
 
@@ -166,9 +177,11 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     sharded as the reference's FSDP layout names it (the module in place
     and trainable, ``m`` and ``v`` as the parameters, ``step`` plain); its
     token batch stays whole on every rank, and the step places each
-    microbatch (``make_train_step``'s ``batch_logical``).  Run the step
-    under ``use_axis_env(env)``.  Dense LM cells only: another cell raises
-    with :func:`sharded_reason`."""
+    microbatch (``make_train_step``'s ``batch_logical``).  A MoE LM's
+    serving cell places its experts on ``expert`` (virtual experts
+    unfolded: :func:`_shard_lm`).  Run the step under
+    ``use_axis_env(env)``.  Another cell (a MoE train step, the other
+    families) raises with :func:`sharded_reason`."""
     reason = sharded_reason(cell)
     if reason is not None:
         raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")

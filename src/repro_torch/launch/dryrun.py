@@ -23,8 +23,9 @@ False)``) and reports:
   its ops in Python, so an LM cell is traced at 1 and 2 layers and its
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
   so that is the full depth's count;
-* for the dense LM serving cells (``prefill``, ``decode_step``), the step
-  **run sharded**: the cell's arguments as meta DTensors on the mesh
+* for the LM serving cells (``prefill``, ``decode_step``; dense and MoE)
+  and the dense LM train cells, the step **run sharded**: the cell's
+  arguments as meta DTensors on the mesh
   (:func:`~repro_torch.launch.cells.shard_cell`), traced at 1 and 2
   layers under :class:`~repro_torch.dist.sharding.LocalCost` and
   extrapolated as above.  ``flops_per_chip`` is the traced rank's local
@@ -42,9 +43,8 @@ False)``) and reports:
   is larger.
 
 A cell whose step reads values on the host (the Spade peels' kernels and
-round counts, GCN's destination rows, MoE routing counts) cannot run on
-``meta``: it reports its argument bytes and a ``meta_run`` reason, and
-counts as no failure.
+round counts, GCN's destination rows) cannot run on ``meta``: it reports
+its argument bytes and a ``meta_run`` reason, and counts as no failure.
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def cell_flops(arch: str, shape: str, roofline: bool = False) -> tuple[float, st
 
 
 def sharded_cost(make_cell, env: AxisEnv, n_layers: int) -> dict:
-    """One step of a dense LM cell run sharded on ``env``'s mesh (a train
+    """One step of an LM cell run sharded on ``env``'s mesh (a dense train
     step with its gradient: the forward, the rematerialised layers and the
     backward, the gathers' reduce-scatters and AdamW's norm):
     this rank's FLOPs and collective bytes and calls by kind, traced on

@@ -36,7 +36,10 @@ the row-parallel products' partial sums are all-reduced by a
 sequence blocks by a ``constrain`` before the reshape, decode's q, k and
 v are gathered whole, the KV cache's writes go to the rank that owns the
 slot, and ``lm_loss`` takes its log-sum-exp over vocabulary shards with
-one all-reduce of the max and one of the sums.
+one all-reduce of the max and one of the sums.  A MoE layer's FFN runs
+:func:`~repro_torch.models.moe.moe_ffn`'s sharded path (token blocks
+routed under ``local_map``, experts on ``expert``), and ``forward``'s aux
+is the mean over the layers of each layer's loss over all the tokens.
 """
 
 from __future__ import annotations

@@ -352,11 +352,44 @@ def test_dryrun_sharded_smoke_train(meshes):
     assert res["flops_per_chip"] * 4 >= one_device > res["flops_per_chip"]
 
 
+def test_dryrun_sharded_smoke_moe_prefill(meshes):
+    """olmoe-1b-7b's smoke prefill cell sharded on a fake (data 2, model 2)
+    mesh: its traced step all-gathers (the experts' outputs over
+    ``model``, one a layer, and the attention's k and v) and all-reduces
+    (the row-parallel products, the aux loss's sums over the token
+    shards), and per-device FLOPs x 4 at least the one-device count (each
+    model rank routes its data shard's tokens)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import COLLECTIVES
+    from repro_torch.launch import dryrun
+
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    env = tsharding.AxisEnv(mesh)
+    make = lambda n: tcells.build_cell("olmoe-1b-7b", "prefill_32k", smoke=True,
+                                       override_layers=n)
+    cell = make(1)
+    assert tcells.sharded_reason(cell) is None
+    res = dryrun.sharded_cost(make, env, 2)
+    coll = res["collectives"]
+    assert tuple(coll) == COLLECTIVES and res["collective_bytes_per_chip"] == sum(coll.values())
+    # a layer's expert outputs [E, TB / 2, Cb, D] gathered over model 2:
+    # 8 experts, 16 blocks of 2 tokens a data rank, capacity 1, float32
+    cfg = cell.args[0].cfg
+    y = cfg.moe.n_experts * 16 * 1 * cfg.d_model * 4
+    assert coll["all-gather"] >= 2 * y and coll["all-reduce"] > 0
+    assert res["collective_calls"]["all-reduce"] >= 2 * 2  # the aux loss: 2 a layer
+    one_device = dryrun._traced_flops(make(2))
+    assert res["flops_per_chip"] * 4 >= one_device > res["flops_per_chip"]
+
+
 @pytest.mark.parametrize("arch,shape,item", [
-    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "decode_32k", "D.2"),
+    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "train_4k", "D.2b"),
     ("gat-cora", "molecule", "D.3"), ("two-tower-retrieval", "train_batch", "D.4"),
     ("spade-grab", "grab4_static", "D.5")])
 def test_unsharded_cells_name_their_slice(arch, shape, item):
     """The cells no sharded slice runs yet keep a null collective entry in
-    the dry run, whose reason names their ROADMAP D item."""
+    the dry run, whose reason names their ROADMAP D item; a MoE serving
+    cell runs sharded."""
     assert f"ROADMAP {item}" in tcells.sharded_reason(tcells.build_cell(arch, shape))
+    assert tcells.sharded_reason(tcells.build_cell("mixtral-8x7b", "decode_32k")) is None

@@ -293,7 +293,7 @@ def test_layers_with_the_last_dim_sharded(runs):
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "prefill_32k", "D.2"),
+    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "train_4k", "D.2b"),
     ("gcn-cora", "full_graph_sm", "D.3"), ("two-tower-retrieval", "serve_p99", "D.4"),
     ("spade-grab", "grab4_stream", "D.5")])
 def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
@@ -305,3 +305,4 @@ def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
         shard_cell(cell, None)
     assert sharded_reason(build_cell("qwen3-14b", "decode_32k")) is None
     assert sharded_reason(build_cell("qwen3-14b", "train_4k")) is None
+    assert sharded_reason(build_cell("mixtral-8x7b", "prefill_32k")) is None
