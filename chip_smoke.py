@@ -105,7 +105,8 @@ Phases (any failure exits non-zero):
     stream, ``slide_and_maintain`` against ``Spade.DeleteEdge``; 12c,
     ``exact_peel`` on cuda against ``static_peel`` at 3,000 vertices
     (order equal, ``delta`` bit for bit, tied weights included).  The
-    kernels' launches in phase 12 are logged apart from the main path's;
+    eight comparisons run at once, a spawned process each.  The kernels'
+    launches in phase 12 are logged apart from the main path's;
 13. the edge-sharded engine (``repro_torch.dist``, ``SpadeService(mesh=
     DeviceMesh)``) held against the single-device engine: 13a, world 1 on
     ``nccl`` in this process at Grab4 width (DW, the first 32 ticks, window
@@ -224,12 +225,31 @@ Phases (any failure exits non-zero):
     tokens equal on decided rows, the routing counted against 19a's, the
     loss and aux within MOE_TP_LOSS_RTOL, one layer's ``moe_ffn`` at 14b's
     inputs sharded against unsharded, each rank's collectives a prefill
-    and a decode step equal to the dry run's, and a control (each rank's
-    expert shards swapped with its partner's) that the logits check must
-    reject; 19c, mixtral-8x7b at MIXTRAL_TP_LAYERS layers on two ``gloo``
-    ranks on (data 1, model 2), its experts unfolded into 16 virtual
-    experts, 8 a rank, the prefill and MOE_TP_DECODE decode steps held to
-    the same model run unsharded just before, the same control.
+    and a decode step equal to the dry run's, and two controls (each
+    rank's expert shards swapped with its partner's, then its rows of
+    ``wo`` too) that the logits check must reject by
+    MOE_TP_CONTROL_FACTOR times its tolerance; 19c, mixtral-8x7b at
+    MIXTRAL_TP_LAYERS layers on two ``gloo`` ranks on (data 1, model 2),
+    its experts unfolded into 16 virtual experts, 8 a rank, the prefill
+    and MOE_TP_DECODE decode steps held to the same model run unsharded
+    just before, the same controls;
+20. (run last, after 19; 16c keeps its Spade cells' outputs on the host
+    for it) the Spade cells and gcn-cora's train step through
+    ``shard_cell``: 20a, one ``nccl`` rank on (data 1, model 1), both
+    Spade cells at the spade-grab capacities on the edge-sharded engine:
+    16c's bits in every field and the joined graph (``unshard_graph``),
+    K1, K2 and ``suffix_init`` launched as in 16c, 21 all-reduces a step
+    as the dry run counts them; 20b, four ``gloo`` ranks on the one card
+    on (data 2, model 2), the edges split two ways and replicated over
+    ``model``: the same bits (``best_g`` within :func:`best_g_bound`,
+    whose dropped-partials control must fall outside it), every rank's
+    all-reduces and bytes the dry run's, K2 on the vector path; 20c,
+    gcn-cora's train cell on whole ogbn-products on the same four ranks
+    (one spawn for 20b and 20c): GCN_TP_STEPS steps held to the unsharded steps
+    (run first, kept on the host), K4 8 launches a step on each rank,
+    each rank's collectives the dry run's, peak memory and step seconds a
+    rank, a control (one rank's aggregate partials dropped) that the check
+    must reject.  Their launches are counted off the main path.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -2676,48 +2696,90 @@ def exact_peel_check(n: int, m: int, seed: int, device, tied: bool) -> dict:
             "best_g": best_g, "g_host": g_host, "device_s": device_s, "host_s": host_s}
 
 
-def phase_cross_plane(card: str) -> dict:
-    """12a, 12b and 12c on the card (sizes above, eps and max_rounds from
-    the spade-grab config)."""
+def cross_plane_job(part: str, sem: str, p: dict, device: str, eps: float,
+                    max_rounds: int) -> dict:
+    """One comparison of phase 12 in a process of its own on ``device``:
+    ``part`` 12a (:func:`cross_plane_ticks`, insert-only, ``p`` as
+    CROSS_INSERT) or 12b (windowed, ``p`` as CROSS_WINDOW) of semantics
+    ``sem`` (XPARITY: :func:`parity_semantics`), or 12c
+    (:func:`exact_peel_check`, ``p`` as CROSS_EXACT; ``sem`` ``int`` or
+    ``tied``).  Returns the record with the K1, K2 and ``suffix_init``
+    launches the comparison made, or the failed check's message."""
+    import torch
+
     from repro_torch.core.semantics import resolve
     from repro_torch.graphstore.generators import make_transaction_stream
 
+    global DEVICE
+    DEVICE = device
+    torch.set_num_threads(1)  # the jobs share the host's cores
+    torch.set_grad_enabled(False)
+    zero_kernel_counts()
+    try:
+        if part == "12c":
+            rec = exact_peel_check(p["n"], p["m"], p["seed"], device, sem == "tied")
+        else:
+            semantics = parity_semantics() if sem == "XPARITY" else resolve(sem)
+            stream = make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"])
+            integer = part == "12b" or sem in ("DG", "XPARITY")
+            rec = cross_plane_ticks(
+                semantics, integer_amounts(stream) if integer else stream, p["ticks"],
+                p["fd_batch"] if sem == "FD" else p["batch"], device, eps, max_rounds,
+                window=p.get("window", 0) if part == "12b" else 0, integer=integer,
+                tag=f"{part} {semantics.name}")
+    except SystemExit as e:
+        return {"failed": str(e)}
+    return rec | {"launches": kernel_counts()}
+
+
+def phase_cross_plane(card: str) -> dict:
+    """12a, 12b and 12c on the card (sizes above, eps and max_rounds from
+    the spade-grab config), each comparison in a process of its own
+    (:func:`cross_plane_job`), all at once: the host plane is a single
+    thread of Python and NumPy a comparison.  Returns the records and the
+    launches of all of them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     log(f"phase 12: host seconds are the host CPU of the machine that holds {card}; "
-        f"device seconds are the {DEVICE} side's, synchronized")
-    out = {"insert": [], "window": [], "exact": []}
-    p = CROSS_INSERT
-    stream = make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"])
-    for sem, integer, batch in (("DG", True, p["batch"]),
-                                (parity_semantics(), True, p["batch"]),
-                                ("DW", False, p["batch"]), ("FD", False, p["fd_batch"])):
-        sem = resolve(sem)
-        rec = cross_plane_ticks(sem, integer_amounts(stream) if integer else stream,
-                                p["ticks"], batch, DEVICE, EPS, MAX_ROUNDS,
-                                integer=integer, tag=f"12a {sem.name}")
+        f"device seconds are the {DEVICE} side's, synchronized; the comparisons run at "
+        f"once, a process each")
+    # longest first: FD's host inserts go one edge a call, 12b's host
+    # deletions take seconds each
+    jobs = [("12a", "FD", CROSS_INSERT), ("12b", "XPARITY", CROSS_WINDOW),
+            ("12b", "DG", CROSS_WINDOW), ("12a", "DG", CROSS_INSERT),
+            ("12a", "XPARITY", CROSS_INSERT), ("12a", "DW", CROSS_INSERT),
+            ("12c", "int", CROSS_EXACT), ("12c", "tied", CROSS_EXACT)]
+    with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = [ex.submit(cross_plane_job, part, sem, p, DEVICE, EPS, MAX_ROUNDS)
+                   for part, sem, p in jobs]
+        recs = {(part, sem): f.result() for (part, sem, _), f in zip(jobs, futures)}
+    for (part, sem), rec in recs.items():
+        check("failed" not in rec, f"phase 12 {part} {sem}: {rec.get('failed')}")
+    out = {"insert": [], "window": [], "exact": [],
+           "launches": {k: sum(r["launches"][k] for r in recs.values())
+                        for k in ("peel_round", "frontier_spmv", "suffix_init")}}
+    for sem in ("DG", "XPARITY", "DW", "FD"):
+        rec = recs["12a", sem]
         out["insert"].append(rec)
-        log(f"12a {sem.name} insert-only, {rec['ticks']} ticks of {rec['batch']} on "
+        log(f"12a {rec['semantics']} insert-only, {rec['ticks']} ticks of {rec['batch']} on "
             f"n={rec['n']} base={rec['base_edges']}: weights, live edges, w0 "
-            f"{'bit for bit' if integer else 'within rtol'} every tick (max rel err "
-            f"{rec['max_rel_err']!r}); best_g {rec['best_g']!r}, refreshed "
+            f"{'bit for bit' if sem in ('DG', 'XPARITY') else 'within rtol'} every tick (max "
+            f"rel err {rec['max_rel_err']!r}); best_g {rec['best_g']!r}, refreshed "
             f"{rec['refreshed_best_g']!r} vs g_host {rec['g_host']!r}; host "
             f"{rec['host_s']!r} s, device {rec['device_s']!r} s")
-    p = CROSS_WINDOW
-    stream = integer_amounts(make_transaction_stream(n=p["n"], m=p["m"], seed=p["seed"]))
-    for sem in ("DG", parity_semantics()):
-        sem = resolve(sem)
-        rec = cross_plane_ticks(sem, stream, p["ticks"], p["batch"], DEVICE, EPS,
-                                MAX_ROUNDS, window=p["window"], tag=f"12b {sem.name}")
+    for sem in ("DG", "XPARITY"):
+        rec = recs["12b", sem]
         out["window"].append(rec)
-        log(f"12b {sem.name} window {rec['window']}, {rec['ticks']} ticks of "
+        log(f"12b {rec['semantics']} window {rec['window']}, {rec['ticks']} ticks of "
             f"{rec['batch']} on n={rec['n']} base={rec['base_edges']}: "
             f"{rec['deletions']} host DeleteEdge calls (slowest {rec['max_delete_s']!r} s); "
             f"weights, live edges, w0 bit for bit every tick; host {rec['host_s']!r} s, "
             f"device {rec['device_s']!r} s")
-    p = CROSS_EXACT
-    for tied in (False, True):
-        rec = exact_peel_check(p["n"], p["m"], p["seed"], DEVICE, tied)
+    for sem in ("int", "tied"):
+        rec = recs["12c", sem]
         out["exact"].append(rec)
-        log(f"12c exact_peel {'tied' if tied else 'int'} n={rec['n']} "
+        log(f"12c exact_peel {sem} n={rec['n']} "
             f"(capacity {rec['n_capacity']}) E={rec['edges']}: order and delta equal to "
             f"static_peel's ({rec['tied_neighbours']} equal neighbouring deltas), best_g "
             f"{rec['best_g']!r} vs {rec['g_host']!r}; device {rec['device_s']!r} s, host "
@@ -2842,14 +2904,22 @@ def quantiles(xs) -> dict:
 
 def serve(sem: str, stream, mesh=None, device: str | None = None, **kw):
     """``SpadeService`` at the spade-grab config's tick, eps and max_rounds:
-    (report, the final state as numpy)."""
+    (report, the final state as numpy).  On a mesh (edges on ``data``) the
+    state's graph is the ranks' edge blocks joined by ``unshard_graph``,
+    whose all-reduce is left out of ``dist.graph.STATS``."""
     from repro_torch.convert import state_to_numpy
+    from repro_torch.dist import graph as dg
     from repro_torch.serve import SpadeService
 
     svc = SpadeService(sem, batch_edges=kw.pop("batch", BATCH), eps=EPS,
                        max_rounds=MAX_ROUNDS, device=device or DEVICE, mesh=mesh, **kw)
     rep = svc.run(stream)
-    return rep, state_to_numpy(svc.final_state)
+    state = svc.final_state
+    if mesh is not None:
+        kept = dict(dg.STATS)
+        state = dataclasses.replace(state, graph=dg.unshard_graph(state.graph, mesh, "data"))
+        dg.STATS.update(kept)
+    return rep, state_to_numpy(state)
 
 
 def same_state(tag: str, got: dict, want: dict, fields=SHARD_STATE + SHARD_EDGES) -> None:
@@ -2857,13 +2927,6 @@ def same_state(tag: str, got: dict, want: dict, fields=SHARD_STATE + SHARD_EDGES
         check(np.array_equal(got[f], want[f]), f"{tag}: {f} differs")
 
 
-def joined(ranks: list[dict], E: int) -> dict:
-    """One state of the ranks' blocks: rank 0's replicated fields and the
-    edge blocks joined in rank order, cut to ``E`` slots."""
-    out = dict(ranks[0])
-    for f in SHARD_EDGES:
-        out[f] = np.concatenate([r[f] for r in ranks])[:E]
-    return out
 
 
 def phase_sharded_grab(stream) -> dict:
@@ -3065,11 +3128,9 @@ def phase_sharded_pair(stream) -> dict:
         check(all(vector_split_ok(x) for x in split),
               f"13b {sem}: K2's launches left the vector path: {split!r}")
         rep1, st1 = want[sem]
-        E = st1["src"].shape[0]
-        got = joined([r[sem]["state"] for r in ranks], E)
+        got = ranks[0][sem]["state"]  # the edge blocks joined by unshard_graph
         for r in ranks[1:]:
-            same_state(f"13b {sem}: rank 0 vs another rank", r[sem]["state"], ranks[0][sem]["state"],
-                       fields=SHARD_STATE)
+            same_state(f"13b {sem}: rank 0 vs another rank", r[sem]["state"], got)
         rep = ranks[0][sem]["report"]
         same_state(f"13b {sem} edges", got, st1, fields=SHARD_EDGES + ("edge_count",))
         n_level = int((got["level"] != st1["level"]).sum())
@@ -4579,6 +4640,9 @@ def spade_cells_full(seed: int) -> dict:
                       "launches": {k: counts[k] for k in
                                    ("peel_round", "frontier_spmv", "suffix_init")},
                       "build_s": build_s, "step_s": step_s}
+        # what phase 20 holds its sharded steps to, kept on the host
+        out[shape]["bits"] = spade_host(first, shape) | {
+            k: out[shape][k] for k in ("edges", "launches")}
         log(f"16c spade-grab {shape} at full width ({g.n_capacity} vertices, "
             f"{g.e_capacity} edge slots): {cell.step_name} in {step_s!r} s, best_g "
             f"{float(first.best_g)!r}, launches {out[shape]['launches']!r}; a second run "
@@ -5670,22 +5734,34 @@ MIXTRAL_TP_ARCH = "mixtral-8x7b"
 MIXTRAL_TP_LAYERS = 8
 MIXTRAL_TP_MESH = {"data": 1, "model": 2}
 MOE_TP_TIMEOUT = 600  # seconds for each of 19b's and 19c's spawns
+# ranks that draw their whole model at once on the one card: two olmoe
+# copies (13.8 GB each) and the shards fit, two of mixtral's 8 layers
+# (23.7 GB each) beside the shards leave too little room
+MOE_TP_DRAWS = {"olmoe-1b-7b": 2, "mixtral-8x7b": 1}
 # 19b and 19c hold every logits row (prefill and decode) to the unsharded
 # run within MOE_TP_TOL[arch] of the row's largest |logit|, a row whose token
 # was routed alike (the same experts, the same kept) in every layer within
-# MOE_TP_ALIKE_TOL, lm_loss and the aux loss within MOE_TP_LOSS_RTOL.  The
-# ranks round each row-parallel product's partial sums (mixtral's too:
-# each virtual expert's half of w_down) to bf16 before adding them, so the
-# hidden states differ by bf16 ulps, which move near-tie tokens to other
-# experts and, through the capacity positions, drop others; a rerouted
-# token's own logits move by its gate times the difference of two
-# experts' outputs.  Measured on an H100 80GB HBM3 at 700 W: every row
-# within 0.0476 (olmoe) and 0.2597 (mixtral, a rerouted decode token;
-# its other rows within 0.0752); the swapped-shard controls 0.4041 and
-# 0.7707, which the tolerances must and do reject; the loss and the aux
-# loss within 3.4e-6 and 6.9e-5
-MOE_TP_TOL = {"olmoe-1b-7b": 0.15, "mixtral-8x7b": 0.5}
-MOE_TP_ALIKE_TOL = 0.06
+# MOE_TP_ALIKE_TOL, lm_loss and the aux loss within MOE_TP_LOSS_RTOL.  Each
+# rank's bf16 products run over its own shapes (half the tokens, half the
+# columns) and round each row-parallel product's partial sums to bf16 before
+# adding them, so the hidden states differ from one device's by bf16 ulps,
+# which move tokens to other experts layer after layer and, through the
+# capacity positions, drop others; a rerouted token's own logits move by its
+# gate times the difference of two experts' outputs.  Measured on an H100
+# 80GB HBM3 at 700 W (ROADMAP C.12, `--c12 settle`): every row within 0.0476
+# (olmoe) and 0.2597 (mixtral, a rerouted decode token), rows routed alike
+# within 0.0320 and 0.0212, 12.1 % and 16.4 % of olmoe's token-layers
+# rerouted; with no partial sum at all, (data 2, model 1), still 5.5 % and
+# 6.3 %.  Two swapped-shard controls must fall beyond
+# MOE_TP_CONTROL_FACTOR[control][arch] times the tolerance: each rank's
+# experts replaced by its partner's (measured 0.4041 and 0.7707), then its
+# rows of wo too (1.534 and 1.792).  Mixtral's experts-only swap reaches
+# 2.2x its tolerance, not 3x: its sound run reads 0.2597, so no tolerance
+# that passes it leaves 3x room under 0.7707
+MOE_TP_TOL = {"olmoe-1b-7b": 0.12, "mixtral-8x7b": 0.35}
+MOE_TP_ALIKE_TOL = 0.045
+MOE_TP_CONTROL_FACTOR = {"experts": {"olmoe-1b-7b": 3, "mixtral-8x7b": 2},
+                         "experts_wo": {"olmoe-1b-7b": 3, "mixtral-8x7b": 3}}
 MOE_TP_LOSS_RTOL = 1e-3
 
 
@@ -5865,6 +5941,18 @@ def partner_expert_shards(model, mesh) -> list[dict]:
     return out
 
 
+def partner_wo_shards(model, mesh) -> list[dict]:
+    """On the host, the rows of the attention output projection ``wo``
+    that shard_cell will give this rank's partner on the ``model`` dim:
+    what the swapped-shard control loads besides the experts (its heads
+    then meet another rank's rows of ``wo``; swapping ``wq``, ``wk`` and
+    ``wv`` too would only renumber the heads, the same function)."""
+    i = mesh.mesh_dim_names.index("model")
+    partner = 1 - mesh.get_coordinate()[i]
+    return [{"wo": lp.wo.detach().chunk(2, dim=0)[partner].to("cpu", copy=True)}
+            for lp in model.layers]
+
+
 def moe_ffn_sharded(env, seed: int, smoke: bool) -> dict:
     """19b: one layer's ``moe_ffn`` at olmoe-1b-7b's width on 14b's inputs
     (MOE_FFN_TOKENS tokens) sharded on ``env``'s mesh (the tokens on
@@ -5908,12 +5996,14 @@ def moe_ffn_sharded(env, seed: int, smoke: bool) -> dict:
 def moe_tp_rank(mesh, path: str, arch: str, n_layers: int | None, seed: int, device: str,
                 smoke: bool) -> dict:
     """A rank of 19b or 19c: ``arch`` drawn whole from the seed (at
-    ``n_layers``), one rank after the other behind a barrier (one whole
-    copy at a time), sharded by ``shard_cell`` (each rank keeps its
-    shards; its partner's expert shards kept on the host), then
-    :func:`moe_serve` on the traffic in ``path``; for olmoe-1b-7b
-    :func:`moe_ffn_sharded`; last, the swapped-shard control: this rank's
-    expert shards replaced by its partner's, the prefill again.
+    ``n_layers``), MOE_TP_DRAWS[arch] ranks at a time behind a barrier
+    (so many whole copies at once), sharded by ``shard_cell`` (each rank keeps its
+    shards; its partner's expert shards and rows of ``wo`` kept on the
+    host), then :func:`moe_serve` on the traffic in ``path``; for
+    olmoe-1b-7b :func:`moe_ffn_sharded`; last (on a model dim of two
+    ranks), the swapped-shard controls: this rank's expert shards replaced
+    by its partner's, the prefill again (``control_prefill``), then its
+    rows of ``wo`` too, the prefill again (``control_wo_prefill``).
     ``smoke``: the smoke config on ``device``, for a rehearsal on the
     CPU."""
     import pickle
@@ -5935,11 +6025,14 @@ def moe_tp_rank(mesh, path: str, arch: str, n_layers: int | None, seed: int, dev
         ref = pickle.load(f)
     cfg = moe_tp_cfg(arch, n_layers, smoke)
     rank = dist.get_rank()
+    controls = mesh.size(mesh.mesh_dim_names.index("model")) == 2
     t0 = time.perf_counter()
-    for r in range(dist.get_world_size()):
-        if r == rank:
+    at_once = MOE_TP_DRAWS[arch]
+    for r in range(0, dist.get_world_size(), at_once):
+        if r <= rank < r + at_once:
             model = moe_tp_model(cfg, seed)
-            partner = partner_expert_shards(model, mesh)
+            if controls:
+                partner = (partner_expert_shards(model, mesh), partner_wo_shards(model, mesh))
             cell = shard_cell(prefill_cell(arch, model, ref["tokens"].to(DEVICE), smoke),
                               env)
             del model
@@ -5956,14 +6049,28 @@ def moe_tp_rank(mesh, path: str, arch: str, n_layers: int | None, seed: int, dev
                serve_peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
     if arch == MOE_TP_ARCH:
         out["ffn512"] = moe_ffn_sharded(env, seed, smoke)
-    for lp, shards in zip(cell.args[0].layers, partner):
-        for name, t in shards.items():
-            getattr(lp, name).to_local().copy_(t)
-    del partner
-    with use_axis_env(env):
-        logits, _ = cell.fn(*cell.args)
-        out["control_prefill"] = tp_gather(logits)
+    if not controls:  # no partner on a model dim of one rank
+        return out
+    for key, swap in zip(("control_prefill", "control_wo_prefill"), partner):
+        for lp, shards in zip(cell.args[0].layers, swap):
+            for name, t in shards.items():
+                getattr(lp, name).to_local().copy_(t)
+        with use_axis_env(env):
+            logits, _ = cell.fn(*cell.args)
+            out[key] = tp_gather(logits)
     return out
+
+
+def moe_tp_rank_f32(*args) -> dict:
+    """:func:`moe_tp_rank` with the attention's row-parallel partial sums
+    formed and all-reduced in float32 and rounded once to the activations'
+    dtype (``transformer._out_proj`` replaced in this rank): ROADMAP
+    C.12's diagnostic (``--c12 settle``)."""
+    from repro_torch.dist.sharding import settle
+    from repro_torch.models import transformer
+
+    transformer._out_proj = lambda o, wo: settle(o.float() @ wo.float()).to(o.dtype)
+    return moe_tp_rank(*args)
 
 
 def routing_rows(ref_rec: list, got_rec: list, n_layers: int, K: int) -> dict:
@@ -5982,7 +6089,7 @@ def routing_rows(ref_rec: list, got_rec: list, n_layers: int, K: int) -> dict:
         return topi.gather(-1, order), keep.reshape(topi.shape).gather(-1, order)
 
     out = {"rerouted": 0, "rerouted_near_ties": 0, "near_ties": 0, "keep_differs": 0,
-           "tokens": 0, "steps": []}
+           "tokens": 0, "steps": [], "rerouted_by_layer": [0] * n_layers}
     for c, (w, g) in enumerate(zip(ref_rec, got_rec)):
         if c % n_layers == 0:
             out["steps"].append(set())
@@ -5994,6 +6101,7 @@ def routing_rows(ref_rec: list, got_rec: list, n_layers: int, K: int) -> dict:
         differ = (e_g != e_w).any(dim=-1)
         kdiff = (k_g != k_w).any(dim=-1) & ~differ
         out["rerouted"] += int(differ.sum())
+        out["rerouted_by_layer"][c % n_layers] += int(differ.sum())
         out["rerouted_near_ties"] += int((differ & ties).sum())
         out["near_ties"] += int(ties.sum())
         out["keep_differs"] += int(((k_g != k_w) & ~differ[:, None]).sum())
@@ -6002,7 +6110,7 @@ def routing_rows(ref_rec: list, got_rec: list, n_layers: int, K: int) -> dict:
     return out
 
 
-def moe_tp_check(tag: str, ref: dict, ranks: list, n_layers: int, K: int, tol: float
+def moe_tp_check(tag: str, ref: dict, ranks: list, n_layers: int, K: int, arch: str
                  ) -> dict:
     """The logits checks of 19b and 19c on every rank's host copies:
     every row within ``tol`` of the row scale of ``ref``'s, the greedy
@@ -6010,9 +6118,11 @@ def moe_tp_check(tag: str, ref: dict, ranks: list, n_layers: int, K: int, tol: f
     a row whose token was routed alike in every layer (against ``ref``'s
     recorded routing: the decode steps' tokens, and, where ``forward``
     was recorded, each prompt's last token for the prefill's rows) within
-    MOE_TP_ALIKE_TOL; the swapped-shard control beyond ``tol`` on some
-    row; the loss and aux loss, where run, within MOE_TP_LOSS_RTOL.
-    Returns the errors and counts."""
+    MOE_TP_ALIKE_TOL; the swapped-shard controls beyond their factors
+    (MOE_TP_CONTROL_FACTOR) times ``tol`` on some row; the loss and aux
+    loss, where run, within MOE_TP_LOSS_RTOL.  ``tol`` is
+    MOE_TP_TOL[arch].  Returns the errors and counts."""
+    tol = MOE_TP_TOL[arch]
     B = ref["prefill_logits"].shape[0]
     S = ref["tokens"].shape[1]
     n_dec = len(ref["decode_logits"])
@@ -6051,10 +6161,16 @@ def moe_tp_check(tag: str, ref: dict, ranks: list, n_layers: int, K: int, tol: f
                     check(worst <= MOE_TP_ALIKE_TOL, f"{tag} rank {r} {name}: rows routed "
                           f"alike {alike} off by {worst!r} of the row scale (tolerance "
                           f"{MOE_TP_ALIKE_TOL})")
-        ctrl = float(rel(got["control_prefill"], ref["prefill_logits"]).max())
-        out.setdefault("control_rel_err", []).append(ctrl)
-        check(ctrl > tol, f"{tag} rank {r}: the swapped-shard control's prefill is "
-              f"within {ctrl!r} of the row scale, inside the tolerance {tol}")
+        for key, what, name in (("control_prefill", "experts", "control_rel_err"),
+                                ("control_wo_prefill", "experts_wo", "control_wo_rel_err")):
+            if key not in got:
+                continue
+            ctrl = float(rel(got[key], ref["prefill_logits"]).max())
+            out.setdefault(name, []).append(ctrl)
+            factor = MOE_TP_CONTROL_FACTOR[what][arch]
+            check(ctrl > factor * tol, f"{tag} rank {r}: the swapped-shard control "
+                  f"({what.replace('_', ' and ')} swapped) is within {ctrl!r} of the row "
+                  f"scale, not {factor} x the tolerance {tol}")
         for key in ("loss", "aux"):
             if key in ref and key in got:
                 e = abs(got[key] - ref[key]) / abs(ref[key])
@@ -6087,7 +6203,7 @@ def collectives_check(tag: str, ranks: list, pred: dict) -> dict:
 
 
 def moe_tp_spawn(tag: str, ref: dict, seed: int, arch: str, n_layers: int | None,
-                 mesh_shape: dict) -> dict:
+                 mesh_shape: dict, rank_fn=moe_tp_rank) -> dict:
     """19b / 19c: ``gloo`` ranks on the one card on a ``mesh_shape`` mesh,
     each with its shards of ``arch``'s seeded draw, serving ``ref``'s
     traffic (:func:`moe_tp_rank`), held to ``ref`` (its outputs and
@@ -6106,12 +6222,12 @@ def moe_tp_spawn(tag: str, ref: dict, seed: int, arch: str, n_layers: int | None
     B, S = ref["tokens"].shape
     pred = sharded_predicted(arch, mesh_shape, n_layers, B, S, smoke)
     t0 = time.perf_counter()
-    ranks = spawn(moe_tp_rank, math.prod(mesh_shape.values()), backend="gloo", device=DEVICE,
+    ranks = spawn(rank_fn, math.prod(mesh_shape.values()), backend="gloo", device=DEVICE,
                   args=(str(path), arch, n_layers, seed, DEVICE, smoke),
                   timeout=MOE_TP_TIMEOUT, mesh_shape=mesh_shape)
     spawn_s = time.perf_counter() - t0
     path.unlink()
-    res = moe_tp_check(tag, ref, ranks, cfg.n_layers, cfg.moe.top_k, MOE_TP_TOL[arch])
+    res = moe_tp_check(tag, ref, ranks, cfg.n_layers, cfg.moe.top_k, arch)
     res["collectives"] = collectives_check(tag, ranks, pred)
     for r, got in enumerate(ranks):
         check(DEVICE != "cuda" or (got["k3_launches"] == cfg.n_layers
@@ -6136,8 +6252,9 @@ def moe_tp_spawn(tag: str, ref: dict, seed: int, arch: str, n_layers: int | None
         f"{res['logit_rel_err_max']!r} of the row scale (tolerance {MOE_TP_TOL[arch]}); rows "
         f"routed alike {res['rows_alike']} of {res['rows']} within "
         f"{res['alike_rel_err']!r} ({MOE_TP_ALIKE_TOL}); greedy tokens equal on "
-        f"{res['decided']} decided rows ({res['tied']} near-ties); swapped-shard control "
-        f"{res['control_rel_err']!r}; routing against the reference's "
+        f"{res['decided']} decided rows ({res['tied']} near-ties); swapped-shard controls "
+        f"{res.get('control_rel_err')!r} (experts), {res.get('control_wo_rel_err')!r} "
+        f"(experts and wo); routing against the reference's "
         f"{res['routing']!r}; "
         + " ".join(f"{k}={res[k]!r}" for k in ("loss_rel_err", "aux_rel_err", "spawn_s")
                    if k in res))
@@ -6208,6 +6325,662 @@ def phase_moe_tp(ref: dict, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the Spade cells and gcn-cora's train step through shard_cell
+# ---------------------------------------------------------------------------
+
+SPADE_ARCH = "spade-grab"
+SPADE_CELL_FIELDS = {"grab4_static": ("level", "best_level", "best_g", "n_rounds", "delta"),
+                     "grab4_stream": ("level", "best_g", "community", "edge_count", "w0")}
+CELLS_TP_MESH = {"data": 2, "model": 2}  # 20b's and 20c's, one spawn of four ranks
+GCN_TP_SHAPE = "ogb_products"
+GCN_TP_STEPS = 3
+# 20c holds each step's loss and grad_norm to the unsharded step's at
+# GCN_TP_RTOL: the ranks add the aggregate's partial sums over the two edge
+# blocks, the loss's numerator over the vertex shards and the gradients'
+# partial sums in another order than one device (float32 roundings of sums
+# over 2.45M rows); the parameters at 16c's rule (cell_params_check)
+GCN_TP_RTOL = 1e-5
+SHARDED_CELLS_TIMEOUT = 600  # seconds for 20b's and 20c's spawn
+
+
+def spade_step(cell) -> tuple:
+    """One step of a (sharded) Spade cell, K1's, K2's and ``suffix_init``'s
+    counters and the engine's ``STATS`` set to 0 just before and read just
+    after: (result, seconds, launches, K2's split, all-reduces, bytes)."""
+    from repro_torch.dist import graph as dg
+
+    zero_kernel_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cell.fn(*cell.args)
+    sync()
+    return res, {"step_s": time.perf_counter() - t0, "launches": kernel_counts(),
+                 "split": k2_split(), "all_reduces": dg.STATS["all_reduces"],
+                 "reduced_bytes": dg.STATS["reduced_bytes"]}
+
+
+def spade_predicted(shape: str, mesh, smoke: bool = False) -> dict:
+    """The dry run's count of a Spade cell's collectives a rank a step on
+    ``mesh`` (``launch.dryrun.spade_cost``)."""
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import spade_cost
+
+    c = spade_cost(build_cell(SPADE_ARCH, shape, smoke=smoke), AxisEnv(mesh))
+    return {"all_reduces": c["collective_calls"]["all-reduce"],
+            "reduced_bytes": c["collectives"]["all-reduce"]}
+
+
+def spade_host(res, shape: str) -> dict:
+    """A cell's output fields on the host (the stream cell's graph too)."""
+    out = {f: getattr(res, f).to("cpu", copy=True) for f in SPADE_CELL_FIELDS[shape]}
+    if shape == "grab4_stream":
+        out["graph"] = {f: getattr(res.graph, f).to("cpu", copy=True) for f in SHARD_EDGES}
+    return out
+
+
+def best_g_bound(want: dict, shape: str, edges: int, max_rounds: int) -> float:
+    """How far a sharded ``best_g`` may lie from one device's on unit
+    weights (``dist/graph.py``'s docstring): f0 (``edges``) and each
+    round's dropped mass past 2^24 round apart by up to a float32 ulp of
+    f0 each, so the best suffix's f by (1 + 2 max_rounds) of them, over
+    its vertices."""
+    if shape == "grab4_static":
+        lv = want["level"]
+        n = int(((lv >= want["best_level"]) | (lv < 0)).sum())
+    else:
+        n = int(want["community"].sum())
+    return (1 + 2 * max_rounds) * float(np.spacing(np.float32(edges))) / max(n, 1)
+
+
+def spade_world1(bits: dict, seed: int, smoke: bool = False) -> dict:
+    """20a: one ``nccl`` rank on a (data 1, model 1) mesh: both Spade cells
+    at the spade-grab capacities through ``shard_cell``, each step 16c's
+    bits (``bits``: every field, the stream cell's graph joined by
+    ``unshard_graph``), K1, K2 and ``suffix_init`` launched as in 16c, and
+    the dry run's 21 all-reduces a step."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import graph as dg
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell, shard_cell
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model"))
+        for shape, want in bits.items():
+            cell = shard_cell(build_cell(SPADE_ARCH, shape, concrete=True, seed=seed,
+                                         smoke=smoke, device=DEVICE), AxisEnv(mesh))
+            res, row = spade_step(cell)
+            rounds = cell.fn.keywords["max_rounds"]
+            if shape == "grab4_stream":
+                res = dataclasses.replace(res, graph=dg.unshard_graph(
+                    res.graph, mesh, cell.fn.keywords["axis"]))
+            got = spade_host(res, shape)
+            for f in SPADE_CELL_FIELDS[shape]:
+                check(torch.equal(got[f], want[f]), f"20a {shape}: {f} differs from 16c's")
+            for f in want.get("graph", ()):
+                check(torch.equal(got["graph"][f], want["graph"][f]),
+                      f"20a {shape}: the joined graph's {f} differs from 16c's")
+            pred = spade_predicted(shape, mesh, smoke)
+            check(row["launches"] == want["launches"],
+                  f"20a {shape}: launches {row['launches']!r}, 16c's {want['launches']!r}")
+            check({k: row[k] for k in pred} == pred and pred["all_reduces"] == 1 + rounds,
+                  f"20a {shape}: {row['all_reduces']} all-reduces of {row['reduced_bytes']} B, "
+                  f"the dry run's {pred!r}")
+            out[shape] = {k: v for k, v in row.items() if k != "split"} | {"predicted": pred}
+            log(f"20a {shape} world 1 ({dist.get_backend()}, data 1 x model 1) through "
+                f"shard_cell: 16c's bits"
+                + (", the joined graph included" if "graph" in want else "") + "; "
+                + " ".join(f"{k}={v!r}" for k, v in out[shape].items()))
+            del cell, res
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+@contextlib.contextmanager
+def dropped_round_partials(rank: int):
+    """The control of 20b's ``best_g`` rule: rank ``rank``'s ``dw`` and
+    dropped mass left out of the first round's all-reduce of each peel."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import graph as dg
+
+    round_reduce = dg._round_reduce
+
+    def patched(buf, group):
+        reduce, first = round_reduce(buf, group), [True]
+
+        def dropped(dw, drop_mass):
+            if first[0] and dist.get_rank() == rank:
+                dw.zero_()
+                drop_mass = torch.zeros_like(drop_mass)
+            first[0] = False
+            return reduce(dw, drop_mass)
+
+        return dropped
+
+    dg._round_reduce = patched
+    try:
+        yield
+    finally:
+        dg._round_reduce = round_reduce
+
+
+def spade_cells_rank(mesh, seed: int, device: str, cfg: dict, smoke: bool = False) -> dict:
+    """A rank of 20b: both Spade cells at the spade-grab capacities through
+    ``shard_cell`` on ``mesh``, each drawn from the seed, one step each
+    (counters, the engine's ``STATS`` and the dry run's count); the stream
+    cell's graph joined by ``unshard_graph`` (rank 0 keeps it, the others
+    its digests); the static cell again with rank 0's first-round partials
+    dropped (:func:`dropped_round_partials`: rank 0's edge group, the
+    ranks at model 0, goes wrong)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import graph as dg
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell, shard_cell
+
+    global DEVICE
+    DEVICE = device
+    set_grab_config(cfg)
+    torch.set_grad_enabled(False)
+    rank = dist.get_rank()
+    out = {}
+    for shape in SPADE_CELL_FIELDS:
+        t0 = time.perf_counter()
+        cell = shard_cell(build_cell(SPADE_ARCH, shape, concrete=True, seed=seed,
+                                     smoke=smoke, device=DEVICE), AxisEnv(mesh))
+        build_s = time.perf_counter() - t0
+        res, row = spade_step(cell)
+        row.update(build_s=build_s, predicted=spade_predicted(shape, mesh, smoke),
+                   max_rounds=cell.fn.keywords["max_rounds"],
+                   world=cell.args[0].world if shape == "grab4_static"
+                   else cell.args[0].graph.world)
+        if shape == "grab4_stream":
+            res = dataclasses.replace(res, graph=dg.unshard_graph(
+                res.graph, mesh, cell.fn.keywords["axis"]))
+        row["host"] = spade_host(res, shape)
+        if shape == "grab4_stream":
+            row["graph_digest"] = {f: bits_digest(t.to(torch.int16) if t.dtype == torch.bool
+                                                  else t)
+                                   for f, t in row["host"]["graph"].items()}
+            if rank:
+                del row["host"]["graph"]
+        else:
+            with dropped_round_partials(0):
+                row["control_best_g"] = float(cell.fn(*cell.args).best_g)
+        out[shape] = row
+        del cell, res
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def spade_sharded_world4(bits: dict, ranks: list) -> dict:
+    """20b: the four ``gloo`` ranks' Spade cells (:func:`spade_cells_rank`)
+    on (data 2, model 2), the edges split two ways and replicated over
+    ``model``, against 16c's bits (``level``, ``community``,
+    ``edge_count``, ``w0``, ``best_level``, ``n_rounds``, ``delta`` and
+    the joined edge blocks bit for bit; ``best_g`` bit for bit or within
+    :func:`best_g_bound`, whose control must fall outside it); every
+    rank's all-reduces and bytes the dry run's; K2 on the vector path on
+    every rank; launches as 16c's."""
+    import torch
+
+    out = {}
+    for shape, want in bits.items():
+        rows = [r[shape] for r in ranks]
+        exact = [f for f in SPADE_CELL_FIELDS[shape] if f != "best_g"]
+        for i, row in enumerate(rows):
+            got = row["host"]
+            for f in exact:
+                check(torch.equal(got[f], want[f]), f"20b {shape} rank {i}: {f} differs")
+            check(torch.equal(got["best_g"], rows[0]["host"]["best_g"]),
+                  f"20b {shape} rank {i}: best_g differs from rank 0's")
+            check(vector_split_ok(row["split"]),
+                  f"20b {shape} rank {i}: K2 left the vector path: {row['split']!r}")
+            check(row["launches"] == want["launches"],
+                  f"20b {shape} rank {i}: launches {row['launches']!r}, 16c's "
+                  f"{want['launches']!r}")
+            pred = row["predicted"]
+            check({k: row[k] for k in pred} == pred
+                  and pred["all_reduces"] == 1 + row["max_rounds"],
+                  f"20b {shape} rank {i}: {row['all_reduces']} all-reduces of "
+                  f"{row['reduced_bytes']} B, the dry run's {pred!r}")
+            check(row["world"] == CELLS_TP_MESH["data"],
+                  f"20b {shape} rank {i}: an edge group of {row['world']}")
+        bound = best_g_bound(want, shape, want["edges"], rows[0]["max_rounds"])
+        g1, gs = float(want["best_g"]), float(rows[0]["host"]["best_g"])
+        res = {"best_g": gs, "best_g_16c": g1, "best_g_diff": gs - g1, "best_g_bound": bound,
+               "bits_equal_best_g": gs == g1,
+               "step_s": [r["step_s"] for r in rows], "build_s": [r["build_s"] for r in rows],
+               "all_reduces": rows[0]["all_reduces"], "reduced_bytes": rows[0]["reduced_bytes"],
+               "launches": [r["launches"] for r in rows]}
+        check(abs(gs - g1) <= bound, f"20b {shape}: best_g {gs!r} against 16c's {g1!r}: "
+              f"{gs - g1!r} beyond the predicted {bound!r}")
+        if shape == "grab4_stream":
+            for f, t in want["graph"].items():
+                check(torch.equal(rows[0]["host"]["graph"][f], t),
+                      f"20b {shape}: the joined graph's {f} differs from 16c's")
+            for i, row in enumerate(rows):
+                check(row["graph_digest"] == rows[0]["graph_digest"],
+                      f"20b {shape} rank {i}: its joined graph differs from rank 0's")
+        else:
+            ctrl = [r["control_best_g"] for r in rows]
+            res["control_best_g_diff"] = [c - g1 for c in ctrl]
+            check(abs(ctrl[0] - g1) > bound,
+                  f"20b {shape}: the dropped-partials control's best_g {ctrl[0]!r} on rank 0 "
+                  f"lies within {bound!r} of 16c's {g1!r}")
+        out[shape] = res
+        log(f"20b {shape} world 4 (gloo, one card, data 2 x model 2) through shard_cell: "
+            f"{', '.join(exact)}" + (" and the joined edge blocks" if "graph" in want else "")
+            + " bit for bit with 16c's; " + " ".join(f"{k}={v!r}" for k, v in res.items()))
+    return out
+
+
+@contextlib.contextmanager
+def dropped_aggregate(rank: int):
+    """The control of 20c: rank ``rank``'s partial sums of the first
+    layer's aggregate (its first two K4 launches) replaced by zeros."""
+    import torch.distributed as dist
+
+    from repro_torch.models import gnn
+
+    k4, calls = gnn._k4, [0]
+
+    def dropped(rows, x, n_out):
+        calls[0] += 1
+        out = k4(rows, x, n_out)
+        return out.zero_() if dist.get_rank() == rank and calls[0] <= 2 else out
+
+    gnn._k4 = dropped
+    try:
+        yield
+    finally:
+        gnn._k4 = k4
+
+
+def gcn_metrics(state, m, **extra) -> dict:
+    """A train step's loss, grad_norm, lr and parameters on the host."""
+    from repro_torch.dist.sharding import local
+
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "lr": float(m["lr"]),
+            "params": {k: local(v).detach().to("cpu", copy=True)
+                       for k, v in named_params(state.params).items()}} | extra
+
+
+def gcn_unsharded(seed: int, smoke: bool = False) -> list:
+    """20c's reference: gcn-cora's train cell at GCN_TP_SHAPE on DEVICE,
+    GCN_TP_STEPS steps, each step's metrics and parameters on the host."""
+    import torch
+
+    from repro_torch.launch.cells import build_cell
+
+    cell = build_cell("gcn-cora", GCN_TP_SHAPE, concrete=True, seed=seed, smoke=smoke,
+                      device=DEVICE)
+    steps = []
+    for _ in range(GCN_TP_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, m = cell.fn(*cell.args)
+        sync()
+        steps.append(gcn_metrics(state, m, step_s=time.perf_counter() - t0))
+    del cell, state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return steps
+
+
+def gcn_predicted(mesh_shape: dict, smoke: bool = False) -> dict:
+    """The dry run's prediction for 20c's mesh: one rank's collectives in
+    one train step of the cell, traced on meta under a fake process group
+    of the mesh's ranks (``launch.dryrun.sharded_cost``)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import sharded_cost
+
+    world = math.prod(mesh_shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, torch.arange(world).reshape(
+            tuple(mesh_shape.values())), mesh_dim_names=tuple(mesh_shape)))
+        return sharded_cost(lambda n: build_cell("gcn-cora", GCN_TP_SHAPE, smoke=smoke), env,
+                            None)
+    finally:
+        dist.destroy_process_group()
+
+
+def gcn_sharded_rank(mesh, seed: int, device: str, smoke: bool = False) -> dict:
+    """A rank of 20c: gcn-cora's train cell drawn from the seed, through
+    ``shard_cell`` (each rank keeps its vertex rows and edge block); the
+    control step (:func:`dropped_aggregate` on rank 1), the state put back,
+    then GCN_TP_STEPS steps under ``use_axis_env``, K4's counter set to 0
+    before each, the first one's collectives counted by ``LocalCost``."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.dist.sharding import AxisEnv, LocalCost, local, use_axis_env
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import build_cell, shard_cell
+
+    global DEVICE
+    DEVICE = device
+    cuda = DEVICE == "cuda"
+    env = AxisEnv(mesh)
+    t0 = time.perf_counter()
+    if not cuda:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    cell = shard_cell(build_cell("gcn-cora", GCN_TP_SHAPE, concrete=True, seed=seed,
+                                 smoke=smoke, device=DEVICE), env)
+    out = {"build_s": time.perf_counter() - t0, "steps": []}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = cell.args[0]
+    leaves = [local(t) for t in pytree.leaves((state.params, state.m, state.v))] + [state.step]
+    kept = [t.clone() for t in leaves]
+    with use_axis_env(env), dropped_aggregate(1):
+        out["control"] = gcn_metrics(*cell.fn(*cell.args))
+    for t, k in zip(leaves, kept):
+        t.copy_(k)
+    for i in range(GCN_TP_STEPS):
+        k4_ops.launches = 0
+        sync()
+        t1 = time.perf_counter()
+        with use_axis_env(env), LocalCost() if i == 0 else contextlib.nullcontext() as cost:
+            state, m = cell.fn(*cell.args)
+        sync()
+        row = gcn_metrics(state, m, step_s=time.perf_counter() - t1,
+                          k4_launches=k4_ops.launches)
+        if i == 0:
+            row["cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+        out["steps"].append(row)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    return out
+
+
+def gcn_step_errs(got: dict, want: dict) -> tuple[bool, dict]:
+    """Whether a step is within 20c's rules of the unsharded step (loss and
+    grad_norm at GCN_TP_RTOL, lr equal, the parameters at 16c's rule), and
+    the errors."""
+    import torch
+
+    errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    ok = all(e <= GCN_TP_RTOL for e in errs.values()) and got["lr"] == want["lr"]
+    lr = want["lr"]
+    for k, w in want["params"].items():
+        d = (got["params"][k] - w).abs()
+        ulp = torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()
+        odd = int((d > TRAIN_STEP_TOL * lr + 2 * ulp).sum())
+        ok = ok and odd <= max(2, TRAIN_ODD[False] * d.numel()) and float(d.max()) <= 2 * lr
+        errs[f"odd {k}"] = odd
+    return ok, errs
+
+
+def gcn_sharded_world4(want: list, pred: dict, ranks: list) -> dict:
+    """20c: the four ``gloo`` ranks' gcn-cora train steps on ogbn-products
+    (GCN_TP_SHAPE, full width; :func:`gcn_sharded_rank`) on (data 2,
+    model 2) against the unsharded steps on the same seed and batch
+    (``want``, :func:`gcn_unsharded`): each step within
+    :func:`gcn_step_errs`' rules on every rank, the control outside them,
+    K4 launched 8 times a step on each rank, each rank's collectives in
+    step 1 the dry run's (``pred``, :func:`gcn_predicted`; gloo's gathers
+    are all-to-alls on the card)."""
+    p = dict(pred["collectives"])
+    if DEVICE == "cuda":
+        p["all-to-all"] += p.pop("all-gather")
+        p["all-gather"] = 0
+    out = {"errs": [], "control_errs": [], "unsharded_step_s": [s["step_s"] for s in want]}
+    for r, got in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got["steps"], want)):
+            ok, errs = gcn_step_errs(g, w)
+            check(ok, f"20c rank {r} step {i + 1}: {errs!r} (rtol {GCN_TP_RTOL})")
+            check(DEVICE != "cuda" or g["k4_launches"] == 8,
+                  f"20c rank {r} step {i + 1}: K4 launched {g['k4_launches']} times, not 8")
+            out["errs"].append(errs)
+        ok, errs = gcn_step_errs(got["control"], want[0])
+        check(not ok, f"20c rank {r}: the dropped-aggregate control passes: {errs!r}")
+        out["control_errs"].append({k: errs[k] for k in ("loss", "grad_norm")})
+        c = got["steps"][0]["cost"]["bytes"]
+        check(c == p, f"20c rank {r}: collectives {c!r}, the dry run's {p!r}")
+    out.update(collectives=ranks[0]["steps"][0]["cost"], predicted={
+        "bytes": p, "calls": pred["collective_calls"]},
+        step_s=[[s["step_s"] for s in g["steps"]] for g in ranks],
+        peak_gb=[g["peak_gb"] for g in ranks], build_s=[g["build_s"] for g in ranks],
+        k4_launches=sum(s["k4_launches"] for g in ranks for s in g["steps"]),
+        loss=[s["loss"] for s in want])
+    out["max_rel_err"] = max(max(e["loss"], e["grad_norm"]) for e in out["errs"])
+    log(f"20c gcn-cora {GCN_TP_SHAPE} world 4 (gloo, one card, data 2 x model 2) through "
+        f"shard_cell, {GCN_TP_STEPS} steps: loss and grad_norm within "
+        f"{out['max_rel_err']!r} of the unsharded steps (rtol {GCN_TP_RTOL}), the parameters "
+        f"at 16c's rule, K4 8 launches a step on each rank, collectives the dry run's; "
+        + " ".join(f"{k}={out[k]!r}" for k in ("collectives", "step_s", "unsharded_step_s",
+                                                "peak_gb", "build_s", "control_errs")))
+    return out
+
+
+def phase_sharded_cells(bits: dict, seed: int, smoke: bool = False) -> dict:
+    """Phase 20, run last: 20a the Spade cells on one ``nccl`` rank, 20b on
+    four ``gloo`` ranks, both held to 16c's bits (``bits``, kept on the
+    host); 20c gcn-cora's train step on four ``gloo`` ranks against its
+    unsharded steps.  Launches of K1, K2, ``suffix_init`` and K4 here are
+    off the main path.  ``smoke``: the smoke configs, for a rehearsal on
+    the CPU."""
+    import torch
+
+    from repro_torch.dist import spawn
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out = {"world1": spade_world1(bits, seed, smoke)}
+    with torch.enable_grad():
+        want = gcn_unsharded(seed, smoke)
+    pred = gcn_predicted(CELLS_TP_MESH, smoke)
+    t1 = time.perf_counter()
+    ranks = spawn(sharded_cells_rank, math.prod(CELLS_TP_MESH.values()), backend="gloo",
+                  device=DEVICE, args=(seed, DEVICE, grab_config(), smoke),
+                  timeout=SHARDED_CELLS_TIMEOUT, mesh_shape=CELLS_TP_MESH)
+    out["spawn_s"] = time.perf_counter() - t1
+    out["world4"] = spade_sharded_world4(bits, [r["spade"] for r in ranks])
+    out["gcn"] = gcn_sharded_world4(want, pred, [r["gcn"] for r in ranks])
+    out["launches"] = {
+        k: sum(r["launches"][k] for r in out["world1"].values())
+        + sum(sum(x[k] for x in r["launches"]) for r in out["world4"].values()
+              if isinstance(r, dict) and "launches" in r)
+        for k in ("peel_round", "frontier_spmv", "suffix_init")}
+    out["launches"]["gather_segsum"] = out["gcn"]["k4_launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"20: {out['seconds']!r} s (20b and 20c's spawn {out['spawn_s']!r} s); launches off "
+        f"the main path {out['launches']!r}")
+    return out
+
+
+def sharded_cells_rank(mesh, seed: int, device: str, cfg: dict, smoke: bool = False) -> dict:
+    """A rank of 20b and 20c, one spawn: :func:`spade_cells_rank`, then
+    :func:`gcn_sharded_rank` with gradients on."""
+    import torch
+
+    out = {"spade": spade_cells_rank(mesh, seed, device, cfg, smoke)}
+    with torch.enable_grad():
+        out["gcn"] = gcn_sharded_rank(mesh, seed, device, smoke)
+    return out
+
+
+def gemm_shape_bits(seed: int, T: int = 16_384, D: int = 2048) -> dict:
+    """ROADMAP C.12's second diagnostic (``--c12 products``): the share of a
+    bf16 product's elements whose bits change when the same rows run in a
+    product of another shape, as a sharded rank runs them: ``x @ w`` (an
+    olmoe attention projection's shape, T tokens) against the first half
+    of its rows alone (data 2), against half its columns alone (a
+    column-parallel shard), and against the sum of the two halves of its
+    inner dim each rounded to bf16 (a row-parallel product's partial sums,
+    and the same formed and added in float32); a float32 router product
+    (64 experts) and a batched expert product on half their rows.
+    Elements compared by value (no NaN arises)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((T, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn((D, D), generator=gen, device=DEVICE) / D ** 0.5).to(torch.bfloat16)
+    full = x @ w
+    h = D // 2
+    router = torch.randn((D, 64), generator=gen, device=DEVICE) / D ** 0.5
+    logits = x.float() @ router
+    xb = x.reshape(8, T // 8, D)
+    wb = w[None].expand(8, D, D)[:, :, :h].contiguous()
+    experts = torch.bmm(xb, wb)
+    ways = {"rows_half": (x[:T // 2] @ w, full[:T // 2]),
+            "router_f32_rows_half": (x[:T // 2].float() @ router, logits[:T // 2]),
+            "experts_bmm_rows_half": (torch.bmm(xb[:, :T // 16], wb), experts[:, :T // 16]),
+            "columns_half": (x @ w[:, :h], full[:, :h]),
+            "partial_sums_bf16": (x[:, :h] @ w[:h] + x[:, h:] @ w[h:], full),
+            "partial_sums_f32": ((x[:, :h].float() @ w[:h].float()
+                                  + x[:, h:].float() @ w[h:].float()).to(torch.bfloat16), full)}
+    out = {k: float((a != b).float().mean()) for k, (a, b) in ways.items()}
+    log(f"C.12 bf16 products of {T} x {D} @ {D} x {D}: share of elements whose bits differ "
+        f"from the whole product's: {out!r}")
+    return out
+
+
+@contextlib.contextmanager
+def checks_logged(failed: list):
+    """Inside, a failed :func:`check` of this process is logged and
+    appended to ``failed`` instead of stopping the run: for the
+    diagnostics that measure what the smoke run's checks hold."""
+    global check
+
+    strict = check
+
+    def logged(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+            log(f"check failed (logged): {msg}")
+
+    check = logged
+    try:
+        yield failed
+    finally:
+        check = strict
+
+
+def moe_batch_witness(seed: int, smoke: bool = False, prompt: int = LM_PROMPT) -> dict:
+    """ROADMAP C.12's single-device witness (``--c12 batch``): 14c's
+    olmoe-1b-7b (its seed and depth) on this card alone, no mesh and no
+    collective, ``forward`` over 14c's two prompts together (B 2, twice:
+    the second a control of the run's own determinism) and over each
+    prompt alone (B 1: a data-2 rank's shapes), each alone routed in the
+    B 2 run's blocks (its tokens a block and capacity): the tokens routed
+    to other experts than the B 2 run's (:func:`routing_rows`), by layer,
+    and how many of them are near-ties of the B 2 run's logits.
+    ``smoke``: the smoke config, for a rehearsal on the CPU."""
+    import torch
+
+    from repro_torch.models import forward, moe
+
+    t0 = time.perf_counter()
+    cfg = moe_tp_cfg(MOE_TP_ARCH, None, smoke)
+    model = moe_tp_model(cfg, seed)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (LM_BATCH, prompt))).to(DEVICE)
+    B, S = tokens.shape
+    blocks = moe._blocks
+    _, tp, Cb = blocks(B * S, cfg.moe)
+
+    def routed(x) -> list:
+        rec = []
+        with routing_recorded(rec):
+            forward(model, x)
+        sync()
+        return [host_routing(r) for r in rec]
+
+    want = routed(tokens)
+    out = {"tokens_a_block": tp, "capacity": Cb,
+           "b2_again": routing_rows(want, routed(tokens), cfg.n_layers, cfg.moe.top_k)}
+    moe._blocks = lambda T, spec: (T // tp, tp, Cb)
+    try:
+        for b in range(B):
+            got = [r | {"t0": b * S, "b0": b * S // tp} for r in routed(tokens[b:b + 1])]
+            out[f"prompt{b}_alone"] = routing_rows(want, got, cfg.n_layers, cfg.moe.top_k)
+    finally:
+        moe._blocks = blocks
+    for k, v in out.items():
+        if isinstance(v, dict):
+            v.pop("steps")
+            v["rerouted_share"] = v["rerouted"] / v["tokens"]
+            log(f"C.12 witness {k}: " + " ".join(f"{a}={b!r}" for a, b in v.items()))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def moe_settle_runs(seed: int) -> dict:
+    """ROADMAP C.12's diagnostic (``--c12 settle``): 14c's olmoe-1b-7b run
+    and 19a, then 19b as the smoke run makes it (bf16 partial sums), on
+    (data 2, model 1) (no partial sum) and on (data 1, model 2) with the
+    attention's row-parallel partial sums formed and all-reduced in
+    float32 (:func:`moe_tp_rank_f32`), and 19b again with them in float32;
+    then 19c (mixtral-8x7b at MIXTRAL_TP_LAYERS layers).  Failed checks
+    are logged and returned (:func:`checks_logged`); so are each run's
+    reroutes, logits errors and controls."""
+    t0 = time.perf_counter()
+    keys = ("logit_rel_err_max", "alike_rel_err", "rows_alike", "rows", "control_rel_err",
+            "control_wo_rel_err", "routing", "loss_rel_err", "aux_rel_err")
+    out = {}
+    with checks_logged([]) as failed:
+        ref = moe_lm_full(MOE_TP_ARCH, seed)["tp_ref"]
+        w1 = moe_tp_world1(ref, seed)
+        routing = w1.pop("routing")
+        out["world1_prefill_s"] = w1["prefill_s"]
+        # (data 2, model 1): no partial sum at all, each rank's products
+        # over half the tokens; (data 1, model 2) in float32: the partial
+        # sums settled in float32, the products over all the tokens, split
+        # by columns
+        for name, mesh, rank_fn in (("19b_bf16", MOE_TP_MESH, moe_tp_rank),
+                                    ("19b_f32", MOE_TP_MESH, moe_tp_rank_f32),
+                                    ("data2_model1_bf16", {"data": 2, "model": 1}, moe_tp_rank),
+                                    ("data1_model2_f32", {"data": 1, "model": 2},
+                                     moe_tp_rank_f32)):
+            r = moe_tp_spawn(name, dict(ref, routing=routing), seed, MOE_TP_ARCH,
+                             ref["n_layers"], mesh, rank_fn=rank_fn)
+            out[name] = {k: r[k] for k in keys if k in r}
+        del ref, routing
+        mref = mixtral_tp_ref(seed)
+        r = moe_tp_spawn("19c", mref, seed, MIXTRAL_TP_ARCH, MIXTRAL_TP_LAYERS, MIXTRAL_TP_MESH)
+        out["19c_bf16"] = {k: r[k] for k in keys if k in r}
+    for k, v in out.items():
+        if isinstance(v, dict) and "routing" in v:
+            v["rerouted_share"] = [x["rerouted"] / x["tokens"] for x in v["routing"]]
+            log(f"C.12 {k}: " + " ".join(f"{a}={b!r}" for a, b in v.items()))
+    out["checks_failed"] = failed
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+C12_DIAGNOSTICS = {"products": gemm_shape_bits, "batch": moe_batch_witness,
+                   "settle": moe_settle_runs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -6220,6 +6993,10 @@ def main() -> int:
     ap.add_argument("--fsdp-controls", action="store_true",
                     help="run only the controls of phase 18b's rules (fsdp_controls) and "
                          "print them as JSON; no smoke result")
+    ap.add_argument("--c12", choices=sorted(C12_DIAGNOSTICS),
+                    help="run only one of ROADMAP C.12's diagnostics (products: "
+                         "gemm_shape_bits; batch: moe_batch_witness; settle: moe_settle_runs) "
+                         "and print it as JSON; no smoke result")
     args = ap.parse_args()
 
     import torch
@@ -6249,6 +7026,11 @@ def main() -> int:
             controls = fsdp_controls(LM_SEED)
         print(smi)
         print(json.dumps(controls))
+        return 0
+    if args.c12:
+        res = C12_DIAGNOSTICS[args.c12](LM_SEED)
+        print(smi)
+        print(json.dumps(res, default=repr))
         return 0
     log(f"phase 1: built {sorted(libs)} in {build_s!r} s; per source (nvcc in parallel): "
         + ", ".join(f"{k} {v!r} s" for k, v in sorted(_build.BUILD_SECONDS.items())))
@@ -6315,16 +7097,11 @@ def main() -> int:
         f"a step, {t15['step_s_median_2_3']!r} s a step), a checkpoint round trip bit for "
         f"bit; {train['seconds']!r} s")
 
-    # phase 12 launches K1, K2 and suffix_init off the main path: counted
-    # apart from the main-path counts of the kernels line
-    from repro_torch.kernels.frontier_spmv import ops as k2_ops
-    from repro_torch.kernels.peel_round import ops as k1_ops
-
+    # phase 12 launches K1, K2 and suffix_init off the main path, in its
+    # own processes: counted apart from the main-path counts of the
+    # kernels line
     t_cross = time.perf_counter()
-    k1_ops.launches = k2_ops.launches = k2_ops.suffix_init_launches = 0
     cross = phase_cross_plane(smi)
-    cross["launches"] = {"peel_round": k1_ops.launches, "frontier_spmv": k2_ops.launches,
-                         "suffix_init": k2_ops.suffix_init_launches}
     check(all(cross["launches"].values()),
           f"phase 12: a kernel never launched: {cross['launches']!r}")
     log(f"phase 12: host plane == device plane tick by tick, exact_peel == static_peel; "
@@ -6347,6 +7124,7 @@ def main() -> int:
 
     kept.clear()  # phase 16 puts 61.44 GB of tables on the card
     cells = phase_cells(LM_SEED)
+    spade_bits = {s: r.pop("bits") for s, r in cells["cells"]["spade_full"].items()}
     serve16, train16 = cells["serve"], cells["train"]
     log(f"phase 16 on {smi}: {TT_ARCH} served at full width ("
         f"{serve16['table_gb']!r} GB of tables; serve_p99 {serve16['serve_p99']['ms']!r} ms, "
@@ -6387,6 +7165,20 @@ def main() -> int:
         f"{wm['logit_rel_err_max']!r}; the swapped-shard controls rejected; "
         f"{moe_tp['seconds']!r} s")
 
+    # phase 20 runs last, after 19: its ranks precede no other phase's timing
+    tp_cells = phase_sharded_cells(spade_bits, CELL_SEED)
+    w4s, gcn20 = tp_cells["world4"], tp_cells["gcn"]
+    log(f"phase 20: the Spade cells and gcn-cora's train step through shard_cell on {smi}: "
+        f"world 1 (nccl) 16c's bits, world 4 (gloo, one card, data 2 x model 2) 16c's bits "
+        f"but best_g (static {w4s['grab4_static']['best_g_diff']!r}, stream "
+        f"{w4s['grab4_stream']['best_g_diff']!r} off, bounds "
+        f"{w4s['grab4_static']['best_g_bound']!r} and {w4s['grab4_stream']['best_g_bound']!r}),"
+        f" {w4s['grab4_static']['all_reduces']!r} all-reduces of "
+        f"{w4s['grab4_static']['reduced_bytes']!r} B a step as the dry run's; gcn-cora on "
+        f"{GCN_TP_SHAPE} within {gcn20['max_rel_err']!r} of the unsharded steps, its "
+        f"collectives the dry run's, peak {gcn20['peak_gb']!r} GB a rank; "
+        f"{tp_cells['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -6414,19 +7206,25 @@ def main() -> int:
          "source": "src/repro_torch/csrc/peel_round.cu",
          "replaces": "src/repro/kernels/peel_round/kernel.py:76",
          "launches": sum(spade_paths["peel_round"].values()),
-         "launches_by_path": spade_paths["peel_round"], "bound_by": "bytes",
+         "launches_by_path": spade_paths["peel_round"],
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["peel_round"]},
+         "bound_by": "bytes",
          "library_ms": None, **rec["peel_round"]},
         {"name": "frontier_spmv", "route": "cuda",
          "source": "src/repro_torch/csrc/frontier_spmv.cu",
          "replaces": "src/repro/core/peel.py:201",
          "launches": sum(spade_paths["frontier_spmv"].values()),
-         "launches_by_path": spade_paths["frontier_spmv"], "bound_by": "bytes",
+         "launches_by_path": spade_paths["frontier_spmv"],
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["frontier_spmv"]},
+         "bound_by": "bytes",
          "library_ms": None, **rec["frontier_spmv"]},
         {"name": "suffix_init", "route": "cuda",
          "source": "src/repro_torch/csrc/frontier_spmv.cu",
          "replaces": "src/repro/core/peel.py:324",
          "launches": sum(spade_paths["suffix_init"].values()),
-         "launches_by_path": spade_paths["suffix_init"], "bound_by": "bytes",
+         "launches_by_path": spade_paths["suffix_init"],
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["suffix_init"]},
+         "bound_by": "bytes",
          "library_ms": None, **tick["suffix_init"],
          **{f"f64_mode_{k}": v for k, v in rec["suffix_init_f64"].items()}},
         {"name": "flash_attention", "route": "cuda",
@@ -6448,7 +7246,8 @@ def main() -> int:
         {"name": "gather_segsum", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_segsum.cu",
          "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
-         "launches": sum(k4_paths.values()), "launches_by_path": k4_paths, **k4},
+         "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["gather_segsum"]}, **k4},
     ]
     log("kernels launched on their paths: " + ", ".join(
         f"{k['name']} {k['launches']}" for k in kernels))
@@ -6462,7 +7261,8 @@ def main() -> int:
              "qwen3_14b": lm, "tensor_parallel": tp, "gather_segsum": k4_cases,
              "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
-             "train": train, "cells": cells, "fsdp": fsdp, "moe_tp": moe_tp},
+             "train": train, "cells": cells, "fsdp": fsdp, "moe_tp": moe_tp,
+             "sharded_cells": tp_cells},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

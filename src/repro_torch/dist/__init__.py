@@ -25,6 +25,7 @@ from .graph import (
     sharded_slide_and_maintain_auto,
     sharded_slide_and_maintain_predictive,
     sharded_workset_sizes,
+    unshard_graph,
 )
 from .sharding import AxisEnv, axis_env, constrain, tree_shardings, use_axis_env
 from .spawn import spawn
@@ -38,6 +39,7 @@ __all__ = [
     "TIME_REDUCES",
     "ShardedGraph",
     "init_sharded_state",
+    "unshard_graph",
     "reset_stats",
     "shard_graph",
     "sharded_bulk_peel",

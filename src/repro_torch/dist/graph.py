@@ -2,13 +2,20 @@
 plane's graph engine (the counterpart of ``repro.dist.graph``).
 
 Edge partitioning: a :class:`DeviceGraph`'s COO edge buffers are cut into
-one block per rank along one dim of a ``DeviceMesh`` (``axis``, default
-``"data"``) while every vertex array stays replicated.  One process per
-rank, PyTorch's SPMD idiom: every rank calls the same entry points with
-the same replicated batch and gets the same replicated results.  A rank
-holds its ``e_capacity / world`` slots as a :class:`ShardedGraph`, each
-block its own allocation, so K2 and ``suffix_init`` take their 16-byte
-vector paths on it.
+one block per rank of an edge group of a ``DeviceMesh`` while every vertex
+array stays replicated.  ``axis`` (default ``"data"``) names the group:
+one mesh dim, a tuple of dims in the mesh's order (their flattened group,
+:func:`repro_torch.dist.sharding.mesh_group`, whose index is pod-major as
+GSPMD's ``P(("pod", "data"))``), or none (``()``: a group of this rank
+alone, which issues no collective and gives the single-device bits).
+Ranks that differ only along the other dims (``model``) hold the same
+block and do the same work; every collective runs over the edge group.
+One process per rank, PyTorch's SPMD idiom: every rank calls the same
+entry points with the same replicated batch and gets the same replicated
+results.  A rank holds its ``e_capacity / world`` slots as a
+:class:`ShardedGraph`, each block its own allocation, so K2 and
+``suffix_init`` take their 16-byte vector paths on it;
+:func:`unshard_graph` joins the blocks again.
 
 A bulk-peel round (the twin of ``core.peel._round_step``) runs K2 on the
 rank's block into the peel's float64 ``dw``, then **one** fused
@@ -84,6 +91,7 @@ from repro_torch.core.peel import (
     _scalar,
     host_read,
 )
+from repro_torch.dist.sharding import mesh_group
 from repro_torch.graphstore.structs import DeviceGraph, compact_slots, scatter_drop
 from repro_torch.kernels.frontier_spmv import suffix_init
 
@@ -93,6 +101,8 @@ __all__ = [
     "TIME_REDUCES",
     "reset_stats",
     "shard_graph",
+    "unshard_graph",
+    "cell_step_collectives",
     "sharded_peel_weights",
     "sharded_bulk_peel",
     "sharded_bulk_peel_warm",
@@ -135,6 +145,10 @@ def reset_stats() -> None:
 
 
 def _all_reduce(t: torch.Tensor, group, op=_SUM, round_: bool = False) -> None:
+    """``t`` reduced in place over ``group``; a group of this rank alone
+    (None) is ``t`` itself, and no collective is issued or counted."""
+    if group is None:
+        return
     STATS["all_reduces"] += 1
     STATS["round_all_reduces"] += round_
     STATS["reduced_bytes"] += t.numel() * t.element_size()
@@ -161,6 +175,7 @@ class ShardedGraph(DeviceGraph):
 
     rank: int = 0
     world: int = 1
+    e_unpadded: int = 0  # the whole graph's e_capacity before padding
 
     @property
     def e_local(self) -> int:
@@ -175,18 +190,35 @@ class ShardedGraph(DeviceGraph):
                         "sharded_peel_weights(g, mesh)")
 
 
-def _axis(mesh, axis: str):
-    """(process group, this rank's index, ranks) of ``axis`` of ``mesh``."""
+Axis = str | tuple[str, ...] | None  # an edge group: one mesh dim, several, or none
+
+
+def _axis(mesh, axis: Axis):
+    """(process group, this rank's index in it, its ranks) of the edge
+    group ``axis`` names on ``mesh``: one dim, a tuple of dims (their
+    flattened group, pod-major), or none (``()`` or None: this rank alone,
+    group None)."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
                         f"{type(mesh).__name__}")
-    names = mesh.mesh_dim_names or ()
-    if axis not in names:
-        raise ValueError(f"mesh has no dim named {axis!r} (dims {names})")
-    return mesh.get_group(axis), mesh.get_local_rank(axis), mesh.size(names.index(axis))
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = () if axis is None else (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in axes:
+        if a not in names:
+            raise ValueError(f"mesh has no dim named {a!r} (dims {names})")
+    dims = [names.index(a) for a in axes]
+    if dims != sorted(set(dims)):
+        raise ValueError(f"edge dims {axes} are not in the mesh's order {names}")
+    if not dims:
+        return None, 0, 1
+    group = mesh_group(mesh, dims)
+    if isinstance(group, tuple):  # one dim
+        m, d = group
+        return m.get_group(d), m.get_local_rank(d), m.size(d)
+    return group.get_group(), group.get_local_rank(), group.size()
 
 
-def _check(g: DeviceGraph, mesh, axis: str):
+def _check(g: DeviceGraph, mesh, axis: Axis):
     group, rank, world = _axis(mesh, axis)
     if g.e_capacity % world:
         raise ValueError(
@@ -198,7 +230,7 @@ def _check(g: DeviceGraph, mesh, axis: str):
     return group, rank, world
 
 
-def shard_graph(g: DeviceGraph, mesh, axis: str = "data") -> ShardedGraph:
+def shard_graph(g: DeviceGraph, mesh, axis: Axis = "data") -> ShardedGraph:
     """Pad ``e_capacity`` to a multiple of the ranks and keep this rank's
     block of the edge buffers, a fresh allocation; the vertex buffers stay
     whole.  Padding slots are the inert self-loops (``src = dst =
@@ -220,7 +252,24 @@ def shard_graph(g: DeviceGraph, mesh, axis: str = "data") -> ShardedGraph:
         src=block(g.src, pad), dst=block(g.dst, pad), c=block(g.c, 0.0),
         edge_mask=block(g.edge_mask, False), a=g.a, vertex_mask=g.vertex_mask,
         n_capacity=g.n_capacity, e_capacity=e_pad, rank=rank, world=world,
+        e_unpadded=g.e_capacity,
     )
+
+
+def unshard_graph(g: ShardedGraph, mesh, axis: Axis = "data") -> DeviceGraph:
+    """The whole graph on every rank: the ranks' edge blocks joined in rank
+    order (one int32 ``all_reduce`` of a buffer in which each rank fills
+    its block, ``c`` as its bits), cut to the unpadded ``e_capacity``."""
+    group, rank, world = _check(g, mesh, axis)
+    el = g.e_local
+    buf = torch.zeros((4, world * el), dtype=torch.int32, device=g.device)
+    buf[:, rank * el:(rank + 1) * el] = torch.stack(
+        [g.src, g.dst, g.c.view(torch.int32), g.edge_mask.to(torch.int32)])
+    _all_reduce(buf, group)
+    E = g.e_unpadded
+    return DeviceGraph(src=buf[0, :E], dst=buf[1, :E], c=buf[2, :E].view(torch.float32),
+                       edge_mask=buf[3, :E].bool(), a=g.a, vertex_mask=g.vertex_mask,
+                       n_capacity=g.n_capacity, e_capacity=E)
 
 
 # ---------------------------------------------------------------------------
@@ -274,21 +323,21 @@ def _sharded_peel(g, keep, prior_g, mesh, axis, eps, max_rounds, warm) -> PeelRe
     return _result(s, s.level, s.w)
 
 
-def sharded_bulk_peel(g: ShardedGraph, mesh, axis: str = "data", eps: float = 0.1,
+def sharded_bulk_peel(g: ShardedGraph, mesh, axis: Axis = "data", eps: float = 0.1,
                       max_rounds: int = 0) -> PeelResultDevice:
     """Edge-sharded twin of :func:`repro_torch.core.peel.bulk_peel`."""
     return _sharded_peel(g, g.vertex_mask, _scalar(-_INF, torch.float32, g.device),
                          mesh, axis, eps, max_rounds, warm=False)
 
 
-def sharded_bulk_peel_warm(g: ShardedGraph, keep, prior_best_g, mesh, axis: str = "data",
+def sharded_bulk_peel_warm(g: ShardedGraph, keep, prior_best_g, mesh, axis: Axis = "data",
                            eps: float = 0.1, max_rounds: int = 0) -> PeelResultDevice:
     """Edge-sharded twin of :func:`repro_torch.core.peel.bulk_peel_warm`."""
     return _sharded_peel(g, keep, prior_best_g, mesh, axis, eps, max_rounds, warm=True)
 
 
 def sharded_bulk_peel_warm_workset(
-    g: ShardedGraph, keep, prior_best_g, mesh, axis: str = "data", eps: float = 0.1,
+    g: ShardedGraph, keep, prior_best_g, mesh, axis: Axis = "data", eps: float = 0.1,
     max_rounds: int = 0, *, v_bucket: int, e_bucket: int,
 ) -> PeelResultDevice:
     """Edge-sharded twin of
@@ -313,7 +362,7 @@ def sharded_bulk_peel_warm_workset(
     return _result(s, level[:V], delta[:V])
 
 
-def sharded_workset_sizes(g: ShardedGraph, keep, mesh, axis: str = "data"
+def sharded_workset_sizes(g: ShardedGraph, keep, mesh, axis: Axis = "data"
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """(live suffix vertices, the LARGEST rank's suffix-induced live edges)
     as int32 device scalars, equal on every rank."""
@@ -324,7 +373,7 @@ def sharded_workset_sizes(g: ShardedGraph, keep, mesh, axis: str = "data"
     return live.sum().to(torch.int32), ne[0]
 
 
-def sharded_peel_weights(g: ShardedGraph, mesh, axis: str = "data") -> torch.Tensor:
+def sharded_peel_weights(g: ShardedGraph, mesh, axis: Axis = "data") -> torch.Tensor:
     """Edge-sharded ``DeviceGraph.peel_weights`` (the static peel's
     prologue: one all_reduce)."""
     group, _, _ = _check(g, mesh, axis)
@@ -333,18 +382,34 @@ def sharded_peel_weights(g: ShardedGraph, mesh, axis: str = "data") -> torch.Ten
                      group)[0]
 
 
+def cell_step_collectives(n_capacity: int, max_rounds: int, has_group: bool = True) -> dict:
+    """The collectives a rank makes in one step of a Spade cell on this
+    engine, :func:`sharded_bulk_peel` or :func:`sharded_insert_and_maintain`
+    with ``max_rounds > 0`` (exactly that many rounds), counted from this
+    module's structure: the peel's prologue and each round all-reduce the
+    float64 ``dw ‖ drop`` buffer of ``n_capacity + 1`` elements, and
+    nothing else reduces (the insertion writes the replicated batch into
+    the blocks, the bookkeeping is replicated).  ``has_group`` False: the
+    edges resolve to no mesh dim, and nothing is reduced.  As
+    :data:`STATS` counts them: ``{"calls": ..., "bytes": ...}``."""
+    if max_rounds < 1:
+        raise ValueError("a step's rounds are counted only for max_rounds > 0")
+    calls = (1 + max_rounds) if has_group else 0
+    return {"calls": calls, "bytes": calls * (n_capacity + 1) * 8}
+
+
 # ---------------------------------------------------------------------------
 # sharded streaming maintenance
 # ---------------------------------------------------------------------------
 
 
-def _peels(mesh, axis: str, g: ShardedGraph) -> _Peels:
+def _peels(mesh, axis: Axis, g: ShardedGraph) -> _Peels:
     return _Peels(partial(sharded_bulk_peel_warm, mesh=mesh, axis=axis),
                   partial(sharded_bulk_peel_warm_workset, mesh=mesh, axis=axis),
                   g.e_local)
 
 
-def init_sharded_state(g: ShardedGraph, mesh, axis: str = "data",
+def init_sharded_state(g: ShardedGraph, mesh, axis: Axis = "data",
                        eps: float = 0.1) -> DeviceSpadeState:
     """Sharded twin of :func:`repro_torch.core.incremental.init_state`;
     ``g`` comes from :func:`shard_graph`."""
@@ -359,7 +424,7 @@ def init_sharded_state(g: ShardedGraph, mesh, axis: str = "data",
     )
 
 
-def sharded_full_refresh(state: DeviceSpadeState, mesh, axis: str = "data",
+def sharded_full_refresh(state: DeviceSpadeState, mesh, axis: Axis = "data",
                          eps: float = 0.1) -> DeviceSpadeState:
     """Edge-sharded twin of :func:`repro_torch.core.incremental.full_refresh`."""
     g = state.graph
@@ -481,7 +546,7 @@ def _sharded_slide_phase_a(state, drop, src, dst, c, valid, mesh, axis):
 
 
 def sharded_insert_and_maintain(state: DeviceSpadeState, src, dst, c, valid, mesh,
-                                axis: str = "data", eps: float = 0.1,
+                                axis: Axis = "data", eps: float = 0.1,
                                 max_rounds: int = 0) -> DeviceSpadeState:
     """Edge-sharded twin of
     :func:`repro_torch.core.incremental.insert_and_maintain`: sharded
@@ -496,7 +561,7 @@ def sharded_insert_and_maintain(state: DeviceSpadeState, src, dst, c, valid, mes
 
 
 def sharded_slide_and_maintain(state: DeviceSpadeState, drop, src, dst, c, valid, mesh,
-                               axis: str = "data", eps: float = 0.1,
+                               axis: Axis = "data", eps: float = 0.1,
                                max_rounds: int = 0) -> DeviceSpadeState:
     """Edge-sharded twin of
     :func:`repro_torch.core.incremental.slide_and_maintain`: one window
@@ -507,7 +572,7 @@ def sharded_slide_and_maintain(state: DeviceSpadeState, drop, src, dst, c, valid
     return _slide_epilogue(state, g, res, bk, n_removed, src, dst, c, valid)
 
 
-def sharded_delete_and_maintain(state: DeviceSpadeState, drop, mesh, axis: str = "data",
+def sharded_delete_and_maintain(state: DeviceSpadeState, drop, mesh, axis: Axis = "data",
                                 eps: float = 0.1, max_rounds: int = 0) -> DeviceSpadeState:
     """Edge-sharded twin of
     :func:`repro_torch.core.incremental.delete_and_maintain`: a sharded
@@ -532,7 +597,7 @@ def _sharded_slide_phase_a_sized(state, drop, src, dst, c, valid, mesh, axis):
 
 
 def sharded_insert_and_maintain_auto(
-    state: DeviceSpadeState, src, dst, c, valid, mesh, axis: str = "data",
+    state: DeviceSpadeState, src, dst, c, valid, mesh, axis: Axis = "data",
     eps: float = 0.1, max_rounds: int = 0, min_bucket: int = 64,
 ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
     """Edge-sharded twin of
@@ -545,7 +610,7 @@ def sharded_insert_and_maintain_auto(
 
 
 def sharded_slide_and_maintain_auto(
-    state: DeviceSpadeState, drop, src, dst, c, valid, mesh, axis: str = "data",
+    state: DeviceSpadeState, drop, src, dst, c, valid, mesh, axis: Axis = "data",
     eps: float = 0.1, max_rounds: int = 0, min_bucket: int = 64,
 ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
     """Edge-sharded twin of
@@ -558,7 +623,7 @@ def sharded_slide_and_maintain_auto(
 
 def sharded_insert_and_maintain_predictive(
     state: DeviceSpadeState, src, dst, c, valid, predictor: BucketPredictor, mesh,
-    axis: str = "data", eps: float = 0.1, max_rounds: int = 0,
+    axis: Axis = "data", eps: float = 0.1, max_rounds: int = 0,
 ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
     """Edge-sharded twin of
     :func:`repro_torch.core.incremental.insert_and_maintain_predictive`;
@@ -571,7 +636,7 @@ def sharded_insert_and_maintain_predictive(
 
 def sharded_slide_and_maintain_predictive(
     state: DeviceSpadeState, drop, src, dst, c, valid, predictor: BucketPredictor, mesh,
-    axis: str = "data", n_dropped: int | None = None, eps: float = 0.1,
+    axis: Axis = "data", n_dropped: int | None = None, eps: float = 0.1,
     max_rounds: int = 0,
 ) -> tuple[DeviceSpadeState, WorksetTickInfo]:
     """Edge-sharded twin of

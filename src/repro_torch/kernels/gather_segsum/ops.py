@@ -8,7 +8,8 @@ the same edges into the reference's dense 128x128 tiles (the arrays of
 :func:`rows_from_tiles` gives the matrix of such tiles as rows.  Both build
 on the tensors' own device, with no Python loop per row or tile and no host
 copy.  :func:`gather_segsum` runs K4 on CUDA tensors (or raises) and its
-plain version :func:`spmm_rows_ref` on CPU tensors.  ``launches`` counts
+plain version :func:`spmm_rows_ref` on CPU tensors.  On ``meta`` tensors
+(the dry run's trace) :func:`build_rows` gives the shapes only.  ``launches`` counts
 kernel launches (not CPU calls).
 """
 
@@ -89,7 +90,10 @@ def build_rows(src, dst, val, n_dst: int, n_src: int,
     a ``dst`` outside ``[0, n_dst)``."""
     src, dst, val, dev = _edges(src, dst, val, device, torch.int32)
     dst, order = torch.sort(dst, stable=True)
-    counts = torch.bincount(dst, minlength=n_dst)
+    if dev.type == "meta":  # the dry run's trace: shapes only
+        counts = torch.empty(n_dst, dtype=torch.int64, device=dev)
+    else:
+        counts = torch.bincount(dst, minlength=n_dst)
     if counts.shape[0] != n_dst:
         raise ValueError(f"build_rows: a destination lies past n_dst = {n_dst}")
     row_ptr = torch.zeros(n_dst + 1, dtype=torch.int64, device=dev)

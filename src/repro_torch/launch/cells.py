@@ -20,7 +20,9 @@ an LM serving cell's own arguments (dense or MoE), or a dense train
 cell's state in the FSDP layout, on a mesh as DTensors by the same names,
 the port's per-layer parameters taking their stacked leaf's names less
 the layer dim (a MoE layer's virtual experts unfolded, as the reference
-holds them).  ``model_flops`` are the reference's formulas.  The reference
+holds them); gcn-cora's train cell's batch on ``vertex``/``edges``; and it
+steps a Spade cell on the edge-sharded engine, its graph's edges on
+``edges``.  ``model_flops`` are the reference's formulas.  The reference
 donates a train step's state; the port's train step updates it in place,
 to the same effect.
 """
@@ -45,6 +47,7 @@ from repro_torch.convert import (lm_params_to_reference, train_state_to_referenc
 from repro_torch.core.incremental import DeviceSpadeState, init_state, insert_and_maintain
 from repro_torch.core.peel import bulk_peel
 from repro_torch.device import resolve_device
+from repro_torch.dist.graph import shard_graph, sharded_bulk_peel, sharded_insert_and_maintain
 from repro_torch.dist.sharding import MODEL_AXIS, AxisEnv, place, shard_tree, use_axis_env
 from repro_torch.graphstore.structs import DeviceGraph, device_graph_from_coo
 from repro_torch.models.gnn import GNN, GraphBatch, gnn_loss, make_triplets
@@ -121,17 +124,44 @@ def reference_args(cell: Cell) -> tuple:
 
 def sharded_reason(cell: Cell) -> str | None:
     """None when :func:`shard_cell` runs ``cell`` sharded (an LM's
-    ``prefill`` or ``decode_step``, a dense LM's ``train_step``), else why
-    not: the ROADMAP item of the sharded slice that brings it."""
+    ``prefill`` or ``decode_step``, a dense LM's ``train_step``, the Spade
+    cells, gcn-cora's ``train_step``), else why not: the ROADMAP item of
+    the sharded slice that brings it."""
     if cell.family == "lm":
         model = cell.args[0].params if cell.step_name == "train_step" else cell.args[0]
         if model.cfg.moe is not None and cell.step_name == "train_step":
             return "the MoE train step on a mesh is a later sharded slice (ROADMAP D.2b)"
         return None
-    return {"gnn": "the GNNs on 'vertex'/'edges' are a later sharded slice (ROADMAP D.3)",
-            "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)",
-            "spade": "the Spade cells are a later sharded slice (ROADMAP D.5, C.11)"
+    if cell.family == "spade" or (cell.family == "gnn" and get_config(cell.arch).kind == "gcn"):
+        return None
+    return {"gnn": "GAT, MeshGraphNet and DimeNet on 'vertex'/'edges' are a later sharded "
+                   "slice (ROADMAP D.3b)",
+            "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)"
             }[cell.family]
+
+
+def _edge_axes(env: AxisEnv) -> tuple[str, ...]:
+    """The mesh dims that ``edges`` resolves to on ``env`` (none: ``()``)."""
+    ax = env.resolve("edges")
+    return () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _shard_spade(cell: Cell, env: AxisEnv) -> Cell:
+    """A Spade cell on the edge-sharded engine (:mod:`repro_torch.dist.graph`):
+    the graph's edge buffers split over the mesh dims ``edges`` resolves
+    to (none: a group of one rank), the vertex arrays, the state and the
+    batch replicated, and ``fn`` the engine's twin of the cell's function
+    with the same ``eps`` and ``max_rounds``, the mesh and the edge dims
+    bound into it."""
+    mesh, axes = env.mesh, _edge_axes(env)
+    kw = dict(cell.fn.keywords, mesh=mesh, axis=axes)
+    if cell.step_name == "bulk_peel":
+        return dataclasses.replace(cell, fn=functools.partial(sharded_bulk_peel, **kw),
+                                   args=(shard_graph(cell.args[0], mesh, axes),))
+    state = cell.args[0]
+    state = dataclasses.replace(state, graph=shard_graph(state.graph, mesh, axes))
+    return dataclasses.replace(cell, fn=functools.partial(sharded_insert_and_maintain, **kw),
+                               args=(state,) + cell.args[1:])
 
 
 def _shard_lm(model: TransformerLM, logical: dict, trainable: bool = False) -> TransformerLM:
@@ -180,13 +210,26 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     microbatch (``make_train_step``'s ``batch_logical``).  A MoE LM's
     serving cell places its experts on ``expert`` (virtual experts
     unfolded: :func:`_shard_lm`).  Run the step under
-    ``use_axis_env(env)``.  Another cell (a MoE train step, the other
-    families) raises with :func:`sharded_reason`."""
+    ``use_axis_env(env)``.  A Spade cell runs on the edge-sharded engine
+    (:func:`_shard_spade`).  gcn-cora's train cell places its state
+    replicated (trainable, ``step`` plain) and its batch by the
+    reference's logical axes (vertex arrays on ``vertex``, edge arrays on
+    ``edges``), which the model's sharded path reads.  Another cell (a MoE
+    train step, the other GNNs, two-tower) raises with
+    :func:`sharded_reason`."""
     reason = sharded_reason(cell)
     if reason is not None:
         raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")
+    if cell.family == "spade":
+        return _shard_spade(cell, env)
     with use_axis_env(env):
-        if cell.step_name == "train_step":
+        if cell.family == "gnn":
+            state, logical = cell.args[0], cell.in_logical[0]
+            tree = lambda t: shard_tree(t, logical.params)
+            args = (TrainState(params=tree(state.params), m=tree(state.m), v=tree(state.v),
+                               step=state.step, err=state.err),
+                    shard_tree(cell.args[1], cell.in_logical[1]))
+        elif cell.step_name == "train_step":
             args = (_shard_state(cell.args[0], cell.in_logical[0]),) + cell.args[1:]
         else:
             args = tuple(_shard_lm(a, lg) if isinstance(a, TransformerLM)

@@ -23,28 +23,36 @@ False)``) and reports:
   its ops in Python, so an LM cell is traced at 1 and 2 layers and its
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
   so that is the full depth's count;
-* for the LM serving cells (``prefill``, ``decode_step``; dense and MoE)
-  and the dense LM train cells, the step **run sharded**: the cell's
+* for the LM serving cells (``prefill``, ``decode_step``; dense and MoE),
+  the dense LM train cells and gcn-cora's train cells, the step **run
+  sharded**: the cell's
   arguments as meta DTensors on the mesh
   (:func:`~repro_torch.launch.cells.shard_cell`), traced at 1 and 2
   layers under :class:`~repro_torch.dist.sharding.LocalCost` and
-  extrapolated as above.  ``flops_per_chip`` is the traced rank's local
+  extrapolated as above (gcn-cora: traced once at its two layers, K4's
+  plain version giving the shapes).  ``flops_per_chip`` is the traced rank's local
   FLOPs (the last rank: under sequence-sharded causal attention, the
   heaviest share), ``collectives`` the bytes of its collectives' outputs
   by the reference's five names (``collective_calls`` their number),
   ``collective_bytes_per_chip`` their sum, ``t_collective_s`` that at
   450 GB/s of NVLink a direction, and ``dominant`` the largest of the
-  three times.  Every other cell's ``flops_per_chip`` is the one-device
-  count over the ranks (an even split), and its ``collective_bytes`` is
-  null with the ROADMAP item of the sharded slice that brings it;
+  three times.  The Spade cells' collectives are counted from the
+  edge-sharded engine's structure (:func:`spade_cost`: 1 + ``max_rounds``
+  all-reduces of ``V + 1`` float64 a step), which ``chip_smoke.py``'s
+  phase 20 holds to the card's count.  Every other cell's
+  ``flops_per_chip`` is the one-device count over the ranks (an even
+  split), and its ``collective_bytes`` is null with the ROADMAP item of
+  the sharded slice that brings it;
 * **roofline times** on one NVIDIA H100 SXM (published dense peaks):
   ``flops_per_chip`` at 989 TFLOP/s bf16, the argument bytes at 3.35 TB/s
   of HBM3 (each argument read once: a floor on the traffic), and which
   is larger.
 
-A cell whose step reads values on the host (the Spade peels' kernels and
-round counts, GCN's destination rows) cannot run on ``meta``: it reports
-its argument bytes and a ``meta_run`` reason, and counts as no failure.
+A cell whose step cannot run on ``meta`` (the Spade peels: their kernels'
+wrappers refuse it) reports its argument bytes and a ``meta_run`` reason
+for its FLOPs, and counts as no failure.  gcn-cora's FLOPs are traced on
+meta with K4's plain version, which no FLOP formula counts: its products
+only.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_FAMILY, ARCHS, Skip, arch_shapes, get_config
+from repro_torch.dist.graph import cell_step_collectives
 from repro_torch.dist.sharding import (COLLECTIVES, AxisEnv, LocalCost, local_shape,
                                       logical_leaves, use_axis_env)
 from repro_torch.launch.cells import (Cell, build_cell, reference_args, shard_cell,
@@ -68,7 +77,7 @@ from repro_torch.launch.cells import (Cell, build_cell, reference_args, shard_ce
 from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD, make_production_mesh
 
 __all__ = ["CARD", "PEAK_FLOPS", "HBM_BW", "LINK_BW", "cell_flops", "argument_bytes",
-           "sharded_cost", "run_cell", "main"]
+           "sharded_cost", "spade_cost", "run_cell", "main"]
 
 # one NVIDIA H100 SXM: published dense peaks (NVIDIA's data sheet, 700 W)
 CARD = "NVIDIA H100 SXM (published peaks)"
@@ -109,27 +118,38 @@ def _traced_flops(cell: Cell) -> float:
 def cell_flops(arch: str, shape: str, roofline: bool = False) -> tuple[float, str]:
     """(FLOPs of one step of the cell on meta, how they were counted)."""
     if ARCH_FAMILY[arch] != "lm":
-        return _traced_flops(build_cell(arch, shape, roofline=roofline)), "traced"
+        how = ("traced (K4's gather-sums have no FLOP formula: the products only)"
+               if ARCH_FAMILY[arch] == "gnn" and get_config(arch).kind == "gcn" else "traced")
+        return _traced_flops(build_cell(arch, shape, roofline=roofline)), how
     f1, f2 = (_traced_flops(build_cell(arch, shape, roofline=roofline, override_layers=n))
               for n in (1, 2))
     L = get_config(arch).n_layers
     return f1 + (L - 1) * (f2 - f1), f"traced at 1 and 2 layers, extrapolated to {L}"
 
 
-def sharded_cost(make_cell, env: AxisEnv, n_layers: int) -> dict:
-    """One step of an LM cell run sharded on ``env``'s mesh (a dense train
-    step with its gradient: the forward, the rematerialised layers and the
+def sharded_cost(make_cell, env: AxisEnv, n_layers: int | None) -> dict:
+    """One step of a cell run sharded on ``env``'s mesh (a train step with
+    its gradient: the forward, the rematerialised layers and the
     backward, the gathers' reduce-scatters and AdamW's norm):
     this rank's FLOPs and collective bytes and calls by kind, traced on
-    ``make_cell(1)`` and ``make_cell(2)`` (the cell at 1 and 2 layers,
-    normally on meta) and extrapolated to ``n_layers``."""
-    def trace(n: int) -> LocalCost:
+    ``make_cell(1)`` and ``make_cell(2)`` (an LM cell at 1 and 2 layers,
+    normally on meta) and extrapolated to ``n_layers``; ``n_layers`` None:
+    traced once on ``make_cell(None)``, the cell at its own depth (a
+    GCN's two layers)."""
+    def trace(n: int | None) -> LocalCost:
         cell = shard_cell(make_cell(n), env)
         grad = torch.enable_grad() if cell.step_name == "train_step" else torch.no_grad()
         with grad, use_axis_env(env), LocalCost() as cost:
             cell.fn(*cell.args)
         return cost
 
+    if n_layers is None:
+        c = trace(None)
+        return {"flops_per_chip": float(c.flops), "collectives": dict(c.collectives),
+                "collective_calls": dict(c.calls),
+                "collective_bytes_per_chip": sum(c.collectives.values()),
+                "sharded_counted": "local FLOPs and collectives of the sharded step, "
+                                   "traced on meta (K4's plain version for shapes)"}
     c1, c2 = trace(1), trace(2)
     ext = lambda a, b: a + (n_layers - 1) * (b - a)
     coll = {k: ext(c1.collectives[k], c2.collectives[k]) for k in COLLECTIVES}
@@ -138,6 +158,25 @@ def sharded_cost(make_cell, env: AxisEnv, n_layers: int) -> dict:
             "collective_bytes_per_chip": sum(coll.values()),
             "sharded_counted": f"local FLOPs and collectives of the sharded step, traced at "
                                f"1 and 2 layers, extrapolated to {n_layers}"}
+
+
+def spade_cost(cell: Cell, env: AxisEnv) -> dict:
+    """A Spade cell's collectives a rank a step on the edge-sharded engine,
+    counted from the engine's structure
+    (:func:`~repro_torch.dist.graph.cell_step_collectives`): its kernels
+    and the peel's state refuse a meta tensor, so the step is not traced.
+    Phase 20 of ``chip_smoke.py`` holds the card's ``STATS`` to it."""
+    g = cell.args[0] if cell.step_name == "bulk_peel" else cell.args[0].graph
+    c = cell_step_collectives(g.n_capacity, cell.fn.keywords["max_rounds"],
+                              env.resolve("edges") is not None)
+    coll = {k: 0 for k in COLLECTIVES} | {"all-reduce": c["bytes"]}
+    return {"collectives": coll,
+            "collective_calls": {k: 0 for k in COLLECTIVES} | {"all-reduce": c["calls"]},
+            "collective_bytes_per_chip": c["bytes"], "t_collective_s": c["bytes"] / LINK_BW,
+            "sharded_counted": "counted from the edge-sharded engine's structure "
+                               "(repro_torch.dist.graph.cell_step_collectives): the peel's "
+                               "prologue and each round all-reduce the float64 dw and "
+                               "dropped mass, V + 1 elements"}
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
@@ -186,11 +225,14 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
         times = {"memory": t_memory}
         if reason is not None:
             result["collective_bytes_reason"] = reason
+        elif cell.family == "spade":
+            result.update(spade_cost(cell, env))
+            times["collective"] = result["t_collective_s"]
         else:
             t1 = time.time()
             result.update(sharded_cost(
                 lambda n: build_cell(arch, shape, roofline=roofline, override_layers=n), env,
-                get_config(arch).n_layers))
+                get_config(arch).n_layers if cell.family == "lm" else None))
             result["sharded_trace_s"] = round(time.time() - t1, 1)
             result["t_collective_s"] = result["collective_bytes_per_chip"] / LINK_BW
             times["collective"] = result["t_collective_s"]

@@ -13,6 +13,18 @@ on the graph, so both directions' destination rows are built once per graph by
 given).  GAT, MeshGraphNet and DimeNet aggregate with ``segment_sum`` in
 plain PyTorch, as the reference does outside any Pallas kernel.
 
+GCN runs sharded when its batch is DTensors placed by the reference's
+logical axes (``launch.cells.shard_cell``: the vertex arrays on
+``vertex``, the edge arrays on ``edges``, the parameters replicated):
+each rank builds the destination rows of its own edge block whose ends
+fall in its vertex rows (:func:`gcn_rows_sharded`; the degrees summed over
+the edge group), each layer's ``h`` is gathered over ``vertex``, K4 runs
+the rank's rows under ``local_map`` (its backward on their transposes,
+K4 again), the aggregate's partial sums are all-reduced over the edge
+group, and the loss's numerator and count are summed over the vertex
+shards.  Every collective is a named DTensor redistribute, or, for the
+degrees, one functional all-reduce.
+
 Parameters keep the reference's tree layout (``x @ w``; MeshGraphNet's
 ``proc_*`` and DimeNet's ``blocks`` stacked with a leading L dimension);
 :class:`GNN` holds such a tree as module parameters, and
@@ -31,15 +43,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.graphstore.segment_ops import segment_mean, segment_softmax, segment_sum
 from repro_torch.kernels.gather_segsum import BlockRows, build_rows, gather_segsum
+from repro_torch.kernels.gather_segsum.ref import spmm_rows_ref
 from repro_torch.models.layers import normal_init
 
 __all__ = ["GraphBatch", "GCNRows", "GNN", "init_gnn_params", "gcn_edge_weights", "gcn_rows",
-           "gnn_forward", "gnn_loss", "make_triplets", "flatten_params", "unflatten_params"]
+           "gcn_rows_sharded", "gnn_forward", "gnn_loss", "make_triplets", "flatten_params",
+           "unflatten_params"]
 
 
 class GraphBatch(NamedTuple):
@@ -65,11 +82,14 @@ class GraphBatch(NamedTuple):
 
 
 class GCNRows(NamedTuple):
-    """GCN's normalised adjacency as destination rows, built once per graph."""
+    """GCN's normalised adjacency as destination rows, built once per graph
+    (on a mesh: a rank's rows of its edge block, :func:`gcn_rows_sharded`)."""
 
     fwd: BlockRows  # src -> dst, weights inv_sqrt[src] * inv_sqrt[dst]
     bwd: BlockRows  # dst -> src, the same weights
-    self_weight: torch.Tensor  # [N] inv_sqrt^2, the self loop
+    self_weight: torch.Tensor  # [N] inv_sqrt^2, the self loop (a rank's rows)
+    fwd_t: BlockRows | None = None  # fwd's transpose; None: bwd (the whole graph)
+    bwd_t: BlockRows | None = None  # bwd's transpose; None: fwd
 
 
 # ---------------------------------------------------------------------------
@@ -254,33 +274,52 @@ def gcn_rows(g: GraphBatch) -> GCNRows:
                    self_weight=inv_sqrt * inv_sqrt)
 
 
+def _k4(rows: BlockRows, x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """K4 (its plain version on the CPU); a meta tensor (the dry run's
+    trace) holds no data to launch K4 on: it takes the plain version, for
+    shapes."""
+    if x.device.type == "meta":
+        return spmm_rows_ref(rows, x)[:n_out]
+    return gather_segsum(rows, x, n_out)
+
+
 class _GcnAggregate(torch.autograd.Function):
-    """``_GcnAggregate.apply(x, fwd, bwd) = gather_segsum(fwd, x, n) +
-    gather_segsum(bwd, x, n)``, ``n = fwd.n_out``, where ``bwd`` holds the
-    transpose of ``fwd``'s matrix, as :func:`gcn_rows` builds them from one
-    set of symmetric edge weights (nothing else may call it: the backward
-    is right only for such a pair).  The gradient of ``A x + A^T x`` is
-    ``A^T g + A g``: the same two launches on the incoming gradient, each
-    direction's term through the other direction's rows.  The matrices
-    take no gradient."""
+    """``_GcnAggregate.apply(x, fwd, bwd, fwd_t=None, bwd_t=None) =
+    gather_segsum(fwd, x, n) + gather_segsum(bwd, x, n)``, ``n =
+    fwd.n_out``.  The gradient is the same two launches on the incoming
+    gradient through the two matrices' transposes, ``fwd_t`` and
+    ``bwd_t``.  Without them ``bwd`` must hold the transpose of ``fwd``'s
+    matrix, as :func:`gcn_rows` builds them from one set of symmetric edge
+    weights (both square and of one size), and each direction's term goes
+    through the other direction's rows.  The matrices take no gradient."""
 
     @staticmethod
-    def forward(ctx, x, fwd: BlockRows, bwd: BlockRows):
-        n = fwd.n_out
-        if {fwd.n_src, bwd.n_out, bwd.n_src} != {n}:
-            raise ValueError(f"_GcnAggregate: fwd is {n} x {fwd.n_src}, bwd {bwd.n_out} "
-                             f"x {bwd.n_src}; both must be square and of one size")
-        ctx.rows = (fwd, bwd)
-        return gather_segsum(fwd, x, n) + gather_segsum(bwd, x, n)
+    def forward(ctx, x, fwd: BlockRows, bwd: BlockRows, fwd_t: BlockRows | None = None,
+                bwd_t: BlockRows | None = None):
+        n, N = fwd.n_out, x.shape[0]
+        if fwd_t is None and bwd_t is None:
+            if {fwd.n_src, bwd.n_out, bwd.n_src} != {n}:
+                raise ValueError(f"_GcnAggregate: fwd is {n} x {fwd.n_src}, bwd {bwd.n_out} "
+                                 f"x {bwd.n_src}; both must be square and of one size")
+            fwd_t, bwd_t = bwd, fwd
+        elif (bwd.n_out, fwd.n_src, bwd.n_src) != (n, N, N) or {
+                (t.n_out, t.n_src) for t in (fwd_t, bwd_t)} != {(N, n)}:
+            raise ValueError(f"_GcnAggregate: fwd {n} x {fwd.n_src}, bwd {bwd.n_out} x "
+                             f"{bwd.n_src} and their transposes {N} x {n} over x of {N} rows")
+        ctx.rows = (fwd_t, bwd_t)
+        return _k4(fwd, x, n) + _k4(bwd, x, n)
 
     @staticmethod
     def backward(ctx, g):
-        fwd, bwd = ctx.rows
+        fwd_t, bwd_t = ctx.rows
         g = g.contiguous()
-        return gather_segsum(bwd, g, fwd.n_out) + gather_segsum(fwd, g, fwd.n_out), None, None
+        n = fwd_t.n_out
+        return _k4(fwd_t, g, n) + _k4(bwd_t, g, n), None, None, None, None
 
 
 def _gcn_forward(p, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None):
+    if isinstance(g.node_feat, DTensor):
+        return _gcn_forward_sharded(p, g, rows)
     rows = rows if rows is not None else gcn_rows(g)
     x = g.node_feat
     for i, (w, b) in enumerate(zip(p["w"], p["b"])):
@@ -288,6 +327,101 @@ def _gcn_forward(p, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None):
         # symmetric-normalised aggregation over both directions + self loop
         agg = _GcnAggregate.apply(h, rows.fwd, rows.bwd)
         x = agg + h * rows.self_weight[:, None]
+        if i < len(p["w"]) - 1:
+            x = F.relu(x)
+    return x
+
+
+def _mesh_dims(t: DTensor) -> list[int]:
+    """The mesh dims (of more than one rank) that shard ``t``."""
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and t.device_mesh.size(i) > 1]
+
+
+def gcn_rows_sharded(g: GraphBatch) -> GCNRows:
+    """This rank's part of :func:`gcn_rows` for a batch of DTensors (the
+    vertex arrays row-sharded, the edge arrays split over the edge group):
+    the degrees of its edge block summed over the edge group (one
+    all-reduce), then, of its block's edges, those whose destination lies
+    in the rank's vertex rows ``[lo, lo + n)`` as ``fwd`` ([n, N]), those
+    whose source does as ``bwd``, both with their transposes ([N, n]), and
+    the self-loop weights of its rows.  No rank builds another's rows."""
+    feat = g.node_feat
+    N = feat.shape[0]
+    lo, n = sharding.shard_span(feat, 0)
+    src, dst, mask = (sharding.local(t) for t in (g.edge_src, g.edge_dst, g.edge_mask))
+    ones = mask.to(torch.float32)
+    deg = segment_sum(ones, dst, N) + segment_sum(ones, src, N)
+    edge_dims = _mesh_dims(g.edge_src)
+    if edge_dims:
+        deg = sharding.all_reduce(deg, "sum",
+                                  [sharding.mesh_group(g.edge_src.device_mesh, edge_dims)])
+    inv_sqrt = torch.rsqrt(deg + 1.0)
+    ew = torch.where(mask, inv_sqrt[src.long()] * inv_sqrt[dst.long()], 0.0)
+    if n == N:  # one vertex shard: the whole graph's rows of this block
+        return GCNRows(fwd=build_rows(src, dst, ew, N, N), bwd=build_rows(dst, src, ew, N, N),
+                       self_weight=inv_sqrt * inv_sqrt)
+
+    def ends_in(ends, others):  # the edges of this block with an end in [lo, lo + n)
+        if ends.device.type == "meta":  # the dry run's trace: shapes only
+            return ends - lo, others, ew
+        keep = (ends >= lo) & (ends < lo + n)
+        return ends[keep] - lo, others[keep], ew[keep]
+
+    d_in, s_of, w_in = ends_in(dst, src)
+    s_out, d_of, w_out = ends_in(src, dst)
+    return GCNRows(fwd=build_rows(s_of, d_in, w_in, n, N),
+                   bwd=build_rows(d_of, s_out, w_out, n, N),
+                   self_weight=(inv_sqrt * inv_sqrt)[lo:lo + n],
+                   fwd_t=build_rows(d_in, s_of, w_in, N, n),
+                   bwd_t=build_rows(s_out, d_of, w_out, N, n))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_GatherRows.apply(h, whole)``: ``h`` made whole by one named
+    redistribute (an all-gather over the vertex dims).  Its gradient comes
+    partial over the vertex and the edge dims; it is reduce-scattered over
+    the vertex dims first, then all-reduced over the edge dims, so the
+    all-reduce moves only the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, h, whole):
+        ctx.placements = tuple(h.placements)
+        return sharding.redistribute(h, whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = [p if isinstance(p, Shard) else q for p, q in zip(ctx.placements, g.placements)]
+        return sharding.redistribute(sharding.redistribute(g, rows), ctx.placements), None
+
+
+def _gcn_forward_sharded(p, g: GraphBatch, rows: GCNRows | None):
+    """GCN on a mesh: ``x`` row-sharded on ``vertex``, the parameters
+    replicated, each layer's ``h`` gathered whole (:class:`_GatherRows`,
+    whose backward reduce-scatters its gradient), the rank's K4 launches
+    under ``local_map`` giving its vertex rows' partial sums over the edge
+    group (and, in the backward, its partial gradient of the whole ``h``),
+    settled by one all-reduce over the edge group."""
+    rows = rows if rows is not None else gcn_rows_sharded(g)
+    feat = g.node_feat
+    mesh = feat.device_mesh
+    vertex, edges = set(_mesh_dims(feat)), set(_mesh_dims(g.edge_src))
+    whole = [Replicate()] * mesh.ndim
+    out_pl = [Shard(0) if i in vertex else Partial() if i in edges else Replicate()
+              for i in range(mesh.ndim)]
+    grad_pl = [Partial() if i in vertex | edges else Replicate() for i in range(mesh.ndim)]
+    aggregate = local_map(lambda hl: _GcnAggregate.apply(hl, *rows[:2], *rows[3:]),
+                          out_placements=out_pl,
+                          in_placements=(whole,), in_grad_placements=(grad_pl,),
+                          device_mesh=mesh)
+    N = feat.shape[0]
+    self_weight = DTensor.from_local(rows.self_weight[:, None], mesh, feat.placements,
+                                     run_check=False, shape=(N, 1), stride=(1, 1))
+    x = feat
+    for i, (w, b) in enumerate(zip(p["w"], p["b"])):
+        h = x @ w + b
+        agg = sharding.settle(aggregate(_GatherRows.apply(h, whole)))
+        x = agg + h * self_weight
         if i < len(p["w"]) - 1:
             x = F.relu(x)
     return x
@@ -393,14 +527,31 @@ def gnn_forward(p: dict, g: GraphBatch, cfg: GNNConfig,
     return fn(p, g, cfg)
 
 
+def _nll_sums(logits, labels, node_mask):
+    """(the masked nodes' summed cross-entropy, their count in float64,
+    which rounds to float32 as the integer count does)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[:, None], dim=-1)[:, 0]
+    return torch.where(node_mask, lse - ll, 0.0).sum(), node_mask.sum(dtype=torch.float64)
+
+
 def gnn_loss(p: dict, g: GraphBatch, cfg: GNNConfig, rows: GCNRows | None = None):
     """Mean node cross-entropy over ``node_mask``: ``(loss, {})``,
-    differentiable in ``p`` when grad mode is on."""
+    differentiable in ``p`` when grad mode is on.  On a sharded batch each
+    rank sums its vertex rows under ``local_map``, and the numerator and
+    the count are summed over the vertex shards (two all-reduces)."""
     logits = gnn_forward(p, g, cfg, rows)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, g.labels.long()[:, None], dim=-1)[:, 0]
-    nll = torch.where(g.node_mask, lse - ll, 0.0)
-    return nll.sum() / torch.clamp(g.node_mask.sum(), min=1), {}
+    if not isinstance(logits, DTensor):
+        num, cnt = _nll_sums(logits, g.labels, g.node_mask)
+        return num / torch.clamp(cnt, min=1).to(torch.float32), {}
+    rows_of = set(_mesh_dims(logits))
+    pl = [Partial() if i in rows_of else Replicate() for i in range(logits.device_mesh.ndim)]
+    num, cnt = local_map(_nll_sums, out_placements=(pl, pl),
+                         in_placements=tuple(t.placements for t in (logits, g.labels,
+                                                                    g.node_mask)),
+                         device_mesh=logits.device_mesh)(logits, g.labels, g.node_mask)
+    cnt = torch.clamp(sharding.settle(cnt), min=1).to(torch.float32)
+    return sharding.settle(num) / cnt, {}
 
 
 # ---------------------------------------------------------------------------

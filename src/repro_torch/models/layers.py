@@ -26,7 +26,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.dist.sharding import redistribute, replicate_as, settle
 
-__all__ = ["rms_norm", "rope_angles", "apply_rope", "swiglu", "normal_init"]
+__all__ = ["rms_norm", "rope_angles", "apply_rope", "matmul", "swiglu", "normal_init"]
 
 
 def _last_dim_sharded(x: torch.Tensor) -> bool:
@@ -72,10 +72,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``, through ``torch.mm`` where both are 2-D (the kernel that
+    ``@`` calls for them, so the same bits): DTensor caches the sharding
+    of ``mm``, but under inference mode works out that of ``matmul``
+    anew at every call (torch 2.11), which took most of a sharded decode
+    step's host time."""
+    return torch.mm(a, b) if a.dim() == 2 and b.dim() == 2 else a @ b
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    h = F.silu(settle(x @ w_gate)) * settle(x @ w_up)
-    return h @ w_down
+    h = F.silu(settle(matmul(x, w_gate))) * settle(matmul(x, w_up))
+    return matmul(h, w_down)
 
 
 def normal_init(shape, fan_in: int, dtype: torch.dtype, device: torch.device,

@@ -60,7 +60,8 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import axis_env, constrain, shard_span
 from repro_torch.models.attention import decode_attention, flash_attention
-from repro_torch.models.layers import apply_rope, normal_init, rms_norm, rope_angles, swiglu
+from repro_torch.models.layers import (apply_rope, matmul, normal_init, rms_norm, rope_angles,
+                                       swiglu)
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["KVCache", "cache_window", "DecoderLayer", "TransformerLM", "forward",
@@ -269,7 +270,14 @@ def _attend(x, lp: DecoderLayer, cfg: LMConfig, cos, sin, seq: bool = False):
                         q_block=cfg.q_block, kv_block=cfg.kv_block)
     # wo's rows are the heads: o's heads shards, the product's partial sums
     o = constrain(o.reshape(B, S, Hq * Dh), "batch", None, "model")
-    return x + constrain(o @ lp.wo, "batch", None, None), k, v
+    return x + constrain(_out_proj(o, lp.wo), "batch", None, None), k, v
+
+
+def _out_proj(o, wo):
+    """``o @ wo``, the attention's output projection: on DTensors a
+    row-parallel product, whose partial sums the caller's ``constrain``
+    all-reduces in o's dtype."""
+    return matmul(o, wo)
 
 
 def _ffn(x, lp: DecoderLayer, cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -521,7 +529,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor
                 kc[li][:, slots] = k[:, S - W:]
                 vc[li][:, slots] = v[:, S - W:]
         x = rms_norm(x[:, -1], model.final_norm)
-        logits = (x @ model.head).float()
+        logits = matmul(x, model.head).float()
     return logits, KVCache(k=kc, v=vc)
 
 
@@ -585,7 +593,7 @@ def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
         for li, lp in enumerate(model.layers):
             h = rms_norm(x, lp.attn_norm)
             # flash-decode takes every head on every rank of a slot shard
-            q, k, v = (constrain(h @ w, "batch", None) for w in (lp.wq, lp.wk, lp.wv))
+            q, k, v = (constrain(matmul(h, w), "batch", None) for w in (lp.wq, lp.wk, lp.wv))
             q = q.reshape(B, Hkv, G, Dh)
             k = k.reshape(B, Hkv, Dh)
             v = v.reshape(B, Hkv, Dh)
@@ -601,8 +609,8 @@ def decode_step(model: TransformerLM, cache: KVCache, token: torch.Tensor,
             # full caches too (W == S_max)
             o = decode_attention(q, kl, vl, pos, window=cfg.sliding_window, rolling=True)
             o = constrain(o.reshape(B, Hq * Dh), "batch", "model")
-            x = x + constrain(o @ lp.wo, "batch", None)
+            x = x + constrain(_out_proj(o, lp.wo), "batch", None)
             x, _ = _ffn(x, lp, cfg)
         x = rms_norm(x, model.final_norm)
-        logits = (x @ model.head).float()
+        logits = matmul(x, model.head).float()
     return logits, cache

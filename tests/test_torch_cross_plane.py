@@ -309,3 +309,24 @@ def test_phase12_check_catches_a_wrong_weight(small_stream):
 def test_phase12c_exact_peel_on_cpu(tied):
     rec = chip_smoke.exact_peel_check(300, 1500, 6, "cpu", tied)
     assert rec["n_capacity"] == 512 and rec["tied_neighbours"] > 0
+
+
+def test_phase12_runs_its_comparisons_at_once(monkeypatch):
+    """``phase_cross_plane`` at small sizes on the CPU: its eight
+    comparisons, each in a spawned process of its own, come back as the
+    records the phase logs, in its order; the plain versions launch no
+    kernel."""
+    for name, value in (("DEVICE", "cpu"), ("EPS", EPS), ("MAX_ROUNDS", MAX_ROUNDS),
+                        ("CROSS_INSERT", {"n": 600, "m": 3000, "batch": 64, "fd_batch": 16,
+                                          "ticks": 3, "seed": 3}),
+                        ("CROSS_WINDOW", {"n": 300, "m": 1500, "batch": 4, "ticks": 4,
+                                          "window": 2, "seed": 5}),
+                        ("CROSS_EXACT", {"n": 300, "m": 1500, "seed": 6})):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_cross_plane("cpu")
+    assert [r["semantics"] for r in out["insert"]] == ["DG", "XPARITY", "DW", "FD"]
+    assert [(r["ticks"], r["batch"]) for r in out["insert"]] == [(3, 64)] * 3 + [(3, 16)]
+    assert [r["semantics"] for r in out["window"]] == ["DG", "XPARITY"]
+    assert all(r["window"] == 2 and r["deletions"] > 0 for r in out["window"])
+    assert [r["n_capacity"] for r in out["exact"]] == [512, 512]
+    assert out["launches"] == {"peel_round": 0, "frontier_spmv": 0, "suffix_init": 0}

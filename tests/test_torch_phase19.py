@@ -85,3 +85,55 @@ def test_phase19_rehearsal(cpu_phase):
     for r in w4["ranks"]:
         assert r["ffn512"]["routing_equal"] and r["ffn512"]["normwise_err"] < 1e-5
     assert w4["loss_rel_err"] < 1e-5 and w4["aux_rel_err"] < 1e-5
+
+
+def test_phase19_float32_partial_sums_path(cpu_phase):
+    """19b through ROADMAP C.12's diagnostic ranks (the attention's
+    row-parallel partial sums formed and all-reduced in float32,
+    ``moe_tp_rank_f32``): on the float32 smoke model it is the same
+    function, so the logits hold the float32 tolerance, nothing is
+    rerouted and both controls are rejected by their factors; the output
+    projection is patched in the ranks only, not in this process."""
+    from repro_torch.models import transformer
+
+    out_proj = transformer._out_proj
+    ref = olmoe_reference()
+    w1 = chip_smoke.moe_tp_world1(ref, 0)
+    w = chip_smoke.moe_tp_spawn("19b f32", dict(ref, routing=w1["routing"]), 0,
+                                chip_smoke.MOE_TP_ARCH, ref["n_layers"], chip_smoke.MOE_TP_MESH,
+                                rank_fn=chip_smoke.moe_tp_rank_f32)
+    assert transformer._out_proj is out_proj
+    assert w["logit_rel_err_max"] < 1e-5
+    assert all(r["rerouted"] == 0 and r["keep_differs"] == 0 for r in w["routing"])
+    assert all(len(r["rerouted_by_layer"]) == ref["n_layers"] for r in w["routing"])
+    factors = chip_smoke.MOE_TP_CONTROL_FACTOR
+    tol = chip_smoke.MOE_TP_TOL[chip_smoke.MOE_TP_ARCH]
+    assert min(w["control_rel_err"]) > factors["experts"][chip_smoke.MOE_TP_ARCH] * tol
+    assert min(w["control_wo_rel_err"]) > factors["experts_wo"][chip_smoke.MOE_TP_ARCH] * tol
+
+
+def test_phase19_checks_logged(cpu_phase):
+    """The diagnostics' ``checks_logged``: a failed check inside is
+    logged and returned, and outside it stops the run again."""
+    with chip_smoke.checks_logged([]) as failed:
+        chip_smoke.check(False, "a planted failure")
+        chip_smoke.check(True, "a check that holds")
+    assert failed == ["a planted failure"]
+    with pytest.raises(SystemExit):
+        chip_smoke.check(False, "after the block")
+
+
+def test_c12_batch_witness(cpu_phase):
+    """ROADMAP C.12's single-device witness on the smoke config: the B 2
+    run repeated routes every token alike, and each prompt alone, routed
+    in the B 2 run's blocks, is counted over its own tokens in every
+    layer."""
+    cfg = chip_smoke.moe_tp_cfg(chip_smoke.MOE_TP_ARCH, None, True)
+    out = chip_smoke.moe_batch_witness(0, smoke=True, prompt=PROMPT)
+    assert out["b2_again"]["rerouted"] == 0 and out["b2_again"]["keep_differs"] == 0
+    assert out["b2_again"]["tokens"] == 2 * PROMPT * cfg.n_layers
+    for b in range(2):
+        alone = out[f"prompt{b}_alone"]
+        assert alone["tokens"] == PROMPT * cfg.n_layers
+        assert len(alone["rerouted_by_layer"]) == cfg.n_layers
+        assert 0.0 <= alone["rerouted_share"] <= 1.0

@@ -206,12 +206,24 @@ def test_dryrun_subprocess_one_cell(tmp_path):
 
 
 def test_dryrun_spade_cells_report_meta_run(tmp_path):
-    text, results = _dryrun(tmp_path, "--family", "spade", "--mesh", "single")
-    assert "2 cells, 0 failures" in text
+    """The Spade cells' FLOPs are not traced (their kernels refuse meta),
+    and their collectives a step come from the edge-sharded engine's
+    count: the peel's prologue and its 20 rounds each all-reduce the
+    float64 dw and dropped mass, 6,023,168 + 1 elements (48,185,352 B), on
+    both meshes."""
+    text, results = _dryrun(tmp_path, "--family", "spade", "--mesh", "both")
+    assert "4 cells, 0 failures" in text
     for res in results:
         assert res["status"] == "OK" and "flops" not in res
         assert "meta" in res["meta_run"] and res["argument_bytes"] > 0
-    static, stream = results  # sorted by file name: grab4_static, grab4_stream
+        assert res["collective_calls"]["all-reduce"] == 21
+        assert sum(res["collective_calls"].values()) == 21
+        assert res["collectives"]["all-reduce"] == 21 * 48_185_352 == 1_011_892_392
+        assert res["collective_bytes_per_chip"] == 1_011_892_392
+        assert res["t_collective_s"] == 1_011_892_392 / 450e9
+        assert "collective_bytes_reason" not in res and "structure" in res["sharded_counted"]
+    # sorted by file name: grab4_static (multi, single), grab4_stream (multi, single)
+    static, stream = results[1], results[3]
     assert static["step_name"] == "bulk_peel" and stream["step_name"] == "insert_and_maintain"
     assert stream["argument_bytes"] > static["argument_bytes"]  # the state beside the graph
 
@@ -386,10 +398,47 @@ def test_dryrun_sharded_smoke_moe_prefill(meshes):
 @pytest.mark.parametrize("arch,shape,item", [
     ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "train_4k", "D.2b"),
     ("gat-cora", "molecule", "D.3"), ("two-tower-retrieval", "train_batch", "D.4"),
-    ("spade-grab", "grab4_static", "D.5")])
+    ("meshgraphnet", "ogb_products", "D.3b")])
 def test_unsharded_cells_name_their_slice(arch, shape, item):
     """The cells no sharded slice runs yet keep a null collective entry in
     the dry run, whose reason names their ROADMAP D item; a MoE serving
     cell runs sharded."""
     assert f"ROADMAP {item}" in tcells.sharded_reason(tcells.build_cell(arch, shape))
     assert tcells.sharded_reason(tcells.build_cell("mixtral-8x7b", "decode_32k")) is None
+
+
+@pytest.mark.parametrize("arch,shape", [("spade-grab", s) for s in ("grab4_static",
+                                                                   "grab4_stream")]
+                         + [("gcn-cora", s) for s in ("full_graph_sm", "minibatch_lg",
+                                                      "ogb_products", "molecule")])
+def test_spade_and_gcn_cells_run_sharded(arch, shape):
+    """``shard_cell`` runs both Spade cells and every gcn-cora cell."""
+    assert tcells.sharded_reason(tcells.build_cell(arch, shape)) is None
+
+
+def test_dryrun_sharded_smoke_gcn(meshes):
+    """gcn-cora's smoke train step traced sharded on the single-pod mesh
+    (data 16, model 16), hand-counted: per layer one all-gather of ``h``
+    over ``model`` (the whole [N, d]) and, in the backward, its reduce-
+    scatter; all-reduces of the degrees (over ``data``), each layer's
+    aggregate rows (over ``data``) and their gradient rows, the loss's
+    numerator and count, and the four parameters' gradients (over
+    ``model``)."""
+    from repro_torch.launch import dryrun
+
+    env, _ = meshes["single"]
+    make = lambda n: tcells.build_cell("gcn-cora", "full_graph_sm", smoke=True)
+    res = dryrun.sharded_cost(make, env, None)
+    cell = make(None)
+    g = cell.args[1]
+    N, F = g.node_feat.shape
+    cfg = cell.args[0].params["w"][0].shape, cell.args[0].params["w"][1].shape
+    H, C = cfg[0][1], cfg[1][1]
+    rows = N // 16
+    calls, coll = res["collective_calls"], res["collectives"]
+    assert calls == {"all-gather": 2, "all-reduce": 11, "reduce-scatter": 2, "all-to-all": 0,
+                     "collective-permute": 0}
+    assert coll["all-gather"] == 4 * N * (H + C)
+    assert coll["reduce-scatter"] == 4 * rows * (H + C)
+    params = sum(p.numel() for p in cell.args[0].params["w"] + cell.args[0].params["b"])
+    assert coll["all-reduce"] == 4 * N + 2 * 4 * rows * (H + C) + 4 + 8 + 4 * params

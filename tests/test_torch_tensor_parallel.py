@@ -294,8 +294,8 @@ def test_layers_with_the_last_dim_sharded(runs):
 
 @pytest.mark.parametrize("arch,shape,item", [
     ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "train_4k", "D.2b"),
-    ("gcn-cora", "full_graph_sm", "D.3"), ("two-tower-retrieval", "serve_p99", "D.4"),
-    ("spade-grab", "grab4_stream", "D.5")])
+    ("gat-cora", "full_graph_sm", "D.3b"), ("two-tower-retrieval", "serve_p99", "D.4"),
+    ("dimenet", "molecule", "D.3b")])
 def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
     from repro_torch.launch.cells import build_cell, shard_cell, sharded_reason
 
@@ -306,3 +306,22 @@ def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
     assert sharded_reason(build_cell("qwen3-14b", "decode_32k")) is None
     assert sharded_reason(build_cell("qwen3-14b", "train_4k")) is None
     assert sharded_reason(build_cell("mixtral-8x7b", "prefill_32k")) is None
+    assert sharded_reason(build_cell("gcn-cora", "full_graph_sm")) is None
+    assert sharded_reason(build_cell("spade-grab", "grab4_stream")) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_gives_the_bits_of_at(dtype):
+    """``layers.matmul`` (the decode step's products: 2-D operands through
+    ``torch.mm``, which DTensor's sharding cache keeps under inference
+    mode) gives ``@``'s bits, 2-D and batched, in and out of inference
+    mode."""
+    from repro_torch.models.layers import matmul
+
+    g = torch.Generator().manual_seed(0)
+    b = torch.randn(8, 3, generator=g).to(dtype)
+    for a in (torch.randn(5, 8, generator=g), torch.randn(2, 5, 8, generator=g)):
+        a = a.to(dtype)
+        assert torch.equal(matmul(a, b), a @ b)
+        with torch.inference_mode():
+            assert torch.equal(matmul(a, b), a @ b)
