@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a; the
    seconds of each source's build) and print the card's name and power
-   limit;
+   limit; then phases 6-11 run while another process draws the Grab4
+   stream, and phases 2-5 after them;
 2. hold each kernel against its plain PyTorch version on the card at the
    Grab4 shapes of the main path (integer weights: exact; lognormal
    weights: stated rtol) and on one workset bucket shape, and time both;
@@ -249,7 +250,30 @@ Phases (any failure exits non-zero):
     (run first, kept on the host), K4 8 launches a step on each rank,
     each rank's collectives the dry run's, peak memory and step seconds a
     rank, a control (one rank's aggregate partials dropped) that the check
-    must reject.  Their launches are counted off the main path.
+    must reject.  Their launches are counted off the main path;
+21. (run last, after 20) the MoE LM train step sharded on a ``DeviceMesh``
+    with FSDP: olmoe-1b-7b at MOE_FSDP_LAYERS of its 16 layers, B 2 x
+    4,096 tokens, its unsharded steps run twice first (their bits repeat or
+    not: the gathers' backward adds with float atomics); 21a, one ``nccl``
+    rank on (data 1, model 1) through ``shard_cell``, MOE_FSDP_STEPS steps
+    held to the unsharded ones bit for bit where those repeat, else within
+    MOE_FSDP_SPREAD times their spread (step 1's forward bit for bit
+    either way), K3 two launches a layer a step; then mixtral-8x7b's
+    unsharded step at MIXTRAL_FSDP_LAYERS layers, and one spawn of four
+    ``gloo`` ranks on the card on (data 2, model 2), each drawing the
+    weights two ranks at a time and keeping its shards (experts on
+    ``model``, their ``D``, the router and the attention on ``data``,
+    tokens on ``data``): 21b olmoe MOE_FSDP_STEPS steps, 21c mixtral (16
+    virtual experts, 8 a rank, pair-summed locally) MIXTRAL_FSDP_STEPS
+    step, each held to its unsharded steps (loss, aux and grad_norm within
+    MOE_FSDP_STEP1_RTOL in step 1 and MOE_FSDP_LATER_RTOL after it, step
+    1's per-token NLL within MOE_FSDP_NLL_TOL on average, every parameter
+    by ``ulp_errs`` within MOE_FSDP_ODD), the share of token-layers routed
+    to other experts printed, state and peak GB and step seconds a rank,
+    step 1's collectives equal to the dry run's at the mesh and depth, K3
+    two launches a layer a step, and a control (each rank's expert shards
+    swapped with its ``model`` partner's before a forward) whose per-token
+    NLL must miss by MOE_TP_CONTROL_FACTOR times MOE_FSDP_NLL_TOL.
 
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
@@ -264,11 +288,14 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -1783,6 +1810,34 @@ def routing_recorded(rec: list):
         yield rec
     finally:
         moe.moe_route = route
+
+
+@contextlib.contextmanager
+def nll_recorded(rec: list):
+    """Inside, every ``lm_loss`` of the port appends to ``rec`` its
+    per-token NLL on the host (``transformer._token_nll`` wrapped): this
+    rank's rows [B, S] (float32) and the global index of its first row."""
+    from repro_torch.dist.sharding import local, shard_span
+    from repro_torch.models import transformer
+
+    token_nll = transformer._token_nll
+    depth = [0]  # _token_nll calls itself on a rank's local tensors
+
+    def recorded(logits, labels):
+        depth[0] += 1
+        try:
+            out = token_nll(logits, labels)
+        finally:
+            depth[0] -= 1
+        if not depth[0]:
+            rec.append({"b0": shard_span(out, 0)[0], "nll": local(out).detach().float().cpu()})
+        return out
+
+    transformer._token_nll = recorded
+    try:
+        yield rec
+    finally:
+        transformer._token_nll = token_nll
 
 
 def near_ties(logits, K: int):
@@ -5199,13 +5254,19 @@ def fsdp_state(cfg, seed: int, env=None):
 
 
 def fsdp_train(state, batch: dict, steps: int, env=None, cost_step: int | None = None,
-               digest_step: int | None = None, microbatches: int = 1) -> tuple[dict, object]:
+               digest_step: int | None = None, microbatches: int = 1,
+               digests: bool = False, routing: list | None = None,
+               nll: list | None = None) -> tuple[dict, object]:
     """``steps`` train steps of ``state`` (sharded on ``env``'s mesh when
     given) of ``microbatches`` microbatches, K3's counters set to 0 just before and read just after: each
-    step's loss, grad_norm, lr and seconds; the collectives of step
-    ``cost_step`` (``LocalCost``); the digests after step
-    ``digest_step``; the state's bytes on this rank and the peak memory
-    of the steps.  Returns the record and the state."""
+    step's loss, aux (a MoE LM's), grad_norm, lr and seconds; the
+    collectives of step ``cost_step`` (``LocalCost``); the digests after
+    step ``digest_step`` (``digests``: after every step, a list); with
+    ``routing``, the routing of each step's forward (its first MoE call a
+    layer, not the remat's) appended to it on the host
+    (:func:`host_routing`); with ``nll``, each step's per-token NLL
+    (:func:`nll_recorded`) appended to it; the state's bytes on this rank
+    and the peak memory of the steps.  Returns the record and the state."""
     import torch
 
     from repro_torch.dist.sharding import LocalCost, local, use_axis_env
@@ -5221,20 +5282,31 @@ def fsdp_train(state, batch: dict, steps: int, env=None, cost_step: int | None =
     out = {"n_layers": state.params.cfg.n_layers, "metrics": [], "step_s": [],
            "state_gb": nbytes(leaves) / 1e9,  # on this rank
            "whole_gb": nbytes(t for t in leaves if local(t).numel() == t.numel()) / 1e9}
+    n_layers = state.params.cfg.n_layers
+    out["digests"] = []
     k3_ops.launches = k3_ops.simt_launches = 0
     with torch.enable_grad(), use_axis_env(env) if env is not None else contextlib.nullcontext():
         for i in range(steps):
+            rec = []
             sync()
             t0 = time.perf_counter()
-            with LocalCost() if i == cost_step else contextlib.nullcontext() as cost:
+            with (LocalCost() if i == cost_step else contextlib.nullcontext() as cost,
+                  routing_recorded(rec) if routing is not None else contextlib.nullcontext(),
+                  nll_recorded(nll) if nll is not None else contextlib.nullcontext()):
                 state, m = step(state, batch)
             sync()
             out["step_s"].append(time.perf_counter() - t0)
-            out["metrics"].append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+            out["metrics"].append({k: float(m[k]) for k in ("loss", "aux", "grad_norm", "lr")
+                                   if k in m})
+            if routing is not None:
+                routing.extend(host_routing(r) for r in rec[:n_layers])
+            del rec
             if i == cost_step:
                 out["cost"] = {"bytes": dict(cost.collectives), "calls": dict(cost.calls)}
             if i == digest_step:
                 out["digest"] = train_digests(state)
+            if digests:
+                out["digests"].append(train_digests(state))
     out["k3_launches"], out["k3_simt_launches"] = k3_ops.launches, k3_ops.simt_launches
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     return out, state
@@ -5361,12 +5433,13 @@ def fsdp_rank(mesh, path: str, seed: int, device: str, smoke: bool, n_layers: in
     return got
 
 
-def fsdp_predicted(n_layers: int, batch: int, seq: int, smoke: bool = False) -> dict:
-    """The dry run's prediction for 18b's mesh (data 2, model 1): one
-    rank's collectives in one train step of ``batch`` x ``seq`` tokens,
-    traced on meta under a two-rank fake process group at 1 and 2 layers
-    and extrapolated to ``n_layers``, as ``repro_torch.launch.dryrun``
-    does for the train cells."""
+def train_predicted(arch: str, mesh_shape: dict, n_layers: int, batch: int, seq: int,
+                    smoke: bool = False) -> dict:
+    """The dry run's prediction for a mesh of ``mesh_shape``: one rank's
+    collectives in one train step of ``arch`` on ``batch`` x ``seq``
+    tokens, traced on meta under a fake process group of the mesh's ranks
+    at 1 and 2 layers and extrapolated to ``n_layers``, as
+    ``repro_torch.launch.dryrun`` does for the train cells."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -5379,17 +5452,30 @@ def fsdp_predicted(n_layers: int, batch: int, seq: int, smoke: bool = False) -> 
     meta = torch.device("meta")
 
     def make(n):
-        cell = build_cell(LM_ARCH, "train_4k", smoke=smoke, override_layers=n)
+        cell = build_cell(arch, "train_4k", smoke=smoke, override_layers=n)
         tokens = torch.empty((batch, seq), dtype=torch.int64, device=meta)
         return dataclasses.replace(cell, fn=fsdp_step(), args=(
             cell.args[0], {"tokens": tokens, "labels": tokens}))
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    world = math.prod(mesh_shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     try:
-        env = AxisEnv(DeviceMesh(DEVICE, [[0], [1]], mesh_dim_names=("data", "model")))
+        env = AxisEnv(DeviceMesh(DEVICE, torch.arange(world).reshape(
+            tuple(mesh_shape.values())), mesh_dim_names=tuple(mesh_shape)))
         return sharded_cost(make, env, n_layers)
     finally:
         dist.destroy_process_group()
+
+
+def gloo_on_card(pred: dict) -> tuple[dict, dict]:
+    """A prediction's bytes and calls by kind as the card's gloo ranks run
+    them: a gather on a gloo group of CUDA ranks is an all-to-all."""
+    p, calls = dict(pred["collectives"]), dict(pred["collective_calls"])
+    if DEVICE == "cuda":
+        for d in (p, calls):
+            d["all-to-all"] += d.pop("all-gather")
+            d["all-gather"] = 0
+    return p, calls
 
 
 def ulp_errs(got, want, floor: float) -> tuple[float, float, float]:
@@ -5500,13 +5586,8 @@ def fsdp_world2(seed: int, smoke: bool = False) -> dict:
     if DEVICE == "cuda":
         peak = sum(g["peak_gb"] for g in ranks)
         check(peak <= FSDP_MEM_GB, f"18b: the ranks' peaks {peak!r} GB, over {FSDP_MEM_GB} GB")
-    pred = fsdp_predicted(cfg.n_layers, B, S, smoke)
-    p = dict(pred["collectives"])
-    calls = dict(pred["collective_calls"])
-    if DEVICE == "cuda":  # gloo's gathers on the card, as all-to-alls
-        for d in (p, calls):
-            d["all-to-all"] += d.pop("all-gather")
-            d["all-gather"] = 0
+    p, calls = gloo_on_card(train_predicted(LM_ARCH, {"data": 2, "model": 1}, cfg.n_layers, B,
+                                            S, smoke))
     for r, got in enumerate(ranks):
         check(got["cost"]["bytes"] == p, f"18b rank {r}: collectives {got['cost']['bytes']!r} "
               f"in step 1, the dry run's {p!r}")
@@ -5917,30 +5998,6 @@ def moe_tp_world1(ref: dict, seed: int) -> dict:
     return got
 
 
-def partner_expert_shards(model, mesh) -> list[dict]:
-    """On the host, the expert weights that shard_cell will give this
-    rank's partner on the ``model`` dim (two ranks: the other one), in the
-    sharded layout (unfolded where the config splits its experts): what
-    the swapped-shard control loads in place of this rank's own."""
-    from repro_torch.convert import unfold_experts
-
-    i = mesh.mesh_dim_names.index("model")
-    check(mesh.size(i) == 2, f"the swapped-shard control pairs two model ranks, not "
-          f"{mesh.size(i)}")
-    partner = 1 - mesh.get_coordinate()[i]
-    vs = model.cfg.moe.virtual_split
-    out = []
-    for lp in model.layers:
-        shards = {}
-        for name in ("w_gate", "w_up", "w_down"):
-            w = getattr(lp, name).detach()
-            w = unfold_experts(name, w, vs) if vs > 1 else w
-            shards[name] = w.chunk(2, dim=0)[partner].to("cpu", copy=True)
-            del w
-        out.append(shards)
-    return out
-
-
 def partner_wo_shards(model, mesh) -> list[dict]:
     """On the host, the rows of the attention output projection ``wo``
     that shard_cell will give this rank's partner on the ``model`` dim:
@@ -6032,7 +6089,8 @@ def moe_tp_rank(mesh, path: str, arch: str, n_layers: int | None, seed: int, dev
         if r <= rank < r + at_once:
             model = moe_tp_model(cfg, seed)
             if controls:
-                partner = (partner_expert_shards(model, mesh), partner_wo_shards(model, mesh))
+                partner = (partner_expert_shards(model, env, fsdp=False),
+                           partner_wo_shards(model, mesh))
             cell = shard_cell(prefill_cell(arch, model, ref["tokens"].to(DEVICE), smoke),
                               env)
             del model
@@ -6187,10 +6245,7 @@ def collectives_check(tag: str, ranks: list, pred: dict) -> dict:
     card gloo's gathers are all-to-alls (the prediction's all-gathers)."""
     counts = {}
     for step in ("prefill", "decode"):
-        p = dict(pred[step]["collectives"])
-        if DEVICE == "cuda":
-            p["all-to-all"] += p.pop("all-gather")
-            p["all-gather"] = 0
+        p, _ = gloo_on_card(pred[step])
         for r, got in enumerate(ranks):
             c = got[f"{step}_cost"]["bytes"]
             check(c == p, f"{tag} rank {r} {step}: collectives {c!r} against the dry run's "
@@ -6828,6 +6883,505 @@ def sharded_cells_rank(mesh, seed: int, device: str, cfg: dict, smoke: bool = Fa
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the MoE LM train step sharded on a DeviceMesh with FSDP
+# ---------------------------------------------------------------------------
+
+# 21a and 21b train olmoe-1b-7b at its published widths cut to
+# MOE_FSDP_LAYERS of its 16 layers, the most at which the unsharded step
+# and 21b's four ranks on the one card each peak under MOE_FSDP_MEM_GB, on
+# MOE_FSDP_BATCH x 4,096 tokens; 21c trains mixtral-8x7b cut to
+# MIXTRAL_FSDP_LAYERS of its 32 (its 16 virtual experts split 8 a rank
+# over model 2).  21b and 21c share one spawn of four gloo ranks on
+# MOE_FSDP_MESH.
+MOE_FSDP_ARCH = "olmoe-1b-7b"
+MOE_FSDP_LAYERS = 10
+MOE_FSDP_STEPS = 2
+MOE_FSDP_BATCH = 2
+MOE_FSDP_MESH = {"data": 2, "model": 2}
+MIXTRAL_FSDP_LAYERS = 2
+MIXTRAL_FSDP_STEPS = 1
+MOE_FSDP_TIMEOUT = 600  # seconds for 21b's and 21c's spawn
+MOE_FSDP_DRAWS = 2  # ranks that draw their whole model at once
+MOE_FSDP_MEM_GB = 0.9 * 80  # the unsharded step's peak; the four ranks' peaks together
+# 21b's and 21c's tolerances against the unsharded steps, set from the H100
+# runs at 4, 8 and 10 layers (PERF.md).  A rank's bf16 products over
+# its own rows round apart from one device's and move tokens to other
+# experts (ROADMAP C.12; 12-14 % of olmoe's token-layers in step 1, 1 % of
+# mixtral's).  Step 1 runs on the same weights: loss, aux and grad_norm
+# moved by at most 4.1e-5, 3.4e-4 and 1.5e-3 relative, the per-token NLL by
+# 0.0287 nats on average.  A later step runs on weights that Adam moved by
+# lr * sign(g) wherever a gradient near 0 changed its sign (two unsharded
+# runs differ there too: 3.7e-3 in a metric, 0.28 of a leaf's elements):
+# step 2's loss, aux and grad_norm moved by at most 2.0e-3, 2.9e-2 and
+# 4.1e-2; after olmoe's two steps at most 0.73 of a leaf's elements (its
+# routers) lie beyond FSDP_ULPS ulps and 1 % of a step (ulp_errs), after
+# mixtral's one 0.093.  The swapped-shard control moved the per-token NLL
+# by 0.283 (olmoe, 5.7x MOE_FSDP_NLL_TOL) and 0.98 nats (mixtral)
+MOE_FSDP_STEP1_RTOL = {"loss": 1e-4, "aux": 1e-3, "grad_norm": 5e-3}
+MOE_FSDP_LATER_RTOL = {"loss": 5e-3, "aux": 6e-2, "grad_norm": 1e-1}
+MOE_FSDP_ODD = {"olmoe-1b-7b": 0.85, "mixtral-8x7b": 0.15}
+MOE_FSDP_NLL_TOL = 0.05
+# 21a where the unsharded step does not repeat its bits (its gathers'
+# backward adds with float atomics): its distances from the first unsharded
+# run within these multiples of the second run's (the largest relative
+# error of loss, aux and grad_norm over the steps, taken as at least
+# MOE_FSDP_SPREAD_FLOOR; the largest share of a leaf's elements beyond
+# FSDP_ULPS ulps and 1 % of a step), the forward of step 1 (its loss and
+# aux) bit for bit.  One reading of the metrics' spread is noisy: over six
+# H100 runs at 10 layers it ranged from 5.8e-4 to 5.5e-3, 21a's distance
+# from 2.3e-3 to 4.7e-3; the leaves' spread 0.250-0.277, 21a's 0.252-0.276
+MOE_FSDP_SPREAD = {"metrics": 10, "leaves": 2}
+MOE_FSDP_SPREAD_FLOOR = 1e-3
+
+
+def moe_fsdp_cfg(arch: str, smoke: bool):
+    """Phase 21's config of ``arch``: cut to its depth (the smoke config's
+    own two layers when ``smoke``)."""
+    n = {MOE_FSDP_ARCH: MOE_FSDP_LAYERS, MIXTRAL_TP_ARCH: MIXTRAL_FSDP_LAYERS}[arch]
+    return moe_tp_cfg(arch, None if smoke else n, smoke)
+
+
+def moe_fsdp_state(arch: str, cfg, seed: int, env=None, partner: bool = False):
+    """``cfg``'s seeded weights drawn whole on DEVICE and their train state;
+    on ``env``'s mesh through ``shard_cell`` (``arch``'s train cell's
+    logical axes: experts on ``expert``, their ``D`` on ``fsdp``, virtual
+    experts unfolded), the module sharded before ``m`` and ``v`` are made.
+    Returns the state and, with ``partner``, the partner's expert shards
+    (:func:`partner_expert_shards`), else None."""
+    from repro_torch.launch.cells import build_cell, shard_cell
+    from repro_torch.train import TrainState, init_train_state
+
+    model = moe_tp_model(cfg, seed)
+    shards = partner_expert_shards(model, env, fsdp=True) if partner else None
+    if env is None:
+        return init_train_state(model), shards
+    cell = build_cell(arch, "train_4k", override_layers=cfg.n_layers)
+    bare = TrainState(params=model, m=None, v=None, step=None)
+    cell = shard_cell(dataclasses.replace(cell, args=(bare, None), fn=None), env)
+    del model
+    return init_train_state(cell.args[0].params), shards
+
+
+def partner_expert_shards(model, env, fsdp: bool) -> list[dict]:
+    """On the host, the expert shards that ``shard_cell`` gives this rank's
+    partner on the ``model`` dim (two ranks; the same coordinate on the
+    other dims) in the serving layout or, with ``fsdp``, the train cells'
+    FSDP layout, unfolded where the config splits its experts: what the
+    swapped-shard control loads in place of this rank's own."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.convert import unfold_experts
+    from repro_torch.launch.cells import lm_param_logical
+
+    mesh = env.mesh
+    coord = list(mesh.get_coordinate())
+    i = mesh.mesh_dim_names.index("model")
+    check(mesh.size(i) == 2, f"the swapped-shard control pairs two model ranks, not "
+          f"{mesh.size(i)}")
+    coord[i] = 1 - coord[i]
+    names = lm_param_logical(model.cfg, fsdp=fsdp)["layers"]["moe"]
+    vs = model.cfg.moe.virtual_split
+    out = []
+    for lp in model.layers:
+        shards = {}
+        for name in ("w_gate", "w_up", "w_down"):
+            w = getattr(lp, name).detach()
+            w = unfold_experts(name, w, vs) if vs > 1 else w
+            for d, pl in enumerate(env.placements(*names[name][1:], shape=tuple(w.shape))):
+                if isinstance(pl, Shard):
+                    w = w.chunk(mesh.size(d), dim=pl.dim)[coord[d]]
+            shards[name] = w.to("cpu", copy=True)
+        out.append(shards)
+    return out
+
+
+def swapped_loss(state, partner: list, batch: dict, env) -> dict:
+    """The swapped-shard control: this rank's expert shards replaced by its
+    partner's, the batch's loss and aux (the forward alone, no gradient),
+    then its own shards put back."""
+    import torch
+
+    from repro_torch.dist.sharding import local, shard_tree, use_axis_env
+    from repro_torch.models import lm_loss
+
+    layers = state.params.layers
+
+    def load(shards_of):
+        for lp, shards in zip(layers, shards_of):
+            for n, t in shards.items():
+                getattr(lp, n).to_local().copy_(t)
+
+    with torch.no_grad():
+        own = [{n: getattr(lp, n).to_local().to("cpu", copy=True) for n in shards}
+               for lp, shards in zip(layers, partner)]
+        load(partner)
+        rec, nll = [], []
+        with use_axis_env(env), routing_recorded(rec), nll_recorded(nll):
+            b = shard_tree(batch, FSDP_BATCH_LOGICAL)
+            loss, m = lm_loss(state.params, b["tokens"], b["labels"])
+            out = {"loss": float(local(loss)), "aux": float(local(m["aux"])),
+                   "routing": [host_routing(r) for r in rec], "nll": nll[0]}
+        load(own)
+    return out
+
+
+def moe_fsdp_rank(mesh, paths: dict, seed: int, device: str, smoke: bool) -> dict:
+    """A rank of 21b and then 21c (one spawn): for each MoE LM, the seeded
+    model drawn whole MOE_FSDP_DRAWS ranks at a time behind a barrier and
+    sharded by ``shard_cell`` (:func:`moe_fsdp_state`), the swapped-shard
+    control's loss, then its steps on the batch read from ``paths[arch]``
+    (step 1's collectives counted, the routing recorded), the updated
+    parameter shards on the host."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import AxisEnv
+
+    global DEVICE
+    DEVICE = device
+    torch.set_grad_enabled(False)
+    cuda = DEVICE == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    env = AxisEnv(mesh)
+    rank = dist.get_rank()
+    out = {}
+    for arch, steps in ((MOE_FSDP_ARCH, MOE_FSDP_STEPS), (MIXTRAL_TP_ARCH, MIXTRAL_FSDP_STEPS)):
+        cfg = moe_fsdp_cfg(arch, smoke)
+        with np.load(paths[arch]) as z:
+            batch = {k: torch.from_numpy(z[k]).to(DEVICE) for k in ("tokens", "labels")}
+        t0 = time.perf_counter()
+        for r in range(0, dist.get_world_size(), MOE_FSDP_DRAWS):
+            if r <= rank < r + MOE_FSDP_DRAWS:
+                state, partner = moe_fsdp_state(arch, cfg, seed, env, partner=True)
+                if cuda:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        draw_s = time.perf_counter() - t0
+        control = swapped_loss(state, partner, batch, env)
+        del partner
+        if rank == 0:
+            log(f"21 rank 0: {arch} drawn in {draw_s!r} s, the control's forward run")
+        routing, nll = [], []
+        got, state = fsdp_train(state, batch, steps, env, cost_step=0, routing=routing, nll=nll)
+        got["nll"] = nll
+        if rank == 0:
+            log(f"21 rank 0: {arch} trained, steps {got['step_s']!r} s")
+        got.update(draw_s=draw_s, control=control, routing=routing, shards=fsdp_shards(state))
+        del state
+        if cuda:
+            torch.cuda.empty_cache()
+        out[arch] = got
+    return out
+
+
+def moe_fsdp_plain(arch: str, cfg, batch: dict, seed: int, steps: int, keep: bool
+                   ) -> dict:
+    """``arch``'s unsharded steps on the card from the seeded weights, each
+    step's metrics and digests, the routing of each step's forward; with
+    ``keep``, the updated parameters on the host, in the sharded layout
+    (virtual experts unfolded)."""
+    import torch
+
+    from repro_torch.convert import unfold_experts
+
+    routing, nll = [], []
+    got, state = fsdp_train(moe_fsdp_state(arch, cfg, seed)[0], batch, steps, digests=True,
+                            routing=routing, nll=nll)
+    got.update(routing=routing, nll=nll)
+    if keep:
+        vs = cfg.moe.virtual_split
+        got["want"] = {}
+        for n, p in state.params.named_parameters():
+            leaf = n.rpartition(".")[2]
+            if vs > 1 and leaf in ("w_gate", "w_up", "w_down"):
+                p = unfold_experts(leaf, p.detach(), vs)
+            got["want"][n] = p.detach().to("cpu", copy=True)
+    else:
+        got["state"] = state
+    del state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return got
+
+
+def leaf_distances(params, want: dict) -> dict:
+    """:func:`ulp_errs` of each parameter of ``params`` (a module on the
+    card, plain or a one-rank mesh's) against ``want`` (on the host),
+    a leaf at a time on the card."""
+    from repro_torch.dist.sharding import local
+
+    out = {}
+    for n, p in params.named_parameters():
+        w = want[n].to(DEVICE)
+        out[n] = ulp_errs(local(p).detach(), w, TRAIN_STEP_TOL * TRAIN_LM_ADAM["lr"])
+        del w
+    return out
+
+
+def metric_rel(got: list, want: list, keys=("loss", "aux", "grad_norm")) -> float:
+    """The largest relative difference of ``keys`` over the steps."""
+    return max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want, strict=True)
+               for k in keys)
+
+
+def moe_fsdp_world1(runs: list, batch: dict, seed: int, smoke: bool) -> dict:
+    """21a: one ``nccl`` rank on a (data 1, model 1) mesh: olmoe's state
+    drawn again through ``shard_cell``, the same MOE_FSDP_STEPS steps on
+    the same batch.  ``runs`` are the two unsharded runs (the first keeps
+    its parameters on the host, the second its state on the card): where
+    they repeat their bits, 21a is held to them bit for bit (metrics and
+    digests of every parameter, ``m`` and ``v`` leaf after each step);
+    else step 1's loss and aux bit for bit and the rest within
+    MOE_FSDP_SPREAD times the two runs' distance (metrics each step, their
+    distance taken as at least MOE_FSDP_SPREAD_FLOOR; parameters after the
+    last)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv
+
+    one, two = runs
+    cfg = moe_fsdp_cfg(MOE_FSDP_ARCH, smoke)
+    repeats = one["metrics"] == two["metrics"] and one["digests"] == two["digests"]
+    spread = {"metrics": max(metric_rel(two["metrics"], one["metrics"]),
+                             MOE_FSDP_SPREAD_FLOOR),
+              "leaves": max(e[0] for e in leaf_distances(two.pop("state").params,
+                                                         one["want"]).values())}
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
+        state, _ = moe_fsdp_state(MOE_FSDP_ARCH, cfg, seed, env)
+        got, state = fsdp_train(state, batch, MOE_FSDP_STEPS, env, cost_step=0, digests=True)
+        dist_leaves = leaf_distances(state.params, one["want"])
+        del state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    got_spread = {"metrics": metric_rel(got["metrics"], one["metrics"]),
+                  "leaves": max(e[0] for e in dist_leaves.values())}
+    first = {k: got["metrics"][0][k] for k in ("loss", "aux")}
+    check(first == {k: one["metrics"][0][k] for k in ("loss", "aux")},
+          f"21a: step 1's loss and aux {first!r} differ from the unsharded step's "
+          f"{one['metrics'][0]!r}")
+    if repeats:
+        check(got["metrics"] == one["metrics"], f"21a: metrics {got['metrics']!r}, the "
+              f"unsharded {one['metrics']!r}")
+        differ = [(i, k) for i, (g, w) in enumerate(zip(got["digests"], one["digests"]))
+                  for k in w if g.get(k) != w[k]]
+        check(not differ, f"21a: {len(differ)} leaves differ from the unsharded steps' bits: "
+              f"{differ[:4]!r}")
+        rule = "bit for bit (the unsharded step repeats its bits)"
+    else:
+        for key, factor in MOE_FSDP_SPREAD.items():
+            check(got_spread[key] <= factor * spread[key],
+                  f"21a: {key} {got_spread[key]!r} from the first unsharded run, beyond "
+                  f"{factor} x the second's {spread[key]!r}")
+        rule = (f"within {MOE_FSDP_SPREAD} x the unsharded runs' spread (the unsharded step "
+                f"does not repeat its bits)")
+    check(not any(got["cost"]["bytes"].values()), f"21a: one rank ran collectives "
+          f"{got['cost']['bytes']!r}")
+    n = cfg.n_layers
+    check(DEVICE != "cuda" or (got["k3_launches"] == 2 * n * MOE_FSDP_STEPS
+                               and got["k3_simt_launches"] == 0),
+          f"21a: K3 launched {got['k3_launches']} times (SIMT {got['k3_simt_launches']}), "
+          f"expected {2 * n * MOE_FSDP_STEPS} on the tensor-core body")
+    out = {k: got[k] for k in ("n_layers", "metrics", "step_s", "state_gb", "peak_gb",
+                               "k3_launches")}
+    out.update(rule=rule, unsharded_repeats=repeats, unsharded_spread=spread,
+               distance=got_spread, leaves=len(one["digests"][0]))
+    log(f"21a world 1 (nccl, data 1 x model 1), {MOE_FSDP_ARCH} at {n} layers: held {rule}; "
+        f"the unsharded runs' distance {spread!r}, 21a's from the first {got_spread!r}; "
+        + " ".join(f"{k}={v!r}" for k, v in out.items() if k not in ("rule",)))
+    return out
+
+
+def alike_tokens_nll(plain: dict, routing: list, nll: dict, n: int, K: int) -> dict:
+    """One forward's per-token NLL (``nll``: this rank's rows) against the
+    unsharded step 1's: the share of this rank's token-layers that
+    ``routing`` (the forward's ``n`` MoE calls) sends to other experts than
+    the unsharded forward, how many of its tokens are routed alike (the
+    same experts, the same kept) in every layer, the largest NLL
+    difference over those tokens and over all of them."""
+    import torch
+
+    rt = routing_rows(plain["routing"][:n], routing, n, K)
+    b0, got = nll["b0"], nll["nll"]
+    rows, S = got.shape
+    d = (got - plain["nll"][0]["nll"][b0:b0 + rows]).abs().flatten()
+    alike = torch.ones_like(d, dtype=torch.bool)
+    alike[torch.tensor(sorted(t - b0 * S for t in rt["steps"][0]), dtype=torch.long)] = False
+    return {"rerouted": rt["rerouted"] / rt["tokens"], "alike": int(alike.sum()),
+            "tokens": d.numel(), "nll_mean": float(d.mean()), "nll_max": float(d.max()),
+            "nll_alike_max": float(d[alike].max()) if alike.any() else None}
+
+
+def moe_fsdp_check(tag: str, arch: str, plain: dict, ranks: list, pred: dict, smoke: bool
+                   ) -> dict:
+    """21b or 21c on every rank's record, against the unsharded steps
+    (``plain``): lr equal; loss, aux and grad_norm within
+    MOE_FSDP_STEP1_RTOL in step 1 and MOE_FSDP_LATER_RTOL after it; step
+    1's per-token NLL within MOE_FSDP_NLL_TOL (mean absolute difference);
+    every updated parameter within FSDP_ULPS ulps (or 1 % of a step) but
+    for MOE_FSDP_ODD[arch] of a leaf's elements; the swapped-shard
+    control's per-token NLL beyond MOE_TP_CONTROL_FACTOR times
+    MOE_FSDP_NLL_TOL; step 1's collectives the dry run's (``pred``); K3 two
+    launches a layer a step; the ranks' peaks together under
+    MOE_FSDP_MEM_GB.  The share of token-layers routed to other experts
+    than the unsharded step's is counted, step by step."""
+    cfg = moe_fsdp_cfg(arch, smoke)
+    n, K = cfg.n_layers, cfg.moe.top_k
+    steps = len(plain["metrics"])
+    worst = {k: [0.0] * steps for k in MOE_FSDP_STEP1_RTOL}
+    factor = MOE_TP_CONTROL_FACTOR["experts"][arch]
+    control, sound, rerouted = [], [], []
+    p, calls = gloo_on_card(pred)
+    for r, got in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got["metrics"], plain["metrics"], strict=True)):
+            check(g["lr"] == w["lr"], f"{tag} rank {r} step {i + 1}: lr {g['lr']!r}, {w['lr']!r}")
+            for k, tol in (MOE_FSDP_LATER_RTOL if i else MOE_FSDP_STEP1_RTOL).items():
+                rel = abs(g[k] - w[k]) / abs(w[k])
+                worst[k][i] = max(worst[k][i], rel)
+                check(math.isfinite(g[k]) and rel <= tol,
+                      f"{tag} rank {r} step {i + 1} {k}: {g[k]!r} against {w[k]!r} unsharded "
+                      f"(relative {rel!r}, beyond {tol})")
+        ctrl = got["control"]
+        sound.append(alike_tokens_nll(plain, got["routing"][:n], got["nll"][0], n, K))
+        control.append(alike_tokens_nll(plain, ctrl.pop("routing"), ctrl.pop("nll"), n, K)
+                       | {"loss": ctrl["loss"], "aux": ctrl["aux"]})
+        check(sound[-1]["nll_mean"] <= MOE_FSDP_NLL_TOL,
+              f"{tag} rank {r}: step 1's per-token NLL off by {sound[-1]['nll_mean']!r} on "
+              f"average (tolerance {MOE_FSDP_NLL_TOL})")
+        check(control[-1]["nll_mean"] > factor * MOE_FSDP_NLL_TOL,
+              f"{tag} rank {r}: the swapped-shard control's per-token NLL off by "
+              f"{control[-1]['nll_mean']!r} on average, not {factor} x the tolerance "
+              f"{MOE_FSDP_NLL_TOL}")
+        per_step = [routing_rows(plain["routing"][i * n:(i + 1) * n],
+                                 got["routing"][i * n:(i + 1) * n], n, K) for i in range(steps)]
+        rerouted.append([rt["rerouted"] / rt["tokens"] for rt in per_step])
+        check(got["cost"]["bytes"] == p, f"{tag} rank {r}: collectives {got['cost']['bytes']!r} "
+              f"in step 1, the dry run's {p!r}")
+        check(DEVICE != "cuda" or (got["k3_launches"] == 2 * n * steps
+                                   and got["k3_simt_launches"] == 0),
+              f"{tag} rank {r}: K3 launched {got['k3_launches']} times (SIMT "
+              f"{got['k3_simt_launches']}), expected {2 * n * steps}")
+    per_leaf = fsdp_leaves(plain["want"], [g.pop("shards") for g in ranks])
+    leaf = {"odd_share_max": max(e[0] for e in per_leaf.values()),
+            "ulps_max": max(e[1] for e in per_leaf.values()),
+            "abs_max": max(e[2] for e in per_leaf.values()),
+            "leaf": max(per_leaf, key=lambda k: per_leaf[k][0])}
+    for name, (odd, _, dmax) in per_leaf.items():
+        check(odd <= MOE_FSDP_ODD[arch], f"{tag} {name}: {odd!r} of its elements beyond "
+              f"{FSDP_ULPS} ulps and 1 % of a step (tolerance {MOE_FSDP_ODD[arch]}); largest "
+              f"distance {dmax!r}")
+    peak = sum(g["peak_gb"] for g in ranks) if DEVICE == "cuda" else None
+    check(peak is None or peak <= MOE_FSDP_MEM_GB,
+          f"{tag}: the ranks' peaks {peak!r} GB, over {MOE_FSDP_MEM_GB} GB")
+    out = {"n_layers": n, "steps": steps, "metrics_rel_err": worst, "leaves": leaf,
+           "rerouted_share": rerouted, "sound": sound, "control": control,
+           "control_factor": factor, "peak_gb_sum": peak,
+           "collectives": {"rank0": ranks[0]["cost"], "predicted": {"bytes": p, "calls": calls}},
+           "plain": {k: plain[k] for k in ("metrics", "step_s", "state_gb", "peak_gb")},
+           "ranks": [{k: g[k] for k in ("metrics", "step_s", "state_gb", "whole_gb", "peak_gb",
+                                        "draw_s", "k3_launches")} for g in ranks]}
+    log(f"{tag} world 4 (gloo, {MOE_FSDP_MESH}, one card), {arch} at {n} layers, {steps} "
+        f"step(s): loss, aux and grad_norm within {worst!r} relative of the unsharded steps, "
+        f"step by step (tolerances {MOE_FSDP_STEP1_RTOL!r}, then {MOE_FSDP_LATER_RTOL!r}); "
+        f"parameters {leaf!r} (at most {MOE_FSDP_ODD[arch]} of a leaf beyond {FSDP_ULPS} ulps); "
+        f"token-layers routed to other experts than the unsharded step's, a rank a step: "
+        f"{rerouted!r}")
+    log(f"{tag} step 1's per-token NLL against the unsharded step's, a rank: {sound!r} "
+        f"(mean within {MOE_FSDP_NLL_TOL}); the swapped-shard control's: {control!r} (mean "
+        f"beyond {factor} x {MOE_FSDP_NLL_TOL})")
+    log(f"{tag} state and memory: unsharded {plain['state_gb']!r} GB of state, "
+        f"{plain['peak_gb']!r} GB peak, steps {plain['step_s']!r} s; " + "; ".join(
+            f"rank {r}: {g['state_gb']!r} GB of state ({g['whole_gb']!r} GB whole), "
+            f"{g['peak_gb']!r} GB peak, steps {g['step_s']!r} s, draw {g['draw_s']!r} s"
+            for r, g in enumerate(ranks)) + f"; the ranks' peaks together {peak!r} GB")
+    log(f"{tag} collectives a rank in step 1: bytes {ranks[0]['cost']['bytes']!r}, calls "
+        f"{ranks[0]['cost']['calls']!r}; the dry run's for {MOE_FSDP_MESH} at {n} layers: "
+        f"bytes {p!r}, calls {calls!r}")
+    return out
+
+
+def phase_moe_fsdp(seed: int, smoke: bool = False) -> dict:
+    """Phase 21, run last: olmoe-1b-7b's unsharded step twice (does it
+    repeat its bits?), 21a on one ``nccl`` rank, mixtral-8x7b's unsharded
+    step, then 21b and 21c on four ``gloo`` ranks (one spawn), each held
+    to its unsharded steps.  ``smoke``: the smoke configs, for a rehearsal
+    on the CPU."""
+    import torch
+
+    from repro_torch.dist import spawn
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    B, S = MOE_FSDP_BATCH, (TRAIN_LM_SEQ if not smoke else 64)
+    cfgs = {a: moe_fsdp_cfg(a, smoke) for a in (MOE_FSDP_ARCH, MIXTRAL_TP_ARCH)}
+    batches = {a: fsdp_batch(c, B, S, seed + 2) for a, c in cfgs.items()}
+    runs = [moe_fsdp_plain(MOE_FSDP_ARCH, cfgs[MOE_FSDP_ARCH], batches[MOE_FSDP_ARCH], seed,
+                           MOE_FSDP_STEPS, keep=i == 0) for i in range(2)]
+    for run in runs:
+        check(DEVICE != "cuda" or run["peak_gb"] <= MOE_FSDP_MEM_GB,
+              f"21: the unsharded step peaked at {run['peak_gb']!r} GB, over {MOE_FSDP_MEM_GB}")
+    out = {"world1": moe_fsdp_world1(runs, batches[MOE_FSDP_ARCH], seed, smoke)}
+    plain = {MOE_FSDP_ARCH: runs[0],
+             MIXTRAL_TP_ARCH: moe_fsdp_plain(MIXTRAL_TP_ARCH, cfgs[MIXTRAL_TP_ARCH],
+                                             batches[MIXTRAL_TP_ARCH], seed,
+                                             MIXTRAL_FSDP_STEPS, keep=True)}
+    del runs
+    paths = {}
+    for arch, batch in batches.items():
+        paths[arch] = str(ROOT / "build" / "phase21" / f"{arch}.npz")
+        Path(paths[arch]).parent.mkdir(parents=True, exist_ok=True)
+        np.savez(paths[arch], **{k: v.cpu().numpy() for k, v in batch.items()})
+    del batches
+    # the dry run's predictions are traced on meta while this process only
+    # waits for the ranks
+    preds = {}
+
+    def predict():
+        try:
+            for arch, cfg in cfgs.items():
+                preds[arch] = train_predicted(arch, MOE_FSDP_MESH, cfg.n_layers, B, S, smoke)
+        except BaseException as e:  # raised again below
+            preds["error"] = e
+
+    tracer = threading.Thread(target=predict)
+    tracer.start()
+    t1 = time.perf_counter()
+    try:
+        ranks = spawn(moe_fsdp_rank, math.prod(MOE_FSDP_MESH.values()), backend="gloo",
+                      device=DEVICE, args=(paths, seed, DEVICE, smoke),
+                      timeout=MOE_FSDP_TIMEOUT, mesh_shape=MOE_FSDP_MESH)
+    finally:
+        tracer.join()
+    out["spawn_s"] = time.perf_counter() - t1
+    if "error" in preds:
+        raise preds["error"]
+    for p in paths.values():
+        Path(p).unlink()
+    for tag, arch in (("21b", MOE_FSDP_ARCH), ("21c", MIXTRAL_TP_ARCH)):
+        out["world4" if tag == "21b" else "world4_mixtral"] = moe_fsdp_check(
+            tag, arch, plain[arch], [r[arch] for r in ranks], preds[arch], smoke)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"21: {out['seconds']!r} s (21b and 21c's spawn {out['spawn_s']!r} s)")
+    return out
+
+
 def gemm_shape_bits(seed: int, T: int = 16_384, D: int = 2048) -> dict:
     """ROADMAP C.12's second diagnostic (``--c12 products``): the share of a
     bf16 product's elements whose bits change when the same rows run in a
@@ -6981,6 +7535,18 @@ C12_DIAGNOSTICS = {"products": gemm_shape_bits, "batch": moe_batch_witness,
                    "settle": moe_settle_runs}
 
 
+def grab4_stream():
+    """The Grab4 stream of phases 2-5 and 13: its 6,023,000 vertices and
+    27.8M background edges, 90 % of which (with the two standing dense
+    blocks, ~25.0M) form the base graph.  Module-level, so that another
+    process can draw it."""
+    from repro_torch.configs import SPADE_SHAPES
+    from repro_torch.graphstore.generators import make_transaction_stream
+
+    return make_transaction_stream(n=SPADE_SHAPES["grab4_stream"].n_nodes, m=27_800_000,
+                                   seed=0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=128,
@@ -7044,15 +7610,34 @@ def main() -> int:
     log("  K3 dynamic shared memory per CTA: " + ", ".join(
         f"D {d}: {k3_ops.smem_bytes(d)} bytes" for d in k3_ops.HEAD_DIMS))
 
-    from repro_torch.configs import SPADE_SHAPES
-    from repro_torch.graphstore.generators import make_transaction_stream
-
+    # the Grab4 stream (phases 2-5 and 13) is drawn in another process while
+    # phases 6-11, which do not read it, run
     t0 = time.perf_counter()
-    # Grab4's 6,023,000 vertices; 27.8M background edges, 90 % of which
-    # (with the two standing dense blocks, ~25.0M) form the base graph
-    stream = make_transaction_stream(n=SPADE_SHAPES["grab4_stream"].n_nodes,
-                                     m=27_800_000, seed=0)
-    log(f"grab4 stream generated in {time.perf_counter() - t0!r} s")
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        drawn = pool.submit(grab4_stream)
+
+        t_lm = time.perf_counter()
+        attn, attn_norm = phase_attention(LM_SEED)
+        attn_simt = phase_attention_simt(LM_SEED)
+        log("phase 6: K3's two bodies agree with their plain versions")
+        lm_parity = phase_lm_parity(LM_SEED)
+        log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
+        lm, lm_ref = phase_lm_full(LM_SEED)  # phase 17 holds its sharded runs to lm_ref
+        log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
+            f"{time.perf_counter() - t_lm!r} s")
+
+        t_gnn = time.perf_counter()
+        kept = {}  # the ogb_products graph, from phase 9 to phase 11, and its rows to 15b
+        k4, k4_cases = phase_k4(GNN_SEED, kept)
+        log("phase 9: K4 agrees with its plain versions")
+        gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
+        log("phase 10: GNN forward cuda==cpu within tolerance")
+        gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
+        log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
+            f"{time.perf_counter() - t_gnn!r} s")
+        stream = drawn.result()
+    log(f"grab4 stream drawn in another process beside phases 6-11, ready "
+        f"{time.perf_counter() - t0!r} s after its start")
 
     rec = phase_kernels({"src": stream.base_src.astype(np.int32),
                          "dst": stream.base_dst.astype(np.int32)})
@@ -7065,26 +7650,6 @@ def main() -> int:
     grab["tick_rounds"] = tick
     log("phase 5: a tick's K2 rounds and prologue recorded and timed"
         + (", and the tick traced" if args.profile_ticks else ""))
-
-    t_lm = time.perf_counter()
-    attn, attn_norm = phase_attention(LM_SEED)
-    attn_simt = phase_attention_simt(LM_SEED)
-    log("phase 6: K3's two bodies agree with their plain versions")
-    lm_parity = phase_lm_parity(LM_SEED)
-    log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
-    lm, lm_ref = phase_lm_full(LM_SEED)  # phase 17 holds its sharded runs to lm_ref
-    log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
-        f"{time.perf_counter() - t_lm!r} s")
-
-    t_gnn = time.perf_counter()
-    kept = {}  # the ogb_products graph, from phase 9 to phase 11, and its rows to 15b
-    k4, k4_cases = phase_k4(GNN_SEED, kept)
-    log("phase 9: K4 agrees with its plain versions")
-    gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
-    log("phase 10: GNN forward cuda==cpu within tolerance")
-    gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
-    log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
-        f"{time.perf_counter() - t_gnn!r} s")
 
     # phase 15 runs here, so that 15b trains on phase 11's ogbn-products
     # graph and rows, which phase 14's memory could not share the card with
@@ -7179,6 +7744,17 @@ def main() -> int:
         f"collectives the dry run's, peak {gcn20['peak_gb']!r} GB a rank; "
         f"{tp_cells['seconds']!r} s")
 
+    # phase 21 runs last, after 20: its ranks precede no other phase's timing
+    moe_fsdp = phase_moe_fsdp(LM_SEED)
+    w4o, w4x = moe_fsdp["world4"], moe_fsdp["world4_mixtral"]
+    log(f"phase 21: the MoE LMs trained with FSDP on a DeviceMesh on {smi}: {MOE_FSDP_ARCH} "
+        f"world 1 (nccl) at {moe_fsdp['world1']['n_layers']} layers held "
+        f"{moe_fsdp['world1']['rule']}; world 4 (gloo, one card, data 2 x model 2) within "
+        f"{w4o['metrics_rel_err']!r} of the unsharded steps, {w4o['rerouted_share']!r} of its "
+        f"token-layers rerouted; {MIXTRAL_TP_ARCH} at {w4x['n_layers']} layers within "
+        f"{w4x['metrics_rel_err']!r}; collectives equal to the dry run's, the swapped-shard "
+        f"controls rejected; {moe_fsdp['seconds']!r} s")
+
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
 
@@ -7191,7 +7767,10 @@ def main() -> int:
                 "qwen3-14b-fsdp-world2": sum(r["k3_launches"] for r in w2["ranks"]),
                 "olmoe-1b-7b-sharded-world1": moe_tp["world1"]["k3_launches"],
                 "olmoe-1b-7b-sharded-world4": sum(r["k3_launches"] for r in w4["ranks"]),
-                "mixtral-8x7b-sharded-world2": sum(r["k3_launches"] for r in wm["ranks"])}
+                "mixtral-8x7b-sharded-world2": sum(r["k3_launches"] for r in wm["ranks"]),
+                "olmoe-1b-7b-fsdp-world1": moe_fsdp["world1"]["k3_launches"],
+                "olmoe-1b-7b-fsdp-world4": sum(r["k3_launches"] for r in w4o["ranks"]),
+                "mixtral-8x7b-fsdp-world4": sum(r["k3_launches"] for r in w4x["ranks"])}
     simt_paths = {"smoke": lm_parity["smoke_configs"]["simt_launches"],
                   "smoke-train": train["parity"]["simt_launches"]}
     k4_paths = {"gcn-cora": gcn["launches"], "gcn-cora-train": train["gcn_cora"]["k4_launches"]}
@@ -7262,7 +7841,7 @@ def main() -> int:
              "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
              "train": train, "cells": cells, "fsdp": fsdp, "moe_tp": moe_tp,
-             "sharded_cells": tp_cells},
+             "sharded_cells": tp_cells, "moe_fsdp": moe_fsdp},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

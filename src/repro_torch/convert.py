@@ -145,14 +145,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def _lm_to_reference(get, cfg: LMConfig, leaf, stack) -> dict:
     """The reference's LM tree from ``get(port name)`` (the leaves of
     :func:`~repro_torch.models.transformer.reference_leaves`): each tensor
-    unfolded where it is an expert leaf, then ``leaf``-converted, and a
-    layer leaf's ``stack``-ed."""
+    unfolded where it is a folded expert leaf (a sharded model holds its
+    virtual experts unfolded already), then ``leaf``-converted, and a layer
+    leaf's ``stack``-ed."""
     vs = cfg.moe.virtual_split if cfg.moe is not None else 1
     tree: dict = {}
     for path, names in reference_leaves(cfg):
         xs = [get(n) for n in names]
-        if path[:2] == ("layers", "moe"):
-            xs = [unfold_experts(path[-1], x, vs) for x in xs]
+        if path[:2] == ("layers", "moe") and vs > 1:
+            xs = [unfold_experts(path[-1], x, vs) if x.shape[0] == cfg.moe.n_experts else x
+                  for x in xs]
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import sys
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Iterator, Mapping, Sequence
 
 import torch
@@ -66,6 +66,7 @@ __all__ = [
     "local_slices",
     "mesh_group",
     "barrier",
+    "GlooGathers",
     "COLLECTIVES",
     "LocalCost",
 ]
@@ -185,9 +186,12 @@ def axis_env() -> AxisEnv | None:
 
 @contextmanager
 def use_axis_env(env: AxisEnv) -> Iterator[AxisEnv]:
+    """``env`` active inside; on a mesh of CUDA ranks with a gloo group,
+    :class:`GlooGathers` too."""
     _STACK.append(env)
     try:
-        yield env
+        with GlooGathers() if env is not None and _gloo_cuda_mesh(env.mesh) else nullcontext():
+            yield env
     finally:
         _STACK.pop()
 
@@ -264,6 +268,58 @@ def _gather_by_all_to_all(x: DTensor, mesh_dim: int) -> DTensor:
     return _GatherByAllToAll.apply(x, mesh_dim)
 
 
+def _gloo_cuda_mesh(mesh: DeviceMesh | None) -> bool:
+    """Whether ``mesh`` holds CUDA ranks and one of its dims' groups is gloo."""
+    import torch.distributed as dist
+
+    return (mesh is not None and mesh.device_type == "cuda"
+            and any(dist.get_backend(mesh.get_group(i)) == "gloo" for i in range(mesh.ndim)))
+
+
+def _gloo_group(group) -> bool:
+    """Whether a functional collective's group (its name, or the group) is gloo."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return dist.get_backend(_resolve_process_group(group) if isinstance(group, str)
+                            else group) == "gloo"
+
+
+def _gloo_gather(func, args, cpu: bool = False) -> bool:
+    """Whether ``func(*args)`` is a functional all-gather of a CUDA tensor
+    (or, with ``cpu``, any tensor) on a gloo group: what
+    :class:`GlooGathers` runs as an all-to-all."""
+    return (func is torch.ops._c10d_functional.all_gather_into_tensor.default
+            and (args[0].is_cuda or cpu) and _gloo_group(args[2]))
+
+
+class GlooGathers(TorchDispatchMode):
+    """Inside, every functional all-gather on a gloo group of CUDA tensors
+    runs as the all-to-all that moves the same bytes (each rank sends its
+    shard to every rank: gloo's CUDA all-gather faults in torch 2.11).  It
+    takes DTensor's own gathers, which :func:`redistribute` does not make
+    itself: the layout an op's sharding rule asks for, and the gather in
+    the backward of a constraint that sliced a whole tensor (the MoE
+    buffer's).  :func:`use_axis_env` enters it on a mesh of CUDA ranks
+    with a gloo group; ``cpu=True`` takes CPU tensors too (a test of the
+    rewrite on gloo's CPU group)."""
+
+    def __init__(self, cpu: bool = False):
+        super().__init__()
+        self.cpu = cpu
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if _gloo_gather(func, args, self.cpu):
+            x, k, group = args[0].contiguous(), args[1], args[2]
+            split = [x.shape[0]] * k
+            return torch.ops._c10d_functional.all_to_all_single.default(
+                torch.cat([x] * k), split, split, group)
+        return func(*args, **kwargs)
+
+
 def all_reduce(t: torch.Tensor, op: str, groups: Sequence[tuple[DeviceMesh, int]]
                ) -> torch.Tensor:
     """A plain (rank-local) tensor all-reduced with ``op`` ("sum", "max")
@@ -282,17 +338,47 @@ def all_reduce(t: torch.Tensor, op: str, groups: Sequence[tuple[DeviceMesh, int]
     return t
 
 
+class _AddPartials(torch.autograd.Function):
+    """``x``'s partial sums over the mesh dims ``dims`` added by one
+    all-reduce over their flattened group (:func:`mesh_group`), those dims
+    then whole.  Backward: the gradient as it comes, whole on those dims,
+    as DTensor's all-reduce keeps it."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        import torch.distributed._functional_collectives as funcol
+
+        mesh = x.device_mesh
+        t = funcol.wait_tensor(funcol.all_reduce(x.to_local(), "sum", mesh_group(mesh, dims)))
+        pl = [Replicate() if i in dims else p for i, p in enumerate(x.placements)]
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def redistribute(x: DTensor, placements: Sequence[Placement]) -> DTensor:
     """``x.redistribute(x.device_mesh, placements)``: the port's one way to
-    move a DTensor between layouts, so that every change is named.  One
-    exception to DTensor's own collectives: gloo has no all-gather on CUDA
+    move a DTensor between layouts, so that every change is named.  Two
+    exceptions to DTensor's own collectives: gloo has no all-gather on CUDA
     tensors (torch 2.11 faults in it), so on a gloo group of CUDA ranks a
-    mesh dim that goes from a shard to whole is gathered by an
-    all-to-all that moves the same bytes (and is counted as one).  A
-    DTensor's redistribute is differentiable: its backward moves the
-    gradient back into ``x``'s placements (an all-gather's is a
-    reduce-scatter; an all-reduce's keeps the whole gradient)."""
+    mesh dim that goes from a shard to whole is gathered by an all-to-all
+    that moves the same bytes (and is counted as one; DTensor's own
+    gathers there, which no call here names, go through
+    :class:`GlooGathers`); and partial sums over more than one mesh dim
+    made whole (a replicated weight's gradient on (data, model)) are added
+    by one all-reduce over their flattened group, where DTensor takes one
+    a dim until such a group exists and one after.  A DTensor's
+    redistribute is differentiable: its backward moves the gradient back
+    into ``x``'s placements (an all-gather's is a reduce-scatter; an
+    all-reduce's keeps the whole gradient)."""
     placements = tuple(placements)
+    summed = tuple(i for i, (a, b) in enumerate(zip(x.placements, placements))
+                   if a == Partial() and isinstance(b, Replicate))
+    if len(summed) > 1:
+        x = _AddPartials.apply(x, summed)
     for i in reversed(range(len(placements))):
         a, b = x.placements[i], placements[i]
         if isinstance(a, Shard) and isinstance(b, Replicate) and _gloo_on_cuda(x, i):
@@ -632,7 +718,7 @@ class _Collectives(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        self.cost._collective(func, out)
+        self.cost._collective(func, args, out)
         return out
 
 
@@ -642,7 +728,8 @@ class LocalCost(TorchDispatchMode):
     module's for ``matmul`` and ``einsum``), and
     ``collectives``, the bytes of every collective's output on this rank by
     kind, as the reference counts the per-shard output shapes of its
-    partitioned HLO; ``calls`` counts them.
+    partitioned HLO (a gather on a gloo group of CUDA tensors as the
+    all-to-all that :class:`GlooGathers` runs); ``calls`` counts them.
 
     A DTensor op is handed on to DTensor (the mode returns
     ``NotImplemented``), which redistributes and runs the local op; its
@@ -662,8 +749,10 @@ class LocalCost(TorchDispatchMode):
         self.collectives = {c: 0 for c in COLLECTIVES}
         self.calls = {c: 0 for c in COLLECTIVES}
 
-    def _collective(self, func, out) -> bool:
+    def _collective(self, func, args, out) -> bool:
         kind = _KIND.get(func._overloadpacket._qualified_op_name.replace("::", "."))
+        if kind == "all-gather" and _gloo_gather(func, args):
+            kind = "all-to-all"  # what GlooGathers runs
         if kind is not None:
             self.collectives[kind] += _nbytes(out)
             self.calls[kind] += 1
@@ -686,7 +775,7 @@ class LocalCost(TorchDispatchMode):
         out = func(*args, **kwargs)
         if any(isinstance(a, FakeTensor) for a in args) or isinstance(out, FakeTensor):
             return out
-        if not self._collective(func, out) and formula is not None and (
+        if not self._collective(func, args, out) and formula is not None and (
                 not _in_sharding_propagation()):
             self.flops += int(formula(*args, **kwargs, out_val=out))
         return out

@@ -126,10 +126,11 @@ def save_pytree(tree: Any, directory: str, step: int) -> str:
     """Synchronous atomic save, one leaf at a time. Returns the committed
     directory.
 
-    A sharded state (an LM state whose leaves are DTensors) is written in
-    the same format: every rank of its mesh takes part in gathering each
-    leaf, the mesh's first rank writes it and commits, and the ranks
-    leave together."""
+    A sharded state (an LM state whose leaves are DTensors, dense or MoE:
+    a sharded MoE layer's virtual experts are held unfolded, the layout on
+    disk, and written as they are) is written in the same format: every
+    rank of its mesh takes part in gathering each leaf, the mesh's first
+    rank writes it and commits, and the ranks leave together."""
     mesh = _mesh_of(tree.params if _lm_state(tree) else tree)
     writer = mesh is None or not any(mesh.get_coordinate())
     final = os.path.join(directory, f"step_{step:08d}")
@@ -210,11 +211,14 @@ def load_pytree(like: Any, directory: str, step: int | None = None,
 
     With ``env`` and ``logical`` (the reference's ``shardings=``: the
     elastic restart onto another mesh, such as ``ft.replan``'s
-    ``MeshPlan.device_mesh()``), an LM ``TrainState`` is restored as
-    DTensors on ``env``'s mesh, placed by ``logical``, the logical tree of
-    the reference's layout (a train cell's ``in_logical[0]``): each rank
-    reads only its shard of each leaf (a memory-mapped ``.npy``), on
-    ``device`` (default: the mesh's device type).  ``like`` gives only the
+    ``MeshPlan.device_mesh()``), an LM ``TrainState``, dense or MoE, is
+    restored as DTensors on ``env``'s mesh, placed by ``logical``, the
+    logical tree of the reference's layout (a train cell's
+    ``in_logical[0]``): each rank reads only its shard of each leaf (a
+    memory-mapped ``.npy``), on ``device`` (default: the mesh's device
+    type).  A MoE layer's experts come back in the checkpoint's (the
+    reference's) unfolded layout, as :func:`~repro_torch.launch.cells.
+    shard_cell` places them.  ``like`` gives only the
     structure (a state on ``meta`` will do); ``step`` comes back plain."""
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -259,9 +263,9 @@ def _load_sharded(like, d: str, manifest: dict, device, env: AxisEnv, logical):
         def part(tree, names: dict, dtype_of) -> dict:
             out = {}
 
-            def put(name, x, expert):
-                if expert:
-                    raise NotImplementedError("load_pytree(env=...): MoE states are ROADMAP D.2")
+            # an expert leaf as the reference holds it, unfolded, which is
+            # how a sharded model holds its virtual experts (shard_cell)
+            def put(name, x, _):
                 sl = local_slices(x.shape, *names[name])
                 t = tensor_from_numpy(np.ascontiguousarray(x[sl]), dtype_of(name)).to(dev)
                 out[name] = place(t, *names[name], local=True, shape=x.shape)

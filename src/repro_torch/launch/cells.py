@@ -16,8 +16,8 @@ logical axes (``in_logical``) are the reference's, over the reference's
 layout of the arguments (an LM's layers stacked and its experts
 unfolded): :func:`reference_args` gives that layout, which the sharding
 layer places (:mod:`repro_torch.dist.sharding`).  :func:`shard_cell` puts
-an LM serving cell's own arguments (dense or MoE), or a dense train
-cell's state in the FSDP layout, on a mesh as DTensors by the same names,
+an LM serving cell's own arguments, or an LM train cell's state in the
+FSDP layout (dense or MoE both), on a mesh as DTensors by the same names,
 the port's per-layer parameters taking their stacked leaf's names less
 the layer dim (a MoE layer's virtual experts unfolded, as the reference
 holds them); gcn-cora's train cell's batch on ``vertex``/``edges``; and it
@@ -123,14 +123,11 @@ def reference_args(cell: Cell) -> tuple:
 
 
 def sharded_reason(cell: Cell) -> str | None:
-    """None when :func:`shard_cell` runs ``cell`` sharded (an LM's
-    ``prefill`` or ``decode_step``, a dense LM's ``train_step``, the Spade
-    cells, gcn-cora's ``train_step``), else why not: the ROADMAP item of
-    the sharded slice that brings it."""
+    """None when :func:`shard_cell` runs ``cell`` sharded (every LM cell:
+    ``prefill``, ``decode_step`` and ``train_step``, dense and MoE; the
+    Spade cells; gcn-cora's ``train_step``), else why not: the ROADMAP
+    item of the sharded slice that brings it."""
     if cell.family == "lm":
-        model = cell.args[0].params if cell.step_name == "train_step" else cell.args[0]
-        if model.cfg.moe is not None and cell.step_name == "train_step":
-            return "the MoE train step on a mesh is a later sharded slice (ROADMAP D.2b)"
         return None
     if cell.family == "spade" or (cell.family == "gnn" and get_config(cell.arch).kind == "gcn"):
         return None
@@ -164,6 +161,12 @@ def _shard_spade(cell: Cell, env: AxisEnv) -> Cell:
                                args=(state,) + cell.args[1:])
 
 
+def _sharded_layout(leaf: str, x: torch.Tensor, vs: int) -> torch.Tensor:
+    """A MoE layer's expert leaf as a mesh holds it, unfolded into its
+    ``vs`` virtual experts (the reference's layout); any other as it is."""
+    return unfold_experts(leaf, x, vs) if vs > 1 and leaf in ("w_gate", "w_up", "w_down") else x
+
+
 def _shard_lm(model: TransformerLM, logical: dict, trainable: bool = False) -> TransformerLM:
     """``model`` with each parameter replaced, in place, by its DTensor on
     the active env's mesh, placed by
@@ -178,21 +181,24 @@ def _shard_lm(model: TransformerLM, logical: dict, trainable: bool = False) -> T
     for name, names_of in port_logical(model.cfg, logical).items():
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
-        p = getattr(mod, leaf)
-        if vs > 1 and leaf in ("w_gate", "w_up", "w_down"):
-            p = unfold_experts(leaf, p.detach(), vs)
+        p = _sharded_layout(leaf, getattr(mod, leaf).detach(), vs)
         setattr(mod, leaf, nn.Parameter(place(p, *names_of), requires_grad=trainable))
     return model
 
 
 def _shard_state(state: TrainState, logical: TrainState) -> TrainState:
-    """A dense LM's train state on the active env's mesh: its module
-    sharded in place (trainable), ``m``, ``v`` and ``err`` (dicts keyed by
-    the parameter names) placed as the parameters, ``step`` kept plain
+    """An LM's train state on the active env's mesh: its module sharded in
+    place (trainable), ``m``, ``v`` and ``err`` (dicts keyed by the
+    parameter names) placed as the parameters, a MoE layer's expert leaves
+    unfolded as its parameters are (:func:`_shard_lm`), so that each rank's
+    shards of them line up with its parameter shards; ``step`` kept plain
     (every rank holds it)."""
     params = _shard_lm(state.params, logical.params, trainable=True)
+    moe = params.cfg.moe
+    vs = moe.virtual_split if moe is not None else 1
     names = port_logical(params.cfg, logical.m)
-    tree = lambda t: None if t is None else {k: place(x, *names[k]) for k, x in t.items()}
+    put = lambda name, x: place(_sharded_layout(name.rpartition(".")[2], x, vs), *names[name])
+    tree = lambda t: None if t is None else {k: put(k, x) for k, x in t.items()}
     return TrainState(params=params, m=tree(state.m), v=tree(state.v), step=state.step,
                       err=tree(state.err))
 
@@ -203,19 +209,20 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     every rank holds the whole argument and keeps its shard, with no
     collective; on ``meta`` for the dry run).  An LM module is sharded in
     place (its parameters become DTensors) and comes back in the cell, so
-    a model is never copied whole.  A dense LM train cell's state is
-    sharded as the reference's FSDP layout names it (the module in place
-    and trainable, ``m`` and ``v`` as the parameters, ``step`` plain); its
-    token batch stays whole on every rank, and the step places each
-    microbatch (``make_train_step``'s ``batch_logical``).  A MoE LM's
-    serving cell places its experts on ``expert`` (virtual experts
-    unfolded: :func:`_shard_lm`).  Run the step under
-    ``use_axis_env(env)``.  A Spade cell runs on the edge-sharded engine
-    (:func:`_shard_spade`).  gcn-cora's train cell places its state
-    replicated (trainable, ``step`` plain) and its batch by the
-    reference's logical axes (vertex arrays on ``vertex``, edge arrays on
-    ``edges``), which the model's sharded path reads.  Another cell (a MoE
-    train step, the other GNNs, two-tower) raises with
+    a model is never copied whole.  An LM train cell's state, dense or
+    MoE, is sharded as the reference's FSDP layout names it (the module in
+    place and trainable, ``m`` and ``v`` as the parameters, ``step``
+    plain); its token batch stays whole on every rank, and the step places
+    each microbatch (``make_train_step``'s ``batch_logical``).  A MoE LM's
+    cells place its experts on ``expert`` (virtual experts unfolded, in
+    the parameters and the moments: :func:`_shard_lm`,
+    :func:`_shard_state`), and a train cell their ``D`` (``w_down``'s last
+    dim) on ``fsdp``.  Run the step under ``use_axis_env(env)``.  A
+    Spade cell runs on the edge-sharded engine (:func:`_shard_spade`).
+    gcn-cora's train cell places its state replicated (trainable, ``step``
+    plain) and its batch by the reference's logical axes (vertex arrays on
+    ``vertex``, edge arrays on ``edges``), which the model's sharded path
+    reads.  Another cell (the other GNNs, two-tower) raises with
     :func:`sharded_reason`."""
     reason = sharded_reason(cell)
     if reason is not None:

@@ -23,14 +23,16 @@ False)``) and reports:
   its ops in Python, so an LM cell is traced at 1 and 2 layers and its
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
   so that is the full depth's count;
-* for the LM serving cells (``prefill``, ``decode_step``; dense and MoE),
-  the dense LM train cells and gcn-cora's train cells, the step **run
-  sharded**: the cell's
-  arguments as meta DTensors on the mesh
+* for the LM cells (``prefill``, ``decode_step`` and ``train_step``;
+  dense and MoE) and gcn-cora's train cells, the step **run sharded**:
+  the cell's arguments as meta DTensors on the mesh
   (:func:`~repro_torch.launch.cells.shard_cell`), traced at 1 and 2
   layers under :class:`~repro_torch.dist.sharding.LocalCost` and
   extrapolated as above (gcn-cora: traced once at its two layers, K4's
-  plain version giving the shapes).  ``flops_per_chip`` is the traced rank's local
+  plain version giving the shapes).  A MoE train step's count a layer
+  and microbatch is held by hand in ``tests/test_torch_sharding.py``
+  (``test_dryrun_sharded_smoke_moe_train``; PERF.md gives it at the
+  production meshes).  ``flops_per_chip`` is the traced rank's local
   FLOPs (the last rank: under sequence-sharded causal attention, the
   heaviest share), ``collectives`` the bytes of its collectives' outputs
   by the reference's five names (``collective_calls`` their number),

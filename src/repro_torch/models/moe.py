@@ -73,8 +73,21 @@ reference's sharded steps, each layout change a named
 
 DTensor has no sharding rule for ``topk``, the stable ``argsort``,
 ``scatter_``, ``index_select`` or ``index_add_``: they run on local
-tensors only.  The sharded path serves (no gradient: a parameter that
-requires one raises, ROADMAP D.2b).
+tensors only, in the forward and in the backward.  The sharded path also
+trains (the FSDP train step, :func:`repro_torch.launch.cells.shard_cell`
+on a MoE train cell; the layer gathers the experts' ``fsdp`` dim before
+the FFN): each ``local_map`` states where its inputs' local gradients are
+partial sums (the replicated router's and experts' over the token shards
+that used them; the buffer's over the ``F`` shards without expert
+parallelism), which the gathers' backward reduce-scatters; the buffer's
+constraint gathers its gradient over ``model``, ``y``'s gather takes its
+slice of a gradient that every rank holds whole, and the pair sum's
+all-reduce hands each half the whole gradient.  The aux loss's
+probability sums are all-reduced by :class:`_TokenSum`, whose backward is
+the identity: the loss is whole on every rank, so each rank's tokens take
+its gradient once.  The counts carry no gradient.  A rematerialised
+layer's recomputation repeats its routing (the same inputs, the same
+deterministic ops).
 """
 
 from __future__ import annotations
@@ -183,7 +196,11 @@ def _dispatch(x: torch.Tensor, slot: torch.Tensor, K: int, Cb: int, E: int, vs: 
 def _products(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``(silu(buf @ w_gate) * (buf @ w_up)) @ w_down`` over the experts
-    (batched), the serving path's in-place forms; into ``out`` if given."""
+    (batched): without grad mode the serving path's in-place forms, into
+    ``out`` if given; with it the same values out of place (autograd keeps
+    the product that ``silu`` would overwrite), ``out`` unused."""
+    if torch.is_grad_enabled():
+        return torch.bmm(F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up), w_down)
     h = F.silu(torch.bmm(buf, w_gate), inplace=True)
     h.mul_(torch.bmm(buf, w_up))
     return torch.bmm(h, w_down, out=out)
@@ -225,10 +242,8 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     TB = r.slot.shape[0]
     buf = _dispatch(x, r.slot, spec.top_k, Cb, E)
     # y's rows are (expert, block, position), and one zero row for the drops
-    if torch.is_grad_enabled():  # the same values, out of place for autograd
-        h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-        y = torch.cat([torch.bmm(h, w_down).view(-1, D), x.new_zeros((1, D))])
-        del h
+    if torch.is_grad_enabled():
+        y = torch.cat([_products(buf, w_gate, w_up, w_down).view(-1, D), x.new_zeros((1, D))])
     else:
         y = x.new_empty((E * TB * Cb + 1, D))
         y[-1].zero_()
@@ -296,17 +311,37 @@ def _sharded_route(x: DTensor, router: torch.Tensor, spec: MoESpec) -> Routing:
         raise ValueError(f"moe_ffn: router placements {router.placements}: it must be "
                          f"replicated")
     tok_pl = list(x.placements)
+    # the router's local gradient is this rank's tokens' part
+    router_grad = [Partial() if isinstance(p, Shard) else Replicate() for p in tok_pl]
     out = local_map(lambda xl, rl: tuple(_route(xl, rl, spec, tp, Cb)[:5]),
                     out_placements=(tok_pl,) * 5, in_placements=(tok_pl, rep),
-                    device_mesh=mesh)(x, router)
+                    in_grad_placements=(tok_pl, router_grad), device_mesh=mesh)(x, router)
     return Routing(*out, Cb)
+
+
+class _TokenSum(torch.autograd.Function):
+    """A rank's sum over its tokens all-reduced (``sum``) over the mesh
+    ``groups`` that split the tokens: the sum over all of them, which
+    every rank holds.  Backward, the identity: what consumes the sum is
+    replicated (the aux loss, whose gradient every rank holds whole), so
+    each rank hands that gradient to its own tokens once; an all-reduce
+    there would count it once a rank."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        return all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _sharded_aux(logits: DTensor, topi: DTensor, E: int) -> DTensor:
     """:func:`router_aux_loss` over every rank's tokens: the sums of the
-    router probabilities and the expert counts all-reduced over the mesh
-    dims that shard the tokens (one all-reduce each), the loss replicated;
-    with no such dim, each rank's plain loss."""
+    router probabilities (:class:`_TokenSum`, differentiable) and the
+    expert counts (no gradient) all-reduced over the mesh dims that shard
+    the tokens (one all-reduce each), the loss replicated; with no such
+    dim, each rank's plain loss."""
     mesh = logits.device_mesh
     T = logits.shape[0]
     groups = [(mesh, i) for i in _token_dims(logits) if mesh.size(i) > 1]
@@ -314,8 +349,7 @@ def _sharded_aux(logits: DTensor, topi: DTensor, E: int) -> DTensor:
     def local(lg, ti):
         if not groups:
             return router_aux_loss(lg, ti, E)
-        frac_probs = all_reduce(torch.softmax(lg.float(), dim=-1).sum(dim=0), "sum",
-                                groups) / T
+        frac_probs = _TokenSum.apply(torch.softmax(lg.float(), dim=-1).sum(dim=0), groups) / T
         counts = all_reduce(_counts(ti.reshape(-1), E).float(), "sum", groups)
         return E * (frac_probs * (counts / counts.sum().clamp_min(1.0))).sum()
 
@@ -343,6 +377,19 @@ def _products_placements(buf: DTensor, w_gate: DTensor, w_up: DTensor, w_down: D
                              f"weights {g}, {u}, {d}: experts must be split alike, F only "
                              f"where the buffer is whole")
     return out
+
+
+def _products_grad_placements(buf: DTensor, weights, out_pl) -> tuple:
+    """Where the expert products' local input gradients are partial sums:
+    the buffer's over a mesh dim that splits ``F`` (where the output is a
+    partial sum), a weight's over a mesh dim that splits the buffer's
+    blocks while the weight is whole on it (each rank's blocks add their
+    part); elsewhere each input's own placement."""
+    grad_buf = [Partial() if isinstance(o, Partial) else b
+                for b, o in zip(buf.placements, out_pl)]
+    grad_w = [[Partial() if b == Shard(1) and isinstance(p, Replicate) else p
+               for b, p in zip(buf.placements, w.placements)] for w in weights]
+    return (grad_buf, *grad_w)
 
 
 def _pair_sum(y: DTensor, vs: int) -> DTensor:
@@ -386,12 +433,8 @@ def _sharded_moe_ffn(x: DTensor, router, w_gate, w_up, w_down, spec: MoESpec
     """:func:`moe_ffn` on a mesh (the module docstring's steps): ``x [T,
     D]`` sharded over its tokens only, ``router`` replicated, the experts'
     weights placed by ``cell.in_logical`` (whole experts ``[E, ...]``, or
-    the unfolded ``[E vs, ...]``).  Out: ``x``'s placements; aux
-    replicated."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in
-                                       (x, router, w_gate, w_up, w_down)):
-        raise NotImplementedError("moe_ffn: the MoE FFN on a mesh serves only; its "
-                                  "gradient is a later sharded slice (ROADMAP D.2b)")
+    the unfolded ``[E vs, ...]``).).  Out: ``x``'s placements; aux
+    replicated.  Differentiable (the module docstring's gradients)."""
     mesh = x.device_mesh
     T, D = x.shape
     E, K, vs = spec.n_experts, spec.top_k, spec.virtual_split
@@ -421,10 +464,12 @@ def _sharded_moe_ffn(x: DTensor, router, w_gate, w_up, w_down, spec: MoESpec
         n, tb = bl.shape[:2]
         return _products(bl.reshape(n, tb * Cb, D), gl, ul, dl).view(n, tb, Cb, D)
 
-    y = local_map(products, out_placements=_products_placements(buf, w_gate, w_up, w_down),
-                  in_placements=(buf.placements, w_gate.placements, w_up.placements,
-                                 w_down.placements), device_mesh=mesh)(buf, w_gate, w_up,
-                                                                       w_down)
+    weights = (w_gate, w_up, w_down)
+    out_pl = _products_placements(buf, *weights)
+    y = local_map(products, out_placements=out_pl,
+                  in_placements=(buf.placements, *(w.placements for w in weights)),
+                  in_grad_placements=_products_grad_placements(buf, weights, out_pl),
+                  device_mesh=mesh)(buf, *weights)
     del buf
     y = constrain(y, *axes)  # F's partial sums all-reduced (expert_parallel=False)
     if held_vs > 1:

@@ -151,7 +151,7 @@ def _run(case: str, model, inp: dict, env=None) -> dict:
 def moe_rank(mesh, path: str) -> dict:
     """A rank: each case on its mesh (built over the same four ranks), the
     weights and inputs read from ``path``; rank 0 also olmoe on its own
-    one-rank mesh; and whether the sharded FFN refuses a gradient."""
+    one-rank mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -173,29 +173,7 @@ def moe_rank(mesh, path: str) -> dict:
     if rank == 0:
         model = lm_params_from_numpy(params["olmoe"], _cfg("olmoe"), device="cpu")
         out["one"] = _run("olmoe", model, inputs["olmoe"], AxisEnv(one))
-    out["grad_refused"] = _grad_refused(mesh)
     return out
-
-
-def _grad_refused(mesh) -> bool:
-    """The sharded FFN with a weight that requires a gradient raises,
-    naming the slice that brings the MoE train step on a mesh."""
-    from repro_torch.dist.sharding import AxisEnv, place, use_axis_env
-    from repro_torch.models.moe import moe_ffn
-
-    spec = _cfg("olmoe").moe
-    E, F, D = spec.n_experts, spec.d_ff_expert, 8
-    with use_axis_env(AxisEnv(mesh)), torch.enable_grad():
-        x = place(torch.randn(64, D), "batch", None)
-        w = [place(torch.randn(D, E), None, None),
-             place(torch.randn(E, D, F), "expert", None, None).requires_grad_(),
-             place(torch.randn(E, D, F), "expert", None, None),
-             place(torch.randn(E, F, D), "expert", None, None)]
-        try:
-            moe_ffn(x, *w, spec)
-        except NotImplementedError as e:
-            return "ROADMAP D.2b" in str(e)
-    return False
 
 
 def _jax_run(case: str, params: dict, inp: dict) -> tuple[dict, list]:
@@ -297,7 +275,3 @@ def test_one_rank_mesh_is_bit_identical(runs):
         assert np.array_equal(got[key], port[key]), key
     for g, p in zip(rec, port_rec):
         assert all(np.array_equal(g[k], p[k]) for k in ("topi", "slot", "keep"))
-
-
-def test_sharded_moe_refuses_a_gradient(runs):
-    assert all(r["grad_refused"] for r in runs["ranks"])

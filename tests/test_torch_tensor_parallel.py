@@ -293,7 +293,6 @@ def test_layers_with_the_last_dim_sharded(runs):
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("olmoe-1b-7b", "train_4k", "D.2"), ("mixtral-8x7b", "train_4k", "D.2b"),
     ("gat-cora", "full_graph_sm", "D.3b"), ("two-tower-retrieval", "serve_p99", "D.4"),
     ("dimenet", "molecule", "D.3b")])
 def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
@@ -308,6 +307,19 @@ def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
     assert sharded_reason(build_cell("mixtral-8x7b", "prefill_32k")) is None
     assert sharded_reason(build_cell("gcn-cora", "full_graph_sm")) is None
     assert sharded_reason(build_cell("spade-grab", "grab4_stream")) is None
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_shard_cell_runs_the_moe_train_cells(arch):
+    """The MoE train cells run sharded (``tests/test_torch_moe_fsdp.py``
+    trains them): no reason, and ``shard_cell`` of the meta cell with no
+    env gets past any refusal to placing the state, which needs a mesh."""
+    from repro_torch.launch.cells import build_cell, shard_cell, sharded_reason
+
+    cell = build_cell(arch, "train_4k")
+    assert sharded_reason(cell) is None
+    with pytest.raises(ValueError, match="no active AxisEnv"):
+        shard_cell(cell, None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
