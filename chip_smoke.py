@@ -8,8 +8,8 @@ Phases (any failure exits non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a; the
    seconds of each source's build) and print the card's name and power
-   limit; then phases 6-11 run while another process draws the Grab4
-   stream, and phases 2-5 after them;
+   limit; another process draws the Grab4 stream from the start, beside
+   phase 1 and phases 6-11 and 15, and phases 2-5 run after them;
 2. hold each kernel against its plain PyTorch version on the card at the
    Grab4 shapes of the main path (integer weights: exact; lognormal
    weights: stated rtol) and on one workset bucket shape, and time both;
@@ -106,8 +106,10 @@ Phases (any failure exits non-zero):
     stream, ``slide_and_maintain`` against ``Spade.DeleteEdge``; 12c,
     ``exact_peel`` on cuda against ``static_peel`` at 3,000 vertices
     (order equal, ``delta`` bit for bit, tied weights included).  The
-    eight comparisons run at once, a spawned process each.  The kernels'
-    launches in phase 12 are logged apart from the main path's;
+    eight comparisons run at once, a spawned process each, beside phase
+    17 (whose two ranks leave the card's memory and most of the host's
+    cores free).  The kernels' launches in phase 12 are logged apart from
+    the main path's;
 13. the edge-sharded engine (``repro_torch.dist``, ``SpadeService(mesh=
     DeviceMesh)``) held against the single-device engine: 13a, world 1 on
     ``nccl`` in this process at Grab4 width (DW, the first 32 ticks, window
@@ -121,7 +123,9 @@ Phases (any failure exits non-zero):
     and K2's launches in every rank on the vector path (no scalar head
     slot, no unaligned launch, as counted at launch; a control on offset
     views must fail that check); 13c, four ``gloo`` ranks on cuda against
-    the same four on cpu on phase 12a's stream, the same K2 check.  Phase 2 also
+    the same four on cpu on phase 12a's stream, the same K2 check, run
+    beside 19c (13b's single-device runs go beside its ranks' start).
+    Phase 2 also
     holds ``suffix_init``'s float64 mode (what the sharded prologue
     all-reduces) against its plain version.  The kernels' launches in phase
     13 are logged apart from the main path's;
@@ -187,12 +191,14 @@ Phases (any failure exits non-zero):
     whose one shard is the whole tensor), serving phase 8's traffic (2 x
     8,192-token prefill, 32 decode steps fed phase 8's greedy tokens): the
     prefill's logits and cache and every decode step's logits phase 8's
-    bits, K3 40 launches a prefill; 17b, that model freed, two ``gloo``
+    bits, K3 40 launches a prefill; 17b, that model freed, the model at
+    TP_LAYERS of its 40 layers drawn from phase 8's seed and run
+    unsharded on the same traffic (the reference), then two ``gloo``
     ranks on the one card on a (data 1, model 2) mesh, each
-    drawing the model from phase 8's seed in turn behind a barrier and
+    drawing that model in turn behind a barrier and
     keeping its shards: the same traffic, sequence-sharded attention (K3
     on each rank's 4,096 query rows, at ``q_offset`` 0 and 4,096), the
-    logits within LM_TOL of phase 8's row scale and the greedy tokens equal
+    logits within LM_TOL of the reference's row scale and the greedy tokens equal
     on every decided row, each rank's collectives a step equal to the dry
     run's prediction for the mesh (gloo's gathers issued as all-to-alls);
     17c, K3 with a non-zero ``q_offset`` against its plain version and bit
@@ -250,7 +256,11 @@ Phases (any failure exits non-zero):
     (run first, kept on the host), K4 8 launches a step on each rank,
     each rank's collectives the dry run's, peak memory and step seconds a
     rank, a control (one rank's aggregate partials dropped) that the check
-    must reject.  Their launches are counted off the main path;
+    must reject; 20d, GAT, MeshGraphNet and DimeNet's train cells at
+    GNN_TP_SHAPE on the same four ranks, GNN_TP_STEPS step held to their
+    unsharded steps, the collectives the dry run's, GAT's
+    unsummed-denominators control rejected.  Their launches are counted
+    off the main path;
 21. (run last, after 20) the MoE LM train step sharded on a ``DeviceMesh``
     with FSDP: olmoe-1b-7b at MOE_FSDP_LAYERS of its 16 layers, B 2 x
     4,096 tokens, its unsharded steps run twice first (their bits repeat or
@@ -275,6 +285,13 @@ Phases (any failure exits non-zero):
     swapped with its ``model`` partner's before a forward) whose per-token
     NLL must miss by MOE_TP_CONTROL_FACTOR times MOE_FSDP_NLL_TOL.
 
+The run must end within 1,200 s on a slow host.  So the phases that
+leave the card and the host room run beside others (the stream's draw,
+phase 12 beside 17, 13c beside 19c), and the gloo ranks of 13b and 17-21
+start ahead (:class:`RanksAhead`): they reach the card and join their
+group while the phase before them or their own phase's work on one
+device runs, and wait at a gate until it is done (rank 0 logs how long).
+
 The last two lines of standard output are the card's name and power limit
 as ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}``; the
 line before them is the per-kernel JSON record.  Imports nothing of JAX
@@ -284,11 +301,13 @@ and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
 import math
 import multiprocessing
+import shutil
 import statistics
 import subprocess
 import sys
@@ -396,8 +415,12 @@ PROFILE_ATTEMPTS = 5
 DROPPED_MAX = 8
 
 
+_LOG = threading.Lock()
+
+
 def log(*args) -> None:
-    print(*args, flush=True)
+    with _LOG:  # phases that run beside each other log from their threads
+        print(*args, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -578,6 +601,105 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def beside(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` started in a thread of this process (the dry
+    run's predictions, traced on meta while this process only waits for
+    spawned ranks); the returned function joins it and gives its result,
+    raising its error."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kwargs)
+        except BaseException as e:  # raised again by result()
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    return result
+
+
+_GATES: list = []  # the gates of RanksAhead, closed with "stop" at exit if still shut
+
+
+def gated_rank(mesh, gate: str, t_start: float, fn, *args):
+    """A rank started ahead (:class:`RanksAhead`): it has reached the card
+    and joined its group, and waits for its parent to open ``gate``, a
+    file: "go" runs ``fn(mesh, *args)``, "stop" raises.  Rank 0 logs when
+    it reached the gate (``t_start``: the spawn's start, on the host's
+    clock) and how long it waited there."""
+    import torch.distributed as dist
+
+    path = Path(gate)
+    t_ready = time.time()
+    while not path.exists():
+        time.sleep(0.05)
+    if path.read_text() != "go":
+        raise RuntimeError(f"{fn.__name__}: stopped at the gate (its parent failed)")
+    if dist.get_rank() == 0:
+        log(f"  ranks of {fn.__name__}: rank 0 at the gate {t_ready - t_start!r} s after the "
+            f"spawn began, held there {time.time() - t_ready!r} s")
+    return fn(mesh, *args)
+
+
+class RanksAhead:
+    """``spawn(fn, world, args=args, **kwargs)`` started now, in a thread of
+    this process, its ranks held at a gate (:func:`gated_rank`): they
+    start, reach the card and join their group while this process does
+    the phase's own work on the card (or the phase before it); until
+    :meth:`go` each holds a CUDA context and nothing else there.  Whatever
+    the ranks read must be in place before :meth:`go`, which then calls
+    ``on_go``'s functions (the next phase's ranks started once this
+    phase's one-device work has left the card).  :meth:`join` opens the
+    gate if it is shut and gives spawn's result."""
+
+    def __init__(self, fn, world: int, args: tuple = (), **kwargs):
+        import tempfile
+
+        from repro_torch.dist import spawn
+
+        self.gate = Path(tempfile.mkdtemp(prefix="chip_smoke_gate_")) / "gate"
+        _GATES.append(self.gate)
+        self.on_go = []  # functions of no argument, called once the gate opens
+        self._ranks = beside(spawn, gated_rank, world,
+                             args=(str(self.gate), time.time(), fn, *args), **kwargs)
+
+    def go(self) -> None:
+        _open_gate(self.gate, "go")
+        while self.on_go:
+            self.on_go.pop(0)()
+
+    def join(self) -> list:
+        self.go()
+        try:
+            return self._ranks()
+        finally:
+            _GATES.remove(self.gate)
+            shutil.rmtree(self.gate.parent, ignore_errors=True)
+
+
+def _open_gate(gate: Path, word: str) -> None:
+    if not gate.exists():
+        tmp = gate.with_suffix(".tmp")
+        tmp.write_text(word)
+        tmp.replace(gate)  # the ranks never read a half-written gate
+
+
+@atexit.register
+def _stop_gates() -> None:
+    """Ranks still held at a gate when this process ends (a phase failed
+    before it let them run) are stopped, so that they end too."""
+    for gate in list(_GATES):
+        _open_gate(gate, "stop")
 
 
 def max_abs(a, b) -> float:
@@ -2992,7 +3114,6 @@ def phase_sharded_grab(stream) -> dict:
     (+ the start-up peel's rounds) and 2 a tick (+ 2), and one all_reduce a
     round.  Then fused slide ticks timed (wall and device) and traced, and
     the all_reduce ms per round."""
-    import shutil
     import tempfile
 
     import torch.distributed as dist
@@ -3158,23 +3279,32 @@ def pair_rank(mesh, path: str, device: str, cfg: dict) -> dict:
     return out
 
 
-def phase_sharded_pair(stream) -> dict:
+SHARD_PAIR_PATH = ROOT / "build" / "phase13" / "grab4_stream.npz"
+
+
+def sharded_pair_ranks() -> RanksAhead:
+    """13b's two ranks, started ahead (they read SHARD_PAIR_PATH at go)."""
+    return RanksAhead(pair_rank, 2, backend="gloo", device=DEVICE,
+                      args=(str(SHARD_PAIR_PATH), DEVICE,
+                            grab_config(window=SHARD_PAIR["window"])),
+                      timeout=SHARD_TIMEOUT)
+
+
+def phase_sharded_pair(stream, ahead: RanksAhead | None = None) -> dict:
     """13b: world 2 on the one card over gloo, Grab4, SHARD_PAIR's ticks and
     window, against the single-device engine: DG bit for bit (the joined
     edge buffers too), DW's final_g and w0 within SHARD_RTOL and its edge
-    buffers bit for bit (the layout does not depend on the sums)."""
-    from repro_torch.dist import spawn
-
+    buffers bit for bit (the layout does not depend on the sums).  The
+    ranks are ``ahead``'s (:func:`sharded_pair_ranks`), or started here."""
     p = SHARD_PAIR
+    t0 = time.perf_counter()
+    ahead = ahead or sharded_pair_ranks()
     cut = cut_stream(stream, p["ticks"], BATCH)
-    path = ROOT / "build" / "phase13" / "grab4_stream.npz"
+    path = SHARD_PAIR_PATH
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **dataclasses.asdict(cut))
     want = {sem: serve(sem, cut, window_ticks=p["window"]) for sem in p["semantics"]}
-    t0 = time.perf_counter()
-    ranks = spawn(pair_rank, 2, backend="gloo", device=DEVICE,
-                  args=(str(path), DEVICE, grab_config(window=p["window"])),
-                  timeout=SHARD_TIMEOUT)
+    ranks = ahead.join()
     spawn_s = time.perf_counter() - t0
     path.unlink()
     out = {"spawn_s": spawn_s, "split_control": vector_split_control()}
@@ -3345,15 +3475,13 @@ def phase_sharded(stream) -> dict:
         log(f"phase 13: this process holds {torch.cuda.memory_reserved() / 2**30!r} GiB "
             f"of the card before the ranks start")
     t0 = time.perf_counter()
+    pair = sharded_pair_ranks()  # 13b's ranks start while 13a runs
     out = {"grab_world1": phase_sharded_grab(stream)}
     log(f"13a: {time.perf_counter() - t0!r} s")
     t1 = time.perf_counter()
-    out["grab_world2"] = phase_sharded_pair(stream)
+    out["grab_world2"] = phase_sharded_pair(stream, pair)
     log(f"13b: {time.perf_counter() - t1!r} s")
-    t1 = time.perf_counter()
-    out["small_world4"] = phase_sharded_small()
-    log(f"13c: {time.perf_counter() - t1!r} s")
-    out["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t0  # 13c runs beside 19c (main)
     return out
 
 
@@ -4199,8 +4327,6 @@ def train_resume(seed: int) -> dict:
     """15d: the qwen3-14b smoke LM (float32, dense) on the card: 4 steps
     straight against 2 steps, a ``CheckpointManager`` save, a restore into
     a fresh state and 2 more steps, bit for bit."""
-    import shutil
-
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -4734,8 +4860,6 @@ def launcher_resume(seed: int) -> dict:
     """16d: ``repro_torch.launch.train``'s ``main`` on cuda for the smoke
     qwen3-14b, checkpoints under ``build/``: 4 steps straight against 2, a
     fresh start that resumes, and 2 more; the final states the same bits."""
-    import shutil
-
     import torch
 
     from repro_torch import pytree
@@ -4791,7 +4915,12 @@ def phase_cells(seed: int) -> dict:
 # ceiling, relative to the row's largest |logit|: each row-parallel
 # product's two partial sums are rounded to bf16 before they are added, two
 # roundings more than one device's, in each of 80 products over 40 layers;
-# measured 0.0194-0.0265 on the H100 over the prefill and 32 decode steps
+# measured 0.0194-0.0265 on the H100 over the prefill and 32 decode steps.
+# 17b runs TP_LAYERS of the 40 (its ranks' prefill took 23.0-32.2 s and
+# its decode steps 0.82 s each at 40), against the same depth unsharded
+# (tp_depth_ref): the whole run must end within 1,200 s on a slow host
+# (PERF.md §6); 17a keeps all 40 and phase 8's bits
+TP_LAYERS = 10
 TP_TIMEOUT = 600  # seconds for 17b's spawn
 # 17c: (S, q_offset, window)
 TP_OFFSETS = ((8192, 4096, None), (8192, 4000, None), (4096, 2048, 1024))
@@ -4869,7 +4998,6 @@ def tp_world1(ref: dict, model) -> dict:
     is the whole tensor, nothing is copied) through ``shard_cell``;
     prefill's logits and cache, and every decode step's logits, phase 8's
     bits."""
-    import shutil
     import tempfile
 
     import torch
@@ -4913,12 +5041,13 @@ def tp_world1(ref: dict, model) -> dict:
     return got
 
 
-def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool) -> dict:
-    """A rank of 17b: qwen3-14b drawn whole from phase 8's seed, one rank
-    after the other behind a barrier (two whole copies never coexist),
-    sharded by ``shard_cell`` (each rank keeps its shards), then phase 8's
-    traffic (prompts and fed tokens read from ``path``).  ``smoke``: the
-    smoke config on ``device``, for a rehearsal on the CPU."""
+def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool, n_layers: int) -> dict:
+    """A rank of 17b: qwen3-14b at ``n_layers`` drawn whole from phase 8's
+    seed, one rank after the other behind a barrier (two whole copies
+    never coexist), sharded by ``shard_cell`` (each rank keeps its
+    shards), then phase 8's traffic (prompts and fed tokens read from
+    ``path``).  ``smoke``: the smoke config on ``device``, for a rehearsal
+    on the CPU."""
     import torch
     import torch.distributed as dist
 
@@ -4938,7 +5067,8 @@ def tp_rank(mesh, path: str, seed: int, device: str, smoke: bool) -> dict:
     t0 = time.perf_counter()
     for r in range(dist.get_world_size()):
         if r == rank:
-            cfg = (get_smoke_config if smoke else get_config)(LM_ARCH)
+            cfg = dataclasses.replace((get_smoke_config if smoke else get_config)(LM_ARCH),
+                                      n_layers=n_layers)
             model = TransformerLM(cfg, device=DEVICE,
                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
             cell = shard_cell(prefill_cell(LM_ARCH, model, tokens, smoke), env)
@@ -5009,27 +5139,39 @@ def sharded_predicted(arch: str, mesh_shape: dict, n_layers: int | None, batch: 
         dist.destroy_process_group()
 
 
-def tp_world2(ref: dict, seed: int) -> dict:
+TP_TRAFFIC = ROOT / "build" / "phase17" / "traffic.npz"
+
+
+def tp_ranks(seed: int, smoke: bool, n_layers: int) -> RanksAhead:
+    """17b's two ranks, started ahead (they read TP_TRAFFIC at go)."""
+    return RanksAhead(tp_rank, 2, backend="gloo", device=DEVICE,
+                      args=(str(TP_TRAFFIC), seed, DEVICE, smoke, n_layers),
+                      timeout=TP_TIMEOUT, mesh_shape={"data": 1, "model": 2})
+
+
+def tp_world2(ref: dict, seed: int, ahead: RanksAhead | None = None) -> dict:
     """17b: two ``gloo`` ranks on the one card on a (data 1, model 2) mesh,
-    phase 8's weights (each rank's shards of the seeded draw) and traffic,
-    held to phase 8's logits: within LM_TOL of the row's largest |logit|
+    phase 8's weights at ``ref["model_layers"]`` layers (each rank's shards
+    of the seeded draw) and phase 8's traffic, held to ``ref``'s logits
+    (that model unsharded, :func:`tp_depth_ref`; phase 8's own in the CPU
+    rehearsal): within LM_TOL of the row's largest |logit|
     and the greedy tokens equal on every row whose top-2 margin that
     cannot close; each rank's collectives a step beside the dry run's
     prediction for this mesh.  gloo has no all-gather on CUDA tensors:
     the port gathers by an all-to-all of the same bytes there, so the
     ranks count as all-to-all what the prediction (the card's NCCL, the
-    dry run's fake group) counts as all-gather."""
-    from repro_torch.dist import spawn
-
-    path = ROOT / "build" / "phase17" / "traffic.npz"
+    dry run's fake group) counts as all-gather.  The ranks are
+    ``ahead``'s (:func:`tp_ranks`), or started here."""
+    smoke = ref.get("smoke", False)
+    t0 = time.perf_counter()
+    ahead = ahead or tp_ranks(seed, smoke, ref["model_layers"])
+    path = TP_TRAFFIC
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, tokens=ref["tokens"].numpy(),
              fed=np.stack([t.numpy() for t in ref["fed"]]))
-    t0 = time.perf_counter()
-    smoke = ref.get("smoke", False)
-    ranks = spawn(tp_rank, 2, backend="gloo", device=DEVICE,
-                  args=(str(path), seed, DEVICE, smoke), timeout=TP_TIMEOUT,
-                  mesh_shape={"data": 1, "model": 2})
+    pred = beside(sharded_predicted, LM_ARCH, {"data": 1, "model": 2}, ref["model_layers"],
+                  *ref["tokens"].shape, smoke=smoke)
+    ranks = ahead.join()
     spawn_s = time.perf_counter() - t0
     path.unlink()
     import torch
@@ -5043,7 +5185,7 @@ def tp_world2(ref: dict, seed: int) -> dict:
         scale = want.float().abs().amax(dim=-1, keepdim=True)
         errs[(r, name)] = float(((a - want.float()).abs() / scale).max())
     worst = max(errs.values())
-    log(f"17b: largest |logit - phase 8's| over the row's largest |logit|, rank 0: "
+    log(f"17b: largest |logit - the unsharded run's| over the row's largest |logit|, rank 0: "
         + ", ".join(f"{n} {e!r}" for (r, n), e in errs.items() if r == 0)
         + f"; worst over both ranks {worst!r}")
     log("17b ranks: " + " ".join(
@@ -5055,21 +5197,22 @@ def tp_world2(ref: dict, seed: int) -> dict:
     for r, name, a, want in pairs:
         d, t = greedy_check(f"17b rank {r} {name}", a, want)
         decided, tied = decided + d, tied + t
-    counts = collectives_check("17b", ranks, sharded_predicted(
-        LM_ARCH, {"data": 1, "model": 2}, None, *ref["tokens"].shape, smoke=smoke))
+    counts = collectives_check("17b", ranks, pred())
     for r, got in enumerate(ranks):
         check(DEVICE != "cuda" or (got["k3_launches"] == ref["model_layers"]
                                    and got["k3_simt_launches"] == 0),
               f"17b rank {r}: K3 launched {got['k3_launches']} times "
               f"(SIMT {got['k3_simt_launches']}), expected {ref['model_layers']} a prefill")
-    out = {"spawn_s": spawn_s, "logit_rel_err_max": worst, "tolerance": LM_TOL,
+    out = {"spawn_s": spawn_s, "n_layers": ref["model_layers"], "logit_rel_err_max": worst,
+           "tolerance": LM_TOL,
            "rows_decided": decided, "rows_tied": tied, "collectives": counts,
            "ranks": [{k: got[k] for k in ("draw_s", "weights_gb", "serve_peak_gb", "prefill_s",
                                           "k3_launches")}
                      | {"decode_ms_median": 1e3 * statistics.median(got["decode_s"])}
                      for got in ranks]}
     log(f"17b world 2 (gloo, data 1 x model 2, one card): logits within {worst!r} of the row "
-        f"scale of phase 8's (tolerance {LM_TOL}), greedy tokens equal on {decided} decided "
+        f"scale of the unsharded run's at {ref['model_layers']} layers (tolerance {LM_TOL}), "
+        f"greedy tokens equal on {decided} decided "
         f"rows ({tied} near-ties); " + " ".join(f"{k}={v!r}" for k, v in out.items()
                                                 if k != "collectives"))
     return out
@@ -5108,11 +5251,12 @@ def k3_offset_checks(seed: int) -> dict:
     return out
 
 
-def phase_tensor_parallel(ref: dict, seed: int) -> dict:
+def phase_tensor_parallel(ref: dict, seed: int, ahead: RanksAhead | None = None) -> dict:
     """Phase 17, run last: 17c, then 17a on phase 8's model drawn again
-    from its seed, freed before 17b's ranks draw theirs.  Last, so that
-    the spawned ranks and the sharded runs precede no other phase's
-    timing."""
+    from its seed, freed before 17b's reference (:func:`tp_depth_ref`) and
+    its ranks (``ahead``'s, or started here) draw theirs at TP_LAYERS.
+    Last, so that the spawned ranks and the sharded runs precede no other
+    phase's timing."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5120,16 +5264,43 @@ def phase_tensor_parallel(ref: dict, seed: int) -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # what earlier phases left reserved, for 17b's ranks too
+    ahead = ahead or tp_ranks(seed, False, TP_LAYERS)  # they start while 17c and 17a run
     out = {"k3_offsets": k3_offset_checks(seed)}
     cfg = get_config(LM_ARCH)
     model = TransformerLM(cfg, device=DEVICE,
                           generator=torch.Generator(device=DEVICE).manual_seed(seed))
     out["world1"] = tp_world1(ref, model)
-    ref["model_layers"] = cfg.n_layers
     del model
     torch.cuda.empty_cache()
-    out["world2"] = tp_world2(ref, seed)
+    out["world2"] = tp_world2(tp_depth_ref(ref, seed, TP_LAYERS), seed, ahead)
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_depth_ref(ref: dict, seed: int, n_layers: int) -> dict:
+    """17b's reference: phase 8's model at ``n_layers`` layers, drawn from
+    its seed, unsharded, on phase 8's prompts and fed tokens (``ref``):
+    the prefill's and every decode step's logits on the host; the model
+    freed after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, decode_step, prefill
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers)
+    model = TransformerLM(cfg, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    tokens = ref["tokens"].to(DEVICE)
+    batch, prompt = tokens.shape
+    logits, cache = prefill(model, tokens)
+    out = {"tokens": ref["tokens"], "fed": ref["fed"], "prefill_logits": logits.cpu(),
+           "decode_logits": [], "model_layers": n_layers}
+    for i, tok in enumerate(ref["fed"]):
+        logits, cache = decode_step(model, cache, tok.to(DEVICE), torch.full(
+            (batch,), prompt + i, dtype=torch.int64, device=DEVICE))
+        out["decode_logits"].append(logits.cpu())
+    del model, cache, logits
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5144,10 +5315,14 @@ def phase_tensor_parallel(ref: dict, seed: int) -> dict:
 # its use and its gradients reduce-scattered, at FSDP_LAYERS of 40 layers,
 # B 2 (one 4,096-token row a rank), FSDP_STEPS steps, against the unsharded
 # port's steps on the same weights and batch.
-# FSDP_LAYERS is the largest depth whose two ranks peak under 90 % of the
-# card's 80 GB together: 8 layers peak at 35.61 GB a rank, 71.22 GB in all
-# (6: 32.22 GB a rank; 9 would take about 74.6 GB)
-FSDP_LAYERS = 8
+# 8 layers are the largest depth whose two ranks peak under 90 % of the
+# card's 80 GB together (35.61 GB a rank, 71.22 GB in all; 9 would take
+# about 74.6 GB).  FSDP_LAYERS is 4, fsdp_controls' depth, where 18b's
+# sharded steps (its "none" run on the H100) kept all but 3.43 % of a
+# leaf's elements within the rule below: a step at 8 took 18.7-34.0 s a
+# rank, and the whole run must end within 1,200 s on a slow host (PERF.md
+# §6)
+FSDP_LAYERS = 4
 FSDP_STEPS = 2
 FSDP_BATCH = 2
 FSDP_TIMEOUT = 900  # seconds for 18b's spawn
@@ -5318,7 +5493,6 @@ def fsdp_world1(step1: dict | None, seed: int, smoke: bool = False) -> dict:
     its loss, grad_norm and every updated parameter, ``m`` and ``v`` leaf
     (their digests) 15c's step 1 bit for bit.  ``step1`` None: the
     unsharded step is run here first at 18a's depth (a rehearsal)."""
-    import shutil
     import tempfile
 
     import torch.distributed as dist
@@ -5512,7 +5686,17 @@ def fsdp_leaves(want: dict, shards: list) -> dict:
     return per_leaf
 
 
-def fsdp_world2(seed: int, smoke: bool = False) -> dict:
+FSDP_BATCH_PATH = ROOT / "build" / "phase18" / "batch.npz"
+
+
+def fsdp_ranks(seed: int, smoke: bool) -> RanksAhead:
+    """18b's two ranks, started ahead (they read FSDP_BATCH_PATH at go)."""
+    return RanksAhead(fsdp_rank, 2, backend="gloo", device=DEVICE,
+                      args=(str(FSDP_BATCH_PATH), seed, DEVICE, smoke, FSDP_LAYERS),
+                      timeout=FSDP_TIMEOUT, mesh_shape={"data": 2, "model": 1})
+
+
+def fsdp_world2(seed: int, smoke: bool = False, ahead: RanksAhead | None = None) -> dict:
     """18b: two ``gloo`` ranks on the one card on a (data 2, model 1) mesh,
     FSDP: the unsharded port's FSDP_STEPS steps first (kept on the host,
     then freed), then each rank's steps on its row of the batch.  Held to
@@ -5520,12 +5704,12 @@ def fsdp_world2(seed: int, smoke: bool = False) -> dict:
     FSDP_NORM_RTOL, every updated parameter within FSDP_ULPS ulps (or 1 %
     of a step) but for FSDP_ODD of a leaf's elements; the state halved;
     each rank's collectives in step 1 equal to the dry run's prediction
-    (gloo's gathers on the card as all-to-alls)."""
+    (gloo's gathers on the card as all-to-alls).  The ranks are
+    ``ahead``'s (:func:`fsdp_ranks`), or started here."""
     import torch
 
-    from repro_torch.dist import spawn
-
     n_layers = FSDP_LAYERS
+    ahead = ahead or fsdp_ranks(seed, smoke)
     cfg = fsdp_cfg(n_layers, smoke)
     B, S = FSDP_BATCH, (TRAIN_LM_SEQ if not smoke else 64)
     batch = fsdp_batch(cfg, B, S, seed + 1)
@@ -5536,13 +5720,12 @@ def fsdp_world2(seed: int, smoke: bool = False) -> dict:
     plain_s = time.perf_counter() - t0
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    path = ROOT / "build" / "phase18" / "batch.npz"
+    path = FSDP_BATCH_PATH
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **{k: v.cpu().numpy() for k, v in batch.items()})
     t0 = time.perf_counter()
-    ranks = spawn(fsdp_rank, 2, backend="gloo", device=DEVICE,
-                  args=(str(path), seed, DEVICE, smoke, n_layers), timeout=FSDP_TIMEOUT,
-                  mesh_shape={"data": 2, "model": 1})
+    pred = beside(train_predicted, LM_ARCH, {"data": 2, "model": 1}, cfg.n_layers, B, S, smoke)
+    ranks = ahead.join()
     spawn_s = time.perf_counter() - t0
     path.unlink()
     k3 = fsdp_k3_check([got.pop("k3") for got in ranks])
@@ -5586,8 +5769,7 @@ def fsdp_world2(seed: int, smoke: bool = False) -> dict:
     if DEVICE == "cuda":
         peak = sum(g["peak_gb"] for g in ranks)
         check(peak <= FSDP_MEM_GB, f"18b: the ranks' peaks {peak!r} GB, over {FSDP_MEM_GB} GB")
-    p, calls = gloo_on_card(train_predicted(LM_ARCH, {"data": 2, "model": 1}, cfg.n_layers, B,
-                                            S, smoke))
+    p, calls = gloo_on_card(pred())
     for r, got in enumerate(ranks):
         check(got["cost"]["bytes"] == p, f"18b rank {r}: collectives {got['cost']['bytes']!r} "
               f"in step 1, the dry run's {p!r}")
@@ -5784,16 +5966,17 @@ def fsdp_k3_check(ranks: list[dict]) -> dict:
     return out
 
 
-def phase_fsdp(step1: dict, seed: int) -> dict:
+def phase_fsdp(step1: dict, seed: int, ahead: RanksAhead | None = None) -> dict:
     """Phase 18, run last: 18a on 15c's step, then 18b (whose ranks run
-    18k first)."""
+    18k first; ``ahead``'s, or started here)."""
     import torch
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    ahead = ahead or fsdp_ranks(seed, False)  # they start while 18a runs
     out = {"world1": fsdp_world1(step1, seed)}
     torch.cuda.empty_cache()
-    out["world2"] = fsdp_world2(seed)
+    out["world2"] = fsdp_world2(seed, ahead=ahead)
     out["k3"] = out["world2"].pop("k3")
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -5950,7 +6133,6 @@ def moe_tp_world1(ref: dict, seed: int) -> dict:
     ``forward``'s logits and aux and of ``lm_loss``'s value 14c's.  Its
     routing (decode steps and ``forward``, recorded) is what 19b's is
     counted against."""
-    import shutil
     import tempfile
 
     import torch
@@ -6257,33 +6439,44 @@ def collectives_check(tag: str, ranks: list, pred: dict) -> dict:
     return counts
 
 
+def moe_tp_ranks(tag: str, seed: int, arch: str, n_layers: int | None, mesh_shape: dict,
+                 smoke: bool, rank_fn=moe_tp_rank) -> RanksAhead:
+    """19b's or 19c's ranks, started ahead (they read their traffic file,
+    :func:`moe_tp_traffic`, at go)."""
+    return RanksAhead(rank_fn, math.prod(mesh_shape.values()), backend="gloo", device=DEVICE,
+                      args=(str(moe_tp_traffic(tag)), arch, n_layers, seed, DEVICE, smoke),
+                      timeout=MOE_TP_TIMEOUT, mesh_shape=mesh_shape)
+
+
+def moe_tp_traffic(tag: str) -> Path:
+    return ROOT / "build" / "phase19" / f"{tag}.pkl"
+
+
 def moe_tp_spawn(tag: str, ref: dict, seed: int, arch: str, n_layers: int | None,
-                 mesh_shape: dict, rank_fn=moe_tp_rank) -> dict:
+                 mesh_shape: dict, rank_fn=moe_tp_rank, ahead: RanksAhead | None = None) -> dict:
     """19b / 19c: ``gloo`` ranks on the one card on a ``mesh_shape`` mesh,
     each with its shards of ``arch``'s seeded draw, serving ``ref``'s
     traffic (:func:`moe_tp_rank`), held to ``ref`` (its outputs and
     recorded routing) by :func:`moe_tp_check` at ``MOE_TP_TOL[arch]``,
     their collectives to the dry run's prediction, K3 one tensor-core
-    launch a layer a prefill on every rank."""
+    launch a layer a prefill on every rank.  The ranks are ``ahead``'s
+    (:func:`moe_tp_ranks`), or started here."""
     import pickle
 
-    from repro_torch.dist import spawn
-
     smoke = ref.get("smoke", False)
+    t0 = time.perf_counter()
+    ahead = ahead or moe_tp_ranks(tag, seed, arch, n_layers, mesh_shape, smoke, rank_fn)
     cfg = moe_tp_cfg(arch, n_layers, smoke)
-    path = ROOT / "build" / "phase19" / "traffic.pkl"
+    path = moe_tp_traffic(tag)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(pickle.dumps({k: ref[k] for k in ("tokens", "fed", "labels") if k in ref}))
     B, S = ref["tokens"].shape
-    pred = sharded_predicted(arch, mesh_shape, n_layers, B, S, smoke)
-    t0 = time.perf_counter()
-    ranks = spawn(rank_fn, math.prod(mesh_shape.values()), backend="gloo", device=DEVICE,
-                  args=(str(path), arch, n_layers, seed, DEVICE, smoke),
-                  timeout=MOE_TP_TIMEOUT, mesh_shape=mesh_shape)
+    pred = beside(sharded_predicted, arch, mesh_shape, n_layers, B, S, smoke)
+    ranks = ahead.join()
     spawn_s = time.perf_counter() - t0
     path.unlink()
     res = moe_tp_check(tag, ref, ranks, cfg.n_layers, cfg.moe.top_k, arch)
-    res["collectives"] = collectives_check(tag, ranks, pred)
+    res["collectives"] = collectives_check(tag, ranks, pred())
     for r, got in enumerate(ranks):
         check(DEVICE != "cuda" or (got["k3_launches"] == cfg.n_layers
                                    and got["k3_simt_launches"] == 0),
@@ -6352,29 +6545,45 @@ def mixtral_tp_ref(seed: int, smoke: bool = False, prompt: int = LM_PROMPT,
     return ref
 
 
-def phase_moe_tp(ref: dict, seed: int) -> dict:
+def phase_moe_tp(ref: dict, seed: int, beside_19c=None, ahead_b: RanksAhead | None = None,
+                 ahead_c: RanksAhead | None = None) -> dict:
     """Phase 19, run last: 19a on one ``nccl`` rank, 19b on four ``gloo``
     ranks on (data 2, model 2), held to 14c's run (``ref``, kept on the
     host) and to 19a's routing; 19c, mixtral-8x7b at MIXTRAL_TP_LAYERS
     layers on two ``gloo`` ranks on (data 1, model 2), held to the same
-    model unsharded."""
+    model unsharded.  ``beside_19c``, a function of no argument, runs in a
+    thread (:func:`beside`) from 19c's start to its end, its result under
+    ``"beside_19c"``: 19c's two ranks leave the card's memory and the
+    host's cores room for another phase's.  19b's and 19c's ranks are
+    ``ahead_b``'s and ``ahead_c``'s (:func:`moe_tp_ranks`), or started
+    here."""
     import torch
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    smoke = ref.get("smoke", False)
+    # 19b's ranks start while 19a runs, 19c's while 19b's run
+    ahead_b = ahead_b or moe_tp_ranks("19b", seed, MOE_TP_ARCH, ref["n_layers"], MOE_TP_MESH,
+                                      smoke)
+    ahead_c = ahead_c or moe_tp_ranks("19c", seed, MIXTRAL_TP_ARCH,
+                                      None if smoke else MIXTRAL_TP_LAYERS, MIXTRAL_TP_MESH, smoke)
     out = {"world1": moe_tp_world1(ref, seed)}
     # 19b's routing is counted against 19a's
     out["world4"] = moe_tp_spawn("19b", dict(ref, routing=out["world1"].pop("routing")), seed,
-                                 MOE_TP_ARCH, ref["n_layers"], MOE_TP_MESH)
+                                 MOE_TP_ARCH, ref["n_layers"], MOE_TP_MESH, ahead=ahead_b)
     t1 = time.perf_counter()
-    mref = mixtral_tp_ref(seed, smoke=ref.get("smoke", False),
+    other = beside(beside_19c) if beside_19c is not None else None
+    mref = mixtral_tp_ref(seed, smoke=smoke,
                           prompt=int(ref["tokens"].shape[1]), n_dec=len(ref["fed"]))
     out["mixtral_unsharded"] = {k: mref[k] for k in ("prefill_s", "weights_gb")}
     out["world2_mixtral"] = moe_tp_spawn(
         "19c", mref, seed, MIXTRAL_TP_ARCH, None if mref["smoke"] else MIXTRAL_TP_LAYERS,
-        MIXTRAL_TP_MESH)
+        MIXTRAL_TP_MESH, ahead=ahead_c)
     out["mixtral_s"] = time.perf_counter() - t1
+    if other is not None:
+        out["beside_19c"] = other()
+        out["beside_19c_wait_s"] = time.perf_counter() - t1 - out["mixtral_s"]
     out["seconds"] = time.perf_counter() - t0
     log(f"19: {out['seconds']!r} s (19c {out['mixtral_s']!r} s)")
     return out
@@ -6396,7 +6605,34 @@ GCN_TP_STEPS = 3
 # partial sums in another order than one device (float32 roundings of sums
 # over 2.45M rows); the parameters at 16c's rule (cell_params_check)
 GCN_TP_RTOL = 1e-5
-SHARDED_CELLS_TIMEOUT = 600  # seconds for 20b's and 20c's spawn
+SHARDED_CELLS_TIMEOUT = 600  # seconds for 20b's, 20c's and 20d's spawn
+# 20d trains GAT, MeshGraphNet and DimeNet at their published widths (GAT 8
+# heads of 8, MeshGraphNet 15 steps of H 128, DimeNet 6 blocks of H 128) on
+# minibatch_lg (Reddit's sampled block: 169,984 nodes, 168,960 edges, 602
+# features; DimeNet's 675,840 triplets), in 20c's spawn, against their
+# unsharded steps; ogb_products needs four cards (PERF.md).  One step: a
+# second took 13.5 s of the ranks' time (MeshGraphNet 5.5, DimeNet 7.7) in
+# a run that must end within 1,200 s on a slow host (PERF.md §6)
+GNN_TP_ARCHS = ("gat-cora", "meshgraphnet", "dimenet")
+GNN_TP_SHAPE = "minibatch_lg"
+GNN_TP_STEPS = 1
+# 20d holds each step's loss and grad_norm to the unsharded step's at
+# GNN_TP_RTOL (index_add_'s float atomics on the card sum in no fixed
+# order, unsharded too; the ranks add the row sums, the softmax
+# denominators and the triplets' sums over the edge group), and the
+# parameters at 16c's rule (cell_params_check) but for GNN_TP_ODD of a
+# leaf's elements (set for a second step, which GNN_TP_STEPS 2 runs):
+# Adam's second step on gradients near 0 moves them by
+# up to lr, and two unsharded MeshGraphNet steps 2 on the card already
+# differ in 0.69 % of enc_node's w0, DimeNet's in 0.055 % of embed_node
+# (PERF.md §6); each run logs the largest share a step, sharded
+# (odd_share) and between the unsharded runs (unsharded_odd_share,
+# gnn_tp_unsharded).  GAT's control (rank 1's softmax
+# denominators left unsummed) must miss the loss by at least
+# GNN_TP_CONTROL_MARGIN times its tolerance
+GNN_TP_RTOL = {"gat-cora": 1e-5, "meshgraphnet": 1e-5, "dimenet": 1e-5}
+GNN_TP_ODD = {"gat-cora": 1e-3, "meshgraphnet": 3e-2, "dimenet": 5e-3}
+GNN_TP_CONTROL_MARGIN = 3
 
 
 def spade_step(cell) -> tuple:
@@ -6455,7 +6691,6 @@ def spade_world1(bits: dict, seed: int, smoke: bool = False) -> dict:
     bits (``bits``: every field, the stream cell's graph joined by
     ``unshard_graph``), K1, K2 and ``suffix_init`` launched as in 16c, and
     the dry run's 21 all-reduces a step."""
-    import shutil
     import tempfile
 
     import torch
@@ -6702,10 +6937,12 @@ def gcn_unsharded(seed: int, smoke: bool = False) -> list:
     return steps
 
 
-def gcn_predicted(mesh_shape: dict, smoke: bool = False) -> dict:
+def gcn_predicted(mesh_shape: dict, smoke: bool = False, arch: str = "gcn-cora",
+                  shape: str = GCN_TP_SHAPE) -> dict:
     """The dry run's prediction for 20c's mesh: one rank's collectives in
     one train step of the cell, traced on meta under a fake process group
-    of the mesh's ranks (``launch.dryrun.sharded_cost``)."""
+    of the mesh's ranks (``launch.dryrun.sharded_cost``); 20d's: another
+    GNN's cell at its shape."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -6720,8 +6957,7 @@ def gcn_predicted(mesh_shape: dict, smoke: bool = False) -> dict:
     try:
         env = AxisEnv(DeviceMesh(DEVICE, torch.arange(world).reshape(
             tuple(mesh_shape.values())), mesh_dim_names=tuple(mesh_shape)))
-        return sharded_cost(lambda n: build_cell("gcn-cora", GCN_TP_SHAPE, smoke=smoke), env,
-                            None)
+        return sharded_cost(lambda n: build_cell(arch, shape, smoke=smoke), env, None)
     finally:
         dist.destroy_process_group()
 
@@ -6775,20 +7011,21 @@ def gcn_sharded_rank(mesh, seed: int, device: str, smoke: bool = False) -> dict:
     return out
 
 
-def gcn_step_errs(got: dict, want: dict) -> tuple[bool, dict]:
+def gcn_step_errs(got: dict, want: dict, rtol: float = GCN_TP_RTOL,
+                  odd_share: float = TRAIN_ODD[False]) -> tuple[bool, dict]:
     """Whether a step is within 20c's rules of the unsharded step (loss and
-    grad_norm at GCN_TP_RTOL, lr equal, the parameters at 16c's rule), and
-    the errors."""
+    grad_norm at ``rtol``, lr equal, the parameters at 16c's rule, which
+    lets ``odd_share`` of a leaf's elements stray), and the errors."""
     import torch
 
     errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
-    ok = all(e <= GCN_TP_RTOL for e in errs.values()) and got["lr"] == want["lr"]
+    ok = all(e <= rtol for e in errs.values()) and got["lr"] == want["lr"]
     lr = want["lr"]
     for k, w in want["params"].items():
         d = (got["params"][k] - w).abs()
         ulp = torch.nextafter(w.abs(), torch.tensor(float("inf"))) - w.abs()
         odd = int((d > TRAIN_STEP_TOL * lr + 2 * ulp).sum())
-        ok = ok and odd <= max(2, TRAIN_ODD[False] * d.numel()) and float(d.max()) <= 2 * lr
+        ok = ok and odd <= max(2, odd_share * d.numel()) and float(d.max()) <= 2 * lr
         errs[f"odd {k}"] = odd
     return ok, errs
 
@@ -6835,51 +7072,301 @@ def gcn_sharded_world4(want: list, pred: dict, ranks: list) -> dict:
     return out
 
 
-def phase_sharded_cells(bits: dict, seed: int, smoke: bool = False) -> dict:
-    """Phase 20, run last: 20a the Spade cells on one ``nccl`` rank, 20b on
-    four ``gloo`` ranks, both held to 16c's bits (``bits``, kept on the
-    host); 20c gcn-cora's train step on four ``gloo`` ranks against its
-    unsharded steps.  Launches of K1, K2, ``suffix_init`` and K4 here are
-    off the main path.  ``smoke``: the smoke configs, for a rehearsal on
-    the CPU."""
+def gnn_tp_unsharded(seed: int, smoke: bool = False) -> dict:
+    """20d's references: each of GNN_TP_ARCHS' train cells at GNN_TP_SHAPE
+    on DEVICE, GNN_TP_STEPS steps (each step's metrics and parameters on
+    the host), then the same steps again from the same state: the card's
+    own spread (``index_add_``'s float atomics), which GNN_TP_ODD reads."""
     import torch
 
-    from repro_torch.dist import spawn
+    from repro_torch import pytree
+    from repro_torch.launch.cells import build_cell
+
+    out = {}
+    for arch in GNN_TP_ARCHS:
+        cell = build_cell(arch, GNN_TP_SHAPE, concrete=True, seed=seed, smoke=smoke,
+                          device=DEVICE)
+        state = cell.args[0]
+        leaves = pytree.leaves((state.params, state.m, state.v)) + [state.step]
+        kept = [t.clone() for t in leaves]
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for t, k in zip(leaves, kept):
+                    t.copy_(k)
+            steps = []
+            for _ in range(GNN_TP_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                res, m = cell.fn(*cell.args)
+                sync()
+                steps.append(gcn_metrics(res, m, step_s=time.perf_counter() - t0))
+            runs.append(steps)
+        out[arch] = {"steps": runs[0], "spread": [
+            gcn_step_errs(a, b, 1.0, 1.0)[1] for a, b in zip(runs[1], runs[0])]}
+        del cell, state, res, leaves, kept
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def gnn_remat(seed: int, smoke: bool = False, steps: int = 3) -> dict:
+    """The reference's remat on the card (``--gnn-remat``): MeshGraphNet's
+    and DimeNet's unsharded train steps at GNN_TP_SHAPE with the
+    processor step and the interaction block rematerialised, as shipped,
+    and without (``models.gnn._remat`` a plain call), in turns (remat,
+    plain, plain, remat; ``steps`` steps each): step seconds and the peak
+    memory above the state; and one DimeNet step's device time by kernel
+    (the profiler's ten largest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import gnn
+
+    cuda = DEVICE == "cuda"
+    remat, plain = gnn._remat, lambda fn, *args: fn(*args)
+    out = {}
+    with torch.enable_grad():
+        for arch in ("meshgraphnet", "dimenet"):
+            cell = build_cell(arch, GNN_TP_SHAPE, concrete=True, seed=seed, smoke=smoke,
+                              device=DEVICE)
+            rows = {"remat": [], "plain": []}
+            try:
+                for tag in ("remat", "plain", "plain", "remat"):
+                    gnn._remat = remat if tag == "remat" else plain
+                    for _ in range(steps):
+                        sync()
+                        if cuda:
+                            torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated() if cuda else 0
+                        t0 = time.perf_counter()
+                        cell.fn(*cell.args)
+                        sync()
+                        rows[tag].append({"step_s": time.perf_counter() - t0, "peak_above_gb": (
+                            torch.cuda.max_memory_allocated() - base) / 1e9 if cuda else None})
+            finally:
+                gnn._remat = remat
+            out[arch] = rows
+            if arch == "dimenet":
+                acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+                with profile(activities=acts) as prof:
+                    cell.fn(*cell.args)
+                    sync()
+                top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+                out["dimenet_kernels_ms"] = [(e.key, e.count, e.self_device_time_total / 1e3)
+                                             for e in top]
+            del cell
+            if cuda:
+                torch.cuda.empty_cache()
+    log(f"gnn remat at {GNN_TP_SHAPE}: " + json.dumps(out))
+    return out
+
+
+@contextlib.contextmanager
+def unsummed_denominators(rank: int):
+    """The control of 20d: rank ``rank``'s GAT softmax denominators left
+    unsummed over the edge group (it still joins the all-reduce, forward
+    and backward, so that no rank waits)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import gnn
+
+    edge_sum = gnn._edge_sum
+
+    def unsummed(x, sh):
+        out = edge_sum(x, sh)
+        return x + (out - out.detach()) if dist.get_rank() == rank else out
+
+    gnn._edge_sum = unsummed
+    try:
+        yield
+    finally:
+        gnn._edge_sum = edge_sum
+
+
+def gnn_tp_rank(mesh, seed: int, device: str, smoke: bool = False) -> dict:
+    """A rank of 20d: each of GNN_TP_ARCHS' train cells at GNN_TP_SHAPE
+    drawn from the seed, through ``shard_cell``; GAT's control step first
+    (:func:`unsummed_denominators` on rank 1), the state put back; then
+    GNN_TP_STEPS steps under ``use_axis_env``, K4's counter set to 0 before
+    each (these models launch no hand kernel), the first one's
+    collectives counted by ``LocalCost``; the peak memory a cell."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.dist.sharding import AxisEnv, LocalCost, local, use_axis_env
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+    from repro_torch.launch.cells import build_cell, shard_cell
+
+    cuda = DEVICE == "cuda"
+    env = AxisEnv(mesh)
+    out = {}
+    for arch in GNN_TP_ARCHS:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cell = shard_cell(build_cell(arch, GNN_TP_SHAPE, concrete=True, seed=seed, smoke=smoke,
+                                     device=DEVICE), env)
+        row = {"build_s": time.perf_counter() - t0, "steps": []}
+        if arch == "gat-cora":
+            state = cell.args[0]
+            leaves = [local(t) for t in pytree.leaves((state.params, state.m, state.v))]
+            leaves.append(state.step)
+            kept = [t.clone() for t in leaves]
+            with use_axis_env(env), unsummed_denominators(1):
+                row["control"] = gcn_metrics(*cell.fn(*cell.args))
+            for t, k in zip(leaves, kept):
+                t.copy_(k)
+        for i in range(GNN_TP_STEPS):
+            k4_ops.launches = 0
+            sync()
+            t1 = time.perf_counter()
+            with use_axis_env(env), LocalCost() if i == 0 else contextlib.nullcontext() as cost:
+                state, m = cell.fn(*cell.args)
+            sync()
+            step = gcn_metrics(state, m, step_s=time.perf_counter() - t1,
+                               k4_launches=k4_ops.launches)
+            if i == 0:
+                step["cost"] = {"bytes": cost.collectives, "calls": cost.calls}
+            row["steps"].append(step)
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        out[arch] = row
+        del cell, state
+    return out
+
+
+def gnn_tp_world4(want: dict, pred: dict, ranks: list) -> dict:
+    """20d: the four ``gloo`` ranks' GAT, MeshGraphNet and DimeNet train
+    steps at GNN_TP_SHAPE (:func:`gnn_tp_rank`) on (data 2, model 2)
+    against the unsharded steps on the same seed and batch (``want``: by
+    architecture, :func:`gnn_tp_unsharded`): each step within
+    :func:`gcn_step_errs`' rules at GNN_TP_RTOL and GNN_TP_ODD on every
+    rank (the largest share of a leaf's elements off the rule logged a
+    step, beside the unsharded runs' own), GAT's control off the loss by
+    GNN_TP_CONTROL_MARGIN times its tolerance, no hand kernel launched,
+    each rank's collectives in step 1 the dry run's (``pred``: by
+    architecture, :func:`gcn_predicted`; gloo's gathers are all-to-alls
+    on the card)."""
+    def odd_share(errs: dict, params: dict) -> float:
+        return max(errs[f"odd {k}"] / v.numel() for k, v in params.items())
+
+    out = {}
+    for arch in GNN_TP_ARCHS:
+        rtol, w = GNN_TP_RTOL[arch], want[arch]["steps"]
+        p = dict(pred[arch]["collectives"])
+        if DEVICE == "cuda":
+            p["all-to-all"] += p.pop("all-gather")
+            p["all-gather"] = 0
+        res = {"errs": [], "unsharded_step_s": [s["step_s"] for s in w],
+               "unsharded_spread": [{k: e[k] for k in ("loss", "grad_norm")}
+                                    for e in want[arch]["spread"]],
+               "odd_share": [0.0] * len(w), "unsharded_odd_share": [
+                   odd_share(e, u["params"]) for e, u in zip(want[arch]["spread"], w)]}
+        for r, got in enumerate(r[arch] for r in ranks):
+            for i, (g, u) in enumerate(zip(got["steps"], w)):
+                ok, errs = gcn_step_errs(g, u, rtol, GNN_TP_ODD[arch])
+                check(ok, f"20d {arch} rank {r} step {i + 1}: {errs!r} (rtol {rtol}, odd "
+                          f"share {GNN_TP_ODD[arch]})")
+                check(g["k4_launches"] == 0,
+                      f"20d {arch} rank {r} step {i + 1}: K4 launched {g['k4_launches']} times")
+                res["errs"].append(errs)
+                res["odd_share"][i] = max(res["odd_share"][i], odd_share(errs, u["params"]))
+            c = got["steps"][0]["cost"]["bytes"]
+            check(c == p, f"20d {arch} rank {r}: collectives {c!r}, the dry run's {p!r}")
+            if "control" in got:
+                _, errs = gcn_step_errs(got["control"], w[0], rtol)
+                res.setdefault("control_errs", []).append(
+                    {k: errs[k] for k in ("loss", "grad_norm")})
+                check(errs["loss"] >= GNN_TP_CONTROL_MARGIN * rtol,
+                      f"20d {arch} rank {r}: the unsummed-denominators control misses the loss "
+                      f"by {errs['loss']!r}, under {GNN_TP_CONTROL_MARGIN} x {rtol}")
+        res.update(collectives=ranks[0][arch]["steps"][0]["cost"], predicted={
+            "bytes": p, "calls": pred[arch]["collective_calls"]},
+            step_s=[[s["step_s"] for s in r[arch]["steps"]] for r in ranks],
+            peak_gb=[r[arch]["peak_gb"] for r in ranks],
+            build_s=[r[arch]["build_s"] for r in ranks], loss=[s["loss"] for s in w],
+            max_rel_err=max(max(e["loss"], e["grad_norm"]) for e in res["errs"]))
+        out[arch] = res
+        log(f"20d {arch} {GNN_TP_SHAPE} world 4 (gloo, one card, data 2 x model 2) through "
+            f"shard_cell, {GNN_TP_STEPS} steps: loss and grad_norm within "
+            f"{res['max_rel_err']!r} of the unsharded steps (rtol {rtol}), the parameters at "
+            f"16c's rule (odd share {GNN_TP_ODD[arch]}), no hand kernel, collectives the dry "
+            f"run's; "
+            + " ".join(f"{k}={res[k]!r}" for k in ("collectives", "step_s", "unsharded_step_s",
+                                                    "peak_gb", "build_s", "odd_share",
+                                                    "unsharded_odd_share", "unsharded_spread")
+                       + (("control_errs",) if "control_errs" in res else ())))
+    return out
+
+
+def sharded_cells_ranks(seed: int, smoke: bool) -> RanksAhead:
+    """20b's, 20c's and 20d's four ranks, started ahead."""
+    return RanksAhead(sharded_cells_rank, math.prod(CELLS_TP_MESH.values()), backend="gloo",
+                      device=DEVICE, args=(seed, DEVICE, grab_config(), smoke),
+                      timeout=SHARDED_CELLS_TIMEOUT, mesh_shape=CELLS_TP_MESH)
+
+
+def phase_sharded_cells(bits: dict, seed: int, smoke: bool = False,
+                        ahead: RanksAhead | None = None) -> dict:
+    """Phase 20, run last: 20a the Spade cells on one ``nccl`` rank, 20b on
+    four ``gloo`` ranks, both held to 16c's bits (``bits``, kept on the
+    host); 20c gcn-cora's train step and 20d GAT's, MeshGraphNet's and
+    DimeNet's on the same four ``gloo`` ranks against their unsharded
+    steps.  Launches of K1, K2, ``suffix_init`` and K4 here are off the
+    main path; 20d launches no hand kernel.  The ranks are ``ahead``'s
+    (:func:`sharded_cells_ranks`), or started here.  ``smoke``: the smoke
+    configs, for a rehearsal on the CPU."""
+    import torch
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    ahead = ahead or sharded_cells_ranks(seed, smoke)
     out = {"world1": spade_world1(bits, seed, smoke)}
-    with torch.enable_grad():
-        want = gcn_unsharded(seed, smoke)
-    pred = gcn_predicted(CELLS_TP_MESH, smoke)
+
+    def references():  # 20c's and 20d's, here while the ranks do 20b
+        with torch.enable_grad():
+            want, want_d = gcn_unsharded(seed, smoke), gnn_tp_unsharded(seed, smoke)
+        return want, gcn_predicted(CELLS_TP_MESH, smoke), want_d, {
+            a: gcn_predicted(CELLS_TP_MESH, smoke, a, GNN_TP_SHAPE) for a in GNN_TP_ARCHS}
+
     t1 = time.perf_counter()
-    ranks = spawn(sharded_cells_rank, math.prod(CELLS_TP_MESH.values()), backend="gloo",
-                  device=DEVICE, args=(seed, DEVICE, grab_config(), smoke),
-                  timeout=SHARDED_CELLS_TIMEOUT, mesh_shape=CELLS_TP_MESH)
+    ahead.go()
+    refs = beside(references)
+    ranks = ahead.join()
+    want, pred, want_d, pred_d = refs()
     out["spawn_s"] = time.perf_counter() - t1
     out["world4"] = spade_sharded_world4(bits, [r["spade"] for r in ranks])
     out["gcn"] = gcn_sharded_world4(want, pred, [r["gcn"] for r in ranks])
+    out["gnn"] = gnn_tp_world4(want_d, pred_d, [r["gnn"] for r in ranks])
     out["launches"] = {
         k: sum(r["launches"][k] for r in out["world1"].values())
         + sum(sum(x[k] for x in r["launches"]) for r in out["world4"].values()
               if isinstance(r, dict) and "launches" in r)
         for k in ("peel_round", "frontier_spmv", "suffix_init")}
     out["launches"]["gather_segsum"] = out["gcn"]["k4_launches"]
+    out["launches_20d"] = sum(s["k4_launches"] for r in ranks for a in GNN_TP_ARCHS
+                              for s in r["gnn"][a]["steps"])
     out["seconds"] = time.perf_counter() - t0
-    log(f"20: {out['seconds']!r} s (20b and 20c's spawn {out['spawn_s']!r} s); launches off "
-        f"the main path {out['launches']!r}")
+    log(f"20: {out['seconds']!r} s (20b, 20c and 20d's ranks after the gate "
+        f"{out['spawn_s']!r} s); launches off the main path {out['launches']!r}; 20d: "
+        f"{out['launches_20d']!r} hand-kernel launches (GAT, MeshGraphNet and DimeNet "
+        f"aggregate in plain PyTorch)")
     return out
 
 
 def sharded_cells_rank(mesh, seed: int, device: str, cfg: dict, smoke: bool = False) -> dict:
-    """A rank of 20b and 20c, one spawn: :func:`spade_cells_rank`, then
-    :func:`gcn_sharded_rank` with gradients on."""
+    """A rank of 20b, 20c and 20d, one spawn: :func:`spade_cells_rank`,
+    then :func:`gcn_sharded_rank` and :func:`gnn_tp_rank` with gradients
+    on."""
     import torch
 
     out = {"spade": spade_cells_rank(mesh, seed, device, cfg, smoke)}
     with torch.enable_grad():
         out["gcn"] = gcn_sharded_rank(mesh, seed, device, smoke)
+        out["gnn"] = gnn_tp_rank(mesh, seed, device, smoke)
     return out
 
 
@@ -7137,7 +7624,6 @@ def moe_fsdp_world1(runs: list, batch: dict, seed: int, smoke: bool) -> dict:
     MOE_FSDP_SPREAD times the two runs' distance (metrics each step, their
     distance taken as at least MOE_FSDP_SPREAD_FLOOR; parameters after the
     last)."""
-    import shutil
     import tempfile
 
     import torch
@@ -7316,19 +7802,33 @@ def moe_fsdp_check(tag: str, arch: str, plain: dict, ranks: list, pred: dict, sm
     return out
 
 
-def phase_moe_fsdp(seed: int, smoke: bool = False) -> dict:
+def moe_fsdp_paths() -> dict:
+    """21b's and 21c's batches, written for the ranks before they go."""
+    return {arch: str(ROOT / "build" / "phase21" / f"{arch}.npz")
+            for arch in (MOE_FSDP_ARCH, MIXTRAL_TP_ARCH)}
+
+
+def moe_fsdp_ranks(seed: int, smoke: bool) -> RanksAhead:
+    """21b's and 21c's four ranks, started ahead."""
+    return RanksAhead(moe_fsdp_rank, math.prod(MOE_FSDP_MESH.values()), backend="gloo",
+                      device=DEVICE, args=(moe_fsdp_paths(), seed, DEVICE, smoke),
+                      timeout=MOE_FSDP_TIMEOUT, mesh_shape=MOE_FSDP_MESH)
+
+
+def phase_moe_fsdp(seed: int, smoke: bool = False, ahead: RanksAhead | None = None) -> dict:
     """Phase 21, run last: olmoe-1b-7b's unsharded step twice (does it
     repeat its bits?), 21a on one ``nccl`` rank, mixtral-8x7b's unsharded
     step, then 21b and 21c on four ``gloo`` ranks (one spawn), each held
-    to its unsharded steps.  ``smoke``: the smoke configs, for a rehearsal
-    on the CPU."""
+    to its unsharded steps; the ranks are ``ahead``'s
+    (:func:`moe_fsdp_ranks`), or started here.  ``smoke``: the smoke
+    configs, for a rehearsal on the CPU."""
     import torch
-
-    from repro_torch.dist import spawn
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    paths = moe_fsdp_paths()
+    ahead = ahead or moe_fsdp_ranks(seed, smoke)  # they start while 21a runs
     B, S = MOE_FSDP_BATCH, (TRAIN_LM_SEQ if not smoke else 64)
     cfgs = {a: moe_fsdp_cfg(a, smoke) for a in (MOE_FSDP_ARCH, MIXTRAL_TP_ARCH)}
     batches = {a: fsdp_batch(c, B, S, seed + 2) for a, c in cfgs.items()}
@@ -7343,42 +7843,25 @@ def phase_moe_fsdp(seed: int, smoke: bool = False) -> dict:
                                              batches[MIXTRAL_TP_ARCH], seed,
                                              MIXTRAL_FSDP_STEPS, keep=True)}
     del runs
-    paths = {}
     for arch, batch in batches.items():
-        paths[arch] = str(ROOT / "build" / "phase21" / f"{arch}.npz")
         Path(paths[arch]).parent.mkdir(parents=True, exist_ok=True)
         np.savez(paths[arch], **{k: v.cpu().numpy() for k, v in batch.items()})
     del batches
     # the dry run's predictions are traced on meta while this process only
     # waits for the ranks
-    preds = {}
-
-    def predict():
-        try:
-            for arch, cfg in cfgs.items():
-                preds[arch] = train_predicted(arch, MOE_FSDP_MESH, cfg.n_layers, B, S, smoke)
-        except BaseException as e:  # raised again below
-            preds["error"] = e
-
-    tracer = threading.Thread(target=predict)
-    tracer.start()
+    predicted = beside(lambda: {arch: train_predicted(arch, MOE_FSDP_MESH, cfg.n_layers, B, S,
+                                                      smoke) for arch, cfg in cfgs.items()})
     t1 = time.perf_counter()
-    try:
-        ranks = spawn(moe_fsdp_rank, math.prod(MOE_FSDP_MESH.values()), backend="gloo",
-                      device=DEVICE, args=(paths, seed, DEVICE, smoke),
-                      timeout=MOE_FSDP_TIMEOUT, mesh_shape=MOE_FSDP_MESH)
-    finally:
-        tracer.join()
+    ranks = ahead.join()
+    preds = predicted()
     out["spawn_s"] = time.perf_counter() - t1
-    if "error" in preds:
-        raise preds["error"]
     for p in paths.values():
         Path(p).unlink()
     for tag, arch in (("21b", MOE_FSDP_ARCH), ("21c", MIXTRAL_TP_ARCH)):
         out["world4" if tag == "21b" else "world4_mixtral"] = moe_fsdp_check(
             tag, arch, plain[arch], [r[arch] for r in ranks], preds[arch], smoke)
     out["seconds"] = time.perf_counter() - t0
-    log(f"21: {out['seconds']!r} s (21b and 21c's spawn {out['spawn_s']!r} s)")
+    log(f"21: {out['seconds']!r} s (21b and 21c's ranks after the gate {out['spawn_s']!r} s)")
     return out
 
 
@@ -7559,6 +8042,9 @@ def main() -> int:
     ap.add_argument("--fsdp-controls", action="store_true",
                     help="run only the controls of phase 18b's rules (fsdp_controls) and "
                          "print them as JSON; no smoke result")
+    ap.add_argument("--gnn-remat", action="store_true",
+                    help="run only the remat diagnostic of MeshGraphNet and DimeNet "
+                         "(gnn_remat) and print it as JSON; no smoke result")
     ap.add_argument("--c12", choices=sorted(C12_DIAGNOSTICS),
                     help="run only one of ROADMAP C.12's diagnostics (products: "
                          "gemm_shape_bits; batch: moe_batch_witness; settle: moe_settle_runs) "
@@ -7583,6 +8069,14 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    # the Grab4 stream (phases 2-5 and 13) is drawn in another process
+    # while phase 1 and phases 6-11 and 15, which do not read it, run
+    pool = None
+    if not (args.fsdp_controls or args.gnn_remat or args.c12):
+        t_draw = time.perf_counter()
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        drawn = pool.submit(grab4_stream)
+
     # phase 1: build every kernel (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -7592,6 +8086,11 @@ def main() -> int:
             controls = fsdp_controls(LM_SEED)
         print(smi)
         print(json.dumps(controls))
+        return 0
+    if args.gnn_remat:
+        res = gnn_remat(GNN_SEED)
+        print(smi)
+        print(json.dumps(res, default=repr))
         return 0
     if args.c12:
         res = C12_DIAGNOSTICS[args.c12](LM_SEED)
@@ -7610,34 +8109,43 @@ def main() -> int:
     log("  K3 dynamic shared memory per CTA: " + ", ".join(
         f"D {d}: {k3_ops.smem_bytes(d)} bytes" for d in k3_ops.HEAD_DIMS))
 
-    # the Grab4 stream (phases 2-5 and 13) is drawn in another process while
-    # phases 6-11, which do not read it, run
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        drawn = pool.submit(grab4_stream)
+    t_lm = time.perf_counter()
+    attn, attn_norm = phase_attention(LM_SEED)
+    attn_simt = phase_attention_simt(LM_SEED)
+    log("phase 6: K3's two bodies agree with their plain versions")
+    lm_parity = phase_lm_parity(LM_SEED)
+    log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
+    lm, lm_ref = phase_lm_full(LM_SEED)  # phase 17 holds its sharded runs to lm_ref
+    log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
+        f"{time.perf_counter() - t_lm!r} s")
 
-        t_lm = time.perf_counter()
-        attn, attn_norm = phase_attention(LM_SEED)
-        attn_simt = phase_attention_simt(LM_SEED)
-        log("phase 6: K3's two bodies agree with their plain versions")
-        lm_parity = phase_lm_parity(LM_SEED)
-        log("phase 7: LM cuda==cpu within tolerance, the smoke configs through K3's SIMT body")
-        lm, lm_ref = phase_lm_full(LM_SEED)  # phase 17 holds its sharded runs to lm_ref
-        log(f"phase 8: qwen3-14b main path ran through K3; phases 6-8 took "
-            f"{time.perf_counter() - t_lm!r} s")
+    t_gnn = time.perf_counter()
+    kept = {}  # the ogb_products graph, from phase 9 to phase 11, and its rows to 15b
+    k4, k4_cases = phase_k4(GNN_SEED, kept)
+    log("phase 9: K4 agrees with its plain versions")
+    gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
+    log("phase 10: GNN forward cuda==cpu within tolerance")
+    gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
+    log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
+        f"{time.perf_counter() - t_gnn!r} s")
 
-        t_gnn = time.perf_counter()
-        kept = {}  # the ogb_products graph, from phase 9 to phase 11, and its rows to 15b
-        k4, k4_cases = phase_k4(GNN_SEED, kept)
-        log("phase 9: K4 agrees with its plain versions")
-        gnn_parity, gcn_cpu_logits = phase_gnn_parity(GNN_SEED)
-        log("phase 10: GNN forward cuda==cpu within tolerance")
-        gcn = phase_gcn(GNN_SEED, gcn_cpu_logits, kept)
-        log(f"phase 11: gcn-cora main path ran through K4; phases 9-11 took "
-            f"{time.perf_counter() - t_gnn!r} s")
-        stream = drawn.result()
-    log(f"grab4 stream drawn in another process beside phases 6-11, ready "
-        f"{time.perf_counter() - t0!r} s after its start")
+    # phase 15 runs here, so that 15b trains on phase 11's ogbn-products
+    # graph and rows, which phase 14's memory could not share the card
+    # with, and beside the stream's draw, which it does not read
+    with torch.enable_grad():
+        train = phase_train(LM_SEED, kept)
+    t15 = train["qwen3_14b"]
+    log(f"phase 15: trained on {smi}: the smoke LMs and GNN kinds cuda == cpu, gcn-cora on "
+        f"ogbn-products ({train['gcn_cora']['k4_launches_per_step']!r} K4 launches a "
+        f"step), {LM_ARCH} at {t15['n_layers']} layers ({t15['k3_launches_per_step']!r} K3 "
+        f"launches a step, {t15['step_s_median_2_3']!r} s a step), a checkpoint round trip "
+        f"bit for bit; {train['seconds']!r} s")
+    t_wait = time.perf_counter()
+    stream = drawn.result()
+    pool.shutdown()
+    log(f"grab4 stream drawn in another process beside phases 1, 6-11 and 15, ready "
+        f"{time.perf_counter() - t_draw!r} s after its start; waited "
+        f"{time.perf_counter() - t_wait!r} s for it")
 
     rec = phase_kernels({"src": stream.base_src.astype(np.int32),
                          "dst": stream.base_dst.astype(np.int32)})
@@ -7651,35 +8159,13 @@ def main() -> int:
     log("phase 5: a tick's K2 rounds and prologue recorded and timed"
         + (", and the tick traced" if args.profile_ticks else ""))
 
-    # phase 15 runs here, so that 15b trains on phase 11's ogbn-products
-    # graph and rows, which phase 14's memory could not share the card with
-    with torch.enable_grad():
-        train = phase_train(LM_SEED, kept)
-    t15 = train["qwen3_14b"]
-    log(f"phase 15: trained on {smi}: the smoke LMs and GNN kinds cuda == cpu, gcn-cora on "
-        f"ogbn-products ({train['gcn_cora']['k4_launches_per_step']!r} K4 launches a step), "
-        f"{LM_ARCH} at {t15['n_layers']} layers ({t15['k3_launches_per_step']!r} K3 launches "
-        f"a step, {t15['step_s_median_2_3']!r} s a step), a checkpoint round trip bit for "
-        f"bit; {train['seconds']!r} s")
-
-    # phase 12 launches K1, K2 and suffix_init off the main path, in its
-    # own processes: counted apart from the main-path counts of the
-    # kernels line
-    t_cross = time.perf_counter()
-    cross = phase_cross_plane(smi)
-    check(all(cross["launches"].values()),
-          f"phase 12: a kernel never launched: {cross['launches']!r}")
-    log(f"phase 12: host plane == device plane tick by tick, exact_peel == static_peel; "
-        f"{time.perf_counter() - t_cross!r} s on {smi}; launches off the main path "
-        f"{cross['launches']!r}")
-
-    # phase 13 launches K1, K2 and suffix_init off the main path too (13a in
-    # this process, 13b and 13c in spawned ranks): logged apart
+    # phase 13 launches K1, K2 and suffix_init off the main path (13a in
+    # this process, 13b in spawned ranks; 13c beside 19c): logged apart
     sharded = phase_sharded(stream)
     del stream
-    log(f"phase 13: the edge-sharded engine on {smi}: world 1 (nccl) and world 2 (gloo) "
-        f"held against the single-device engine at Grab4 width, world 4 (gloo) cuda == "
-        f"cpu; {sharded['seconds']!r} s")
+    log(f"phase 13 (13a, 13b): the edge-sharded engine on {smi}: world 1 (nccl) and world 2 "
+        f"(gloo) held against the single-device engine at Grab4 width; "
+        f"{sharded['seconds']!r} s")
 
     moe = phase_moe(LM_SEED)
     moe_ref = moe[MOE_TP_ARCH].pop("tp_ref")  # phase 19 holds its sharded runs to it
@@ -7688,6 +8174,11 @@ def main() -> int:
                     f"a prefill" for a in MOE_LAYERS) + f"; {moe['seconds']!r} s")
 
     kept.clear()  # phase 16 puts 61.44 GB of tables on the card
+    # each sharded phase's gloo ranks start ahead (RanksAhead) while the
+    # phase before runs: 17b's here (two CUDA contexts beside phase 16's
+    # 68.4 GB peak), 18b's with phase 17, 19b's and 19c's once 18b's ranks
+    # go (not beside 18a's 68.8 GB peak), 20's at 19c's go, 21's at 20's
+    ahead = {"17b": tp_ranks(LM_SEED, False, TP_LAYERS)}
     cells = phase_cells(LM_SEED)
     spade_bits = {s: r.pop("bits") for s, r in cells["cells"]["spade_full"].items()}
     serve16, train16 = cells["serve"], cells["train"]
@@ -7700,17 +8191,37 @@ def main() -> int:
         f"cpu, the Spade cells at full width, the launcher's resume bit for bit; "
         f"{cells['seconds']!r} s")
 
-    tp = phase_tensor_parallel(lm_ref, LM_SEED)
+    # phase 12 runs beside phase 17, whose two ranks leave the card's
+    # memory and most of the host's cores free, in processes of its own:
+    # its launches of K1, K2 and suffix_init are off the main path, counted
+    # apart from the main-path counts of the kernels line
+    t_cross = time.perf_counter()
+    cross_done = beside(phase_cross_plane, smi)
+    ahead["18b"] = fsdp_ranks(LM_SEED, False)
+    tp = phase_tensor_parallel(lm_ref, LM_SEED, ahead.pop("17b"))
     del lm_ref
+    t_joined = time.perf_counter()
+    cross = cross_done()
+    check(all(cross["launches"].values()),
+          f"phase 12: a kernel never launched: {cross['launches']!r}")
+    log(f"phase 12 (beside phase 17): host plane == device plane tick by tick, exact_peel == "
+        f"static_peel; {time.perf_counter() - t_cross!r} s on {smi} from its start, of which "
+        f"{time.perf_counter() - t_joined!r} s after phase 17's end; launches off the main path "
+        f"{cross['launches']!r}")
     log(f"phase 17: qwen3-14b sharded on a DeviceMesh on {smi}: world 1 (nccl) phase 8's "
-        f"bits, world 2 (gloo, one card) within {tp['world2']['logit_rel_err_max']!r} of the "
-        f"row scale, K3 with q_offset equal to its whole-sequence rows; "
-        f"{tp['seconds']!r} s")
+        f"bits, world 2 (gloo, one card) at {tp['world2']['n_layers']} layers within "
+        f"{tp['world2']['logit_rel_err_max']!r} of the unsharded run's row scale, K3 with "
+        f"q_offset equal to its whole-sequence rows; {tp['seconds']!r} s")
 
     # phase 18 runs last, after 17: its ranks and sharded steps precede no
     # other phase's timing
     with torch.enable_grad():
-        fsdp = phase_fsdp(train["qwen3_14b"].pop("step1"), LM_SEED)
+        ahead["18b"].on_go.append(lambda: ahead.update({
+            "19b": moe_tp_ranks("19b", LM_SEED, MOE_TP_ARCH, moe_ref["n_layers"], MOE_TP_MESH,
+                                False),
+            "19c": moe_tp_ranks("19c", LM_SEED, MIXTRAL_TP_ARCH, MIXTRAL_TP_LAYERS,
+                                MIXTRAL_TP_MESH, False)}))
+        fsdp = phase_fsdp(train["qwen3_14b"].pop("step1"), LM_SEED, ahead.pop("18b"))
     w2 = fsdp["world2"]
     log(f"phase 18: qwen3-14b trained with FSDP on a DeviceMesh on {smi}: world 1 (nccl) "
         f"15c's step 1 bit for bit at {fsdp['world1']['n_layers']} layers, world 2 (gloo, one "
@@ -7720,8 +8231,15 @@ def main() -> int:
         f"under local_map with heads sharded within its tolerance; {fsdp['seconds']!r} s")
 
     # phase 19 runs last, after 18: its ranks precede no other phase's timing
-    moe_tp = phase_moe_tp(moe_ref, LM_SEED)
+    # 13c (four gloo ranks on cuda and the same four on cpu, a small
+    # stream) runs beside 19c's two ranks
+    ahead["19c"].on_go.append(lambda: ahead.update({"20": sharded_cells_ranks(CELL_SEED, False)}))
+    moe_tp = phase_moe_tp(moe_ref, LM_SEED, beside_19c=phase_sharded_small,
+                          ahead_b=ahead.pop("19b"), ahead_c=ahead.pop("19c"))
     del moe_ref
+    sharded["small_world4"] = moe_tp.pop("beside_19c")
+    log(f"phase 13c (beside 19c; 19c then waited {moe_tp['beside_19c_wait_s']!r} s for it): "
+        f"world 4 (gloo) cuda == cpu; {sharded['small_world4']['seconds']!r} s")
     w4, wm = moe_tp["world4"], moe_tp["world2_mixtral"]
     log(f"phase 19: the MoE LMs sharded on a DeviceMesh on {smi}: {MOE_TP_ARCH} world 1 "
         f"(nccl) 14c's bits, world 4 (gloo, one card, data 2 x model 2) within "
@@ -7731,7 +8249,8 @@ def main() -> int:
         f"{moe_tp['seconds']!r} s")
 
     # phase 20 runs last, after 19: its ranks precede no other phase's timing
-    tp_cells = phase_sharded_cells(spade_bits, CELL_SEED)
+    ahead["20"].on_go.append(lambda: ahead.update({"21": moe_fsdp_ranks(LM_SEED, False)}))
+    tp_cells = phase_sharded_cells(spade_bits, CELL_SEED, ahead=ahead.pop("20"))
     w4s, gcn20 = tp_cells["world4"], tp_cells["gcn"]
     log(f"phase 20: the Spade cells and gcn-cora's train step through shard_cell on {smi}: "
         f"world 1 (nccl) 16c's bits, world 4 (gloo, one card, data 2 x model 2) 16c's bits "
@@ -7745,7 +8264,7 @@ def main() -> int:
         f"{tp_cells['seconds']!r} s")
 
     # phase 21 runs last, after 20: its ranks precede no other phase's timing
-    moe_fsdp = phase_moe_fsdp(LM_SEED)
+    moe_fsdp = phase_moe_fsdp(LM_SEED, ahead=ahead.pop("21"))
     w4o, w4x = moe_fsdp["world4"], moe_fsdp["world4_mixtral"]
     log(f"phase 21: the MoE LMs trained with FSDP on a DeviceMesh on {smi}: {MOE_FSDP_ARCH} "
         f"world 1 (nccl) at {moe_fsdp['world1']['n_layers']} layers held "

@@ -20,11 +20,11 @@ an LM serving cell's own arguments, or an LM train cell's state in the
 FSDP layout (dense or MoE both), on a mesh as DTensors by the same names,
 the port's per-layer parameters taking their stacked leaf's names less
 the layer dim (a MoE layer's virtual experts unfolded, as the reference
-holds them); gcn-cora's train cell's batch on ``vertex``/``edges``; and it
-steps a Spade cell on the edge-sharded engine, its graph's edges on
-``edges``.  ``model_flops`` are the reference's formulas.  The reference
-donates a train step's state; the port's train step updates it in place,
-to the same effect.
+holds them); a GNN train cell's batch on ``vertex``/``edges`` (GCN, GAT,
+MeshGraphNet and DimeNet); and it steps a Spade cell on the edge-sharded
+engine, its graph's edges on ``edges``.  ``model_flops`` are the
+reference's formulas.  The reference donates a train step's state; the
+port's train step updates it in place, to the same effect.
 """
 
 from __future__ import annotations
@@ -125,16 +125,11 @@ def reference_args(cell: Cell) -> tuple:
 def sharded_reason(cell: Cell) -> str | None:
     """None when :func:`shard_cell` runs ``cell`` sharded (every LM cell:
     ``prefill``, ``decode_step`` and ``train_step``, dense and MoE; the
-    Spade cells; gcn-cora's ``train_step``), else why not: the ROADMAP
+    Spade cells; every GNN's ``train_step``), else why not: the ROADMAP
     item of the sharded slice that brings it."""
-    if cell.family == "lm":
+    if cell.family in ("lm", "spade", "gnn"):
         return None
-    if cell.family == "spade" or (cell.family == "gnn" and get_config(cell.arch).kind == "gcn"):
-        return None
-    return {"gnn": "GAT, MeshGraphNet and DimeNet on 'vertex'/'edges' are a later sharded "
-                   "slice (ROADMAP D.3b)",
-            "recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)"
-            }[cell.family]
+    return {"recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)"}[cell.family]
 
 
 def _edge_axes(env: AxisEnv) -> tuple[str, ...]:
@@ -218,12 +213,13 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     the parameters and the moments: :func:`_shard_lm`,
     :func:`_shard_state`), and a train cell their ``D`` (``w_down``'s last
     dim) on ``fsdp``.  Run the step under ``use_axis_env(env)``.  A
-    Spade cell runs on the edge-sharded engine (:func:`_shard_spade`).
-    gcn-cora's train cell places its state replicated (trainable, ``step``
-    plain) and its batch by the reference's logical axes (vertex arrays on
-    ``vertex``, edge arrays on ``edges``), which the model's sharded path
-    reads.  Another cell (the other GNNs, two-tower) raises with
-    :func:`sharded_reason`."""
+    Spade cell runs on the edge-sharded engine (:func:`_shard_spade`).  A
+    GNN train cell (every kind) places its state replicated (trainable,
+    ``step`` plain) and its batch by the reference's logical axes (vertex
+    arrays on ``vertex``, edge and triplet arrays on ``edges``; a
+    non-DimeNet batch's one-element triplet arrays, which no edge group
+    divides, replicated), which the model's sharded path reads.  A
+    two-tower cell raises with :func:`sharded_reason`."""
     reason = sharded_reason(cell)
     if reason is not None:
         raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")

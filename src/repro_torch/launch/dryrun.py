@@ -24,15 +24,32 @@ False)``) and reports:
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
   so that is the full depth's count;
 * for the LM cells (``prefill``, ``decode_step`` and ``train_step``;
-  dense and MoE) and gcn-cora's train cells, the step **run sharded**:
-  the cell's arguments as meta DTensors on the mesh
-  (:func:`~repro_torch.launch.cells.shard_cell`), traced at 1 and 2
-  layers under :class:`~repro_torch.dist.sharding.LocalCost` and
-  extrapolated as above (gcn-cora: traced once at its two layers, K4's
-  plain version giving the shapes).  A MoE train step's count a layer
-  and microbatch is held by hand in ``tests/test_torch_sharding.py``
-  (``test_dryrun_sharded_smoke_moe_train``; PERF.md gives it at the
-  production meshes).  ``flops_per_chip`` is the traced rank's local
+  dense and MoE) and the GNN train cells (GCN, GAT, MeshGraphNet and
+  DimeNet), the step **run sharded**: the cell's arguments as meta
+  DTensors on the mesh (:func:`~repro_torch.launch.cells.shard_cell`),
+  traced at 1 and 2 layers under :class:`~repro_torch.dist.sharding.
+  LocalCost` and extrapolated as above (a GNN: traced once at its own
+  depth, K4's plain version giving GCN's shapes, every edge of a rank's
+  block kept where the card keeps those ending in its rows).  A MoE
+  train step's count a layer and microbatch is held by hand in
+  ``tests/test_torch_sharding.py`` (``test_dryrun_sharded_smoke_moe_train``;
+  PERF.md gives it at the production meshes), and so are the GNNs'
+  (``test_dryrun_sharded_smoke_gcn``, ``test_dryrun_sharded_smoke_gnn``).
+  By hand, vertex rows on ``model``, edges on the edge dims (one
+  collective over them, their flattened group), float32: GAT a layer,
+  ``h`` [N, heads d] all-gathered and its gradient reduce-scattered,
+  five all-reduces over the edge dims (the softmax's max and denominator
+  [n, heads], the messages' row sums [n, heads, d]; in the backward the
+  denominator's gradient and ``h``'s rows'); MeshGraphNet a processor
+  step, ``h`` [N, H] all-gathered twice (the forward and the remat's
+  recompute) and reduce-scattered once, three all-reduces of [n, H] (the
+  aggregate settled in both passes, ``h``'s rows' gradient); DimeNet a
+  block, ``m`` [E, H] all-gathered three times (the forward, the
+  recompute, the triplet sums' backward) and [E_b, H] reduce-scattered
+  three times, plus once a step ``x`` [N, H] gathered and reduce-
+  scattered, ``edge_len`` [E] gathered, two all-reduces of [n, H]; every
+  kind, one all-reduce a parameter leaf (its gradient settled) and the
+  loss's two.  ``flops_per_chip`` is the traced rank's local
   FLOPs (the last rank: under sequence-sharded causal attention, the
   heaviest share), ``collectives`` the bytes of its collectives' outputs
   by the reference's five names (``collective_calls`` their number),
@@ -41,7 +58,7 @@ False)``) and reports:
   three times.  The Spade cells' collectives are counted from the
   edge-sharded engine's structure (:func:`spade_cost`: 1 + ``max_rounds``
   all-reduces of ``V + 1`` float64 a step), which ``chip_smoke.py``'s
-  phase 20 holds to the card's count.  Every other cell's
+  phase 20 holds to the card's count.  Every other cell's (two-tower's)
   ``flops_per_chip`` is the one-device count over the ranks (an even
   split), and its ``collective_bytes`` is null with the ROADMAP item of
   the sharded slice that brings it;
@@ -137,7 +154,7 @@ def sharded_cost(make_cell, env: AxisEnv, n_layers: int | None) -> dict:
     ``make_cell(1)`` and ``make_cell(2)`` (an LM cell at 1 and 2 layers,
     normally on meta) and extrapolated to ``n_layers``; ``n_layers`` None:
     traced once on ``make_cell(None)``, the cell at its own depth (a
-    GCN's two layers)."""
+    GNN's)."""
     def trace(n: int | None) -> LocalCost:
         cell = shard_cell(make_cell(n), env)
         grad = torch.enable_grad() if cell.step_name == "train_step" else torch.no_grad()

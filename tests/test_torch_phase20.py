@@ -6,9 +6,11 @@ unsharded bits (phase 16c's, made here); 20b, four ``gloo`` ranks on
 stay below 2^24), the dry run's all-reduces on every rank, the
 dropped-partials control outside ``best_g``'s bound; 20c, gcn-cora on four
 ``gloo`` ranks against its unsharded steps, each rank's collectives the
-dry run's, the dropped-aggregate control rejected.  The card runs the same
-functions at full width (the kernels' launch counts are checked there
-only: on the CPU the plain versions run).
+dry run's, the dropped-aggregate control rejected; 20d, GAT, MeshGraphNet
+and DimeNet in the same spawn against their unsharded steps, each rank's
+collectives the dry run's, GAT's unsummed-denominators control rejected.
+The card runs the same functions at full width (the kernels' launch
+counts are checked there only: on the CPU the plain versions run).
 """
 
 from __future__ import annotations
@@ -67,3 +69,25 @@ def test_phase20_rehearsal(cpu_phase):
     assert gcn["collectives"]["bytes"] == gcn["predicted"]["bytes"]
     assert gcn["collectives"]["calls"] == gcn["predicted"]["calls"]
     assert gcn["collectives"]["calls"]["all-gather"] == 2  # h of each layer, over model
+    for arch in chip_smoke.GNN_TP_ARCHS:
+        d = out["gnn"][arch]
+        assert d["max_rel_err"] < chip_smoke.GNN_TP_RTOL[arch], arch
+        assert d["collectives"]["bytes"] == d["predicted"]["bytes"], arch
+        assert d["collectives"]["calls"] == d["predicted"]["calls"], arch
+    gat = out["gnn"]["gat-cora"]
+    assert all(e["loss"] >= chip_smoke.GNN_TP_CONTROL_MARGIN * chip_smoke.GNN_TP_RTOL["gat-cora"]
+               for e in gat["control_errs"])
+    assert gat["collectives"]["calls"]["all-gather"] == 2  # h of each layer, over model
+    assert out["launches_20d"] == 0
+    for arch in chip_smoke.GNN_TP_ARCHS:
+        assert len(out["gnn"][arch]["unsharded_spread"]) == chip_smoke.GNN_TP_STEPS
+
+
+def test_gnn_remat_rehearsal(cpu_phase):
+    """``chip_smoke.py --gnn-remat`` at smoke size: MeshGraphNet's and
+    DimeNet's steps with and without the remat in turns, and DimeNet's
+    step by kernel (the CPU's ops here)."""
+    out = chip_smoke.gnn_remat(0, smoke=True, steps=1)
+    for arch in ("meshgraphnet", "dimenet"):
+        assert {k: len(v) for k, v in out[arch].items()} == {"remat": 2, "plain": 2}
+    assert len(out["dimenet_kernels_ms"]) == 10

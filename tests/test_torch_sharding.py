@@ -38,6 +38,7 @@ from repro_torch.configs import Skip, all_cells  # noqa: E402
 from repro_torch.dist import sharding as tsharding  # noqa: E402
 from repro_torch.launch import cells as tcells  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.models import gnn as tgnn  # noqa: E402
 from test_torch_cells import _key  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -196,13 +197,20 @@ def _dryrun(tmp_path, *args) -> tuple[str, list[dict]]:
 def test_dryrun_subprocess_one_cell(tmp_path):
     text, (res,) = _dryrun(tmp_path, "--arch", "gat-cora", "--shape", "molecule",
                            "--mesh", "multi")
+    """GAT's molecule cell on the multi-pod mesh traces sharded (ROADMAP
+    D.3b): its collectives a step by kind, as ``test_dryrun_sharded_smoke_gnn``
+    counts them (the edges over (pod, data), one collective each), and the
+    traced rank's FLOPs."""
     assert "0 failures" in text
     assert res["status"] == "OK" and res["n_chips"] == 512 and res["mesh"] == "multi"
-    assert res["collective_bytes_per_chip"] is None
-    assert "ROADMAP D.3" in res["collective_bytes_reason"]
-    assert res["flops"] > 0 and res["flops_per_chip"] == res["flops"] / 512
+    assert res["collective_calls"] == {"all-gather": 2, "all-reduce": 18, "reduce-scatter": 2,
+                                       "all-to-all": 0, "collective-permute": 0}
+    assert res["collective_bytes_per_chip"] == sum(res["collectives"].values()) > 0
+    assert res["t_collective_s"] == res["collective_bytes_per_chip"] / 450e9
+    assert "collective_bytes_reason" not in res
+    assert res["flops"] > 0 and 0 < res["flops_per_chip"] < res["flops"]
     assert res["argument_bytes"] < res["argument_bytes_global"]
-    assert res["dominant"] in ("compute", "memory") and "meta_run" not in res
+    assert res["dominant"] in ("compute", "memory", "collective") and "meta_run" not in res
 
 
 def test_dryrun_spade_cells_report_meta_run(tmp_path):
@@ -444,13 +452,11 @@ def test_dryrun_sharded_smoke_moe_train(meshes):
     assert two["collectives"]["all-to-all"] == 0
 
 
-@pytest.mark.parametrize("arch,shape,item", [
-    ("gat-cora", "molecule", "D.3"), ("two-tower-retrieval", "train_batch", "D.4"),
-    ("meshgraphnet", "ogb_products", "D.3b")])
+@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", "train_batch", "D.4")])
 def test_unsharded_cells_name_their_slice(arch, shape, item):
-    """The cells no sharded slice runs yet keep a null collective entry in
-    the dry run, whose reason names their ROADMAP D item; a MoE serving
-    cell runs sharded."""
+    """The cells no sharded slice runs yet (two-tower's) keep a null
+    collective entry in the dry run, whose reason names their ROADMAP D
+    item; a MoE serving cell runs sharded."""
     assert f"ROADMAP {item}" in tcells.sharded_reason(tcells.build_cell(arch, shape))
     assert tcells.sharded_reason(tcells.build_cell("mixtral-8x7b", "decode_32k")) is None
 
@@ -464,10 +470,12 @@ def test_moe_train_cells_run_sharded(arch):
 
 @pytest.mark.parametrize("arch,shape", [("spade-grab", s) for s in ("grab4_static",
                                                                    "grab4_stream")]
-                         + [("gcn-cora", s) for s in ("full_graph_sm", "minibatch_lg",
-                                                      "ogb_products", "molecule")])
+                         + [(a, s) for a in ("gcn-cora", "gat-cora", "meshgraphnet", "dimenet")
+                            for s in ("full_graph_sm", "minibatch_lg", "ogb_products",
+                                      "molecule")])
 def test_spade_and_gcn_cells_run_sharded(arch, shape):
-    """``shard_cell`` runs both Spade cells and every gcn-cora cell."""
+    """``shard_cell`` runs both Spade cells and every GNN cell (GCN, GAT,
+    MeshGraphNet and DimeNet): no reason, so the dry run traces them."""
     assert tcells.sharded_reason(tcells.build_cell(arch, shape)) is None
 
 
@@ -497,3 +505,74 @@ def test_dryrun_sharded_smoke_gcn(meshes):
     assert coll["reduce-scatter"] == 4 * rows * (H + C)
     params = sum(p.numel() for p in cell.args[0].params["w"] + cell.args[0].params["b"])
     assert coll["all-reduce"] == 4 * N + 2 * 4 * rows * (H + C) + 4 + 8 + 4 * params
+
+
+def _gnn_hand_count(arch: str, cell, rows: int, e_block: int) -> tuple[dict, dict]:
+    """(calls, bytes) by kind of one sharded smoke train step of ``arch``
+    on (data 16, model 16), counted by hand (float32; the bytes are each
+    collective's output).  Every kind: the loss's numerator and count
+    (two all-reduces, 4 + 8 B) and one all-reduce a parameter leaf (its
+    partial gradient settled: over ``model`` for a node-level weight,
+    over the flattened (data, model) group for one the edges read).
+
+    - GAT, a layer: ``h`` [N, heads d] gathered over ``model`` and, in the
+      backward, reduce-scattered to the rank's rows; all-reduces over
+      ``data``: the softmax's max and denominator [rows, heads], the
+      messages' row sums [rows, heads, d], in the backward the
+      denominator's gradient and ``h``'s rows' gradient.
+    - MeshGraphNet, a processor step: ``h`` [N, H] gathered in the forward
+      and again in the remat's recompute, its gradient reduce-scattered
+      once; the aggregate's rows [rows, H] settled in both passes and
+      ``h``'s rows' gradient all-reduced over ``data``.
+    - DimeNet: ``x`` [N, H] gathered and its gradient reduce-scattered,
+      ``edge_len`` [E] gathered over ``data``, ``per_node``'s rows settled
+      and ``x``'s rows' gradient all-reduced; a block: ``m`` [E, H]
+      gathered over ``data`` in the forward, the recompute and the
+      backward of the triplets' sums, and [E_b, H] reduce-scattered as
+      often (the sums in both passes, ``m``'s gradient)."""
+    g, params = cell.args[1], cell.args[0].params
+    N, E = g.node_feat.shape[0], g.edge_src.shape[0]
+    leaves = [x for _, x in tgnn.flatten_params(params)]
+    calls = {"all-reduce": 2 + len(leaves)}
+    coll = {"all-reduce": 12 + 4 * sum(x.numel() for x in leaves)}
+    if arch == "gat-cora":
+        hd = [lp["a_src"].shape for lp in params["layers"]]
+        calls.update({"all-gather": len(hd), "reduce-scatter": len(hd)})
+        calls["all-reduce"] += 5 * len(hd)
+        coll["all-gather"] = sum(4 * N * h * d for h, d in hd)
+        coll["reduce-scatter"] = sum(4 * rows * h * d for h, d in hd)
+        coll["all-reduce"] += sum(3 * 4 * rows * h + 2 * 4 * rows * h * d for h, d in hd)
+    elif arch == "meshgraphnet":
+        L, H = params["proc_edge"]["w0"].shape[0], params["proc_edge"]["w0"].shape[2]
+        calls.update({"all-gather": 2 * L, "reduce-scatter": L})
+        calls["all-reduce"] += 3 * L
+        coll["all-gather"] = 2 * L * 4 * N * H
+        coll["reduce-scatter"] = L * 4 * rows * H
+        coll["all-reduce"] += 3 * L * 4 * rows * H
+    else:
+        L, H = params["blocks"]["w_msg"].shape[:2]
+        calls.update({"all-gather": 2 + 3 * L, "reduce-scatter": 1 + 3 * L})
+        calls["all-reduce"] += 2
+        coll["all-gather"] = 4 * N * H + 4 * E + 3 * L * 4 * E * H
+        coll["reduce-scatter"] = 4 * rows * H + 3 * L * 4 * e_block * H
+        coll["all-reduce"] += 2 * 4 * rows * H
+    zero = {"all-to-all": 0, "collective-permute": 0}
+    return calls | zero, coll | zero
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "dimenet"])
+def test_dryrun_sharded_smoke_gnn(meshes, arch):
+    """GAT's, MeshGraphNet's and DimeNet's smoke train steps traced sharded
+    on the single-pod mesh (data 16, model 16): every collective's calls
+    and bytes as :func:`_gnn_hand_count` counts them."""
+    from repro_torch.launch import dryrun
+
+    env, _ = meshes["single"]
+    make = lambda n: tcells.build_cell(arch, "full_graph_sm", smoke=True)
+    res = dryrun.sharded_cost(make, env, None)
+    cell = make(None)
+    g = cell.args[1]
+    calls, coll = _gnn_hand_count(arch, cell, g.node_feat.shape[0] // 16,
+                                  g.edge_src.shape[0] // 16)
+    assert res["collective_calls"] == calls
+    assert res["collectives"] == coll

@@ -292,9 +292,7 @@ def test_layers_with_the_last_dim_sharded(runs):
         assert max(errs.values()) < 1e-6, errs
 
 
-@pytest.mark.parametrize("arch,shape,item", [
-    ("gat-cora", "full_graph_sm", "D.3b"), ("two-tower-retrieval", "serve_p99", "D.4"),
-    ("dimenet", "molecule", "D.3b")])
+@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", "serve_p99", "D.4")])
 def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
     from repro_torch.launch.cells import build_cell, shard_cell, sharded_reason
 
@@ -306,6 +304,8 @@ def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
     assert sharded_reason(build_cell("qwen3-14b", "train_4k")) is None
     assert sharded_reason(build_cell("mixtral-8x7b", "prefill_32k")) is None
     assert sharded_reason(build_cell("gcn-cora", "full_graph_sm")) is None
+    assert sharded_reason(build_cell("gat-cora", "full_graph_sm")) is None
+    assert sharded_reason(build_cell("dimenet", "molecule")) is None
     assert sharded_reason(build_cell("spade-grab", "grab4_stream")) is None
 
 
