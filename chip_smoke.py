@@ -283,11 +283,32 @@ Phases (any failure exits non-zero):
     step 1's collectives equal to the dry run's at the mesh and depth, K3
     two launches a layer a step, and a control (each rank's expert shards
     swapped with its ``model`` partner's before a forward) whose per-token
-    NLL must miss by MOE_TP_CONTROL_FACTOR times MOE_FSDP_NLL_TOL.
+    NLL must miss by MOE_TP_CONTROL_FACTOR times MOE_FSDP_NLL_TOL;
+22. (run last, after 21; 16a and 16b keep on the host the outputs it is
+    held to) two-tower-retrieval on ``rows`` through ``shard_cell``, and a
+    sharded state's checkpoints: 22a, one ``nccl`` rank on (data 1, model
+    1), 16a's weights (drawn again from its seed) and traffic: serve_p99,
+    retrieval_cand and one serve_bulk call, 16a's bits, no collective;
+    then one spawn of four ``gloo`` ranks on the card on (data 2, model 2),
+    each drawing only its quarter of the tables (15.36 GB): 22b serves the
+    same traffic (serve_p99 and retrieval_cand timed over TT_TIMED calls,
+    serve_bulk once), the scores within TT_TOL of temp of 16a's, the top
+    100 16a's but at ties, each rank's collectives a call equal to the dry
+    run's prediction for the mesh, ms a call and the peak a rank; 22c
+    trains 16b's cut (batch 16,384, a quarter of each vocabulary) two
+    steps, loss and grad_norm within TT_TP_RTOL of 16b's and every leaf's
+    sums after step 1 within 16c's rule summed over the leaf, step 1's
+    collectives the dry run's, s a step, state and peak GB a rank, and a
+    control (one rank's user-table rows drawn one block off) that moves
+    the loss by TT_TP_CONTROL_FACTOR times its tolerance; 22d saves the
+    smoke train state with a ``CheckpointManager`` on the four ranks (each
+    writing only its own shards), updates it in place at once, and
+    restores it onto (data 1, model 2) and onto one device, bit for bit.
+    No hand kernel launches in phase 22.
 
 The run must end within 1,200 s on a slow host.  So the phases that
 leave the card and the host room run beside others (the stream's draw,
-phase 12 beside 17, 13c beside 19c), and the gloo ranks of 13b and 17-21
+phase 12 beside 17, 13c beside 19c), and the gloo ranks of 13b and 17-22
 start ahead (:class:`RanksAhead`): they reach the card and join their
 group while the phase before them or their own phase's work on one
 device runs, and wait at a gate until it is done (rank 0 logs how long).
@@ -3030,6 +3051,16 @@ def zero_kernel_counts() -> None:
     dg.reset_stats()
 
 
+def hand_kernel_launches() -> dict:
+    """Every hand kernel's launch counter (K3's two bodies apart)."""
+    from repro_torch.kernels.flash_attention import ops as k3_ops
+    from repro_torch.kernels.gather_segsum import ops as k4_ops
+
+    return kernel_counts() | {"flash_attention": k3_ops.launches,
+                              "flash_attention_simt": k3_ops.simt_launches,
+                              "gather_segsum": k4_ops.launches}
+
+
 def k2_split() -> dict:
     """How K2's round launches since zero_kernel_counts() split their
     slots: those before alive's first 16-byte boundary (the scalar head),
@@ -4489,6 +4520,32 @@ def timed_calls(fn, n: int = TT_TIMED) -> float:
     return statistics.median(times)
 
 
+def tt_traffic(cfg, seed: int, device, sizes: dict | None = None):
+    """16a's traffic on ``device``, which 22 draws again: the serve_p99
+    batch, the serve_bulk batch with serve_p99's rows at ``at`` among its
+    own, retrieval's query, all from ``np.random.default_rng(seed)``, and
+    retrieval_cand's 1,000,448 candidates from a generator on ``device``
+    seeded ``seed + 1``."""
+    import torch
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.models.two_tower import RecsysBatch
+
+    rng = np.random.default_rng(seed)
+    B_p99, B_bulk = RECSYS_SHAPES["serve_p99"].batch, RECSYS_SHAPES["serve_bulk"].batch
+    N = -(-RECSYS_SHAPES["retrieval_cand"].n_candidates // 512) * 512
+    if sizes is not None:  # phase 22's rehearsal
+        B_p99, B_bulk, N = sizes["p99"], sizes["bulk"], sizes["cand"]
+    p99 = recsys_batch(cfg, B_p99, rng, device)
+    bulk = recsys_batch(cfg, B_bulk, rng, device)
+    at = torch.from_numpy(np.sort(rng.choice(B_bulk, B_p99, replace=False))).to(device)
+    bulk = RecsysBatch(*(b.index_copy(0, at, p) for b, p in zip(bulk, p99)))
+    q = recsys_batch(cfg, 1, rng, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cand = torch.randn((N, cfg.tower_mlp[-1]), generator=gen, device=device)
+    return p99, bulk, at, q, cand
+
+
 def two_tower_serve(seed: int) -> dict:
     """16a: two-tower-retrieval's full config on the card (61.44 GB of
     float32 tables from a seeded generator): ``score_pairs`` at serve_p99
@@ -4498,27 +4555,22 @@ def two_tower_serve(seed: int) -> dict:
     bits; times, rows/s, peak memory and a traced serve_bulk call."""
     import torch
 
-    from repro_torch.configs import RECSYS_SHAPES, get_config
-    from repro_torch.models.two_tower import (RecsysBatch, init_two_tower_params,
-                                              retrieval_scores, score_pairs, user_tower)
+    from repro_torch.configs import get_config
+    from repro_torch.models.two_tower import (init_two_tower_params, retrieval_scores,
+                                              score_pairs, user_tower)
 
     cfg = get_config(TT_ARCH)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_two_tower_params(cfg, device=DEVICE,
-                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    params = init_two_tower_params(cfg, device=DEVICE, seed=seed)
     sync()
     table_gb = sum(params[k].numel() * 4 for k in ("user_table", "item_table")) / 1e9
     log(f"16a: {TT_ARCH} at full width: tables {table_gb!r} GB drawn in "
         f"{time.perf_counter() - t0!r} s; allocated "
         f"{torch.cuda.memory_allocated() / 1e9!r} GB")
     temp = float(params["temp"])
-    rng = np.random.default_rng(seed)
-    B_p99, B_bulk = RECSYS_SHAPES["serve_p99"].batch, RECSYS_SHAPES["serve_bulk"].batch
-    p99 = recsys_batch(cfg, B_p99, rng, DEVICE)
-    bulk = recsys_batch(cfg, B_bulk, rng, DEVICE)
-    at = torch.from_numpy(np.sort(rng.choice(B_bulk, B_p99, replace=False))).to(DEVICE)
-    bulk = RecsysBatch(*(b.index_copy(0, at, p) for b, p in zip(bulk, p99)))
+    p99, bulk, at, q, cand = tt_traffic(cfg, seed, DEVICE)
+    rng = np.random.default_rng(seed + 2)  # the rows held to float64
     out = {"table_gb": table_gb, "temp": temp}
     scores = {}
     for name, batch in (("serve_p99", p99), ("serve_bulk", bulk)):
@@ -4541,11 +4593,7 @@ def two_tower_serve(seed: int) -> dict:
                                           scores["serve_bulk"][at], scores["serve_p99"], temp)
 
     # retrieval: one query against 1,000,448 candidate embeddings
-    spec = RECSYS_SHAPES["retrieval_cand"]
-    N = -(-spec.n_candidates // 512) * 512
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    cand = torch.randn((N, cfg.tower_mlp[-1]), generator=gen, device=DEVICE)
-    q = recsys_batch(cfg, 1, rng, DEVICE)
+    N = cand.shape[0]
     v1, i1 = retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg, top_k=TT_TOP_K)
     v2, i2 = retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg, top_k=TT_TOP_K)
     check(torch.equal(v1, v2) and torch.equal(i1, i2), "16a retrieval: two runs differ")
@@ -4575,6 +4623,10 @@ def two_tower_serve(seed: int) -> dict:
                                      "elementwise": "elementwise_kernel"})
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"16a: peak memory {out['peak_gb']!r} GB")
+    # phase 22 holds its sharded serving to these, kept on the host
+    out["phase22"] = {"serve_p99": scores["serve_p99"].cpu(),
+                      "serve_bulk": scores["serve_bulk"].cpu(), "top_v": v1.cpu(),
+                      "top_i": i1.cpu(), "temp": temp}
     del params, bulk, p99, cand, scores
     torch.cuda.empty_cache()
     return out
@@ -4592,8 +4644,7 @@ def two_tower_smoke(seed: int) -> dict:
     from repro_torch.train import AdamConfig, init_train_state, make_train_step
 
     cfg = get_smoke_config(TT_ARCH)
-    cpu = init_two_tower_params(cfg, device="cpu",
-                                generator=torch.Generator().manual_seed(seed))
+    cpu = init_two_tower_params(cfg, device="cpu", seed=seed)
     move = lambda tree: {k: move(v) if isinstance(v, dict) else v.to(DEVICE, copy=True)
                          for k, v in tree.items()}
     gpu = move(cpu)
@@ -4625,6 +4676,22 @@ def two_tower_smoke(seed: int) -> dict:
     return out
 
 
+def leaf_sums(params) -> dict:
+    """Each leaf's float64 sum, sum of squares, largest ``|x|`` and number
+    of elements (a DTensor's local shard's), a chunk of 2^25 elements at a
+    time."""
+    from repro_torch.dist.sharding import local
+
+    out = {}
+    for k, x in named_params(params).items():
+        s1 = s2 = top = 0.0
+        for c in local(x).detach().reshape(-1).split(1 << 25):
+            c = c.double()
+            s1, s2, top = s1 + c.sum(), s2 + c.square().sum(), max(top, float(c.abs().max()))
+        out[k] = (float(s1), float(s2), top, local(x).numel())
+    return out
+
+
 def two_tower_train(seed: int) -> dict:
     """16b: the full config's widths at TT_TRAIN_BATCH rows and a
     TT_TRAIN_VOCAB_DIV-th of each vocabulary, TT_TRAIN_STEPS steps: step
@@ -4640,26 +4707,16 @@ def two_tower_train(seed: int) -> dict:
     cfg = dataclasses.replace(full, user_vocab=cut(full.user_vocab),
                               item_vocab=cut(full.item_vocab))
     torch.cuda.reset_peak_memory_stats()
-    params = init_two_tower_params(cfg, device=DEVICE,
-                                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    params = init_two_tower_params(cfg, device=DEVICE, seed=seed)
     state = init_train_state(params)
     batch = recsys_batch(cfg, TT_TRAIN_BATCH, np.random.default_rng(seed), DEVICE)
     step = make_train_step(lambda p, b: two_tower_loss(p, b, cfg), AdamConfig(**TT_TRAIN_ADAM))
     state_gb = 4 * sum(p.numel() * 4 for p in named_params(params).values()) / 1e9
 
-    def sig():  # a leaf's float64 sum and sum of squares, a chunk of 2^25 elements at a time
-        out = {}
-        for k, x in named_params(state.params).items():
-            s1 = s2 = 0.0
-            for c in x.detach().reshape(-1).split(1 << 25):
-                c = c.double()
-                s1, s2 = s1 + c.sum(), s2 + c.square().sum()
-            out[k] = (float(s1), float(s2))
-        return out
-
+    sig = lambda: leaf_sums(state.params)
     before = sig()
     torch.cuda.reset_peak_memory_stats()  # the steps' peak, with the state held
-    secs, losses = [], []
+    secs, losses, norms = [], [], []
     with torch.enable_grad():
         for i in range(TT_TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -4667,17 +4724,21 @@ def two_tower_train(seed: int) -> dict:
             sync()
             secs.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
             if i == 0:
                 after = sig()
-                same = [k for k in before if before[k] == after[k]]
+                same = [k for k in before if before[k][:2] == after[k][:2]]
                 check(not same, f"16b: leaves unchanged by step 1: {same!r}")
     check(all(math.isfinite(x) for x in losses), f"16b: losses {losses!r}")
     med = statistics.median(secs[1:])
     out = {"user_vocab": cfg.user_vocab, "item_vocab": cfg.item_vocab,
            "batch": TT_TRAIN_BATCH, "state_gb": state_gb, "step_s": secs,
            "step_s_median_2_3": med, "rows_per_s": TT_TRAIN_BATCH / med, "losses": losses,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "leaves_changed_by_step_1": len(before)}
+           "grad_norms": norms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "leaves_changed_by_step_1": len(before),
+           # phase 22c holds its sharded steps to these
+           "phase22": {"losses": losses[:2], "grad_norms": norms[:2], "before": before,
+                       "after": after}}
     log(f"16b: {TT_ARCH} widths, vocabularies {cfg.user_vocab} / {cfg.item_vocab} (a "
         f"{TT_TRAIN_VOCAB_DIV}th), batch {TT_TRAIN_BATCH}: state {state_gb!r} GB, steps "
         f"{secs!r} s, {out['rows_per_s']!r} rows/s (median of steps 2-3), losses {losses!r}, "
@@ -7865,6 +7926,606 @@ def phase_moe_fsdp(seed: int, smoke: bool = False, ahead: RanksAhead | None = No
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: two-tower on 'rows' through shard_cell; a sharded state's checkpoints
+# ---------------------------------------------------------------------------
+
+# 22b, 22c and 22d share one spawn of four gloo ranks on TT_TP_MESH: the
+# tables on ("rows", None) split four ways, the batch on data
+TT_TP_MESH = {"data": 2, "model": 2}
+TT_TP_TIMEOUT = 600  # seconds for 22b-22d's spawn
+TT_TP_STEPS = 2
+# 22c against 16b's unsharded steps on the same weights and batch: the
+# ranks add the bags' partial sums, the loss's terms and the gradients'
+# partial sums in another order than one card (float32 roundings), so
+# loss and grad_norm within these relative distances.  Each leaf after
+# step 1 is held by its float64 sum and sum of squares to 16c's rule for a
+# parameter summed over the leaf: Adam's first step moves an element by
+# about lr times the sign of its gradient, and a last-bit difference flips
+# the sign of a gradient near 0, so at most TT_TP_ODD of the elements the
+# step moved (all of an MLP leaf's; a table's rows in the batch) may each
+# be 2 lr off: the sum within 2 lr K, the sum of squares within K (4 lr
+# max|x| + 4 lr^2), K = max(2, TT_TP_ODD x those elements).  The control
+# (one rank's user-table rows drawn one block off) must move step 1's loss
+# by TT_TP_CONTROL_FACTOR times its tolerance
+TT_TP_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
+TT_TP_ODD = 1e-3
+TT_TP_CONTROL_FACTOR = 10
+TT_TP_SMOKE = {"p99": 8, "bulk": 64, "cand": 512, "train": 16}  # the rehearsal's sizes
+TT_TP_CKPT = ROOT / "build" / "phase22" / "ck"
+
+
+def tt_meta_cell(shape: str, cfg, B: int, fn=None):
+    """``shape``'s two-tower cell on meta for ``cfg`` (its vocabularies) at
+    batch ``B`` (retrieval: ``B`` candidates), its logical axes those of
+    ``build_cell``'s: what ``shard_cell`` and the dry run take."""
+    import torch
+
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.two_tower import RecsysBatch, init_two_tower_params
+    from repro_torch.train import init_train_state
+
+    cell = build_cell(TT_ARCH, shape, smoke=cfg.name.endswith("-smoke"))
+    meta = torch.device("meta")
+    params = init_two_tower_params(cfg, device=meta, init=False)
+    e = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=meta)
+    if shape == "retrieval_cand":
+        F, M = cfg.n_user_fields, cfg.multi_hot
+        args = (params, e(1, F, M, dt=torch.int32), e(1, F, M), e(B, cfg.tower_mlp[-1]))
+    else:
+        Fu, Fi, M = cfg.n_user_fields, cfg.n_item_fields, cfg.multi_hot
+        batch = RecsysBatch(e(B, Fu, M, dt=torch.int32), e(B, Fu, M),
+                            e(B, Fi, M, dt=torch.int32), e(B, Fi, M), e(B))
+        args = (init_train_state(params) if shape == "train_batch" else params, batch)
+    return dataclasses.replace(cell, args=args, fn=fn or cell.fn)
+
+
+def tt_train_cfg(smoke: bool):
+    """16b's config: the full widths at a TT_TRAIN_VOCAB_DIV-th of each
+    vocabulary (rounded up to 128 rows); the smoke config."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if smoke:
+        return get_smoke_config(TT_ARCH)
+    full = get_config(TT_ARCH)
+    cut = lambda V: -(-V // TT_TRAIN_VOCAB_DIV // 128) * 128
+    return dataclasses.replace(full, user_vocab=cut(full.user_vocab),
+                               item_vocab=cut(full.item_vocab))
+
+
+def tt_step(cfg):
+    from repro_torch.models.two_tower import two_tower_loss
+    from repro_torch.train import AdamConfig, make_train_step
+
+    return make_train_step(lambda p, b: two_tower_loss(p, b, cfg), AdamConfig(**TT_TRAIN_ADAM))
+
+
+def tt_sizes(smoke: bool) -> dict:
+    from repro_torch.configs import RECSYS_SHAPES
+
+    if smoke:
+        return TT_TP_SMOKE
+    return {"p99": RECSYS_SHAPES["serve_p99"].batch, "bulk": RECSYS_SHAPES["serve_bulk"].batch,
+            "cand": -(-RECSYS_SHAPES["retrieval_cand"].n_candidates // 512) * 512,
+            "train": TT_TRAIN_BATCH}
+
+
+def tt_predicted(mesh_shape: dict, smoke: bool = False) -> dict:
+    """The dry run's prediction for 22b's and 22c's mesh: one rank's
+    collectives in a call of each serving cell at 16a's traffic and in a
+    train step at 16b's cut and batch (``launch.dryrun.sharded_cost``,
+    traced on meta under a fake process group of the mesh's ranks)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import AxisEnv
+    from repro_torch.launch.dryrun import sharded_cost
+
+    cfg = get_smoke_config(TT_ARCH) if smoke else get_config(TT_ARCH)
+    n = tt_sizes(smoke)
+    world = math.prod(mesh_shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, torch.arange(world).reshape(
+            tuple(mesh_shape.values())), mesh_dim_names=tuple(mesh_shape)))
+        out = {s: sharded_cost(lambda _: tt_meta_cell(s, cfg, n[k]), env, None)
+               for s, k in (("serve_p99", "p99"), ("serve_bulk", "bulk"),
+                            ("retrieval_cand", "cand"))}
+        cut = tt_train_cfg(smoke)
+        out["train_batch"] = sharded_cost(
+            lambda _: tt_meta_cell("train_batch", cut, n["train"], fn=tt_step(cut)), env, None)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def tt_shard_serving(env, cfg, seed: int, smoke: bool):
+    """16a's weights (each rank drawing only its table rows) and traffic
+    (drawn whole, each rank keeping its part) through ``shard_cell`` on
+    ``env``'s mesh: the serve_p99, retrieval_cand and serve_bulk cells."""
+    from repro_torch.launch.cells import shard_cell
+    from repro_torch.models.two_tower import init_two_tower_params
+
+    params = init_two_tower_params(cfg, device=DEVICE, seed=seed, env=env)
+    p99, bulk, _, q, cand = tt_traffic(cfg, seed, DEVICE, tt_sizes(smoke) if smoke else None)
+    args = {"serve_p99": (params, p99), "retrieval_cand": (params, q.user_idx, q.user_wt, cand),
+            "serve_bulk": (params, bulk)}
+    return {k: shard_cell(dataclasses.replace(tt_meta_cell(k, cfg, 0), args=a), env)
+            for k, a in args.items()}
+
+
+def tt_serve(env, cells: dict, timed: bool) -> dict:
+    """Each serving cell called once on ``env``'s mesh, its collectives
+    counted (``LocalCost``), its output on the host (scores: the rank's
+    rows and their span), seconds; with ``timed``, serve_p99 and
+    retrieval_cand also over TT_TIMED calls."""
+    from repro_torch.dist.sharding import LocalCost, local, shard_span, use_axis_env
+
+    out = {}
+    with use_axis_env(env):
+        for name, cell in cells.items():
+            t0 = time.perf_counter()
+            with LocalCost() as cost:
+                res = cell.fn(*cell.args)
+            sync()
+            row = {"counted_call_s": time.perf_counter() - t0,
+                   "cost": {"bytes": dict(cost.collectives), "calls": dict(cost.calls)}}
+            if name == "retrieval_cand":
+                row.update(top_v=res[0].cpu(), top_i=res[1].cpu())
+            else:
+                row.update(scores=local(res).cpu(), span=shard_span(res, 0))
+            if timed and name != "serve_bulk":
+                row["ms"] = timed_calls(lambda: cell.fn(*cell.args)) * 1e3
+            out[name] = row
+            del res
+    return out
+
+
+def tt_world1(ref: dict, seed: int, smoke: bool = False) -> dict:
+    """22a: one ``nccl`` rank on (data 1, model 1): 16a's weights and
+    traffic through ``shard_cell`` (every table a DTensor whose one shard
+    is the whole table), serve_p99, retrieval_cand and one serve_bulk
+    call: 16a's bits, no collective."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import AxisEnv
+
+    cfg = get_smoke_config(TT_ARCH) if smoke else get_config(TT_ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1)
+    t0 = time.perf_counter()
+    try:
+        env = AxisEnv(DeviceMesh(DEVICE, [[0]], mesh_dim_names=("data", "model")))
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        got = tt_serve(env, tt_shard_serving(env, cfg, seed, smoke), timed=False)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("serve_p99", "serve_bulk"):
+        check(torch.equal(got[name]["scores"], ref[name]), f"22a {name}: not 16a's bits")
+    r = got["retrieval_cand"]
+    check(torch.equal(r["top_v"], ref["top_v"]) and torch.equal(r["top_i"], ref["top_i"]),
+          "22a retrieval_cand: not 16a's top 100")
+    for name, row in got.items():
+        check(not any(row["cost"]["calls"].values()),
+              f"22a {name}: collectives on one rank {row['cost']!r}")
+    out = {"seconds": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else None,
+           "call_s": {k: v["counted_call_s"] for k, v in got.items()}}
+    log(f"22a {TT_ARCH} world 1 ({'nccl' if DEVICE == 'cuda' else 'gloo'}, data 1 x model 1) "
+        f"through shard_cell: serve_p99, serve_bulk and retrieval_cand 16a's bits; peak "
+        f"{out['peak_gb']!r} GB; {out['seconds']!r} s")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tt_offset_loss(state, batch, cfg, env, seed: int, rank_off: int = 1) -> float:
+    """22c's control: step 1's loss with rank ``rank_off``'s ``n``
+    user-table rows drawn one block off (``min(TABLE_BLOCK, n)`` rows
+    later, or earlier where that runs past the table), the rows drawn
+    again after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import shard_span, use_axis_env
+    from repro_torch.models.two_tower import TABLE_BLOCK, table_rows, two_tower_loss
+
+    t = state.params["user_table"]
+    lo, n = shard_span(t, 0)
+    mine = dist.get_rank() == rank_off
+    if mine:
+        shift = min(TABLE_BLOCK, n)
+        start = lo + shift if lo + shift + n <= cfg.user_vocab else lo - shift
+        t.to_local().copy_(table_rows(cfg, "user_table", start, n, seed=seed, device=DEVICE))
+    with torch.no_grad(), use_axis_env(env):
+        loss = float(two_tower_loss(state.params, batch, cfg)[0])
+    if mine:
+        t.to_local().copy_(table_rows(cfg, "user_table", lo, n, seed=seed, device=DEVICE))
+    return loss
+
+
+def tt_train_rank(env, seed: int, smoke: bool) -> dict:
+    """22c on a rank: 16b's cut config (each rank drawing its rows), its
+    batch and steps through ``shard_cell``: the control's loss, then
+    TT_TP_STEPS steps (step 1's collectives counted), each step's loss,
+    grad_norm and seconds, every leaf's local sums after step 1, the
+    state's and the peak's GB on the rank."""
+    import torch
+
+    from repro_torch.dist.sharding import LocalCost, local, use_axis_env
+    from repro_torch.launch.cells import shard_cell
+    from repro_torch.models.two_tower import init_two_tower_params
+    from repro_torch.train import init_train_state
+
+    cfg = tt_train_cfg(smoke)
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(init_two_tower_params(cfg, device=DEVICE, seed=seed, env=env))
+    batch = recsys_batch(cfg, tt_sizes(smoke)["train"], np.random.default_rng(seed), DEVICE)
+    cell = shard_cell(dataclasses.replace(
+        tt_meta_cell("train_batch", cfg, 0, fn=tt_step(cfg)), args=(state, batch)), env)
+    state, batch = cell.args
+    state_gb = 4 * sum(local(x).numel() * local(x).element_size()  # as 16b's: with the grads
+                       for x in named_params(state.params).values()) / 1e9
+    out = {"control_loss": tt_offset_loss(state, batch, cfg, env, seed), "state_gb": state_gb,
+           "metrics": [], "step_s": []}
+    with torch.enable_grad(), use_axis_env(env):
+        for i in range(TT_TP_STEPS):
+            t0 = time.perf_counter()
+            with LocalCost() if i == 0 else contextlib.nullcontext() as cost:
+                state, m = cell.fn(state, batch)
+            sync()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["metrics"].append({k: float(local(m[k])) for k in ("loss", "grad_norm")})
+            if i == 0:
+                out["cost"] = {"bytes": dict(cost.collectives), "calls": dict(cost.calls)}
+                out["sums"] = leaf_sums(state.params)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del state, batch, cell
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tt_parts(state) -> dict:
+    """Each leaf of a state as this rank holds it: ``(region, array)``, a
+    DTensor's local shard and its place in the whole leaf, a plain
+    tensor whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import shard_span
+
+    out = {}
+    for k, x in named_params(state).items():
+        if isinstance(x, DTensor):
+            region = tuple(shard_span(x, d) for d in range(x.dim()))
+            out[k] = (region, tuple(x.shape), x.to_local().detach().cpu().clone())
+        else:
+            out[k] = (None, tuple(x.shape), x.detach().cpu().clone())
+    return out
+
+
+def tt_ckpt_rank(env, mesh) -> dict:
+    """22d on a rank: the smoke train cell stepped once on the four ranks,
+    saved by a ``CheckpointManager`` (every rank its own shards), the
+    state updated in place at once, then restored onto (data 1, model 2)
+    (ranks 0 and 1) and onto the rank's device alone (rank 0)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import AxisEnv, barrier, use_axis_env
+    from repro_torch.ft import CheckpointManager, load_pytree
+    from repro_torch.launch.cells import build_cell, shard_cell
+
+    rank = dist.get_rank()
+    d = str(TT_TP_CKPT)
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    barrier(mesh)
+    t0 = time.perf_counter()
+    cell = shard_cell(build_cell(TT_ARCH, "train_batch", concrete=True, smoke=True,
+                                 device=DEVICE), env)
+    with torch.enable_grad(), use_axis_env(env):
+        state, _ = cell.fn(*cell.args)
+    mgr = CheckpointManager(d, keep=2, every_steps=1)
+    mgr.maybe_save(state, 1)
+    out = {"saved": tt_parts(state)}
+    with torch.no_grad():  # the next step's update, in place, at once
+        for x in named_params(state).values():
+            (x.to_local() if hasattr(x, "to_local") else x).add_(1)
+    mgr.wait()
+    mgr.check()
+    mgr.close()
+    two = DeviceMesh(DEVICE, [[0, 1]], mesh_dim_names=("data", "model"))
+    like = build_cell(TT_ARCH, "train_batch", smoke=True)
+    if rank < 2:
+        out["restored"] = tt_parts(load_pytree(like.args[0], d, env=AxisEnv(two),
+                                               logical=like.in_logical[0]))
+    if rank == 0:
+        out["one"] = tt_parts(load_pytree(like.args[0], d, device=DEVICE))
+    barrier(mesh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tt_tp_rank(mesh, seed: int, device: str, smoke: bool = False) -> dict:
+    """A rank of 22b, 22c and 22d (one spawn of four gloo ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.dist.sharding import AxisEnv
+
+    global DEVICE
+    DEVICE = device
+    torch.set_grad_enabled(False)
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False  # float32 products, as 16a's
+    else:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    env = AxisEnv(mesh)
+    rank = dist.get_rank()
+    cfg = get_smoke_config(TT_ARCH) if smoke else get_config(TT_ARCH)
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cells = tt_shard_serving(env, cfg, seed, smoke)
+    sync()
+    draw_s = time.perf_counter() - t0
+    out = {"serve": tt_serve(env, cells, timed=True)}
+    out["serve"].update(draw_s=draw_s,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                        table_gb=sum(cells["serve_p99"].args[0][k].to_local().numel() * 4
+                                     for k in ("user_table", "item_table")) / 1e9)
+    del cells
+    if rank == 0:
+        log(f"22b rank 0: served, {time.perf_counter() - t0!r} s")
+    out["train"] = tt_train_rank(env, seed, smoke)
+    if rank == 0:
+        log(f"22c rank 0: trained, steps {out['train']['step_s']!r} s")
+    out["ckpt"] = tt_ckpt_rank(env, mesh)
+    out["launches"] = hand_kernel_launches()
+    return out
+
+
+def tt_tp_ranks(seed: int, smoke: bool) -> RanksAhead:
+    """22b's, 22c's and 22d's four ranks, started ahead (they draw their
+    own weights and traffic at go)."""
+    return RanksAhead(tt_tp_rank, math.prod(TT_TP_MESH.values()), backend="gloo",
+                      device=DEVICE, args=(seed, DEVICE, smoke), timeout=TT_TP_TIMEOUT,
+                      mesh_shape=TT_TP_MESH)
+
+
+def tt_rows(ranks: list, name: str, n: int):
+    """A serving cell's scores whole from the ranks' rows (each row from
+    every rank that holds it: the same bits)."""
+    import torch
+
+    out = torch.full((n,), float("nan"))
+    for r in ranks:
+        lo, k = r["serve"][name]["span"]
+        got = r["serve"][name]["scores"]
+        prev = out[lo:lo + k]
+        check(bool(prev.isnan().all()) or torch.equal(prev, got),
+              f"22b {name}: ranks holding rows {lo}-{lo + k} differ")
+        out[lo:lo + k] = got
+    check(not bool(out.isnan().any()), f"22b {name}: rows no rank holds")
+    return out
+
+
+def tt_top_check(tag: str, v, i, ref: dict, tol: float) -> int:
+    """The top 100 against 16a's: scores within ``tol`` of temp position by
+    position; the indices 16a's but where two of 16a's scores tie within
+    ``tol`` of temp (their order) or at the cut (which of them is in);
+    returns the positions that differ."""
+    import torch
+
+    v16, i16, temp = ref["top_v"], ref["top_i"], ref["temp"]
+    err = float((v.double() - v16.double()).abs().max()) / temp
+    check(err <= tol, f"{tag}: top-100 scores {err!r} of temp from 16a's, beyond {tol}")
+    gap = (v16[:-1] - v16[1:]).double() / temp
+    tied = set()
+    for k in torch.nonzero(gap <= tol).flatten().tolist():
+        tied |= {k, k + 1}
+    diff = torch.nonzero(i != i16).flatten().tolist()
+    last = len(v16) - 1
+    for k in diff:
+        check(k in tied or (k == last and float(abs(v[k] - v16[k])) / temp <= tol),
+              f"{tag}: index at position {k} {int(i[k])}, 16a's {int(i16[k])}, no tie")
+    missed = set(i16.tolist()) - set(i.tolist())
+    check(len(missed) <= 1 and all(i16.tolist().index(x) in tied | {last} for x in missed),
+          f"{tag}: 16a's indices {missed!r} missing, not at a tie")
+    return len(diff)
+
+
+def tt_tp_world4(ref: dict, ref_train: dict, pred: dict, ranks: list, seed: int,
+                 smoke: bool) -> dict:
+    """22b's, 22c's and 22d's checks on the four ranks' results."""
+    import torch
+
+    temp = ref["temp"]
+    out = {"serve": {}, "train": {}}
+    for name in ("serve_p99", "serve_bulk"):
+        got = tt_rows(ranks, name, ref[name].shape[0])
+        err = tt_close(f"22b {name} vs 16a", got, ref[name], temp)
+        out["serve"][name] = {"err_of_temp": err}
+    r0 = ranks[0]["serve"]["retrieval_cand"]
+    for r in ranks:
+        got = r["serve"]["retrieval_cand"]
+        check(torch.equal(got["top_v"], r0["top_v"]) and torch.equal(got["top_i"], r0["top_i"]),
+              "22b retrieval_cand: the ranks' top 100 differ")
+    out["serve"]["retrieval_cand"] = {"positions_differing": tt_top_check(
+        "22b retrieval_cand", r0["top_v"], r0["top_i"], ref, TT_TOL)}
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        p, calls = gloo_on_card(pred[name])
+        for k, r in enumerate(ranks):
+            c = r["serve"][name]["cost"]
+            check(c["bytes"] == p and c["calls"] == calls,
+                  f"22b {name} rank {k}: collectives {c!r}, the dry run's bytes {p!r} calls "
+                  f"{calls!r}")
+        row = out["serve"][name]
+        row.update(cost=ranks[0]["serve"][name]["cost"], predicted={"bytes": p, "calls": calls},
+                   ms=[r["serve"][name].get("ms") for r in ranks],
+                   counted_call_s=[r["serve"][name]["counted_call_s"] for r in ranks])
+        log(f"22b {name}: within {row.get('err_of_temp', 0.0)!r} of temp of 16a's"
+            + (f", {row['positions_differing']} positions of the top 100 at ties"
+               if name == "retrieval_cand" else "")
+            + f"; ms a call by rank {row['ms']!r}; counted call s {row['counted_call_s']!r}; "
+            f"collectives a rank {row['cost']!r} as the dry run's")
+    out["serve"].update(peak_gb=[r["serve"]["peak_gb"] for r in ranks],
+                        table_gb=[r["serve"]["table_gb"] for r in ranks],
+                        draw_s=[r["serve"]["draw_s"] for r in ranks])
+    # 22c
+    tr = [r["train"] for r in ranks]
+    for k, r in enumerate(tr):
+        check(r["metrics"] == tr[0]["metrics"], f"22c rank {k}: metrics differ from rank 0's")
+    worst = {}
+    for i in range(TT_TP_STEPS):
+        for key, tol in TT_TP_RTOL.items():
+            want = ref_train[{"loss": "losses", "grad_norm": "grad_norms"}[key]][i]
+            rel = abs(tr[0]["metrics"][i][key] - want) / abs(want)
+            check(rel <= tol, f"22c step {i + 1} {key}: {tr[0]['metrics'][i][key]!r}, 16b's "
+                  f"{want!r} ({rel!r} relative, beyond {tol})")
+            worst[key] = max(worst.get(key, 0.0), rel)
+    control = abs(tr[0]["control_loss"] - ref_train["losses"][0]) / abs(ref_train["losses"][0])
+    check(control > TT_TP_CONTROL_FACTOR * TT_TP_RTOL["loss"],
+          f"22c control: one rank's rows a block off moved the loss by {control!r} only")
+    cfg = tt_train_cfg(smoke)
+    batch = recsys_batch(cfg, tt_sizes(smoke)["train"], np.random.default_rng(seed), "cpu")
+    moved = {"['user_table']": torch.unique(batch.user_idx).numel() * cfg.embed_dim,
+             "['item_table']": torch.unique(batch.item_idx).numel() * cfg.embed_dim}
+    lr, sig_err = TT_TRAIN_ADAM["lr"], 0.0
+    for leaf, (a1, a2, top, n) in ref_train["after"].items():
+        table = leaf.endswith("_table']")
+        g1, g2 = ((sum(r["sums"][leaf][j] for r in tr) for j in (0, 1)) if table
+                  else tr[0]["sums"][leaf][:2])
+        K = max(2.0, TT_TP_ODD * moved.get(leaf, n))
+        for got, want, bound in ((g1, a1, 2 * lr * K), (g2, a2, K * (4 * lr * top + 4 * lr * lr))):
+            e = abs(got - want) / bound
+            sig_err = max(sig_err, e)
+            check(e <= 1.0, f"22c {leaf}: sums after step 1 {got!r}, 16b's {want!r}: {e!r} of "
+                  f"the bound {bound!r} ({K} elements {2 * lr} off)")
+    p, calls = gloo_on_card(pred["train_batch"])
+    for k, r in enumerate(tr):
+        check(r["cost"]["bytes"] == p and r["cost"]["calls"] == calls,
+              f"22c rank {k}: step 1's collectives {r['cost']!r}, the dry run's {p!r} {calls!r}")
+    out["train"] = {"metrics": tr[0]["metrics"], "rel_err": worst, "control_rel": control,
+                    "sums_err_of_bound": sig_err, "step_s": [r["step_s"] for r in tr],
+                    "state_gb": [r["state_gb"] for r in tr],
+                    "peak_gb": [r["peak_gb"] for r in tr],
+                    "cost": tr[0]["cost"], "predicted": {"bytes": p, "calls": calls}}
+    log(f"22c: {TT_TP_STEPS} steps within {worst!r} relative of 16b's, leaf sums within "
+        f"{sig_err!r} of their bound, the control off by {control!r}; steps by rank "
+        f"{out['train']['step_s']!r} s; state {out['train']['state_gb']!r} GB and peak "
+        f"{out['train']['peak_gb']!r} GB a rank; step 1's collectives {tr[0]['cost']!r} as "
+        f"the dry run's")
+    # 22d
+    whole = lambda parts_of: tt_assemble([r["ckpt"][parts_of] for r in ranks
+                                          if parts_of in r["ckpt"]])
+    saved = whole("saved")
+    for what in ("restored", "one"):
+        got = whole(what)
+        check(got.keys() == saved.keys() and all(torch.equal(got[k], saved[k]) for k in saved),
+              f"22d: the state restored ({what}) is not the state saved")
+    out["ckpt"] = {"leaves": len(saved), "seconds": [r["ckpt"]["seconds"] for r in ranks]}
+    log(f"22d: a CheckpointManager on the four ranks saved the smoke state ({len(saved)} "
+        f"leaves, every rank its own shards), restored onto (data 1, model 2) and onto one "
+        f"device bit for bit after an in-place update; {out['ckpt']['seconds']!r} s")
+    return out
+
+
+def tt_assemble(ranks: list) -> dict:
+    """Whole leaves from the ranks' ``tt_parts``."""
+    import torch
+
+    out = {}
+    for parts in ranks:
+        for k, (region, shape, x) in parts.items():
+            if region is None:
+                out[k] = x
+                continue
+            if k not in out:
+                out[k] = torch.full(shape, float("nan"), dtype=x.dtype)
+            out[k][tuple(slice(a, a + n) for a, n in region)] = x
+    return out
+
+
+def tt_smoke_reference(seed: int) -> tuple[dict, dict]:
+    """16a's and 16b's outputs that phase 22 is held to, at the rehearsal's
+    smoke config and sizes (the port unsharded on DEVICE)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.two_tower import (init_two_tower_params, retrieval_scores,
+                                              score_pairs)
+    from repro_torch.train import init_train_state
+
+    cfg = get_smoke_config(TT_ARCH)
+    params = init_two_tower_params(cfg, device=DEVICE, seed=seed)
+    p99, bulk, _, q, cand = tt_traffic(cfg, seed, DEVICE, TT_TP_SMOKE)
+    v, i = retrieval_scores(params, q.user_idx, q.user_wt, cand, cfg, top_k=TT_TOP_K)
+    ref = {"serve_p99": score_pairs(params, p99, cfg).cpu(),
+           "serve_bulk": score_pairs(params, bulk, cfg).cpu(), "top_v": v.cpu(),
+           "top_i": i.cpu(), "temp": float(params["temp"])}
+    state = init_train_state(init_two_tower_params(cfg, device=DEVICE, seed=seed))
+    batch = recsys_batch(cfg, TT_TP_SMOKE["train"], np.random.default_rng(seed), DEVICE)
+    step = tt_step(cfg)
+    train = {"losses": [], "grad_norms": [], "before": leaf_sums(state.params)}
+    with torch.enable_grad():
+        for i in range(TT_TP_STEPS):
+            state, m = step(state, batch)
+            train["losses"].append(float(m["loss"]))
+            train["grad_norms"].append(float(m["grad_norm"]))
+            if i == 0:
+                train["after"] = leaf_sums(state.params)
+    return ref, train
+
+
+def phase_two_tower_sharded(ref: dict, ref_train: dict, seed: int, smoke: bool = False,
+                            ahead: RanksAhead | None = None) -> dict:
+    """Phase 22, run last: 22a on one ``nccl`` rank in this process, then
+    22b, 22c and 22d on four ``gloo`` ranks (``ahead``'s, started at 21's
+    go, or started here), held to 16a's and 16b's outputs (``ref``,
+    ``ref_train``); the dry run's predictions traced beside the ranks.
+    ``smoke``: the smoke config, for a rehearsal on the CPU."""
+    import torch
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    ahead = ahead or tt_tp_ranks(seed, smoke)
+    n0 = hand_kernel_launches()
+    out = {"world1": tt_world1(ref, seed, smoke)}
+    predicted = beside(tt_predicted, TT_TP_MESH, smoke)
+    t1 = time.perf_counter()
+    ranks = ahead.join()
+    out["spawn_s"] = time.perf_counter() - t1
+    out["world4"] = tt_tp_world4(ref, ref_train, predicted(), ranks, seed, smoke)
+    n1 = hand_kernel_launches()
+    out["launches"] = {k: n1[k] - n0[k] + sum(r["launches"][k] for r in ranks) for k in n0}
+    check(not any(out["launches"].values()),
+          f"22: a hand kernel launched in phase 22: {out['launches']!r}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"22: {out['seconds']!r} s (22b-22d's ranks after the gate {out['spawn_s']!r} s)")
+    return out
+
+
 def gemm_shape_bits(seed: int, T: int = 16_384, D: int = 2048) -> dict:
     """ROADMAP C.12's second diagnostic (``--c12 products``): the share of a
     bf16 product's elements whose bits change when the same rows run in a
@@ -8182,6 +8843,7 @@ def main() -> int:
     cells = phase_cells(LM_SEED)
     spade_bits = {s: r.pop("bits") for s, r in cells["cells"]["spade_full"].items()}
     serve16, train16 = cells["serve"], cells["train"]
+    tt_ref, tt_ref_train = serve16.pop("phase22"), train16.pop("phase22")  # held for 22
     log(f"phase 16 on {smi}: {TT_ARCH} served at full width ("
         f"{serve16['table_gb']!r} GB of tables; serve_p99 {serve16['serve_p99']['ms']!r} ms, "
         f"serve_bulk {serve16['serve_bulk']['rows_per_s']!r} rows/s, retrieval_cand "
@@ -8248,8 +8910,14 @@ def main() -> int:
         f"{wm['logit_rel_err_max']!r}; the swapped-shard controls rejected; "
         f"{moe_tp['seconds']!r} s")
 
-    # phase 20 runs last, after 19: its ranks precede no other phase's timing
-    ahead["20"].on_go.append(lambda: ahead.update({"21": moe_fsdp_ranks(LM_SEED, False)}))
+    # phase 20 runs last, after 19: its ranks precede no other phase's timing;
+    # 21's ranks start at 20's go, 22's at 21's (until 22's gate opens they
+    # hold a CUDA context each and no table: 21's ranks hold the card)
+    def start_21():
+        ahead["21"] = moe_fsdp_ranks(LM_SEED, False)
+        ahead["21"].on_go.append(lambda: ahead.update({"22": tt_tp_ranks(LM_SEED, False)}))
+
+    ahead["20"].on_go.append(start_21)
     tp_cells = phase_sharded_cells(spade_bits, CELL_SEED, ahead=ahead.pop("20"))
     w4s, gcn20 = tp_cells["world4"], tp_cells["gcn"]
     log(f"phase 20: the Spade cells and gcn-cora's train step through shard_cell on {smi}: "
@@ -8273,6 +8941,19 @@ def main() -> int:
         f"token-layers rerouted; {MIXTRAL_TP_ARCH} at {w4x['n_layers']} layers within "
         f"{w4x['metrics_rel_err']!r}; collectives equal to the dry run's, the swapped-shard "
         f"controls rejected; {moe_fsdp['seconds']!r} s")
+
+    # phase 22 runs last, after 21: its ranks precede no other phase's timing
+    tt_tp = phase_two_tower_sharded(tt_ref, tt_ref_train, LM_SEED, ahead=ahead.pop("22"))
+    del tt_ref, tt_ref_train
+    s22, t22 = tt_tp["world4"]["serve"], tt_tp["world4"]["train"]
+    log(f"phase 22: {TT_ARCH} on 'rows' through shard_cell on {smi}: world 1 (nccl) 16a's "
+        f"bits; world 4 (gloo, one card, data 2 x model 2) at full width within "
+        f"{max(s22['serve_p99']['err_of_temp'], s22['serve_bulk']['err_of_temp'])!r} of temp "
+        f"of 16a's, serve_p99 {s22['serve_p99']['ms']!r} ms a call by rank, peak "
+        f"{s22['peak_gb']!r} GB a rank; trained at 16b's cut within {t22['rel_err']!r} of "
+        f"16b's steps, {t22['step_s']!r} s a step by rank; collectives equal to the dry run's; "
+        f"a sharded state checkpointed by the manager and restored bit for bit; "
+        f"{tt_tp['seconds']!r} s")
 
     for mod in ("jax", "repro"):
         check(mod not in sys.modules, f"{mod} was imported")
@@ -8305,7 +8986,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/peel_round/kernel.py:76",
          "launches": sum(spade_paths["peel_round"].values()),
          "launches_by_path": spade_paths["peel_round"],
-         "launches_off_main_path": {"phase20": tp_cells["launches"]["peel_round"]},
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["peel_round"],
+                                    "phase22": tt_tp["launches"]["peel_round"]},
          "bound_by": "bytes",
          "library_ms": None, **rec["peel_round"]},
         {"name": "frontier_spmv", "route": "cuda",
@@ -8313,7 +8995,8 @@ def main() -> int:
          "replaces": "src/repro/core/peel.py:201",
          "launches": sum(spade_paths["frontier_spmv"].values()),
          "launches_by_path": spade_paths["frontier_spmv"],
-         "launches_off_main_path": {"phase20": tp_cells["launches"]["frontier_spmv"]},
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["frontier_spmv"],
+                                    "phase22": tt_tp["launches"]["frontier_spmv"]},
          "bound_by": "bytes",
          "library_ms": None, **rec["frontier_spmv"]},
         {"name": "suffix_init", "route": "cuda",
@@ -8321,7 +9004,8 @@ def main() -> int:
          "replaces": "src/repro/core/peel.py:324",
          "launches": sum(spade_paths["suffix_init"].values()),
          "launches_by_path": spade_paths["suffix_init"],
-         "launches_off_main_path": {"phase20": tp_cells["launches"]["suffix_init"]},
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["suffix_init"],
+                                    "phase22": tt_tp["launches"]["suffix_init"]},
          "bound_by": "bytes",
          "library_ms": None, **tick["suffix_init"],
          **{f"f64_mode_{k}": v for k, v in rec["suffix_init_f64"].items()}},
@@ -8329,6 +9013,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
          "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+         "launches_off_main_path": {"phase22": tt_tp["launches"]["flash_attention"]},
          "bound_by": "operations", **attn,
          "max_abs_err": max([attn["max_abs_err"]]
                             + [moe["attention"][a]["max_abs_err"] for a in MOE_LAYERS]),
@@ -8340,12 +9025,15 @@ def main() -> int:
         {"name": "flash_attention_simt", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:116",
-         "launches": sum(simt_paths.values()), "launches_by_path": simt_paths, **attn_simt},
+         "launches": sum(simt_paths.values()), "launches_by_path": simt_paths,
+         "launches_off_main_path": {"phase22": tt_tp["launches"]["flash_attention_simt"]},
+         **attn_simt},
         {"name": "gather_segsum", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_segsum.cu",
          "replaces": "src/repro/kernels/gather_segsum/kernel.py:72",
          "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
-         "launches_off_main_path": {"phase20": tp_cells["launches"]["gather_segsum"]}, **k4},
+         "launches_off_main_path": {"phase20": tp_cells["launches"]["gather_segsum"],
+                                    "phase22": tt_tp["launches"]["gather_segsum"]}, **k4},
     ]
     log("kernels launched on their paths: " + ", ".join(
         f"{k['name']} {k['launches']}" for k in kernels))
@@ -8360,7 +9048,7 @@ def main() -> int:
              "gnn_parity": gnn_parity,
              "gcn_cora": gcn, "cross_plane": cross, "sharded": sharded, "moe": moe,
              "train": train, "cells": cells, "fsdp": fsdp, "moe_tp": moe_tp,
-             "sharded_cells": tp_cells, "moe_fsdp": moe_fsdp},
+             "sharded_cells": tp_cells, "moe_fsdp": moe_fsdp, "two_tower_sharded": tt_tp},
             indent=1,
             default=repr))
     print(json.dumps({"kernels": kernels}))

@@ -54,6 +54,7 @@ from repro_torch import pytree
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.core.incremental import DeviceSpadeState
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import AxisEnv, local_slices, place, use_axis_env
 from repro_torch.graphstore.structs import DeviceGraph
 from repro_torch.models.gnn import GNN, flatten_params, unflatten_params
 from repro_torch.models.transformer import TransformerLM, reference_leaves
@@ -245,10 +246,14 @@ def gnn_params_to_numpy(model: GNN) -> dict:
 
 
 def two_tower_params_from_numpy(params_np: dict, cfg: RecsysConfig,
-                                device: str | torch.device | None = None) -> dict:
+                                device: str | torch.device | None = None,
+                                env: AxisEnv | None = None) -> dict:
     """The port's two-tower tree on ``device`` (default ``cuda``, raising
     without a GPU) holding the reference tree ``params_np`` bit for bit;
-    raises unless its leaves and shapes are ``cfg``'s."""
+    raises unless its leaves and shapes are ``cfg``'s.  With ``env``, the
+    tree on its mesh as ``launch.cells.shard_cell`` places it, each table
+    on ``("rows", None)`` from this rank's rows of the array alone, the
+    rest replicated."""
     dev = resolve_device(device)
     like = init_two_tower_params(cfg, device="meta", init=False)
     paths = [p for p, _ in pytree.leaves_with_path(like)]
@@ -256,14 +261,20 @@ def two_tower_params_from_numpy(params_np: dict, cfg: RecsysConfig,
     if given != paths:
         raise KeyError(f"two_tower_params_from_numpy: leaves {given}, expected {paths}")
 
-    def put(x, leaf):
-        t = tensor_from_numpy(x, leaf.dtype)
-        if t.shape != leaf.shape:
+    def put(x, leaf, table: bool):
+        if tuple(np.shape(x)) != tuple(leaf.shape):
             raise ValueError(f"two_tower_params_from_numpy: a leaf of shape "
-                             f"{tuple(t.shape)}, expected {tuple(leaf.shape)}")
-        return t.to(dev)
+                             f"{tuple(np.shape(x))}, expected {tuple(leaf.shape)}")
+        if env is None:
+            return tensor_from_numpy(x, leaf.dtype).to(dev)
+        names = ("rows", None) if table else (None,) * leaf.dim()
+        with use_axis_env(env):
+            sl = local_slices(leaf.shape, *names)
+            t = tensor_from_numpy(np.array(np.asarray(x)[sl], order="C"), leaf.dtype).to(dev)
+            return place(t, *names, local=True, shape=leaf.shape)
 
-    return pytree.tree_map(put, params_np, like)
+    return {k: pytree.tree_map(lambda x, leaf: put(x, leaf, k.endswith("_table")),
+                               params_np[k], like[k]) for k in like}
 
 
 def two_tower_params_to_numpy(params: dict) -> dict:

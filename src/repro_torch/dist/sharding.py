@@ -443,9 +443,11 @@ def shard_tree(values: Any, logical_tree: Any) -> Any:
     """``values`` with every tensor at a logical leaf of ``logical_tree``
     placed by :func:`place` (the containers, and whatever is not a tensor
     at a leaf or has no leaf, kept as they are): ``logical_leaves``'
-    pairing, rebuilt."""
+    pairing, rebuilt.  A DTensor is kept as it is (placed already)."""
     if _is_logical_leaf(logical_tree):
-        return place(values, *logical_tree) if isinstance(values, torch.Tensor) else values
+        if isinstance(values, DTensor) or not isinstance(values, torch.Tensor):
+            return values
+        return place(values, *logical_tree)
     kids = _children(logical_tree)
     vals = _children(values)
     if kids is None or vals is None:

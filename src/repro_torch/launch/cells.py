@@ -21,8 +21,9 @@ FSDP layout (dense or MoE both), on a mesh as DTensors by the same names,
 the port's per-layer parameters taking their stacked leaf's names less
 the layer dim (a MoE layer's virtual experts unfolded, as the reference
 holds them); a GNN train cell's batch on ``vertex``/``edges`` (GCN, GAT,
-MeshGraphNet and DimeNet); and it steps a Spade cell on the edge-sharded
-engine, its graph's edges on ``edges``.  ``model_flops`` are the
+MeshGraphNet and DimeNet); a two-tower cell's tables and candidates on
+``rows``, its batch on ``batch``; and it steps a Spade cell on the
+edge-sharded engine, its graph's edges on ``edges``.  ``model_flops`` are the
 reference's formulas.  The reference donates a train step's state; the
 port's train step updates it in place, to the same effect.
 """
@@ -59,7 +60,7 @@ from repro_torch.train.optimizer import AdamConfig, TrainState, init_train_state
 from repro_torch.train.train_step import make_train_step
 
 __all__ = ["Cell", "MODEL_AXIS", "build_cell", "graph_batch", "reference_args", "shard_cell",
-           "sharded_reason", "lm_param_logical", "gnn_param_logical", "recsys_param_logical"]
+           "lm_param_logical", "gnn_param_logical", "recsys_param_logical"]
 
 
 _META = torch.device("meta")
@@ -120,16 +121,6 @@ def reference_args(cell: Cell) -> tuple:
         return _move(x, _META)
 
     return tuple(ref(a) for a in cell.args)
-
-
-def sharded_reason(cell: Cell) -> str | None:
-    """None when :func:`shard_cell` runs ``cell`` sharded (every LM cell:
-    ``prefill``, ``decode_step`` and ``train_step``, dense and MoE; the
-    Spade cells; every GNN's ``train_step``), else why not: the ROADMAP
-    item of the sharded slice that brings it."""
-    if cell.family in ("lm", "spade", "gnn"):
-        return None
-    return {"recsys": "two-tower on 'rows' is a later sharded slice (ROADMAP D.4)"}[cell.family]
 
 
 def _edge_axes(env: AxisEnv) -> tuple[str, ...]:
@@ -202,8 +193,9 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     """The cell with its arguments as DTensors on ``env``'s mesh, each
     placed by ``cell.in_logical`` (:func:`~repro_torch.dist.sharding.place`:
     every rank holds the whole argument and keeps its shard, with no
-    collective; on ``meta`` for the dry run).  An LM module is sharded in
-    place (its parameters become DTensors) and comes back in the cell, so
+    collective; on ``meta`` for the dry run): every cell of every family.
+    An LM module is sharded in place (its parameters become DTensors) and
+    comes back in the cell, so
     a model is never copied whole.  An LM train cell's state, dense or
     MoE, is sharded as the reference's FSDP layout names it (the module in
     place and trainable, ``m`` and ``v`` as the parameters, ``step``
@@ -219,14 +211,16 @@ def shard_cell(cell: Cell, env: AxisEnv) -> Cell:
     arrays on ``vertex``, edge and triplet arrays on ``edges``; a
     non-DimeNet batch's one-element triplet arrays, which no edge group
     divides, replicated), which the model's sharded path reads.  A
-    two-tower cell raises with :func:`sharded_reason`."""
-    reason = sharded_reason(cell)
-    if reason is not None:
-        raise NotImplementedError(f"shard_cell: {cell.arch} {cell.shape}: {reason}")
+    two-tower cell places its tables (and a train state's ``m`` and
+    ``v``) on ``("rows", None)``, the MLPs and ``temp`` replicated, the
+    batch on ``batch`` and retrieval's candidates on ``("rows", None)``;
+    an argument that is a DTensor already is kept, so a rank that drew
+    only its own rows (``init_two_tower_params(env=)``) holds no table
+    whole."""
     if cell.family == "spade":
         return _shard_spade(cell, env)
     with use_axis_env(env):
-        if cell.family == "gnn":
+        if cell.family in ("gnn", "recsys") and cell.step_name == "train_step":
             state, logical = cell.args[0], cell.in_logical[0]
             tree = lambda t: shard_tree(t, logical.params)
             args = (TrainState(params=tree(state.params), m=tree(state.m), v=tree(state.v),
@@ -554,9 +548,9 @@ _RB_LOGICAL = RecsysBatch(
 )
 
 
-def _recsys_cell(arch, cfg: RecsysConfig, spec: ShapeSpec, rng, dev) -> Cell:
+def _recsys_cell(arch, cfg: RecsysConfig, spec: ShapeSpec, rng, dev, seed: int) -> Cell:
     pl = recsys_param_logical()
-    params = init_two_tower_params(cfg, device=dev, init=dev.type != "meta")
+    params = init_two_tower_params(cfg, device=dev, seed=seed, init=dev.type != "meta")
     if spec.kind == "recsys_train":
         adam = AdamConfig(weight_decay=0.0)
         loss = lambda params, batch: two_tower_loss(params, batch, cfg)
@@ -700,7 +694,7 @@ def build_cell(arch: str, shape: str, *, concrete: bool = False, smoke: bool = F
     if fam == "gnn":
         return _gnn_train_cell(arch, cfg, spec, seed, dev)
     if fam == "recsys":
-        return _recsys_cell(arch, cfg, spec, rng, dev)
+        return _recsys_cell(arch, cfg, spec, rng, dev, seed)
     if fam == "spade":
         return _spade_cells(arch, cfg, spec, rng, dev)
     raise KeyError(arch)

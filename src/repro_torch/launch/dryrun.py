@@ -24,13 +24,15 @@ False)``) and reports:
   FLOPs taken as ``f(1) + (L - 1) (f(2) - f(1))``: its layers are alike,
   so that is the full depth's count;
 * for the LM cells (``prefill``, ``decode_step`` and ``train_step``;
-  dense and MoE) and the GNN train cells (GCN, GAT, MeshGraphNet and
-  DimeNet), the step **run sharded**: the cell's arguments as meta
-  DTensors on the mesh (:func:`~repro_torch.launch.cells.shard_cell`),
-  traced at 1 and 2 layers under :class:`~repro_torch.dist.sharding.
-  LocalCost` and extrapolated as above (a GNN: traced once at its own
-  depth, K4's plain version giving GCN's shapes, every edge of a rank's
-  block kept where the card keeps those ending in its rows).  A MoE
+  dense and MoE), the GNN train cells (GCN, GAT, MeshGraphNet and
+  DimeNet) and the two-tower cells, the step **run sharded**: the cell's
+  arguments as meta DTensors on the mesh (:func:`~repro_torch.launch.
+  cells.shard_cell`), traced at 1 and 2 layers under :class:`~repro_torch.
+  dist.sharding.LocalCost` and extrapolated as above (a GNN or a two-tower
+  cell: traced once, K4's plain version giving GCN's shapes, every edge
+  of a rank's block kept where the card keeps those ending in its rows,
+  and every lookup of a rank's gathered batch counted as a hit of its
+  table rows in the backward, where the card adds only the hits).  A MoE
   train step's count a layer and microbatch is held by hand in
   ``tests/test_torch_sharding.py`` (``test_dryrun_sharded_smoke_moe_train``;
   PERF.md gives it at the production meshes), and so are the GNNs'
@@ -58,10 +60,17 @@ False)``) and reports:
   three times.  The Spade cells' collectives are counted from the
   edge-sharded engine's structure (:func:`spade_cost`: 1 + ``max_rounds``
   all-reduces of ``V + 1`` float64 a step), which ``chip_smoke.py``'s
-  phase 20 holds to the card's count.  Every other cell's (two-tower's)
-  ``flops_per_chip`` is the one-device count over the ranks (an even
-  split), and its ``collective_bytes`` is null with the ROADMAP item of
-  the sharded slice that brings it;
+  phase 20 holds to the card's count.  A two-tower cell's count by
+  hand, a tower a chunk of a rank's batch rows (``tests/
+  test_torch_sharding.py``, ``test_dryrun_sharded_smoke_two_tower``):
+  the rows' lookups and weights all-gathered over the mesh dims that
+  split both the batch and the table, the partial bags reduce-scattered
+  over them and all-reduced over the table's other dims; a train step
+  adds the bags' gradients gathered, the item embeddings gathered and
+  their gradient reduce-scattered, the loss's and accuracy's sums, one
+  all-reduce a replicated parameter leaf and AdamW's norm; retrieval,
+  the query's bag all-reduced and the ranks' top-100 (score, index)
+  pairs gathered;
 * **roofline times** on one NVIDIA H100 SXM (published dense peaks):
   ``flops_per_chip`` at 989 TFLOP/s bf16, the argument bytes at 3.35 TB/s
   of HBM3 (each argument read once: a floor on the traffic), and which
@@ -91,8 +100,7 @@ from repro_torch.configs import ARCH_FAMILY, ARCHS, Skip, arch_shapes, get_confi
 from repro_torch.dist.graph import cell_step_collectives
 from repro_torch.dist.sharding import (COLLECTIVES, AxisEnv, LocalCost, local_shape,
                                       logical_leaves, use_axis_env)
-from repro_torch.launch.cells import (Cell, build_cell, reference_args, shard_cell,
-                                      sharded_reason)
+from repro_torch.launch.cells import Cell, build_cell, reference_args, shard_cell
 from repro_torch.launch.mesh import MULTI_POD, SINGLE_POD, make_production_mesh
 
 __all__ = ["CARD", "PEAK_FLOPS", "HBM_BW", "LINK_BW", "cell_flops", "argument_bytes",
@@ -215,7 +223,6 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
             cell = build_cell(arch, shape, roofline=roofline)
             arg_bytes, total_bytes = argument_bytes(cell, env)
         n_chips = env.mesh.size()
-        reason = sharded_reason(cell)
         result = {
             "arch": arch, "shape": shape, "mesh": mesh_kind, "status": "OK",
             "variant": "roofline" if roofline else "production", "n_chips": n_chips,
@@ -242,9 +249,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
         result.update(fl)
         result["t_memory_s"] = t_memory
         times = {"memory": t_memory}
-        if reason is not None:
-            result["collective_bytes_reason"] = reason
-        elif cell.family == "spade":
+        if cell.family == "spade":
             result.update(spade_cost(cell, env))
             times["collective"] = result["t_collective_s"]
         else:
@@ -266,8 +271,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, flops: dict,
         result["wall_s"] = round(time.time() - t0, 1)
         said = (f"compute={result['t_compute_s']:.3e}s " if "flops" in fl
                 else f"meta_run: {fl['meta_run'][:80]} ")
-        if reason is None:
-            said += f"collective={result['t_collective_s']:.3e}s "
+        said += f"collective={result['t_collective_s']:.3e}s "
         print(f"[{arch} x {shape} x {mesh_kind}] OK {said}memory={t_memory:.3e}s "
               f"args/dev={arg_bytes} ({result['wall_s']}s)", flush=True)
         return result

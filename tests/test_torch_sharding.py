@@ -34,7 +34,7 @@ from jax.sharding import AbstractMesh, NamedSharding  # noqa: E402
 
 from repro.dist import sharding as jsharding  # noqa: E402
 from repro.launch import cells as jcells  # noqa: E402
-from repro_torch.configs import Skip, all_cells  # noqa: E402
+from repro_torch.configs import Skip, all_cells, get_smoke_config  # noqa: E402
 from repro_torch.dist import sharding as tsharding  # noqa: E402
 from repro_torch.launch import cells as tcells  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
@@ -363,7 +363,6 @@ def test_dryrun_sharded_smoke_train(meshes):
     mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
     env = tsharding.AxisEnv(mesh)
     make = lambda n: tcells.build_cell("qwen3-14b", "train_4k", smoke=True, override_layers=n)
-    assert tcells.sharded_reason(make(1)) is None
     res = dryrun.sharded_cost(make, env, 2)
     coll = res["collectives"]
     assert tuple(coll) == COLLECTIVES and res["collective_bytes_per_chip"] == sum(coll.values())
@@ -389,7 +388,6 @@ def test_dryrun_sharded_smoke_moe_prefill(meshes):
     make = lambda n: tcells.build_cell("olmoe-1b-7b", "prefill_32k", smoke=True,
                                        override_layers=n)
     cell = make(1)
-    assert tcells.sharded_reason(cell) is None
     res = dryrun.sharded_cost(make, env, 2)
     coll = res["collectives"]
     assert tuple(coll) == COLLECTIVES and res["collective_bytes_per_chip"] == sum(coll.values())
@@ -452,20 +450,43 @@ def test_dryrun_sharded_smoke_moe_train(meshes):
     assert two["collectives"]["all-to-all"] == 0
 
 
-@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", "train_batch", "D.4")])
-def test_unsharded_cells_name_their_slice(arch, shape, item):
-    """The cells no sharded slice runs yet (two-tower's) keep a null
-    collective entry in the dry run, whose reason names their ROADMAP D
-    item; a MoE serving cell runs sharded."""
-    assert f"ROADMAP {item}" in tcells.sharded_reason(tcells.build_cell(arch, shape))
-    assert tcells.sharded_reason(tcells.build_cell("mixtral-8x7b", "decode_32k")) is None
+TT_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+
+
+@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", s, "D.4") for s in TT_SHAPES])
+def test_unsharded_cells_name_their_slice(meshes, arch, shape, item):
+    """No cell is left unsharded: the two-tower cells (ROADMAP D.4, the
+    last) shard on the single-pod mesh, the tables (and a train state's
+    ``m`` and ``v``) on ``("rows", None)`` over (data, model), the MLPs
+    replicated, the batch on ``batch`` and the candidates on ``rows``."""
+    env, _ = meshes["single"]
+    cell = tcells.shard_cell(tcells.build_cell(arch, shape), env)
+    params = cell.args[0].params if shape == "train_batch" else cell.args[0]
+    trees = [params] + ([cell.args[0].m, cell.args[0].v] if shape == "train_batch" else [])
+    rows = (tsharding.Shard(0), tsharding.Shard(0))
+    for tree in trees:
+        for name in ("user_table", "item_table"):
+            assert tuple(tree[name].placements) == rows, (shape, name)
+        assert tuple(tree["user_mlp"]["w0"].placements) == (tsharding.Replicate(),) * 2
+    if shape == "retrieval_cand":
+        assert tuple(cell.args[3].placements) == rows
+        assert tuple(cell.args[1].placements) == (tsharding.Replicate(),) * 2
+    else:
+        assert tuple(cell.args[1].user_idx.placements) == (tsharding.Shard(0),
+                                                           tsharding.Replicate())
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
-def test_moe_train_cells_run_sharded(arch):
+def test_moe_train_cells_run_sharded(meshes, arch):
     """The MoE train cells trace sharded in the dry run (no null
-    collective entry): ``sharded_reason`` gives None."""
-    assert tcells.sharded_reason(tcells.build_cell(arch, "train_4k")) is None
+    collective entry): ``shard_cell`` places their state on the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    env, _ = meshes["single"]
+    cell = tcells.shard_cell(tcells.build_cell(arch, "train_4k", override_layers=1), env)
+    state = cell.args[0]
+    assert all(isinstance(p, DTensor) for p in state.params.parameters())
+    assert all(isinstance(x, DTensor) for x in state.m.values())
 
 
 @pytest.mark.parametrize("arch,shape", [("spade-grab", s) for s in ("grab4_static",
@@ -473,10 +494,22 @@ def test_moe_train_cells_run_sharded(arch):
                          + [(a, s) for a in ("gcn-cora", "gat-cora", "meshgraphnet", "dimenet")
                             for s in ("full_graph_sm", "minibatch_lg", "ogb_products",
                                       "molecule")])
-def test_spade_and_gcn_cells_run_sharded(arch, shape):
-    """``shard_cell`` runs both Spade cells and every GNN cell (GCN, GAT,
-    MeshGraphNet and DimeNet): no reason, so the dry run traces them."""
-    assert tcells.sharded_reason(tcells.build_cell(arch, shape)) is None
+def test_spade_and_gcn_cells_run_sharded(meshes, arch, shape):
+    """``shard_cell`` runs both Spade cells (on the edge-sharded engine)
+    and every GNN cell (GCN, GAT, MeshGraphNet and DimeNet; the batch's
+    edge arrays on ``edges``), so the dry run traces them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.graph import ShardedGraph
+
+    env, _ = meshes["single"]
+    cell = tcells.shard_cell(tcells.build_cell(arch, shape), env)
+    if arch == "spade-grab":
+        g = cell.args[0] if shape == "grab4_static" else cell.args[0].graph
+        assert isinstance(g, ShardedGraph) and cell.fn.keywords["axis"] == ("data",)
+    else:
+        assert isinstance(cell.args[1].edge_src, DTensor)
+        assert tuple(cell.args[1].edge_src.placements)[0] == tsharding.Shard(0)
 
 
 def test_dryrun_sharded_smoke_gcn(meshes):
@@ -576,3 +609,84 @@ def test_dryrun_sharded_smoke_gnn(meshes, arch):
                                   g.edge_src.shape[0] // 16)
     assert res["collective_calls"] == calls
     assert res["collectives"] == coll
+
+
+def _two_tower_hand_count(shape: str, cfg, B: int) -> tuple[dict, dict]:
+    """A two-tower smoke cell's collectives a rank on (data 2, model 2),
+    float32 and int32 (four bytes), by hand.  A tower with ``F`` fields
+    (one chunk): its batch rows' lookups and weights all-gathered over
+    ``data`` ([B, F, M] each), the partial bags reduce-scattered over
+    ``data`` to the rank's [B / 2, F D] and all-reduced over ``model``.
+    A train step adds: the item embeddings [B, K] and ``log_q`` [B]
+    gathered, the loss's and accuracy's sums all-reduced (one element
+    each); in the backward each bag's gradient [B, F D] all-gathered, the
+    item embeddings' gradient reduce-scattered, one all-reduce a
+    replicated leaf's gradient (the MLPs' and ``temp``) and AdamW's norm
+    (one element).  Retrieval: the query's bag [1, Fu D] all-reduced over
+    (data, model), then the ranks' top-100 (score, index) pairs, float64
+    [100, 2], gathered over them."""
+    D, M, K = cfg.embed_dim, cfg.multi_hot, cfg.tower_mlp[-1]
+    fields = (cfg.n_user_fields, cfg.n_item_fields)
+    calls = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                           "collective-permute"), 0)
+    coll = dict(calls)
+
+    def add(kind, nbytes, n=1):
+        calls[kind] += n
+        coll[kind] += nbytes
+
+    if shape == "retrieval_cand":
+        add("all-reduce", 4 * cfg.n_user_fields * D)
+        add("all-gather", 8 * 2 * 100 * 4)
+        return calls, coll
+    for F in fields:
+        add("all-gather", 2 * 4 * B * F * M, 2)
+        add("reduce-scatter", 4 * B // 2 * F * D)
+        add("all-reduce", 4 * B // 2 * F * D)
+    if shape == "train_batch":
+        add("all-gather", 4 * B * K + 4 * B, 2)
+        add("all-reduce", 4 + 4, 2)
+        for F in fields:
+            add("all-gather", 4 * B * F * D)
+        add("reduce-scatter", 4 * B // 2 * K)
+        for F in fields:
+            dims = [F * D, *cfg.tower_mlp]
+            add("all-reduce", 4 * sum(a * b + b for a, b in zip(dims[:-1], dims[1:])),
+                2 * (len(dims) - 1))
+        add("all-reduce", 4 + 4, 2)  # temp's gradient, AdamW's norm
+    return calls, coll
+
+
+@pytest.mark.parametrize("shape", TT_SHAPES)
+def test_dryrun_sharded_smoke_two_tower(meshes, shape):
+    """The two-tower smoke cells traced sharded on a fake (data 2, model
+    2) mesh, as the dry run traces them: every collective's calls and
+    bytes as :func:`_two_tower_hand_count` counts them, and the traced
+    rank's FLOPs."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import dryrun
+
+    mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    env = tsharding.AxisEnv(mesh)
+    make = lambda n: tcells.build_cell("two-tower-retrieval", shape, smoke=True)
+    res = dryrun.sharded_cost(make, env, None)
+    cell = make(None)
+    B = cell.args[1].user_idx.shape[0] if shape != "retrieval_cand" else 1
+    calls, coll = _two_tower_hand_count(shape, get_smoke_config("two-tower-retrieval"), B)
+    assert res["collective_calls"] == calls
+    assert res["collectives"] == coll
+    assert res["collective_bytes_per_chip"] == sum(coll.values())
+    assert res["flops_per_chip"] > 0
+
+
+def test_dryrun_subprocess_two_tower_cells(tmp_path):
+    """The dry run of the two-tower family on both production meshes: 8
+    entries, none with a null collective count (ROADMAP C.9)."""
+    text, results = _dryrun(tmp_path, "--family", "recsys", "--mesh", "both")
+    assert "8 cells, 0 failures" in text and len(results) == 8
+    for res in results:
+        assert res["status"] == "OK" and "collective_bytes_reason" not in res
+        assert res["collective_bytes_per_chip"] == sum(res["collectives"].values()) > 0
+        assert res["t_collective_s"] == res["collective_bytes_per_chip"] / 450e9
+        assert 0 < res["flops_per_chip"] and res["dominant"] in ("compute", "memory", "collective")

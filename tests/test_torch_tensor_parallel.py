@@ -292,32 +292,27 @@ def test_layers_with_the_last_dim_sharded(runs):
         assert max(errs.values()) < 1e-6, errs
 
 
-@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", "serve_p99", "D.4")])
+@pytest.mark.parametrize("arch,shape,item", [("two-tower-retrieval", s, "D.4") for s in
+                                             ("serve_p99", "serve_bulk", "retrieval_cand",
+                                              "train_batch")])
 def test_shard_cell_names_the_slice_of_other_cells(arch, shape, item):
-    from repro_torch.launch.cells import build_cell, shard_cell, sharded_reason
+    """Every family's cells run sharded now, the two-tower cells (ROADMAP
+    D.4) the last: ``shard_cell`` of a meta two-tower cell with no env
+    gets past any refusal to placing its arguments, which needs a mesh."""
+    from repro_torch.launch.cells import build_cell, shard_cell
 
-    cell = build_cell(arch, shape)
-    assert f"ROADMAP {item}" in sharded_reason(cell)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        shard_cell(cell, None)
-    assert sharded_reason(build_cell("qwen3-14b", "decode_32k")) is None
-    assert sharded_reason(build_cell("qwen3-14b", "train_4k")) is None
-    assert sharded_reason(build_cell("mixtral-8x7b", "prefill_32k")) is None
-    assert sharded_reason(build_cell("gcn-cora", "full_graph_sm")) is None
-    assert sharded_reason(build_cell("gat-cora", "full_graph_sm")) is None
-    assert sharded_reason(build_cell("dimenet", "molecule")) is None
-    assert sharded_reason(build_cell("spade-grab", "grab4_stream")) is None
+    with pytest.raises(ValueError, match="no active AxisEnv"):
+        shard_cell(build_cell(arch, shape), None)
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
 def test_shard_cell_runs_the_moe_train_cells(arch):
     """The MoE train cells run sharded (``tests/test_torch_moe_fsdp.py``
-    trains them): no reason, and ``shard_cell`` of the meta cell with no
-    env gets past any refusal to placing the state, which needs a mesh."""
-    from repro_torch.launch.cells import build_cell, shard_cell, sharded_reason
+    trains them): ``shard_cell`` of the meta cell with no env gets past
+    any refusal to placing the state, which needs a mesh."""
+    from repro_torch.launch.cells import build_cell, shard_cell
 
     cell = build_cell(arch, "train_4k")
-    assert sharded_reason(cell) is None
     with pytest.raises(ValueError, match="no active AxisEnv"):
         shard_cell(cell, None)
 
